@@ -1,0 +1,122 @@
+"""The port's count encoder (mmvae_tpu_torch/ops/enc_kernel.py) against
+the JAX package's: the XLA spec ``_xla_encode`` and the Pallas kernel in
+interpret mode.
+
+Tolerance: the only difference is float32 reassociation of the D-term
+sums, so every comparison is scaled by the sum of the terms' magnitudes,
+``S = |log1p x| @ |WL|^T`` (``|x| @ |WX|^T`` for hX):
+``|port - jax| <= 1e-5 * S + 1e-6``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import mmvae_tpu.ops.enc_kernel as jek
+from mmvae_tpu_torch.ops import enc_kernel as tek
+
+DTYPES = {"int8": np.int8, "int16": np.int16, "float32": np.float32}
+
+
+def _inputs(M, D, r1, r2, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    if dtype == "float32":
+        x = rng.gamma(1.0, 2.0, size=(M, D)).astype(np.float32)
+    else:
+        hi = 127 if dtype == "int8" else 3000
+        x = rng.poisson(1.5, size=(M, D))
+        spikes = rng.random((M, D)) < 0.01
+        x[spikes] = rng.integers(0, hi + 1, size=int(spikes.sum()))
+        x = x.astype(DTYPES[dtype])
+    WL = (rng.normal(size=(r1, D)) * 0.1).astype(np.float32)
+    WX = (rng.normal(size=(r2, D)) * 0.01).astype(np.float32)
+    return x, WL, WX
+
+
+def _bounds(x, WL, WX):
+    xf = x.astype(np.float64)
+    return (np.abs(np.log1p(xf)) @ np.abs(WL.T).astype(np.float64),
+            np.abs(xf) @ np.abs(WX.T).astype(np.float64))
+
+
+def assert_close_scaled(got, want, S):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    err = np.abs(got - want)
+    lim = 1e-5 * S + 1e-6
+    assert np.all(err <= lim), f"max err/limit {np.max(err / lim):.3g}"
+
+
+def _port(x, WL, WX):
+    hL, hX = tek.count_encode(torch.from_numpy(x), torch.from_numpy(WL),
+                              torch.from_numpy(WX) if len(WX) else None)
+    return hL.numpy(), hX.numpy()
+
+
+CASES = pytest.mark.parametrize("dtype", list(DTYPES))
+WIDTHS = pytest.mark.parametrize("D", [1000, 2100])
+R2 = pytest.mark.parametrize("r2", [2, 0])
+
+
+@CASES
+@WIDTHS
+@R2
+def test_count_encode_matches_xla_spec(dtype, D, r2):
+    x, WL, WX = _inputs(13, D, 3, r2, dtype)
+    eL, eX, _ = jek._xla_encode(jnp.asarray(x), jnp.asarray(WL),
+                                jnp.asarray(WX), None, False)
+    hL, hX = _port(x, WL, WX)
+    SL, SX = _bounds(x, WL, WX)
+    assert_close_scaled(hL, eL, SL)
+    assert_close_scaled(hX, eX, SX)
+
+
+@CASES
+@WIDTHS
+@R2
+def test_count_encode_matches_pallas_interpret(monkeypatch, dtype, D, r2):
+    monkeypatch.setattr(jek, "_INTERPRET", True)
+    x, WL, WX = _inputs(13, D, 3, r2, dtype, seed=1)
+    eL, eX, _ = jek.count_encode(jnp.asarray(x), jnp.asarray(WL),
+                                 jnp.asarray(WX), None, False)
+    hL, hX = _port(x, WL, WX)
+    SL, SX = _bounds(x, WL, WX)
+    assert_close_scaled(hL, eL, SL)
+    assert_close_scaled(hX, eX, SX)
+
+
+def test_cpu_call_counts_no_launch():
+    x, WL, WX = _inputs(5, 300, 2, 2, "int8")
+    before = tek.count_encode.launches
+    _port(x, WL, WX)
+    assert tek.count_encode.launches == before
+
+
+def test_kernel_route_refuses_grad_weights():
+    """The kernel route has no backward yet (K5): it raises instead of
+    returning an output without gradient.  Checked on the validation
+    seam, which runs before any CUDA call."""
+    x, WL, WX = _inputs(4, 64, 2, 1, "int8")
+    wl = torch.from_numpy(WL).requires_grad_()
+    with pytest.raises(NotImplementedError, match="K5"):
+        tek._kernel_route(torch.from_numpy(x), wl, torch.from_numpy(WX))
+    with torch.no_grad():  # without grad mode the check passes
+        tek._check_kernel_args(torch.from_numpy(x), wl, None)
+
+
+@pytest.mark.parametrize("bad", ["dtype", "width", "rank", "empty"])
+def test_kernel_route_validates_arguments(bad):
+    x, WL, WX = _inputs(4, 64, 2, 1, "int8")
+    x, WL, WX = map(torch.from_numpy, (x, WL, WX))
+    if bad == "dtype":
+        x = x.to(torch.int32)
+    elif bad == "width":
+        WL = WL[:, :32].contiguous()
+    elif bad == "rank":
+        x = x[None]
+    else:
+        WL, WX = WL[:0], None
+    with pytest.raises((TypeError, ValueError)):
+        tek._check_kernel_args(x, WL, WX)
+
