@@ -17,7 +17,21 @@ exits non-zero without the final line):
 4. the serving CLI end to end (the main path) on a synthetic
    4000 x 20000 matrix and a random D=20000 NB-VAE checkpoint, resident
    and streaming;
-5. full-size serving sweep: 100,000 x 20,000 int8 counts on the card.
+5. full-size serving sweep: 100,000 x 20,000 int8 counts on the card;
+6. training kernels against plain: K5 (``count_encode`` backward), K1
+   (``lse``), K6 (``value``), K2 (``valgrad``) and K3 (``finish``) on the
+   card against their plain PyTorch versions at B = 100, D = 20,000 in
+   the three lgamma regimes (all counts <= 7, integer counts, non-integer
+   float32) and at a ragged D = 1,003, with device times;
+7. one batch step: the kernel route of the packed step against its plain
+   route on the card, with the same random draws;
+8. the trainer CLI end to end (the training main path): ``nb_vae`` on
+   phase 4's synthetic matrix for 2 epochs with recording and a
+   checkpoint, every kernel's launch count > 0, then ``--resume`` for one
+   more epoch;
+9. full-size training: two epochs of the dense-resident epoch runner
+   over phase 5's 100,000 x 20,000 int8 counts, with a profile of 100
+   batches.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -30,6 +44,7 @@ import gzip
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -41,6 +56,10 @@ import torch
 
 SEED = 0
 D_GENES = 20000
+N_CLI = 4000        # cells of the synthetic CLI matrix
+N_FULL = 100_000    # cells of the full-size phases
+B_TRAIN = 100
+DEV = "cuda"
 TOL = "|kernel - plain| <= 1e-5 * S + 1e-6, S = |log1p x| @ |WL|^T (|x| @ |WX|^T)"
 
 
@@ -73,21 +92,47 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 200) -> float:
 
 def device_profile(fn, reps: int = 1):
     """(device ms per call, {kernel name: device ms per call}) of the
-    kernels ``fn`` runs on the card, from torch.profiler (CUPTI)."""
+    kernels ``fn`` runs on the card, from torch.profiler (CUPTI).
+    ``device_profile.kernels`` holds the number of kernels per call."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    per = {}
-    for ev in prof.events():
-        if (ev.device_type == torch.autograd.DeviceType.CUDA
-                and ev.name != "Activity Buffer Request"):
-            per[ev.name] = per.get(ev.name, 0.0) + ev.device_time_total
+    for _attempt in range(2):  # a trace with no device activity is retried
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per, n = {}, 0
+        for ev in prof.events():
+            if (ev.device_type == torch.autograd.DeviceType.CUDA
+                    and ev.name != "Activity Buffer Request"):
+                per[ev.name] = per.get(ev.name, 0.0) + ev.device_time_total
+                n += 1
+        if n:
+            break
+    else:
+        # the profiler saw no kernel twice: time with CUDA events instead
+        device_profile.kernels = 0
+        ms = cuda_ms(fn, warmup=1, reps=reps)
+        return ms, {"(CUDA events; the profiler recorded no kernel)": ms}
+    device_profile.kernels = n / reps
     per = {k: v / reps / 1e3 for k, v in per.items()}
     return sum(per.values()), per
+
+
+def ptxas_summary(build_log: str) -> str:
+    """Per source of the build log (``== <file>`` sections): kernel
+    instances, their register range and the bytes they spill."""
+    out = []
+    for name, body in re.findall(r"^== (\S+)\n(.*?)(?=^== |\Z)", build_log,
+                                 re.M | re.S):
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", body)]
+        if regs:
+            spill = sum(int(a) + int(b) for a, b in re.findall(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", body))
+            out.append(f"{name} {len(regs)} kernels, {min(regs)}-"
+                       f"{max(regs)} registers, {spill} bytes spilled")
+    return "; ".join(out)
 
 
 def make_counts(g: torch.Generator, M: int, D: int, dtype) -> torch.Tensor:
@@ -95,9 +140,9 @@ def make_counts(g: torch.Generator, M: int, D: int, dtype) -> torch.Tensor:
     profile (~1.5 mean), clipped to the dtype; float32 gets non-integer
     values."""
     if dtype == torch.float32:
-        u = torch.rand((M, D), generator=g, device="cuda")
+        u = torch.rand((M, D), generator=g, device=DEV)
         return -torch.log1p(-u) * 3.0
-    prof = torch.exp(torch.randn((1, D), generator=g, device="cuda"))
+    prof = torch.exp(torch.randn((1, D), generator=g, device=DEV))
     rate = (prof / prof.mean() * 1.5).expand(M, D).contiguous()
     x = torch.poisson(rate, generator=g)
     hi = 127 if dtype == torch.int8 else 32767
@@ -115,14 +160,14 @@ def phase_kernels(enc, card):
              (100, 20000, 2, 2, torch.float32), (37, 1003, 5, 0, torch.int8),
              (1600, 20000, 2, 0, torch.int8),
              (100, 20000, 24, 2, torch.int16)]
-    g = torch.Generator(device="cuda").manual_seed(SEED)
+    g = torch.Generator(device=DEV).manual_seed(SEED)
     worst = 0.0
     times = {}
     log(f"[phase 2] count_encode kernel vs plain (f32, TF32 off); {TOL}")
     for M, D, r1, r2, dt in cases:
         x = make_counts(g, M, D, dt)
-        WL = torch.randn((r1, D), generator=g, device="cuda") * 0.1
-        WX = (torch.randn((r2, D), generator=g, device="cuda") * 0.01
+        WL = torch.randn((r1, D), generator=g, device=DEV) * 0.1
+        WX = (torch.randn((r2, D), generator=g, device=DEV) * 0.01
               if r2 else None)
         hL, hX = enc.count_encode(x, WL, WX)
         eL, eX = enc.count_encode_ref(x, WL, WX)
@@ -151,9 +196,9 @@ def phase_kernels(enc, card):
 
 
 def phase_chunks(enc):
-    g = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 1)
     x = make_counts(g, 1600, D_GENES, torch.int8)
-    W = torch.randn((2, D_GENES), generator=g, device="cuda") * 0.1
+    W = torch.randn((2, D_GENES), generator=g, device=DEV) * 0.1
     one, _ = enc.count_encode(x, W)
     parts = torch.cat([enc.count_encode(x[i:i + 100], W)[0]
                        for i in range(0, 1600, 100)])
@@ -236,98 +281,103 @@ def read_mtx_dense(path: str) -> np.ndarray:
     return x
 
 
-def phase_cli(card):
+def phase_cli(card, tmp):
     from mmvae_tpu_torch.cli import encode, make_synthetic
     from mmvae_tpu_torch.models.nb import NBVAE
     from mmvae_tpu_torch.ops import enc_kernel
     from mmvae_tpu_torch.train.checkpoint import save_checkpoint
 
-    N = 4000
-    with tempfile.TemporaryDirectory() as tmp:
-        mtx = os.path.join(tmp, "syn.mtx.gz")
+    N = N_CLI
+    mtx = os.path.join(tmp, "syn.mtx.gz")
+    t0 = time.time()
+    make_synthetic.main(["--out", mtx, "--genes", str(D_GENES),
+                         "--cells", str(N), "--depth_mean", "1000",
+                         "--seed", str(SEED), "--index"])
+    log(f"[phase 4] synthetic {N} x {D_GENES} matrix in "
+        f"{time.time() - t0:.1f}s (host)")
+    model = NBVAE(data_dim=D_GENES)
+    params = random_params(model, DEV)
+    ckpt = os.path.join(tmp, "ckpt")
+    save_checkpoint(ckpt, params, epoch=0, seed=SEED)
+    args = ["--model", "nb", "--mtx", mtx, "--checkpoint", ckpt,
+            "--batch_size", "100", "--device", DEV]
+
+    enc_kernel.count_encode.launches = 0
+    t0 = time.time()
+    err = run_cli(encode, args + ["--out", os.path.join(tmp, "res")])
+    wall = time.time() - t0
+    launches = enc_kernel.count_encode.launches
+    if "dense-resident" not in err:
+        raise AssertionError("resident sweep did not run")
+    if launches < 1:
+        raise AssertionError("main path launched no count_encode kernel")
+    fill = [ln for ln in err.splitlines() if "dense fill:" in ln][-1]
+    rate = [ln for ln in err.splitlines() if "cells/sec" in ln][-1]
+    log(f"[phase 4] host reader: {fill.split('] ', 1)[-1]}")
+    log(f"[phase 4] [{card}] resident CLI: {launches} count_encode "
+        f"launches; {rate.split('] ', 1)[-1]}; CLI wall {wall:.2f}s")
+
+    res = [np.loadtxt(os.path.join(tmp, f"res.mu_{k}.gz"), ndmin=2)
+           for k in ("mean", "lnvar")]
+    for a in res:
+        if a.shape != (N, 2) or not np.isfinite(a).all():
+            raise AssertionError(f"bad output {a.shape}")
+    # plain-version reference on the card from the same counts
+    with torch.inference_mode():
+        x = torch.from_numpy(read_mtx_dense(mtx)).to(DEV)
+        rm, rl, bound = plain_encode(params, x)
+    worst = 0.0
+    for got, want, n in ((res[0], rm, "mu_representation_mean"),
+                         (res[1], rl, "mu_representation_logvariance")):
+        want = want.double().cpu().numpy()
+        lim = (1e-5 * bound[n].cpu().numpy() + 1e-6
+               + 1e-5 * np.abs(want))  # + %g text rounding (6 digits)
+        ratio = np.max(np.abs(got - want) / lim)
+        worst = max(worst, ratio)
+        if not ratio <= 1.0:
+            raise AssertionError(f"{n}: CLI output vs plain err/tol "
+                                 f"{ratio:.3g}")
+    log(f"[phase 4] outputs ({N}, 2), finite, match the plain encode "
+        f"(err/tol {worst:.3g}; tol 1e-5*S + 1e-6 + 1e-5*|ref|)")
+
+    os.environ["MMVAE_DENSE_BYTES"] = "1"
+    try:
         t0 = time.time()
-        make_synthetic.main(["--out", mtx, "--genes", str(D_GENES),
-                             "--cells", str(N), "--depth_mean", "1000",
-                             "--seed", str(SEED), "--index"])
-        log(f"[phase 4] synthetic {N} x {D_GENES} matrix in "
-            f"{time.time() - t0:.1f}s (host)")
-        model = NBVAE(data_dim=D_GENES)
-        params = random_params(model, "cuda")
-        ckpt = os.path.join(tmp, "ckpt")
-        save_checkpoint(ckpt, params, epoch=0, seed=SEED)
-        args = ["--model", "nb", "--mtx", mtx, "--checkpoint", ckpt,
-                "--batch_size", "100", "--device", "cuda"]
-
-        enc_kernel.count_encode.launches = 0
-        t0 = time.time()
-        err = run_cli(encode, args + ["--out", os.path.join(tmp, "res")])
-        wall = time.time() - t0
-        launches = enc_kernel.count_encode.launches
-        if "dense-resident" not in err:
-            raise AssertionError("resident sweep did not run")
-        if launches < 1:
-            raise AssertionError("main path launched no count_encode kernel")
-        fill = [ln for ln in err.splitlines() if "dense fill:" in ln][-1]
-        rate = [ln for ln in err.splitlines() if "cells/sec" in ln][-1]
-        log(f"[phase 4] host reader: {fill.split('] ', 1)[-1]}")
-        log(f"[phase 4] [{card}] resident CLI: {launches} count_encode "
-            f"launches; {rate.split('] ', 1)[-1]}; CLI wall {wall:.2f}s")
-
-        res = [np.loadtxt(os.path.join(tmp, f"res.mu_{k}.gz"), ndmin=2)
-               for k in ("mean", "lnvar")]
-        for a in res:
-            if a.shape != (N, 2) or not np.isfinite(a).all():
-                raise AssertionError(f"bad output {a.shape}")
-        # plain-version reference on the card from the same counts
-        with torch.inference_mode():
-            x = torch.from_numpy(read_mtx_dense(mtx)).to("cuda")
-            rm, rl, bound = plain_encode(params, x)
-        worst = 0.0
-        for got, want, n in ((res[0], rm, "mu_representation_mean"),
-                             (res[1], rl, "mu_representation_logvariance")):
-            want = want.double().cpu().numpy()
-            lim = (1e-5 * bound[n].cpu().numpy() + 1e-6
-                   + 1e-5 * np.abs(want))  # + %g text rounding (6 digits)
-            ratio = np.max(np.abs(got - want) / lim)
-            worst = max(worst, ratio)
-            if not ratio <= 1.0:
-                raise AssertionError(f"{n}: CLI output vs plain err/tol "
-                                     f"{ratio:.3g}")
-        log(f"[phase 4] outputs ({N}, 2), finite, match the plain encode "
-            f"(err/tol {worst:.3g}; tol 1e-5*S + 1e-6 + 1e-5*|ref|)")
-
-        os.environ["MMVAE_DENSE_BYTES"] = "1"
-        try:
-            t0 = time.time()
-            err = run_cli(encode, args + ["--out", os.path.join(tmp, "str")])
-        finally:
-            del os.environ["MMVAE_DENSE_BYTES"]
-        if "resident fast path skipped" not in err:
-            raise AssertionError("streaming sweep did not run")
-        for k, a in zip(("mean", "lnvar"), res):
-            b = np.loadtxt(os.path.join(tmp, f"str.mu_{k}.gz"), ndmin=2)
-            if not np.array_equal(a, b):
-                raise AssertionError(f"streaming mu_{k} != resident")
-        log(f"[phase 4] [{card}] streaming CLI equals resident bitwise "
-            f"(CLI wall {time.time() - t0:.2f}s)")
-    return launches
+        err = run_cli(encode, args + ["--out", os.path.join(tmp, "str")])
+    finally:
+        del os.environ["MMVAE_DENSE_BYTES"]
+    if "resident fast path skipped" not in err:
+        raise AssertionError("streaming sweep did not run")
+    for k, a in zip(("mean", "lnvar"), res):
+        b = np.loadtxt(os.path.join(tmp, f"str.mu_{k}.gz"), ndmin=2)
+        if not np.array_equal(a, b):
+            raise AssertionError(f"streaming mu_{k} != resident")
+    log(f"[phase 4] [{card}] streaming CLI equals resident bitwise "
+        f"(CLI wall {time.time() - t0:.2f}s)")
+    return launches, mtx
 
 
-def phase_full(card):
+def full_size_counts() -> torch.Tensor:
+    """N_FULL x D_GENES int8 counts made on the card (~1000 per cell)."""
+    g = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    prof = torch.exp(torch.randn((1, D_GENES), generator=g, device=DEV))
+    rate = prof / prof.sum() * 1000.0  # ~1000 counts per cell
+    data = torch.empty((N_FULL, D_GENES), dtype=torch.int8, device=DEV)
+    step = min(10_000, N_FULL)
+    for lo in range(0, N_FULL, step):
+        r = rate.expand(step, D_GENES).contiguous()
+        data[lo:lo + step] = torch.poisson(r, generator=g).clamp_(
+            max=127).to(torch.int8)
+    return data
+
+
+def phase_full(card, data):
     from mmvae_tpu_torch.models.nb import NBVAE
     from mmvae_tpu_torch.train.loop import encode_resident
 
-    N, B, chunk = 100_000, 100, 16
-    g = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    prof = torch.exp(torch.randn((1, D_GENES), generator=g, device="cuda"))
-    rate = prof / prof.sum() * 1000.0  # ~1000 counts per cell
-    data = torch.empty((N, D_GENES), dtype=torch.int8, device="cuda")
-    for lo in range(0, N, 10_000):
-        r = rate.expand(10_000, D_GENES).contiguous()
-        data[lo:lo + 10_000] = torch.poisson(r, generator=g).clamp_(
-            max=127).to(torch.int8)
+    N, B, chunk = N_FULL, 100, 16
     model = NBVAE(data_dim=D_GENES)
-    params = random_params(model, "cuda")
+    params = random_params(model, DEV)
     with torch.inference_mode():
         encode_resident(model, params, data, B, chunk)  # warm-up
         times = []
@@ -360,6 +410,324 @@ def phase_full(card):
         + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
 
 
+# ----------------------------------------------------------------------
+# training phases (6-9)
+# ----------------------------------------------------------------------
+
+TRAIN_TOL = ("|kernel - plain| <= 2e-5 * S + 1e-7 * max S, S = the same sum "
+             "over the magnitudes of its terms (float64)")
+REGIMES = [(B_TRAIN, D_GENES, torch.int8, "counts<=7"),
+           (B_TRAIN, D_GENES, torch.int8, "integer"),
+           (B_TRAIN, D_GENES, torch.int16, "integer"),
+           (B_TRAIN, D_GENES, torch.float32, "non-integer"),
+           (B_TRAIN, 1003, torch.int8, "integer")]
+MAIN_CASE = 1  # int8 integer counts at B = 100, D = 20000: the main path
+
+
+def step_inputs(g, B, D, dtype, regime):
+    """Counts in the named lgamma regime and the step kernels' other
+    operands, at the scales the trainer gives them (library-size depth,
+    unit latents, decoder rows of a few tenths)."""
+    x = make_counts(g, B, D, dtype)
+    if regime == "counts<=7":
+        x = x.clamp(max=7)
+    R, C, Rn = 2, 1, 1
+    zc = torch.randn((B, R + C), generator=g, device=DEV)
+    zc[:, R:] = 1.0  # the all-ones covariate
+    zn = torch.randn((B, Rn), generator=g, device=DEV)
+    depth = (x.float().sum(1, keepdim=True)
+             * (0.5 + torch.rand((B, 1), generator=g, device=DEV)))
+    W = torch.randn((R + C + Rn + 2, D), generator=g, device=DEV) * 0.3
+    return x, zc, zn, depth.contiguous(), W.contiguous(), (R, C, Rn)
+
+
+def grad_magnitudes(x, zc, zn, depth, l, W, R, C, Rn):
+    """float64 per-element magnitudes of what K2 sums: |dls| and |dnupre|
+    bounded by the magnitudes of their own terms (the cancellations in
+    t - x/mu and in digamma(nu) - digamma(nu + x) are where float32
+    rounding lands)."""
+    d = lambda t: t.double()  # noqa: E731
+    zc, zn, depth, l, W, x = map(d, (zc, zn, depth, l, W, x))
+    RC, base = R + C, R + C + 1
+    h = zc @ W[:RC] + W[RC]
+    p = torch.exp(h - l)
+    mu = p * depth + 1e-4
+    npre = zn @ W[base:base + Rn] + W[base + Rn]
+    sp = torch.nn.functional.softplus(npre)
+    nu = sp.clamp(1e-4, 1e4) + 1e-4
+    t = (x + nu) / (mu + nu)
+    dls = (t.abs() + x / mu) * p * depth
+    dnu = (torch.digamma(nu).abs() + torch.digamma(nu + x).abs() + t
+           + torch.log(nu).abs() + torch.log(mu + nu).abs() + 1.0)
+    dnp = dnu * torch.sigmoid(npre)
+    return p, dls, dnp
+
+
+def ratio(got, want, S):
+    """(max |got - want|, max ratio to the tolerance 2e-5 S + 1e-7 max S)."""
+    err = (got.double() - want.double()).abs()
+    lim = 2e-5 * S + 1e-7 * S.abs().max() + 1e-30
+    return err.max().item(), (err / lim).max().item()
+
+
+def phase_train_kernels(card):
+    from mmvae_tpu_torch.ops import enc_kernel as enc
+    from mmvae_tpu_torch.ops import nb_step as ns
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    worst = {k: 0.0 for k in ("count_encode_bwd", "nb_lse", "nb_value",
+                              "nb_valgrad", "nb_finish")}
+    main_times = {}
+    log(f"[phase 6] training kernels vs plain (f32, TF32 off); {TRAIN_TOL}")
+    for case, (B, D, dt, regime) in enumerate(REGIMES):
+        x, zc, zn, depth, W, (R, C, Rn) = step_inputs(g, B, D, dt, regime)
+        lr = ns.lse_ref(zc, W, R, C)
+        p, dls_m, dnp_m = grad_magnitudes(x, zc, zn, depth, lr, W, R, C, Rn)
+        g1 = torch.randn((B, R), generator=g, device=DEV)
+        g2 = torch.randn((B, 2), generator=g, device=DEV)
+        rs_ref = ns.valgrad_ref(x, zc, zn, depth, lr, W, R, C, Rn)[1]
+        calls = {
+            "count_encode_bwd": (lambda: enc.count_encode_bwd(x, g1, g2),
+                                 lambda: enc.count_encode_bwd_ref(x, g1, g2)),
+            "nb_lse": (lambda: ns.lse(zc, W, R, C),
+                       lambda: ns.lse_ref(zc, W, R, C)),
+            "nb_value": (lambda: ns.value(x, zc, zn, depth, lr, W, R, C, Rn),
+                         lambda: ns.value_ref(x, zc, zn, depth, lr, W, R, C,
+                                              Rn, True)),
+            "nb_valgrad": (lambda: ns.valgrad(x, zc, zn, depth, lr, W, R, C,
+                                              Rn),
+                           lambda: ns.valgrad_ref(x, zc, zn, depth, lr, W, R,
+                                                  C, Rn)),
+            "nb_finish": (lambda: ns.finish(zc, lr, rs_ref, W, R, C),
+                          lambda: ns.finish_ref(zc, lr, rs_ref, W, R, C)),
+        }
+        xd = x.double()
+        azc, azn, aW = zc.double().abs(), zn.double().abs(), W.double().abs()
+        base = R + C + 1
+        with torch.no_grad():
+            terms = ns._terms(xd, ns._h(zc.double(), W.double(), R + C)
+                              - lr.double(), ns._nupre(zn.double(),
+                              W.double(), base, Rn), depth.double(), True)
+        bounds = {
+            "count_encode_bwd": (g1.double().abs().T @ torch.log1p(xd),
+                                 g2.double().abs().T @ xd.abs()),
+            "nb_lse": (1.0 + lr.double().abs(),),
+            "nb_value": (terms.abs().sum(),),
+            "nb_valgrad": (torch.cat([azc.T @ dls_m, dls_m.sum(0, True),
+                                      azn.T @ dnp_m, dnp_m.sum(0, True)]),
+                           dls_m.sum(1, True), dls_m @ aW[:R].T,
+                           dnp_m @ aW[base:base + Rn].T),
+            "nb_finish": (torch.cat([azc.T @ (p * rs_ref.double().abs()),
+                                     (p * rs_ref.double().abs()).sum(0,
+                                                                     True)]),
+                          p @ aW[:R].T),
+        }
+        parts = []
+        for name, (kern, plain) in calls.items():
+            got, want = kern(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            again = kern()
+            again = again if isinstance(again, tuple) else (again,)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} not bitwise repeatable")
+            e, q = 0.0, 0.0
+            for gt, wt, S in zip(got, want, bounds[name]):
+                ei, qi = ratio(gt, wt, S)
+                e, q = max(e, ei), max(q, qi)
+            if not q <= 1.0:
+                raise AssertionError(f"{name} disagrees with plain at "
+                                     f"{(B, D, dt, regime)}: err/tol {q:.3g}")
+            worst[name] = max(worst[name], e)
+            k_dev, _ = device_profile(kern, 20)
+            p_dev, _ = device_profile(plain, 20)
+            if case == MAIN_CASE:
+                main_times[name] = (k_dev, p_dev)
+            parts.append(f"{name} err {e:.3g} (err/tol {q:.3g}) kernel "
+                         f"{k_dev:.4f} / plain {p_dev:.4f} ms")
+        log(f"[phase 6] [{card}] B={B} D={D} {str(dt).replace('torch.', '')}"
+            f" {regime}: " + "; ".join(parts))
+    return worst, main_times
+
+
+def phase_batch_step(card):
+    from mmvae_tpu_torch.models.nb import NBVAE
+    from mmvae_tpu_torch.ops.nb_fast import NBFastStep, batch_rand
+    from mmvae_tpu_torch.train.config import TrainingOptions
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    model = NBVAE(data_dim=D_GENES)
+    topt = TrainingOptions()
+    params = random_params(model, DEV)
+    x = make_counts(g, B_TRAIN, D_GENES, torch.int8)
+    c = torch.ones((B_TRAIN, 1), device=DEV)
+    out = {}
+    for plain in (False, True):
+        fast = NBFastStep(model, topt, plain=plain)
+        rand = batch_rand(fast.draw_rand(
+            torch.Generator(device=DEV).manual_seed(SEED + 5), 1,
+            B_TRAIN), 0)
+        q = fast.pack(params)
+        po = fast.optimizer.init(q)
+        # the first boot step's gradient, before any update
+        qq = {k: v.detach().requires_grad_() for k, v in q.items()}
+        loss = fast._loss(qq, x, c, rand["ridx"][0],
+                          tuple(e[0] for e in rand["boot_eps"]),
+                          fast._beta_for(0.0, x.device), False, True)
+        grads = dict(zip(("P", "sv"), torch.autograd.grad(
+            loss, (qq["P"], qq["sv"]))))
+        q2, po2, rep = fast.batch_step(q, po, x, c, 0.0, rand)
+        torch.cuda.synchronize()
+        out[plain] = (grads, q2, po2, rep)
+    (gk, qk, ok, rk), (gp, qp, op, rp) = out[False], out[True]
+    rep_err = abs(rk.item() - rp.item()) / abs(rp.item())
+    if not rep_err <= 1e-5:
+        raise AssertionError(f"batch step report: rel err {rep_err:.3g}")
+    lines = [f"report {rk.item():.6f} vs {rp.item():.6f} (rel {rep_err:.2g},"
+             f" tol 1e-5)"]
+    rows = lambda t: t if t.dim() == 2 else t[None]  # noqa: E731
+    for k in ("P", "sv"):
+        # gradients: per row of P (one parameter row each; sv as one
+        # row), tol 1e-4 of the row's largest gradient
+        gk2, gp2 = rows(gk[k]), rows(gp[k])
+        scale = gp2.abs().amax(1, keepdim=True)
+        q_g = ((gk2 - gp2).abs() / (1e-4 * scale + 1e-12)).max().item()
+        # Adam moments after the step: tol 1e-3 of the row's scale
+        mom = []
+        for m in ("mu", "nu"):
+            a2, b2 = rows(ok[m][k]), rows(op[m][k])
+            mom.append(((a2 - b2).abs() / (1e-3 * b2.abs().amax(
+                1, keepdim=True) + 1e-30)).max().item())
+        # params: Adam maps a gradient to about +-lr by its sign, so an
+        # element whose gradient is below 1e-4 of its row's scale may
+        # flip; those are counted, the rest held to 2e-5 (2% of lr)
+        small = (gp2.abs() < 1e-4 * scale)
+        dP = (qk[k] - qp[k]).reshape(gp2.shape).abs()
+        q_p = (dP[~small].max().item() / 2e-5) if (~small).any() else 0.0
+        if not (q_g <= 1.0 and max(mom) <= 1.0 and q_p <= 1.0):
+            raise AssertionError(f"batch step {k}: grad err/tol {q_g:.3g}, "
+                                 f"moments {mom[0]:.3g}/{mom[1]:.3g}, "
+                                 f"params {q_p:.3g}")
+        lines.append(f"{k}: first-step grad err/tol {q_g:.3g}; Adam mu/nu "
+                     f"err/tol {mom[0]:.3g}/{mom[1]:.3g}; params max diff "
+                     f"{dP.max().item():.3g} ({int(small.sum())} elements "
+                     f"with a near-zero gradient, max diff there "
+                     f"{dP[small].max().item() if small.any() else 0:.3g}; "
+                     f"elsewhere err/tol {q_p:.3g})")
+    if int(ok["count"]) != 3 or int(op["count"]) != 3:
+        raise AssertionError("Adam count after one batch step is not 3")
+    log(f"[phase 7] [{card}] one batch step, kernel route vs plain route, "
+        f"same draws: " + "; ".join(lines))
+
+
+KERNEL_NAMES = ["count_encode", "count_encode_bwd", "nb_lse", "nb_value",
+                "nb_valgrad", "nb_finish"]
+
+
+def kernel_wrappers():
+    from mmvae_tpu_torch.ops import enc_kernel as enc
+    from mmvae_tpu_torch.ops import nb_step as ns
+
+    return dict(zip(KERNEL_NAMES, (enc.count_encode, enc.count_encode_bwd,
+                                   ns.lse, ns.value, ns.valgrad, ns.finish)))
+
+
+def phase_train_cli(card, tmp, mtx):
+    from mmvae_tpu_torch.cli import nb_vae
+    from mmvae_tpu_torch.models.nb import NBVAE
+    from mmvae_tpu_torch.train.recorder import flatten_params
+
+    out = os.path.join(tmp, "train")
+    ck = os.path.join(tmp, "train_ckpt")
+    args = ["--mtx", mtx, "--batch_size", str(B_TRAIN), "--device", DEV,
+            "--recording", "2"]
+    wr = kernel_wrappers()
+    for w in wr.values():
+        w.launches = 0
+    t0 = time.time()
+    err = run_cli(nb_vae, args + ["--out", out, "--max_epoch", "2",
+                                  "--checkpoint_dir", ck])
+    wall = time.time() - t0
+    launches = {k: w.launches for k, w in wr.items()}
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the training main path skipped a kernel: "
+                             f"{launches}")
+    if "dense-resident" not in err:
+        raise AssertionError("training did not run dense-resident")
+    scores = np.loadtxt(out + ".scores.gz", ndmin=1)
+    if scores.shape != (2,) or not np.isfinite(scores).all():
+        raise AssertionError(f"scores.gz: {scores}")
+    # recording artifacts: the JAX CLI's names and shapes
+    names = flatten_params(NBVAE(data_dim=D_GENES).init(
+        torch.Generator().manual_seed(0)))
+    want = {f"{out}_1.mu_mean.gz": (N_CLI, 2), f"{out}_1.mu_lnvar.gz":
+            (N_CLI, 2)}
+    want.update({f"{out}_1_{k}.gz": v.shape for k, v in names.items()})
+    for path, shape in want.items():
+        a = np.loadtxt(path, ndmin=2)
+        if a.shape != (shape if len(shape) == 2 else (shape[0], 1)) or \
+                not np.isfinite(a).all():
+            raise AssertionError(f"{path}: shape {a.shape}, want {shape}")
+    rates = [ln.split("] ", 1)[-1] for ln in err.splitlines()
+             if "cells/sec" in ln]
+    log(f"[phase 8] [{card}] nb_vae CLI, {N_CLI} x {D_GENES}, 2 epochs: "
+        f"scores {scores.tolist()}; {len(want)} recording artifacts with "
+        f"the JAX CLI's names and shapes; kernel launches {launches}; "
+        f"epochs: {' | '.join(rates)}; CLI wall {wall:.2f}s")
+    err = run_cli(nb_vae, args + ["--out", out + "_r", "--max_epoch", "3",
+                                  "--resume", ck])
+    s3 = np.loadtxt(out + "_r.scores.gz", ndmin=1)
+    if (s3.shape != (3,) or not np.array_equal(s3[:2], scores)
+            or not np.isfinite(s3).all() or "Resumed from" not in err):
+        raise AssertionError(f"resume: scores {s3}")
+    log(f"[phase 8] [{card}] --resume from the checkpoint ran epoch 3: "
+        f"scores {s3.tolist()}")
+    return launches
+
+
+def phase_train_full(card, data):
+    from mmvae_tpu_torch.models.nb import NBVAE
+    from mmvae_tpu_torch.ops.nb_fast import NBFastStep
+    from mmvae_tpu_torch.train.config import TrainingOptions
+    from mmvae_tpu_torch.train.loop import DenseEpochRunner
+
+    model = NBVAE(data_dim=D_GENES)
+    fast = NBFastStep(model, TrainingOptions())
+    params = model.init(torch.Generator().manual_seed(SEED), device=DEV)
+    runner = DenseEpochRunner(fast, data, B_TRAIN, seed=SEED)
+    q = fast.pack(params)
+    po = fast.optimizer.init(q)
+    losses, times = [], []
+    for epoch in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q, po, reps, _ = runner(q, po, epoch)
+        losses.append(reps.mean().item())
+        times.append(time.perf_counter() - t0)
+    if not (np.isfinite(losses).all() and losses[1] < losses[0]):
+        raise AssertionError(f"full-size training loss {losses}")
+    log(f"[phase 9] [{card}] training {N_FULL} x {D_GENES} int8, B="
+        f"{B_TRAIN}, nboot 3: epoch losses {losses[0]:.4f} -> "
+        f"{losses[1]:.4f}; epoch times {times[0]:.2f}s, {times[1]:.2f}s; "
+        f"second epoch {N_FULL / times[1]:,.1f} cells/sec")
+    nprof = 100
+    sub = DenseEpochRunner(fast, data[:nprof * B_TRAIN], B_TRAIN, seed=SEED)
+    rand = sub.draw(2)
+    busy, per = device_profile(lambda: sub(q, po, 2, rand=rand))
+    per_batch = times[1] * 1e3 / runner.nbatch
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    log(f"[phase 9] [{card}] profile of {nprof} batches: device busy "
+        f"{busy / nprof:.3f} ms per batch in "
+        f"{device_profile.kernels / nprof:.0f} device kernels and copies, "
+        f"against {per_batch:.3f} ms wall per batch of the unprofiled "
+        f"second epoch (device idle share "
+        f"{1 - busy / nprof / per_batch:.1%}); top kernels over the "
+        f"{nprof} batches: "
+        + "; ".join(f"{k[:48]} {v:.1f} ms" for k, v in top))
+    return N_FULL / times[1]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -379,22 +747,40 @@ def main() -> int:
     log(f"[phase 1] built {', '.join(os.path.relpath(s) for s in _cuda.sources())}"
         f" -> {os.path.relpath(_cuda.LIB_PATH)} in {time.time() - t0:.1f}s")
     with open(_cuda.BUILD_LOG) as f:
-        for ln in f.read().splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling" in ln:
-                log(f"[phase 1] ptxas: {ln.strip()}")
+        log(f"[phase 1] ptxas ({os.path.relpath(_cuda.BUILD_LOG)} has the "
+            f"full report): {ptxas_summary(f.read())}")
 
     worst, (k_dev, p_dev) = phase_kernels(enc, card)
     phase_chunks(enc)
-    launches = phase_cli(card)
-    phase_full(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_launches, mtx = phase_cli(card, tmp)
+        data = full_size_counts()
+        phase_full(card, data)
+        t_worst, t_times = phase_train_kernels(card)
+        phase_batch_step(card)
+        launches = phase_train_cli(card, tmp, mtx)
+        phase_train_full(card, data)
 
+    log(f"[summary] serving CLI: {serve_launches} count_encode launches; "
+        f"training CLI: {launches}")
     log(card)
+    sources = {
+        "count_encode": ("count_encode.cu", "enc_kernel.py:183"),
+        "count_encode_bwd": ("count_encode_bwd.cu", "enc_kernel.py:216"),
+        "nb_lse": ("nb_lse.cu", "nb_step.py:320"),
+        "nb_value": ("nb_value.cu", "nb_step.py:424"),
+        "nb_valgrad": ("nb_valgrad.cu", "nb_step.py:621"),
+        "nb_finish": ("nb_finish.cu", "nb_step.py:704"),
+    }
+    t_worst["count_encode"] = worst
+    t_times["count_encode"] = (k_dev, p_dev)
     print(json.dumps({"kernels": [{
-        "name": "count_encode", "route": "cuda",
-        "source": "mmvae_tpu_torch/csrc/count_encode.cu",
-        "replaces": "mmvae_tpu/ops/enc_kernel.py:183",
-        "launches": launches, "max_abs_err": worst,
-        "ms": k_dev, "plain_ms": p_dev}]}), flush=True)
+        "name": name, "route": "cuda",
+        "source": f"mmvae_tpu_torch/csrc/{src}",
+        "replaces": f"mmvae_tpu/ops/{rep}",
+        "launches": launches[name], "max_abs_err": t_worst[name],
+        "ms": t_times[name][0], "plain_ms": t_times[name][1]}
+        for name, (src, rep) in sources.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -8,8 +8,11 @@ and never ``jax``, and shares the JAX-free host layer
 ``mmvae_tpu.utils.logging``) instead of copying it.
 
 Ported so far: the NB serving path (``python -m
-mmvae_tpu_torch.cli.encode --model nb``), whose first-layer contraction
-runs in the hand-written CUDA kernel ``csrc/count_encode.cu``.
+mmvae_tpu_torch.cli.encode --model nb``) and NB training with the
+default architecture (``python -m mmvae_tpu_torch.cli.nb_vae``), on six
+hand-written CUDA kernels in ``csrc/``: the count encoder's forward and
+backward and the fused step's ``lse``, ``value``, ``valgrad`` and
+``finish``.
 """
 
 __version__ = "0.1.0"

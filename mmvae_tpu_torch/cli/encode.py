@@ -29,27 +29,14 @@ import torch
 from mmvae_tpu.data.block import MtxDataBlock
 from mmvae_tpu.io.index import build_mmutil_index
 from mmvae_tpu.io.writers import write_data_file
-from mmvae_tpu.utils.logging import ELOG, TLOG, WLOG
+from mmvae_tpu.utils.logging import ELOG, TLOG
 
 from ..models.nb import NBVAE, params_from_numpy
 from ..train.checkpoint import load_checkpoint
+from ..train.config import _csv_ints
 from ..train.loop import (as_memory_block, build_dense, encode_resident,
                           encode_streaming)
-
-
-def _csv_ints(s: str) -> tuple[int, ...]:
-    """Comma-separated layer dims, e.g. '10,10' (reference: nb.hh:114-121)."""
-    s = s.strip()
-    if not s:
-        return ()
-    return tuple(int(t) for t in s.split(","))
-
-
-def warn_unknown_args(unknown) -> None:
-    """Warn about flags no option claims (the reference parses
-    tolerantly; a leftover flag is most likely a typo)."""
-    if unknown:
-        WLOG("ignoring unrecognized arguments:", " ".join(unknown))
+from .common import warn_unknown_args
 
 
 def main(argv=None) -> int:

@@ -1,0 +1,200 @@
+// K2 for Hopper (sm_90a): the gradient of the boot-step NB NLL in ONE pass
+// over the counts (grad-only form)
+//
+//   per column d (stacked like W):  gout = [zc^T dls ; colsum dls ;
+//                                           zn^T dnupre ; colsum dnupre]
+//   per row b:  rsum = rowsum(dls),  u1 = dls @ wd^T,  dzn = dnupre @ wn^T
+//
+// where dls = d nll / d log_softmax(h) (before the softmax coupling, which
+// the finisher K3 supplies) and dnupre = d nll / d (zn @ wn + bias_n).
+//
+// Replaces the Pallas TPU kernel mmvae_tpu/ops/nb_step.py:
+// _make_valgrad_kernel / _valgrad_call with need_value=False, the form
+// every boot step runs (need_value=True, has_pb and nu_exp wait for the
+// joint model).  The math follows the TPU kernel line by line:
+//   * softplus and the sigmoid the backward needs share one exp(-|z|);
+//   * ONE divide gives 1/(mu+nu), 1/mu and the sigmoid's 1/(1+e):
+//     rec = 1/((1+e) mu (mu+nu)).  dP/P of the select-product is a divide
+//     of its own and is NOT folded into it: P grows like nu^7 and the
+//     product would overflow float32 at large depth;
+//   * grad-only: log(mu+nu) - log(nu) = -log(nu / (mu+nu)), one log;
+//   * the digamma difference takes the block's regime (all counts <= 7,
+//     all integer, or general), chosen from every valid count of the tile.
+//
+// Two kinds of reduction (layout in nb_step_common.cuh): the per-column
+// rows of gout sum over the B rows inside the block (row groups combine
+// through shared memory in a fixed order), the per-row outputs sum over D
+// as per-warp partials that reduce_parts adds in a fixed order.  No
+// atomics; bitwise repeatable.
+//
+// What bounds it on the H100: one read of x and ~8 transcendentals plus
+// ~60 FMAs per element; ALU / special-function bound at the default
+// widths, with 4 + 2 * 5 warp shuffles per (row, warp) for the row sums.
+//
+// Build: see mmvae_tpu_torch/ops/_cuda.py.
+
+#include "nb_step_common.cuh"
+
+namespace {
+
+using namespace nbk;
+
+template <typename T, int NT>
+__global__ void __launch_bounds__(kThreads)
+valgrad_kernel(const T* __restrict__ x, const float* __restrict__ zc,
+               const float* __restrict__ zn, const float* __restrict__ depth,
+               const float* __restrict__ lse, const float* __restrict__ W,
+               int64_t B, int64_t D, int R, int C, int Rn,
+               float* __restrict__ gout, float* __restrict__ parts) {
+  __shared__ float sacc[kRowGroups][NT][kTileCols];
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int64_t tile = blockIdx.x;
+  const int64_t c = tile * kTileCols + tx;
+  const bool valid = c < D;
+  const int RC = R + C;
+  const int base = RC + 1;
+  const int Tn = RC + Rn + 2;
+  const int K = 1 + R + Rn;
+  float w[NT];
+  load_wcol<NT>(W, D, c, valid, Tn, w);
+  const int regime = block_regime<T>(x, B, D, c, valid, ty);
+  float acc[NT];
+#pragma unroll
+  for (int k = 0; k < NT; ++k) acc[k] = 0.f;
+  const int lane = tx & 31;
+  const int64_t part = tile * kWarpCols + (tx >> 5);
+
+  for (int64_t b = ty; b < B; b += kRowGroups) {
+    float dls = 0.f, dnp = 0.f;
+    if (valid) {
+      const float xv = load_count(x + b * D + c);
+      const float dep = __ldg(depth + b);
+      const float h = compute_h<NT>(zc + b * RC, w, RC);
+      const float p = expf(h - __ldg(lse + b));
+      const float mu = p * dep + kEps;
+      const float npre = compute_nupre<NT>(zn + b * Rn, w, base, Rn);
+      const float e = expf(-fabsf(npre));
+      const float sp = fmaxf(npre, 0.f) + log1pf(e);
+      const float nu = fminf(fmaxf(sp, kNuLo), kNuHi) + kEps;
+      const float dg = dg_term(regime, xv, nu);
+      // the one shared divide
+      const float mn = mu + nu;
+      const float v = mu * mn;
+      const float u = 1.f + e;
+      float rec = 1.f / (u * v);
+      const float r = rec * v;
+      const float sig = npre >= 0.f ? r : e * r;
+      rec = rec * u;
+      const float inv_mn = rec * mu;
+      const float inv_mu = rec * mn;
+      const float dln = -logf(nu * inv_mn);
+      const float t = (xv + nu) * inv_mn;
+      const float dmu = t - xv * inv_mu;
+      dls = dmu * p * dep;
+      const float dnu = dg + t + dln - 1.f;
+      dnp = (sp > kNuLo && sp < kNuHi) ? dnu * sig : 0.f;
+      const float* zcr = zc + b * RC;
+      const float* znr = zn + b * Rn;
+#pragma unroll
+      for (int k = 0; k < NT; ++k) {
+        if (k < RC) acc[k] = fmaf(__ldg(zcr + k), dls, acc[k]);
+        if (k == RC) acc[k] += dls;
+        if (k >= base && k < base + Rn)
+          acc[k] = fmaf(__ldg(znr + (k - base)), dnp, acc[k]);
+        if (k == base + Rn) acc[k] += dnp;
+      }
+    }
+    // per-row sums over this warp's 32 columns: [rsum | u1 | dzn]
+    float* o = parts + (part * B + b) * K;
+    const float rs = warp_sum(dls);
+    if (lane == 0) o[0] = rs;
+#pragma unroll
+    for (int k = 0; k < NT; ++k) {
+      if (k < R) {
+        const float s = warp_sum(dls * w[k]);
+        if (lane == 0) o[1 + k] = s;
+      }
+      if (k >= base && k < base + Rn) {
+        const float s = warp_sum(dnp * w[k]);
+        if (lane == 0) o[1 + R + (k - base)] = s;
+      }
+    }
+  }
+
+  // per-column sums: add the row groups in order
+#pragma unroll
+  for (int k = 0; k < NT; ++k) sacc[ty][k][tx] = acc[k];
+  __syncthreads();
+  if (ty == 0 && valid) {
+#pragma unroll
+    for (int k = 0; k < NT; ++k) {
+      if (k < Tn) {
+        float s = sacc[0][k][tx];
+#pragma unroll
+        for (int g = 1; g < kRowGroups; ++g) s += sacc[g][k][tx];
+        gout[k * D + c] = s;
+      }
+    }
+  }
+}
+
+template <typename T>
+void launch(const void* x, const float* zc, const float* zn,
+            const float* depth, const float* lse, const float* W, int64_t B,
+            int64_t D, int R, int C, int Rn, float* gout, float* parts,
+            cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>(num_tiles(D)));
+  const dim3 block(kTileCols, kRowGroups);
+  const T* xp = static_cast<const T*>(x);
+  if (R + C + Rn + 2 <= 8)
+    valgrad_kernel<T, 8><<<grid, block, 0, s>>>(xp, zc, zn, depth, lse, W, B,
+                                                D, R, C, Rn, gout, parts);
+  else
+    valgrad_kernel<T, kMaxT><<<grid, block, 0, s>>>(
+        xp, zc, zn, depth, lse, W, B, D, R, C, Rn, gout, parts);
+}
+
+}  // namespace
+
+// Workspace floats for mmvae_nb_valgrad: (num_parts(D), B, 1 + R + Rn).
+extern "C" int64_t mmvae_nb_valgrad_ws(int64_t B, int64_t D, int R, int Rn) {
+  return num_parts(D) * B * (1 + R + Rn);
+}
+
+// dtype: 0 = float32, 1 = int16, 2 = int8.  Writes gout (R+C+Rn+2, D) and
+// rowout (B, 1 + R + Rn) = [rsum | u1 | dzn].  Returns cudaGetLastError()
+// after the two launches (0 = launched).
+extern "C" int mmvae_nb_valgrad(const void* x, int dtype, const void* zc,
+                                const void* zn, const void* depth,
+                                const void* lse, const void* W, int64_t B,
+                                int64_t D, int R, int C, int Rn, void* gout,
+                                void* ws, void* rowout, void* stream) {
+  if (!dims_ok(B, D, R, C, Rn)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* zcp = static_cast<const float*>(zc);
+  const auto* znp = static_cast<const float*>(zn);
+  const auto* dp = static_cast<const float*>(depth);
+  const auto* lp = static_cast<const float*>(lse);
+  const auto* Wp = static_cast<const float*>(W);
+  auto* gp = static_cast<float*>(gout);
+  auto* parts = static_cast<float*>(ws);
+  switch (dtype) {
+    case 0:
+      launch<float>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, gp, parts, s);
+      break;
+    case 1:
+      launch<int16_t>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, gp, parts, s);
+      break;
+    case 2:
+      launch<int8_t>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, gp, parts, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int K = 1 + R + Rn;
+  return static_cast<int>(launch_reduce(parts, num_parts(D), B, K,
+                                        static_cast<float*>(rowout), K, s));
+}

@@ -87,6 +87,11 @@ class NBVAE(nn.Module):
         params["depth"] = lin(D, 1)
         return params
 
+    def _can_fuse_step(self) -> bool:
+        """The fused step kernels need a direct mu decoder (JAX
+        ``NBVAE._can_fuse_step``)."""
+        return not self.mean_decoding
+
     def _enc_names(self) -> list[str]:
         hidden = list(self.mean_encoding)
         if hidden:
@@ -134,7 +139,36 @@ def params_from_numpy(tree: dict, device: torch.device | str = "cpu"
 
 
 def params_to_numpy(tree: dict) -> dict:
-    """The port's tensors -> numpy float32 arrays (same keys)."""
+    """The port's tensors (on any device; numpy passes through) -> numpy
+    arrays (same keys).  Works on the named tree and on the packed
+    ``{P, sv}`` alike."""
     if isinstance(tree, dict):
         return {k: params_to_numpy(v) for k, v in tree.items()}
-    return tree.detach().cpu().numpy()
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def adam_from_numpy(state, device: torch.device | str = "cpu") -> dict:
+    """Adam state as numpy -> the port's ``{"count", "mu", "nu"}``.
+
+    ``state`` is the JAX trainer's optax chain state (a tuple whose
+    element 2 is ``ScaleByAdamState(count, mu, nu)``, leaves as numpy),
+    that ``ScaleByAdamState`` alone, or a dict with those three keys; the
+    moment trees may be named or packed."""
+    if isinstance(state, (tuple, list)) and not hasattr(state, "mu"):
+        state = state[2]
+    get = state.__getitem__ if isinstance(state, dict) else (
+        lambda k: getattr(state, k))
+    return {"count": torch.tensor(int(np.asarray(get("count"))),
+                                  dtype=torch.int32, device=device),
+            "mu": params_from_numpy(get("mu"), device),
+            "nu": params_from_numpy(get("nu"), device)}
+
+
+def adam_to_numpy(state: dict) -> dict:
+    """The port's Adam state -> ``{"count": int32, "mu", "nu"}`` numpy
+    (wrap into optax's ``ScaleByAdamState`` to hand it to JAX)."""
+    return {"count": np.asarray(state["count"].cpu().numpy(), np.int32),
+            "mu": params_to_numpy(state["mu"]),
+            "nu": params_to_numpy(state["nu"])}

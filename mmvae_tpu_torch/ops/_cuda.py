@@ -1,13 +1,14 @@
 """Build and bind the port's CUDA kernels.
 
 Every ``mmvae_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, at first
-use, into ``build/mmvae_tpu_torch/`` under the checkout; it is rebuilt
-whenever a source is newer than the library.  The library is loaded with
-``ctypes``: every pointer and the CUDA stream go in as ``c_void_p`` (a
-pointer passed without argtypes is cut to 32 bits), and every C entry
-returns ``cudaGetLastError()`` after its launch, which :func:`check`
-turns into an exception.
+(``sm_90a``), one ``nvcc`` per source, all started together, and the
+objects are linked into ONE shared library with a plain C interface, at
+first use, into ``build/mmvae_tpu_torch/`` under the checkout; it is
+rebuilt whenever a source or header is newer than the library.  The
+library is loaded with ``ctypes``: every pointer and the CUDA stream go
+in as ``c_void_p`` (a pointer passed without argtypes is cut to 32
+bits), and every C entry returns ``cudaGetLastError()`` after its
+launches, which :func:`check` turns into an exception.
 
 Nothing here runs at import time: the CPU tests import every module, and
 the CPU host has no ``nvcc``.  A failed build raises.
@@ -29,8 +30,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "mmvae_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libmmvae_torch_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib = None
@@ -57,31 +59,51 @@ def _stale() -> bool:
     if not os.path.exists(LIB_PATH):
         return True
     built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > built for s in sources())
+    deps = sources() + glob.glob(os.path.join(SRC_DIR, "*.cuh"))
+    return any(os.path.getmtime(s) > built for s in deps)
 
 
 def build(force: bool = False) -> str:
     """Compile the kernel library if missing or stale; return its path.
 
-    The compiler's output (``-Xptxas -v``: registers, shared memory and
+    The compilers' output (``-Xptxas -v``: registers, shared memory and
     spills per kernel) is kept in :data:`BUILD_LOG`."""
     if not force and not _stale():
         return LIB_PATH
+    nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
+    objs = [os.path.join(BUILD_DIR, os.path.basename(s) + ".o")
+            for s in sources()]
     try:
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()],
-                           capture_output=True, text=True, timeout=900)
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(sources(), objs)]
+        logs, failed = [], []
+        for s, proc in zip(sources(), procs):
+            out, _ = proc.communicate(timeout=900)
+            logs.append(f"== {os.path.basename(s)}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{os.path.basename(s)} ({proc.returncode}):"
+                              f"\n{out[-4000:]}")
+        if not failed:
+            r = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp,
+                                *objs], capture_output=True, text=True,
+                               timeout=300)
+            logs.append(f"== link\n{r.stdout}{r.stderr}")
+            if r.returncode != 0:
+                failed.append(f"link ({r.returncode}):\n{r.stderr[-4000:]}")
         with open(BUILD_LOG, "w") as f:
-            f.write(r.stdout + r.stderr)
-        if r.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({r.returncode}):\n{r.stderr[-4000:]}")
+            f.write("\n".join(logs))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
         os.replace(tmp, LIB_PATH)
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for path in [tmp, *objs]:
+            if os.path.exists(path):
+                os.remove(path)
     return LIB_PATH
 
 
@@ -93,6 +115,32 @@ def _bind(lib) -> None:
         _vp,                     # cudaStream_t
     ]
     lib.mmvae_count_encode_fwd.restype = _i32
+    lib.mmvae_count_encode_bwd.argtypes = [
+        _vp, _i32, _i64, _i64,   # x, dtype code, B, D
+        _vp, _i32, _i64,         # g1, r1, ld1
+        _vp, _i32, _i64,         # g2, r2, ld2
+        _vp, _vp, _vp,           # dWL, dWX, cudaStream_t
+    ]
+    lib.mmvae_count_encode_bwd.restype = _i32
+    for name, args in (("mmvae_nb_lse_ws", [_i64, _i64]),
+                       ("mmvae_nb_value_ws", [_i64]),
+                       ("mmvae_nb_valgrad_ws", [_i64, _i64, _i32, _i32]),
+                       ("mmvae_nb_finish_ws", [_i64, _i64, _i32])):
+        getattr(lib, name).argtypes = args
+        getattr(lib, name).restype = _i64
+    rows = [_vp, _vp, _vp, _vp]  # zc, zn, depth, lse
+    dims = [_i64, _i64, _i32, _i32, _i32]  # B, D, R, C, Rn
+    lib.mmvae_nb_lse.argtypes = [_vp, _vp, _i64, _i64, _i32, _i32,
+                                 _vp, _vp, _vp]
+    lib.mmvae_nb_value.argtypes = [_vp, _i32, *rows, _vp, *dims, _i32,
+                                   _vp, _vp, _vp]
+    lib.mmvae_nb_valgrad.argtypes = [_vp, _i32, *rows, _vp, *dims,
+                                     _vp, _vp, _vp, _vp]
+    lib.mmvae_nb_finish.argtypes = [_vp, _vp, _vp, _vp, _i64, _i64, _i32,
+                                    _i32, _vp, _vp, _vp, _vp]
+    for name in ("mmvae_nb_lse", "mmvae_nb_value", "mmvae_nb_valgrad",
+                 "mmvae_nb_finish"):
+        getattr(lib, name).restype = _i32
 
 
 def lib():

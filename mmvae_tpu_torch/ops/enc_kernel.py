@@ -1,17 +1,23 @@
 """Fused count-encoder contraction: ``(log1p(x) @ WL^T, x @ WX^T)``.
 
-Port of ``mmvae_tpu/ops/enc_kernel.py`` (forward, without the row stats
-that only the vMF-side models use).  Two versions of one function:
+Port of ``mmvae_tpu/ops/enc_kernel.py`` (without the row stats that only
+the vMF-side models use).  :func:`count_encode` is a
+``torch.autograd.Function`` over two kernels, each with its plain
+PyTorch version beside it:
 
-- :func:`count_encode_ref`, the plain PyTorch version, in float32 (the
-  JAX package's bf16 operand views emulate the TPU's DEFAULT matmul
-  precision and are not ported);
-- the CUDA kernel ``csrc/count_encode.cu``, which reads the integer
-  counts once and forms ``log1p(x)`` in registers.
+- forward (K4): :func:`count_encode_ref`, or the CUDA kernel
+  ``csrc/count_encode.cu``, which reads the integer counts once and forms
+  ``log1p(x)`` in registers;
+- backward (K5): :func:`count_encode_bwd` — ``dWL = g1^T log1p(x)``,
+  ``dWX = g2^T x`` — :func:`count_encode_bwd_ref`, or the CUDA kernel
+  ``csrc/count_encode_bwd.cu``.
 
-:func:`count_encode` picks by where ``x`` lies: a CPU tensor goes to the
-plain version; a CUDA tensor launches the kernel or raises — there is no
-fallback on the card.  ``count_encode.launches`` counts kernel launches.
+Both run in float32 (the JAX package's bf16 operand views emulate the
+TPU's DEFAULT matmul precision and are not ported).  Each picks by where
+``x`` lies: a CPU tensor goes to the plain version; a CUDA tensor
+launches the kernel or raises — there is no fallback on the card.
+``count_encode.launches`` and ``count_encode_bwd.launches`` count kernel
+launches.
 """
 
 from __future__ import annotations
@@ -33,21 +39,60 @@ def count_encode_ref(x: torch.Tensor, WL: torch.Tensor,
     return hL, xf @ WX.T
 
 
+def count_encode_bwd_ref(x: torch.Tensor, g1: torch.Tensor,
+                         g2: torch.Tensor | None
+                         ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Plain version of the backward: the VJP of :func:`count_encode_ref`
+    in (WL, WX), ``(g1^T log1p(x), g2^T x)``."""
+    xf = x.float()
+    return g1.T @ torch.log1p(xf), (None if g2 is None else g2.T @ xf)
+
+
+class _CountEncode(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, WL, WX):
+        ctx.save_for_backward(x)
+        ctx.has_wx = WX is not None
+        if x.device.type == "cpu":
+            return count_encode_ref(x, WL, WX)
+        return _kernel_route(x, WL, WX)
+
+    @staticmethod
+    def backward(ctx, gL, gX):
+        (x,) = ctx.saved_tensors
+        if not ctx.needs_input_grad[1] and not ctx.needs_input_grad[2]:
+            return None, None, None
+        dWL, dWX = count_encode_bwd(x, gL, gX if ctx.has_wx else None)
+        return None, dWL, dWX
+
+
 def count_encode(x: torch.Tensor, WL: torch.Tensor,
                  WX: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(hL, hX) = (log1p(x) @ WL^T, float(x) @ WX^T)`` in float32.
+    """``(hL, hX) = (log1p(x) @ WL^T, float(x) @ WX^T)`` in float32,
+    differentiable in WL and WX (backward: :func:`count_encode_bwd`).
 
     x  : (M, D) counts, int8 / int16 / float32 — data, no gradient
     WL : (r1, D) float32 rows contracted against log1p(x)
     WX : (r2, D) float32 rows contracted against x, or None (r2 = 0)
     """
-    if x.device.type == "cpu":
-        return count_encode_ref(x, WL, WX)
-    return _kernel_route(x, WL, WX)
+    return _CountEncode.apply(x, WL, WX)
 
 
 count_encode.launches = 0
+
+
+def count_encode_bwd(x: torch.Tensor, g1: torch.Tensor,
+                     g2: torch.Tensor | None
+                     ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """``(dWL, dWX) = (g1^T log1p(x), g2^T x)``: the weight gradient of
+    :func:`count_encode` for row cotangents g1 (M, r1), g2 (M, r2)."""
+    if x.device.type == "cpu":
+        return count_encode_bwd_ref(x, g1, g2)
+    return _bwd_kernel_route(x, g1, g2)
+
+
+count_encode_bwd.launches = 0
 
 
 def _check_kernel_args(x, WL, WX) -> torch.Tensor:
@@ -56,8 +101,9 @@ def _check_kernel_args(x, WL, WX) -> torch.Tensor:
     if torch.is_grad_enabled() and (
             WL.requires_grad or (WX is not None and WX.requires_grad)):
         raise NotImplementedError(
-            "count_encode: backward (K5) not ported yet; call under "
-            "torch.no_grad() / torch.inference_mode()")
+            "count_encode: the raw kernel route records no graph; call "
+            "count_encode(), whose backward is the K5 kernel "
+            "(count_encode_bwd)")
     if x.dim() != 2 or WL.dim() != 2:
         raise ValueError(f"count_encode: x and WL must be 2-D, got "
                          f"{tuple(x.shape)} and {tuple(WL.shape)}")
@@ -120,3 +166,54 @@ def _kernel_route(x, WL, WX):
             _cuda.check(rc, "count_encode")
             count_encode.launches += 1
     return hL, hX
+
+
+def _bwd_kernel_route(x, g1, g2):
+    """K5 launches, one per group of <= 16 stacked cotangent columns
+    [g1 | g2]; everything the kernel does not take raises first."""
+    g1 = g1.contiguous()
+    g2 = None if g2 is None else g2.contiguous()
+    if x.dim() != 2 or g1.dim() != 2 or (g2 is not None and g2.dim() != 2):
+        raise ValueError("count_encode_bwd: x, g1 and g2 must be 2-D")
+    M, D = x.shape
+    r1 = g1.shape[1]
+    r2 = 0 if g2 is None else g2.shape[1]
+    if g1.shape[0] != M or (g2 is not None and g2.shape[0] != M):
+        raise ValueError(f"count_encode_bwd: cotangents need {M} rows")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"count_encode_bwd: x must be int8, int16 or "
+                        f"float32, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("count_encode_bwd: x must be contiguous")
+    for name, t in (("g1", g1), ("g2", g2)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"count_encode_bwd: {name} must be float32")
+        if t.device != x.device:
+            raise ValueError(f"count_encode_bwd: {name} is on {t.device}, "
+                             f"x on {x.device}")
+    if x.device.type != "cuda":
+        raise ValueError(f"count_encode_bwd: no kernel for {x.device}")
+    from . import _cuda
+
+    lib = _cuda.lib()
+    dWL = torch.empty((r1, D), dtype=torch.float32, device=x.device)
+    dWX = (None if g2 is None
+           else torch.empty((r2, D), dtype=torch.float32, device=x.device))
+    g2p = 0 if g2 is None else g2.data_ptr()
+    dxp = 0 if dWX is None else dWX.data_ptr()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for g0 in range(0, r1 + r2, MAX_ROWS_PER_LAUNCH):
+            g1e = min(g0 + MAX_ROWS_PER_LAUNCH, r1 + r2)
+            l0, l1 = min(g0, r1), min(g1e, r1)
+            x0, x1 = max(g0 - r1, 0), max(g1e - r1, 0)
+            rc = lib.mmvae_count_encode_bwd(
+                x.data_ptr(), _DTYPE_CODE[x.dtype], M, D,
+                g1.data_ptr() + 4 * l0, l1 - l0, r1,
+                g2p + 4 * x0, x1 - x0, r2,
+                dWL.data_ptr() + 4 * l0 * D, dxp + 4 * x0 * D, stream)
+            _cuda.check(rc, "count_encode_bwd")
+            count_encode_bwd.launches += 1
+    return dWL, dWX

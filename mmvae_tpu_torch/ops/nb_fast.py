@@ -1,0 +1,400 @@
+"""Packed NB-VAE training step: reporting pass + bootstrap Adam steps.
+
+Port of ``mmvae_tpu/ops/nb_fast.py`` (``_Rows``, ``NBFastStep``,
+``PackedFastStep.batch_step`` with its ``rand=`` entry point,
+``_make_packed_optimizer``) for the reference's default architecture
+(direct D->R encoder and R->D decoder, no hidden layers).
+
+- **Packed parameters.**  Every D-sized parameter row lives in one
+  (K, D) float32 matrix ``P``; every small parameter in one flat vector
+  ``sv``.  The optimizer runs on the two leaves ``{P, sv}``.
+- **Folded standardization.**  ``((log1p(x) - x_mean) / sd) @ W`` is
+  ``log1p(x) @ (W / sd)^T - x_mean @ (W / sd)^T``, so each encoder pass
+  is the fused count-encoder (K4 forward, K5 backward) straight from the
+  integer counts; the nu / depth rows ride the same call against ``x``.
+- **Bootstrap on the input rows.**  Each boot step gathers ``x[ridx]``
+  and re-encodes it, as the JAX step does.
+- **Kernels.**  The reporting pass runs :func:`nb_step_report` (K1, K6),
+  each boot step :func:`nb_step_boot_gradonly` (K1, K2, K3).
+
+``NBFastStep(..., plain=True)`` is the plain route of the same step —
+``count_encode_ref`` and the differentiable ``step_nll_ref`` under
+autograd, the JAX package's XLA path — used to hold the kernel route
+against it on the card.
+
+Randomness is passed in (``rand``), never drawn in the step:
+:meth:`NBFastStep.draw_rand` draws a whole epoch from a
+``torch.Generator``, and the parity tests feed JAX's ``draw_rand`` draws
+through :func:`rand_from_numpy`, so both packages see the same noise.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .enc_kernel import count_encode, count_encode_ref
+from .losses import gaussian_kl, kl_weight_schedule
+from .nb_step import (_softplus, nb_step_boot_gradonly, nb_step_report,
+                      step_nll_ref)
+
+
+@dataclass(frozen=True)
+class _Rows:
+    """Row indices of the packed (K, D) parameter matrix (same layout as
+    the JAX package's, so packed states carry over unchanged)."""
+
+    R: int
+    C: int
+    H: int
+    Rn: int
+
+    @property
+    def mu_dec_w(self):  # (R, D)
+        return slice(0, self.R)
+
+    @property
+    def cov_dec_w(self):  # (C, D)
+        return slice(self.R, self.R + self.C)
+
+    @property
+    def mu_dec_b(self):
+        return self.R + self.C
+
+    @property
+    def cov_dec_b(self):
+        return self.R + self.C + 1
+
+    @property
+    def mu_bias(self):
+        return self.R + self.C + 2
+
+    @property
+    def nu_dec_w(self):  # (Rn, D)
+        a = self.R + self.C + 3
+        return slice(a, a + self.Rn)
+
+    @property
+    def nu_dec_b(self):
+        return self.R + self.C + 3 + self.Rn
+
+    @property
+    def nu_bias(self):
+        return self.R + self.C + 4 + self.Rn
+
+    @property
+    def x_mean(self):
+        return self.R + self.C + 5 + self.Rn
+
+    @property
+    def ln_x_sd(self):
+        return self.R + self.C + 6 + self.Rn
+
+    @property
+    def mu_enc_w(self):  # (R, D), transposed storage
+        a = self.R + self.C + 7 + self.Rn
+        return slice(a, a + self.R)
+
+    @property
+    def nu_enc_w(self):  # (H, D), transposed storage
+        a = self.R + self.C + 7 + self.Rn + self.R
+        return slice(a, a + self.H)
+
+    @property
+    def depth_w(self):  # (1, D), transposed storage
+        return self.R + self.C + 7 + self.Rn + self.R + self.H
+
+    @property
+    def nd_rows(self):  # (H + 1, D): nu_enc_w rows, then the depth row
+        a = self.R + self.C + 7 + self.Rn + self.R
+        return slice(a, a + self.H + 1)
+
+    @property
+    def K(self):
+        return self.R + self.C + 8 + self.Rn + self.R + self.H
+
+
+class PackedAdam:
+    """The JAX trainer's optimizer over ``{P, sv}``: optax's
+    ``chain(clip_by_global_norm(grad_clip), add_decayed_weights(wd),
+    scale_by_adam(0.9, 0.999, eps=1e-8), scale(-lr))``
+    (``train/loop.py:46-60``, ``ops/nb_fast.py:586-593``).
+
+    Not ``torch.optim.AdamW``: the clip divides first
+    (``g / |g| * max`` when ``|g| >= max``), weight decay is added to the
+    gradient before the moments, and the moment count is incremented
+    before the bias correction.  The state is ``{"count": int32 scalar,
+    "mu": {P, sv}, "nu": {P, sv}}``; updates are out of place."""
+
+    def __init__(self, lr: float, grad_clip: float, weight_decay: float,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.lr, self.grad_clip, self.weight_decay = lr, grad_clip, \
+            weight_decay
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    @staticmethod
+    def init(q: dict) -> dict:
+        dev = q["P"].device
+        return {"count": torch.zeros((), dtype=torch.int32, device=dev),
+                "mu": {k: torch.zeros_like(v) for k, v in q.items()},
+                "nu": {k: torch.zeros_like(v) for k, v in q.items()}}
+
+    def update(self, grads: dict, state: dict, q: dict
+               ) -> tuple[dict, dict]:
+        keys = sorted(q)  # the leaf order of the JAX pytree
+        g_norm = torch.sqrt(sum((torch.sum(grads[k] * grads[k])
+                                 for k in keys), torch.zeros((),
+                                device=q["P"].device)))
+        trigger = g_norm < self.grad_clip
+        count = state["count"] + 1
+        cf = count.to(torch.float32)
+        # scalar bases: no host-to-device copy (which would synchronise)
+        bc1 = 1.0 - torch.pow(self.b1, cf)
+        bc2 = 1.0 - torch.pow(self.b2, cf)
+        new_q, mu, nu = {}, {}, {}
+        for k in keys:
+            g = torch.where(trigger, grads[k],
+                            (grads[k] / g_norm) * self.grad_clip)
+            g = g + self.weight_decay * q[k]
+            mu[k] = (1 - self.b1) * g + self.b1 * state["mu"][k]
+            nu[k] = (1 - self.b2) * (g * g) + self.b2 * state["nu"][k]
+            u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps)
+            new_q[k] = q[k] + u * (-self.lr)
+        return new_q, {"count": count, "mu": mu, "nu": nu}
+
+
+def rand_from_numpy(tree, device: torch.device | str = "cpu"):
+    """A ``draw_rand`` tree of numpy arrays (e.g. the JAX package's draws)
+    -> tensors: integer leaves int64, the rest float32."""
+    if isinstance(tree, dict):
+        return {k: rand_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(rand_from_numpy(v, device) for v in tree)
+    a = np.asarray(tree)
+    dt = torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32
+    return torch.tensor(a, dtype=dt, device=device)
+
+
+def batch_rand(rand: dict, b: int) -> dict:
+    """Batch ``b``'s slice of an epoch of draws."""
+    return {"rep_eps": tuple(e[b] for e in rand["rep_eps"]),
+            "ridx": rand["ridx"][b],
+            "boot_eps": tuple(e[b] for e in rand["boot_eps"])}
+
+
+class NBFastStep:
+    """Packed-parameter step for :class:`~mmvae_tpu_torch.models.nb.NBVAE`:
+    converts between the named parameter dict (artifact and checkpoint
+    surface) and ``{P: (K, D), sv: (n,)}``, and runs one reference batch
+    step — reporting pass plus ``nboot`` bootstrap Adam steps
+    (mmvae_alg.hh:277-311) — on the packed state."""
+
+    def __init__(self, model, opt, kl=(1.0, 1e-2, 0.1), plain: bool = False):
+        if not self.supports(model):
+            raise NotImplementedError(
+                "the packed step needs the direct (no hidden layer) NB "
+                "architecture; hidden layers are not ported yet (ROADMAP.md "
+                "Queue 1 item 11, generic step path)")
+        self.model = model
+        self.opt = opt
+        self.kl_max, self.kl_min, self.kl_discount = kl
+        self.plain = plain
+        self.rows = _Rows(R=model.mean_latent, C=model.covar_dim,
+                          H=model.overdisp_encoding,
+                          Rn=model.overdisp_latent)
+        R, C, H, Rn = self.rows.R, self.rows.C, self.rows.H, self.rows.Rn
+        segs, off = {}, 0
+        for name, shape in [
+                ("mu_encoding.bias", (R,)),
+                ("covar_encoding.weight", (C, R)),
+                ("covar_encoding.bias", (R,)),
+                ("mu_representation_mean.weight", (R, R)),
+                ("mu_representation_mean.bias", (R,)),
+                ("mu_representation_logvariance.weight", (R, R)),
+                ("mu_representation_logvariance.bias", (R,)),
+                ("nu_encoding.bias", (H,)),
+                ("nu_representation_mean.weight", (H, Rn)),
+                ("nu_representation_mean.bias", (Rn,)),
+                ("nu_representation_logvariance.weight", (H, Rn)),
+                ("nu_representation_logvariance.bias", (Rn,)),
+                ("depth.bias", (1,))]:
+            segs[name] = (off, shape)
+            off += math.prod(shape)
+        self._sv_segs, self._sv_len = segs, off
+        self.optimizer = PackedAdam(opt.lr, opt.grad_clip, opt.weight_decay)
+        self._beta = None
+
+    @staticmethod
+    def supports(model) -> bool:
+        from ..models.nb import NBVAE
+
+        return (isinstance(model, NBVAE) and not model.mean_encoding
+                and not model.mean_decoding)
+
+    # ------------------------------------------------------------------
+    # layout: pack / unpack work on params AND on Adam-moment trees
+    # ------------------------------------------------------------------
+    def _sv(self, sv, name):
+        off, shape = self._sv_segs[name]
+        return sv[off:off + math.prod(shape)].reshape(shape)
+
+    def pack(self, t: dict) -> dict:
+        P = torch.cat([
+            t["mu_decoding"]["weight"],
+            t["covar_decoding"]["weight"],
+            t["mu_decoding"]["bias"][None, :],
+            t["covar_decoding"]["bias"][None, :],
+            t["mu_bias"],
+            t["nu_decoding"]["weight"],
+            t["nu_decoding"]["bias"][None, :],
+            t["nu_bias"],
+            t["x_mean"],
+            t["ln_x_sd"],
+            t["mu_encoding"]["weight"].T,
+            t["nu_encoding"]["weight"].T,
+            t["depth"]["weight"].T,
+        ], dim=0).contiguous()
+        assert P.shape[0] == self.rows.K
+        sv = torch.cat([t[top][leaf].reshape(-1) for top, leaf in
+                        (n.split(".") for n in self._sv_segs)])
+        return {"P": P, "sv": sv}
+
+    def unpack(self, q: dict) -> dict:
+        P, sv = q["P"], q["sv"]
+        r = self.rows
+        out = {
+            "x_mean": P[r.x_mean][None, :],
+            "ln_x_sd": P[r.ln_x_sd][None, :],
+            "mu_bias": P[r.mu_bias][None, :],
+            "nu_bias": P[r.nu_bias][None, :],
+            "mu_decoding": {"weight": P[r.mu_dec_w], "bias": P[r.mu_dec_b]},
+            "covar_decoding": {"weight": P[r.cov_dec_w],
+                               "bias": P[r.cov_dec_b]},
+            "nu_decoding": {"weight": P[r.nu_dec_w], "bias": P[r.nu_dec_b]},
+            "mu_encoding": {"weight": P[r.mu_enc_w].T},
+            "nu_encoding": {"weight": P[r.nu_enc_w].T},
+            "depth": {"weight": P[r.depth_w][:, None]},
+        }
+        for name in self._sv_segs:
+            top, leaf = name.split(".")
+            out.setdefault(top, {})[leaf] = self._sv(sv, name)
+        return out
+
+    def pack_opt_state(self, state: dict) -> dict:
+        """Named Adam state ``{count, mu, nu}`` -> packed."""
+        return {"count": state["count"], "mu": self.pack(state["mu"]),
+                "nu": self.pack(state["nu"])}
+
+    def unpack_opt_state(self, state: dict) -> dict:
+        return {"count": state["count"], "mu": self.unpack(state["mu"]),
+                "nu": self.unpack(state["nu"])}
+
+    # ------------------------------------------------------------------
+    # compute
+    # ------------------------------------------------------------------
+    def _heads(self, q, x, c):
+        """Encoder heads (reference nb.hh:403-431, 444-451, 498) with the
+        standardization folded into the count-encoder contraction."""
+        P, sv = q["P"], q["sv"]
+        r = self.rows
+        H = r.H
+        sd = _softplus(P[r.ln_x_sd]) + 1e-4                  # (D,)
+        Wt = P[r.mu_enc_w] / sd                              # (R, D)
+        enc = count_encode_ref if self.plain else count_encode
+        hL, nd = enc(x, Wt, P[r.nd_rows])
+        h = hL - P[r.x_mean] @ Wt.T                          # (B, R)
+        h = h + self._sv(sv, "mu_encoding.bias")
+        if self.model.do_relu:
+            h = torch.relu(h)
+        mu_mean = (h @ self._sv(sv, "mu_representation_mean.weight")
+                   + self._sv(sv, "mu_representation_mean.bias")
+                   + c @ self._sv(sv, "covar_encoding.weight")
+                   + self._sv(sv, "covar_encoding.bias"))
+        mu_lnvar = torch.clamp(
+            h @ self._sv(sv, "mu_representation_logvariance.weight")
+            + self._sv(sv, "mu_representation_logvariance.bias"), -4.0, 4.0)
+        nu_h = nd[:, :H] + self._sv(sv, "nu_encoding.bias")
+        nu_mean = (nu_h @ self._sv(sv, "nu_representation_mean.weight")
+                   + self._sv(sv, "nu_representation_mean.bias"))
+        nu_lnvar = torch.clamp(
+            nu_h @ self._sv(sv, "nu_representation_logvariance.weight")
+            + self._sv(sv, "nu_representation_logvariance.bias"), -4.0, 4.0)
+        depth = _softplus(nd[:, H:] + self._sv(sv, "depth.bias"))  # (B, 1)
+        return mu_mean, mu_lnvar, nu_mean, nu_lnvar, depth
+
+    def _kernel_rows(self, P):
+        r = self.rows
+        return (P[r.mu_dec_w], P[r.cov_dec_w],
+                P[r.mu_dec_b] + P[r.cov_dec_b] + P[r.mu_bias],
+                P[r.nu_dec_w], P[r.nu_dec_b] - P[r.nu_bias])
+
+    def _loss(self, q, x, c, ridx, eps, beta, include_const: bool,
+              boot: bool):
+        if ridx is not None:
+            # resample the INPUT rows and re-encode them (as in JAX)
+            x = x.index_select(0, ridx)
+            c = c.index_select(0, ridx)
+        mu_mean, mu_lnvar, nu_mean, nu_lnvar, depth = self._heads(q, x, c)
+        z_mu = mu_mean + eps[0] * torch.exp(mu_lnvar / 2.0)
+        z_nu = nu_mean + eps[1] * torch.exp(nu_lnvar / 2.0)
+        kl = gaussian_kl(mu_mean, mu_lnvar) + gaussian_kl(nu_mean, nu_lnvar)
+        args = (x, z_mu, c, z_nu, depth, *self._kernel_rows(q["P"]))
+        if self.plain:
+            nll = step_nll_ref(*args, include_const=include_const)
+        elif boot:
+            nll = nb_step_boot_gradonly(*args)
+        else:
+            nll = nb_step_report(*args, include_const=include_const)
+        return (nll + beta * kl) / x.shape[0]
+
+    # ------------------------------------------------------------------
+    # randomness
+    # ------------------------------------------------------------------
+    def draw_rand(self, gen: torch.Generator, nbatch: int, B: int) -> dict:
+        """Every draw of ``nbatch`` batch steps, with the structure of the
+        JAX package's ``draw_rand``: ``rep_eps`` ((nbatch, B, R),
+        (nbatch, B, Rn)), ``ridx`` (nbatch, nboot, B), ``boot_eps``
+        ((nbatch, nboot, B, R), (nbatch, nboot, B, Rn)), drawn on the
+        generator's device in one go."""
+        R, Rn, nb = self.rows.R, self.rows.Rn, self.opt.nboot
+        dev = gen.device
+
+        def normal(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        rep_eps = (normal(nbatch, B, R), normal(nbatch, B, Rn))
+        ridx = torch.randint(0, B, (nbatch, nb, B), generator=gen,
+                             device=dev)
+        boot_eps = (normal(nbatch, nb, B, R), normal(nbatch, nb, B, Rn))
+        return dict(rep_eps=rep_eps, ridx=ridx, boot_eps=boot_eps)
+
+    def _beta_for(self, epoch_f: float, device) -> torch.Tensor:
+        key = (float(epoch_f), str(device))
+        if self._beta is None or self._beta[0] != key:
+            beta = kl_weight_schedule(epoch_f, self.kl_max, self.kl_min,
+                                      self.kl_discount).to(device)
+            self._beta = (key, beta)
+        return self._beta[1]
+
+    def batch_step(self, q: dict, opt_state: dict, x, c, epoch_f,
+                   rand: dict):
+        """One reference batch step on packed state: the reporting pass
+        (no update) and ``nboot`` bootstrap-resampled Adam steps.
+        Returns (q, opt_state, report)."""
+        beta = self._beta_for(epoch_f, x.device)
+        with torch.no_grad():
+            report = self._loss(q, x, c, None, rand["rep_eps"], beta,
+                                include_const=True, boot=False)
+        for i in range(self.opt.nboot):
+            qq = {k: v.detach().requires_grad_() for k, v in q.items()}
+            eps = tuple(e[i] for e in rand["boot_eps"])
+            loss = self._loss(qq, x, c, rand["ridx"][i], eps, beta,
+                              include_const=False, boot=True)
+            gP, gsv = torch.autograd.grad(loss, (qq["P"], qq["sv"]))
+            with torch.no_grad():
+                q, opt_state = self.optimizer.update(
+                    {"P": gP, "sv": gsv}, opt_state, q)
+        return q, opt_state, report

@@ -1,0 +1,365 @@
+"""Fused NB-VAE step: reporting NLL and the grad-only boot-step NLL.
+
+Port of ``mmvae_tpu/ops/nb_step.py`` for the default NB model.  The
+decoder logits ``h = zm @ wd + c @ wc + bias2`` and the overdispersion
+pre-activation ``zn @ wn + bias_n`` are built inside the kernels from the
+(B, R) latents and the stacked weight rows ``W = [wd; wc; bias2; wn;
+bias_n]`` (T = R + C + Rn + 2 rows), so the only (B, D) tensor any kernel
+reads is the count matrix ``x`` (int8, int16 or float32).
+
+Four kernels, each a wrapper with a plain PyTorch version beside it:
+
+- :func:`lse` (K1): row logsumexp of ``h``;
+- :func:`value` (K6): the NB NLL given that normaliser (reporting pass);
+- :func:`valgrad` (K2): one pass over ``x`` giving the stacked per-column
+  gradient rows ``gout`` and the per-row ``rsum``, ``u1``, ``dzn``;
+- :func:`finish` (K3): the softmax-coupling terms ``fout``, ``u2``.
+
+A wrapper given CPU tensors runs its plain version; given CUDA tensors it
+launches its kernel (``mmvae_tpu_torch/csrc/nb_*.cu``) or raises — there
+is no fallback on the card.  ``<wrapper>.launches`` counts launches.
+
+:func:`nb_step_report` runs K1 then K6.  :func:`nb_step_boot_gradonly`
+is a ``torch.autograd.Function`` whose forward runs K1, K2, K3 and
+assembles the gradients (``_boot_fwd_impl``, nb_step.py:844-868), and
+whose backward scales them by the incoming cotangent (``_boot_bwd``); its
+primal is 0.0, as on the JAX kernel path: boot losses are consumed by the
+gradient only.  :func:`step_nll_ref` is the differentiable plain
+specification (``xla_step_nll``); the JAX package's joint-model options
+``pb`` / ``nu_exp`` and tensor-parallel ``model_axis`` are not ported.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .enc_kernel import _DTYPE_CODE
+from .nb_elbo import EPS, NU_HI, NU_LO
+
+MAX_STACKED_ROWS = 16  # T = R + C + Rn + 2 the kernels take
+
+
+def _softplus(v: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(v, 0)."""
+    return torch.logaddexp(v, torch.zeros_like(v))
+
+
+def _terms(x, ls, nu_pre, depth, include_const: bool) -> torch.Tensor:
+    """Per-element NB NLL terms from log-softmax ``ls`` and the
+    overdispersion pre-activation (reference nb.hh:453-460, 511-531)."""
+    x = x.float()
+    mu = torch.exp(ls) * depth + EPS
+    nu = torch.clamp(_softplus(nu_pre), NU_LO, NU_HI) + EPS
+    denom = torch.log(mu + nu)
+    terms = (torch.lgamma(nu) - torch.lgamma(nu + x)
+             + x * (denom - torch.log(mu)) + nu * (denom - torch.log(nu)))
+    if include_const:
+        terms = terms + torch.lgamma(x + 1.0)
+    return terms
+
+
+def step_nll_ref(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n,
+                 include_const: bool = False) -> torch.Tensor:
+    """Plain, differentiable specification of the fused step NLL
+    (``xla_step_nll``, nb_step.py:102)."""
+    h = zm @ wd + c @ wc + bias2
+    return _terms(x, torch.log_softmax(h, dim=1), zn @ wn + bias_n, depth,
+                  include_const).sum()
+
+
+def stack_rows(wd, wc, bias2, wn, bias_n) -> torch.Tensor:
+    """``W = [wd; wc; bias2; wn; bias_n]`` (T, D), the host stacking of
+    ``_prep`` (nb_step.py:732) without the TPU's 8-row and lane padding."""
+    return torch.cat([wd, wc, bias2.reshape(1, -1), wn,
+                      bias_n.reshape(1, -1)], dim=0).contiguous()
+
+
+def _h(zc, W, RC):
+    return zc @ W[:RC] + W[RC]
+
+
+def _nupre(zn, W, base, Rn):
+    return zn @ W[base:base + Rn] + W[base + Rn]
+
+
+# ----------------------------------------------------------------------
+# plain versions of the four kernels (same inputs, same outputs)
+# ----------------------------------------------------------------------
+
+def lse_ref(zc, W, R, C):
+    """(B, 1) logsumexp over D of ``h = zc @ W[:R+C] + W[R+C]``."""
+    return torch.logsumexp(_h(zc, W, R + C), dim=1, keepdim=True)
+
+
+def value_ref(x, zc, zn, depth, lse, W, R, C, Rn, with_const: bool):
+    """Scalar NB NLL with ``log_softmax(h) = h - lse``."""
+    RC = R + C
+    return _terms(x, _h(zc, W, RC) - lse, _nupre(zn, W, RC + 1, Rn), depth,
+                  with_const).sum()
+
+
+def valgrad_ref(x, zc, zn, depth, lse, W, R, C, Rn):
+    """K2's outputs from autograd of the plain NLL (``include_const``
+    off): ``dls = d nll / d h`` with the normaliser ``lse`` held fixed,
+    ``dnp = d nll / d nu_pre``, assembled as (gout (T, D), rsum (B, 1),
+    u1 (B, R), dzn (B, Rn))."""
+    RC = R + C
+    base = RC + 1
+    zc, zn, depth, lse, W = (t.detach() for t in (zc, zn, depth, lse, W))
+    with torch.enable_grad():
+        h = _h(zc, W, RC).requires_grad_()
+        npre = _nupre(zn, W, base, Rn).requires_grad_()
+        nll = _terms(x, h - lse, npre, depth, False).sum()
+        dls, dnp = torch.autograd.grad(nll, (h, npre))
+    gout = torch.cat([zc.T @ dls, dls.sum(0, keepdim=True), zn.T @ dnp,
+                      dnp.sum(0, keepdim=True)])
+    return (gout, dls.sum(1, keepdim=True), dls @ W[:R].T,
+            dnp @ W[base:base + Rn].T)
+
+
+def finish_ref(zc, lse, rsum, W, R, C):
+    """K3's outputs: ``p = exp(h - lse)``; ``fout = [zc^T (p rsum);
+    colsum(p rsum)]`` (R+C+1, D) and ``u2 = p @ wd^T`` (B, R)."""
+    RC = R + C
+    p = torch.exp(_h(zc, W, RC) - lse)
+    pr = p * rsum
+    return torch.cat([zc.T @ pr, pr.sum(0, keepdim=True)]), p @ W[:R].T
+
+
+# ----------------------------------------------------------------------
+# kernel wrappers
+# ----------------------------------------------------------------------
+
+def _check(what: str, x, named: dict) -> torch.device:
+    """Everything the kernels do not take raises here, before any CUDA
+    call.  ``named`` maps a name to (tensor, expected shape)."""
+    dev = next(iter(named.values()))[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: no kernel for device {dev}")
+    if x is not None:
+        if x.dtype not in _DTYPE_CODE:
+            raise TypeError(f"{what}: x must be int8, int16 or float32, "
+                            f"got {x.dtype}")
+        named = {"x": (x, None), **named}
+    for name, (t, shape) in named.items():
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} is on {t.device}, not {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if name != "x" and t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        if shape is not None and tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+    return dev
+
+
+def _dims(zc, W, R, C, Rn=1):
+    B, D = zc.shape[0], W.shape[1]
+    if zc.dim() != 2 or W.dim() != 2 or zc.shape[1] != R + C:
+        raise ValueError(f"zc {tuple(zc.shape)} / W {tuple(W.shape)} do not "
+                         f"match R={R}, C={C}")
+    if R < 1 or C < 0 or Rn < 1 or R + C + Rn + 2 > MAX_STACKED_ROWS:
+        raise ValueError(f"the step kernels take R >= 1, Rn >= 1 and "
+                         f"R + C + Rn + 2 <= {MAX_STACKED_ROWS} stacked rows "
+                         f"(R={R}, C={C}, Rn={Rn})")
+    if B < 1 or D < 1:
+        raise ValueError(f"empty operands (B={B}, D={D})")
+    return B, D
+
+
+def _lib():
+    from . import _cuda
+
+    return _cuda.lib()
+
+
+def _call(dev, what: str, fn: str, *args) -> None:
+    """Launch C entry ``fn`` on ``dev``'s current stream; raise if the
+    launch was refused."""
+    from . import _cuda
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _cuda.check(getattr(_lib(), fn)(*args, stream), what)
+
+
+def _f32(shape, dev):
+    return torch.empty(shape, dtype=torch.float32, device=dev)
+
+
+def lse(zc, W, R: int, C: int) -> torch.Tensor:
+    """K1: (B, 1) row logsumexp of ``h = zc @ W[:R+C] + W[R+C]``."""
+    if zc.device.type == "cpu":
+        return lse_ref(zc, W, R, C)
+    return _lse_kernel(zc, W, R, C)
+
+
+def _lse_kernel(zc, W, R, C):
+    B, D = _dims(zc, W, R, C)
+    dev = _check("nb_step.lse", None, {"zc": (zc, (B, R + C)),
+                                       "W": (W, (W.shape[0], D))})
+    if W.shape[0] < R + C + 1:
+        raise ValueError("nb_step.lse: W needs R + C + 1 rows")
+    ws = _f32((_lib().mmvae_nb_lse_ws(B, D),), dev)
+    out = _f32((B, 1), dev)
+    _call(dev, "nb_step.lse", "mmvae_nb_lse", zc.data_ptr(), W.data_ptr(),
+          B, D, R, C, ws.data_ptr(), out.data_ptr())
+    lse.launches += 1
+    return out
+
+
+lse.launches = 0
+
+
+def _row_inputs(what, x, zc, zn, depth, norm, W, R, C, Rn):
+    B, D = _dims(zc, W, R, C, Rn)
+    if tuple(x.shape) != (B, D):
+        raise ValueError(f"{what}: x has shape {tuple(x.shape)}, expected "
+                         f"{(B, D)}")
+    dev = _check(what, x, {
+        "zc": (zc, (B, R + C)), "zn": (zn, (B, Rn)), "depth": (depth, (B, 1)),
+        "lse": (norm, (B, 1)), "W": (W, (R + C + Rn + 2, D))})
+    return B, D, dev
+
+
+def value(x, zc, zn, depth, norm, W, R: int, C: int, Rn: int,
+          with_const: bool = True) -> torch.Tensor:
+    """K6: scalar NB NLL given the row normaliser ``norm`` (reporting
+    pass); ``with_const`` adds ``lgamma(x + 1)``."""
+    if x.device.type == "cpu":
+        return value_ref(x, zc, zn, depth, norm, W, R, C, Rn, with_const)
+    return _value_kernel(x, zc, zn, depth, norm, W, R, C, Rn, with_const)
+
+
+def _value_kernel(x, zc, zn, depth, norm, W, R, C, Rn, with_const):
+    B, D, dev = _row_inputs("nb_step.value", x, zc, zn, depth, norm, W, R,
+                            C, Rn)
+    ws = _f32((_lib().mmvae_nb_value_ws(D),), dev)
+    out = _f32((), dev)
+    _call(dev, "nb_step.value", "mmvae_nb_value", x.data_ptr(),
+          _DTYPE_CODE[x.dtype], zc.data_ptr(), zn.data_ptr(),
+          depth.data_ptr(), norm.data_ptr(), W.data_ptr(), B, D, R, C, Rn,
+          int(with_const), ws.data_ptr(), out.data_ptr())
+    value.launches += 1
+    return out
+
+
+value.launches = 0
+
+
+def valgrad(x, zc, zn, depth, norm, W, R: int, C: int, Rn: int):
+    """K2 (grad-only): (gout (T, D), rsum (B, 1), u1 (B, R), dzn (B, Rn))
+    of the NLL without ``lgamma(x + 1)``, normaliser ``norm`` held fixed."""
+    if x.device.type == "cpu":
+        return valgrad_ref(x, zc, zn, depth, norm, W, R, C, Rn)
+    return _valgrad_kernel(x, zc, zn, depth, norm, W, R, C, Rn)
+
+
+def _valgrad_kernel(x, zc, zn, depth, norm, W, R, C, Rn):
+    B, D, dev = _row_inputs("nb_step.valgrad", x, zc, zn, depth, norm, W,
+                            R, C, Rn)
+    ws = _f32((_lib().mmvae_nb_valgrad_ws(B, D, R, Rn),), dev)
+    gout = _f32((R + C + Rn + 2, D), dev)
+    rows = _f32((B, 1 + R + Rn), dev)
+    _call(dev, "nb_step.valgrad", "mmvae_nb_valgrad", x.data_ptr(),
+          _DTYPE_CODE[x.dtype], zc.data_ptr(), zn.data_ptr(),
+          depth.data_ptr(), norm.data_ptr(), W.data_ptr(), B, D, R, C, Rn,
+          gout.data_ptr(), ws.data_ptr(), rows.data_ptr())
+    valgrad.launches += 1
+    return gout, rows[:, :1], rows[:, 1:1 + R], rows[:, 1 + R:]
+
+
+valgrad.launches = 0
+
+
+def finish(zc, norm, rsum, W, R: int, C: int):
+    """K3: (fout (R+C+1, D), u2 (B, R)) — the softmax-coupling terms,
+    recomputing ``p = softmax(h)`` from the latents (no read of x)."""
+    if zc.device.type == "cpu":
+        return finish_ref(zc, norm, rsum, W, R, C)
+    return _finish_kernel(zc, norm, rsum, W, R, C)
+
+
+def _finish_kernel(zc, norm, rsum, W, R, C):
+    B, D = _dims(zc, W, R, C)
+    rsum = rsum.contiguous()
+    dev = _check("nb_step.finish", None, {
+        "zc": (zc, (B, R + C)), "lse": (norm, (B, 1)),
+        "rsum": (rsum, (B, 1)), "W": (W, (W.shape[0], D))})
+    if W.shape[0] < R + C + 1:
+        raise ValueError("nb_step.finish: W needs R + C + 1 rows")
+    ws = _f32((_lib().mmvae_nb_finish_ws(B, D, R),), dev)
+    fout = _f32((R + C + 1, D), dev)
+    u2 = _f32((B, R), dev)
+    _call(dev, "nb_step.finish", "mmvae_nb_finish", zc.data_ptr(),
+          norm.data_ptr(), rsum.data_ptr(), W.data_ptr(), B, D, R, C,
+          fout.data_ptr(), ws.data_ptr(), u2.data_ptr())
+    finish.launches += 1
+    return fout, u2
+
+
+finish.launches = 0
+
+
+# ----------------------------------------------------------------------
+# public ops
+# ----------------------------------------------------------------------
+
+def _operands(zm, c, zn, depth, wd, wc, bias2, wn, bias_n):
+    zc = torch.cat([zm, c], dim=1).contiguous()
+    W = stack_rows(wd, wc, bias2, wn, bias_n)
+    return zc, zn.contiguous(), depth.contiguous(), W
+
+
+def nb_step_report(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n,
+                   include_const: bool = True) -> torch.Tensor:
+    """Reporting-pass NLL (value only, no gradient; reference
+    mmvae_alg.hh:277-285): K1 then K6."""
+    R, C, Rn = zm.shape[1], c.shape[1], zn.shape[1]
+    with torch.no_grad():
+        zc, zn, depth, W = _operands(zm, c, zn, depth, wd, wc, bias2, wn,
+                                     bias_n)
+        return value(x, zc, zn, depth, lse(zc, W, R, C), W, R, C, Rn,
+                     include_const)
+
+
+class _BootGradOnly(torch.autograd.Function):
+    """Grad-only boot-step NLL: the forward computes every gradient in
+    one pass (K1 -> K2 -> K3) and saves it; the backward scales."""
+
+    @staticmethod
+    def forward(ctx, x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n):
+        R, C, Rn = zm.shape[1], c.shape[1], zn.shape[1]
+        zc, znc, dep, W = _operands(zm, c, zn, depth, wd, wc, bias2, wn,
+                                    bias_n)
+        norm = lse(zc, W, R, C)
+        gout, rsum, u1, dzn = valgrad(x, zc, znc, dep, norm, W, R, C, Rn)
+        # d nll / d depth = rowsum(dmu * p) = rsum / depth exactly; at
+        # depth == 0 the 0/0 is zeroed (depth >= 0 at every call site)
+        dd = torch.where(dep > 0, rsum / torch.clamp_min(dep, 1e-30),
+                         torch.zeros_like(rsum))
+        fout, u2 = finish(zc, norm, rsum, W, R, C)
+        # dh = dls - p * rowsum(dls): gout holds the dls contractions,
+        # fout the p * rowsum ones
+        gw = gout[:R + C + 1] - fout
+        base = R + C + 1
+        ctx.save_for_backward(u1 - rsum * u2, dzn, dd, gw[:R], gw[R:R + C],
+                              gw[R + C], gout[base:base + Rn],
+                              gout[base + Rn])
+        return zm.new_zeros(())
+
+    @staticmethod
+    def backward(ctx, g):
+        d_zm, d_zn, d_dep, d_wd, d_wc, d_b2, d_wn, d_bn = ctx.saved_tensors
+        return (None, g * d_zm, None, g * d_zn, g * d_dep, g * d_wd,
+                g * d_wc, g * d_b2, g * d_wn, g * d_bn)
+
+
+def nb_step_boot_gradonly(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n
+                          ) -> torch.Tensor:
+    """Boot-step NLL (no ``lgamma(x + 1)``) whose primal is 0.0 and whose
+    gradient in (zm, zn, depth, wd, wc, bias2, wn, bias_n) is the NLL's;
+    x and c are data.  Never use it where the loss value is read."""
+    return _BootGradOnly.apply(x, zm, c, zn, depth, wd, wc, bias2, wn,
+                               bias_n)

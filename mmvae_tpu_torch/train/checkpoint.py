@@ -1,12 +1,20 @@
-"""Params-only checkpoints in ``mmvae_tpu``'s npz layout.
+"""Checkpoints in ``mmvae_tpu``'s npz layout, with the Adam state.
 
-Port of the parameter half of ``mmvae_tpu/train/checkpoint.py``, numpy
-only.  A checkpoint is ``<dir>/ckpt.npz`` holding ``params/<name>/<leaf>``
-arrays and a ``__meta__`` JSON record (``epoch``, ``seed``, ``loss_vec``,
-``opt_treedef``, ``n_opt_leaves``), plus a ``meta.json`` sidecar.  The
-files written here load in ``mmvae_tpu.train.checkpoint.load_checkpoint``
-with ``opt_state_template=None``, and JAX checkpoints load here; the
-optimizer state comes with the training port.
+Port of ``mmvae_tpu/train/checkpoint.py``, numpy only.  A checkpoint is
+``<dir>/ckpt.npz`` holding ``params/<name>/<leaf>`` arrays, the optimizer
+state, and a ``__meta__`` JSON record (``epoch``, ``seed``, ``loss_vec``,
+``opt_treedef``, ``n_opt_leaves``), plus a ``meta.json`` sidecar.
+
+The optimizer state is the JAX trainer's optax chain ``(clip, wd, adam,
+scale)``, of which only element 2, ``ScaleByAdamState(count, mu, nu)``,
+holds leaves.  It is stored in the named (unpacked) tree under the keys
+``jax.tree_util.keystr`` gives that chain: ``opt/[2].count``,
+``opt/[2].mu['mu_decoding']['weight']``, ..., ``opt/[2].nu[...]``, with
+``n_opt_leaves = 1 + 2 * (number of params)``.  So
+``mmvae_tpu.train.checkpoint.load_checkpoint`` with an optimizer template
+resumes a checkpoint written here, and :func:`load_opt_state` reads one
+written by the JAX trainer.  Params-only checkpoints (``opt_state=None``)
+keep ``n_opt_leaves = 0``.
 """
 
 from __future__ import annotations
@@ -44,24 +52,74 @@ def _atomic_write(path: str, write) -> None:
             os.remove(tmp)
 
 
+def _keystr(key: str) -> str:
+    """``jax.tree_util.keystr`` of a ``/``-joined dict path."""
+    return "".join(f"['{p}']" for p in key.split("/"))
+
+
+def _read_tree(data, template: dict, name) -> dict:
+    """The arrays ``data[name(key)]`` for every leaf of ``template``, as
+    a tree of the same shape; a missing key or a shape mismatch raises."""
+    tree: dict = {}
+    for key, leaf in _flatten(template).items():
+        arr = data[name(key)]
+        if arr.shape != tuple(leaf.shape):
+            raise ValueError(f"checkpoint shape mismatch for {name(key)}: "
+                             f"{arr.shape} vs {tuple(leaf.shape)}")
+        node = tree
+        *parents, last = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = arr
+    return tree
+
+
+def _treedef(tree: dict) -> str:
+    """The JAX treedef text of a nested dict (keys sorted, as JAX
+    flattens them)."""
+    return "{" + ", ".join(
+        f"'{k}': " + (_treedef(tree[k]) if isinstance(tree[k], dict)
+                      else "*") for k in sorted(tree)) + "}"
+
+
+_EMPTY = "CustomNode(namedtuple[EmptyState], [])"
+
+
+def _opt_entries(opt_state: dict) -> tuple[dict, str]:
+    """npz entries and treedef text of a named Adam state ``{count, mu,
+    nu}`` (tensors or numpy)."""
+    count, mu, nu = (params_to_numpy(opt_state[k]) for k in ("count", "mu", "nu"))
+    flat = {"opt/[2].count": np.asarray(count, np.int32)}
+    for m, tree in (("mu", mu), ("nu", nu)):
+        flat.update({f"opt/[2].{m}{_keystr(k)}": v
+                     for k, v in _flatten(tree).items()})
+    t = _treedef(mu)
+    treedef = (f"PyTreeDef(({_EMPTY}, {_EMPTY}, CustomNode(namedtuple"
+               f"[ScaleByAdamState], [*, {t}, {t}]), {_EMPTY}))")
+    return flat, treedef
+
+
 def save_checkpoint(ckpt_dir: str, params: dict, epoch: int, seed: int,
-                    loss_vec=()) -> str:
-    """Atomically write ``<ckpt_dir>/ckpt.npz`` + ``meta.json`` with the
-    parameters only (no optimizer state)."""
+                    loss_vec=(), opt_state: dict | None = None) -> str:
+    """Atomically write ``<ckpt_dir>/ckpt.npz`` + ``meta.json``: the
+    parameters and, when given, the named Adam state ``{count, mu, nu}``
+    (the trainer's ``unpack_opt_state``)."""
     os.makedirs(ckpt_dir, exist_ok=True)
     flat_p = {f"params/{k}": v
               for k, v in _flatten(params_to_numpy(params)).items()}
+    flat_o, treedef = ({}, "") if opt_state is None else _opt_entries(
+        opt_state)
     meta = {
         "epoch": int(epoch),
         "seed": int(seed),
         "loss_vec": [float(v) for v in loss_vec],
-        "opt_treedef": "",
-        "n_opt_leaves": 0,
+        "opt_treedef": treedef,
+        "n_opt_leaves": len(flat_o),
     }
     meta_arr = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
     path = os.path.join(ckpt_dir, "ckpt.npz")
     _atomic_write(path, lambda tmp: np.savez(tmp, __meta__=meta_arr,
-                                             **flat_p))
+                                             **flat_p, **flat_o))
 
     def write_meta(tmp):
         with open(tmp, "w") as f:
@@ -84,15 +142,28 @@ def load_checkpoint(ckpt_dir: str, model) -> tuple[dict, int, list[float]]:
         else:  # round-1 JAX checkpoints: sidecar json only
             with open(os.path.join(ckpt_dir, "meta.json")) as f:
                 meta = json.load(f)
-        params: dict = {}
-        for key, leaf in _flatten(template).items():
-            arr = data[f"params/{key}"]
-            if arr.shape != tuple(leaf.shape):
-                raise ValueError(f"checkpoint shape mismatch for {key}: "
-                                 f"{arr.shape} vs {tuple(leaf.shape)}")
-            node = params
-            *parents, name = key.split("/")
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[name] = arr
+        params = _read_tree(data, template, lambda k: f"params/{k}")
     return params, meta["epoch"] + 1, list(meta["loss_vec"])
+
+
+def load_opt_state(ckpt_dir: str, model) -> dict:
+    """The Adam state of a checkpoint written by either package, as
+    numpy ``{"count", "mu", "nu"}`` in the named tree (convert with
+    :func:`mmvae_tpu_torch.models.nb.adam_from_numpy`).  Raises when the
+    checkpoint holds no optimizer state or one of another structure."""
+    template = model.init(torch.Generator().manual_seed(0))
+    with np.load(os.path.join(ckpt_dir, "ckpt.npz")) as data:
+        stored = {k for k in data.files if k.startswith("opt/")}
+        want = {"opt/[2].count"} | {f"opt/[2].{m}{_keystr(k)}"
+                                    for m in ("mu", "nu")
+                                    for k in _flatten(template)}
+        if stored != want:
+            raise ValueError(
+                f"{ckpt_dir}: optimizer state structure differs; cannot "
+                f"resume (missing: {sorted(want - stored)[:3]}, "
+                f"unexpected: {sorted(stored - want)[:3]})")
+        out = {"count": np.asarray(data["opt/[2].count"], np.int32)}
+        for m in ("mu", "nu"):
+            out[m] = _read_tree(data, template,
+                                lambda k, m=m: f"opt/[2].{m}{_keystr(k)}")
+    return out

@@ -1,20 +1,28 @@
-"""Whole-dataset encoding sweeps and the dense device-resident matrix.
+"""Training epochs, whole-dataset encoding sweeps, the resident matrix.
 
-Ports of ``mmvae_tpu/train/loop.py`` ``_as_memory_block`` /
-``_build_dense`` and of the two sweeps of ``mmvae_tpu/cli/encode.py``:
+Ports of ``mmvae_tpu/train/loop.py`` (``_as_memory_block``,
+``_build_dense``, the dense-resident branch of
+``Trainer.make_ondevice_epoch`` and the single-device dense-resident path
+of ``train_vae_model``) and of the two sweeps of
+``mmvae_tpu/cli/encode.py``:
 
-- :func:`encode_resident`: the (N, D) counts live on the device in their
-  narrow integer dtype; ``chunk`` batches of B rows go through the
+- :class:`DenseEpochRunner` / :func:`train_vae_model`: the (N, D) counts
+  live on the device in their narrow integer dtype; each epoch walks the
+  reference's sequential wrap-around batch schedule (a contiguous slice
+  when N % B == 0) through the packed fast step, with every random draw
+  of the epoch made up front;
+- :func:`encode_resident`: ``chunk`` batches of B rows go through the
   encoder per kernel launch (the encoder works row by row, so grouping
   changes no result);
 - :func:`encode_streaming`: batches read from the out-of-core block in
   the reference's sequential wrap-around order, ``chunk`` batches per
   host->device copy.
-
-The training epoch runners come with the training port.
 """
 
 from __future__ import annotations
+
+import os
+import time
 
 import numpy as np
 import torch
@@ -23,6 +31,10 @@ from mmvae_tpu.data.block import MtxDataBlock, MtxMemoryBlock
 from mmvae_tpu.data.pipeline import sequential_batches
 from mmvae_tpu.io import native
 from mmvae_tpu.utils.logging import TLOG
+from mmvae_tpu.utils.metrics import MetricsLogger
+
+from ..ops.losses import kl_weight_schedule
+from ..ops.nb_fast import batch_rand
 
 
 def as_memory_block(block):
@@ -96,3 +108,154 @@ def encode_streaming(model, params: dict, db, B: int, chunk: int,
             mean_out[batch] = mean[j * B:(j + 1) * B]
             lnvar_out[batch] = lnvar[j * B:(j + 1) * B]
     return mean_out, lnvar_out
+
+
+def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
+    """The generator of one epoch's draws: a pure function of (seed,
+    epoch), so a resumed run draws what the uninterrupted one drew."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(seed) << 20) + int(epoch))
+    return gen
+
+
+class DenseEpochRunner:
+    """One training epoch over device-resident counts (the dense branch
+    of ``Trainer.make_ondevice_epoch``, train/loop.py:411-556).
+
+    The schedule is the reference's sequential wrap-around one
+    (mmvae_alg.hh:261-266): batch b is rows (b*B + i) % N, a contiguous
+    slice when N % B == 0.  The covariate is the all-ones column unless a
+    dense (N, C) covariate matrix is given.  ``record_fn(params, x) ->
+    (mean, lnvar)`` is evaluated right after each batch's updates on a
+    recording epoch (the recorder's observation point,
+    mmvae_alg.hh:315-317)."""
+
+    def __init__(self, fast, data: torch.Tensor, B: int, seed: int = 0,
+                 covar: torch.Tensor | None = None, covar_dim: int = 1,
+                 record_fn=None):
+        self.fast, self.data, self.B, self.seed = fast, data, B, seed
+        self.covar, self.record_fn = covar, record_fn
+        self.N = data.shape[0]
+        self.nbatch = self.N // B + (1 if self.N % B else 0)
+        self.device = data.device
+        self.ones = torch.ones((B, covar_dim), dtype=torch.float32,
+                               device=self.device)
+        self.cols = (None if self.N % B == 0 else torch.from_numpy(
+            np.stack(sequential_batches(self.N, B))).to(self.device))
+
+    def draw(self, epoch: int) -> dict:
+        return self.fast.draw_rand(
+            epoch_generator(self.seed, epoch, self.device), self.nbatch,
+            self.B)
+
+    def _rows(self, b: int):
+        if self.N % self.B == 0:
+            sl = slice(b * self.B, (b + 1) * self.B)
+            return self.data[sl], (self.ones if self.covar is None
+                                   else self.covar[sl])
+        cols = self.cols[b]
+        return self.data.index_select(0, cols), (
+            self.ones if self.covar is None
+            else self.covar.index_select(0, cols))
+
+    def __call__(self, q: dict, opt_state: dict, epoch: int,
+                 record: bool = False, rand: dict | None = None):
+        """Run one epoch; returns (q, opt_state, reports (nbatch,),
+        (mean, lnvar) of shape (nbatch, B, R) on a recording epoch, else
+        None).  ``rand`` overrides the epoch's draws (tests feed the JAX
+        package's)."""
+        rand = self.draw(epoch) if rand is None else rand
+        reps = torch.empty(self.nbatch, dtype=torch.float32,
+                           device=self.device)
+        enc = None
+        for b in range(self.nbatch):
+            x, c = self._rows(b)
+            q, opt_state, rep = self.fast.batch_step(
+                q, opt_state, x, c, float(epoch), batch_rand(rand, b))
+            reps[b] = rep
+            if record:
+                mean, lnvar = self.record_fn(self.fast.unpack(q), x)
+                if enc is None:
+                    enc = tuple(torch.empty((self.nbatch, *t.shape),
+                                            dtype=t.dtype, device=t.device)
+                                for t in (mean, lnvar))
+                enc[0][b] = mean
+                enc[1][b] = lnvar
+        return q, opt_state, reps, enc
+
+
+def train_vae_model(fast, recorder, data_block, covar_block, opt,
+                    init_params: dict, device, start_epoch: int = 0,
+                    init_opt_state: dict | None = None, on_epoch_end=None,
+                    metrics_path: str | None = None
+                    ) -> tuple[dict, list[float]]:
+    """The training loop (reference mmvae_alg.hh:200-338) on the
+    dense-resident path only: the counts are copied to ``device`` once
+    and every epoch runs :class:`DenseEpochRunner`.
+
+    ``init_opt_state`` is the named Adam state ``{count, mu, nu}``;
+    ``on_epoch_end(epoch, params, opt_state, loss_vec)`` gets the named
+    trees after every epoch (checkpointing).  Returns (trained params,
+    per-epoch mean reported loss)."""
+    ntot = data_block.ntot()
+    B = data_block.size()
+    if ntot != covar_block.ntot() or B != covar_block.size():
+        raise ValueError("data and covariate blocks differ in cells or "
+                         "batch size")
+    batches = sequential_batches(ntot, B)
+    TLOG(f"Batch size = {B}, Number of batches = {len(batches)}")
+
+    data_mem = as_memory_block(data_block)
+    vd = np.dtype(getattr(data_mem, "val_dtype", np.float32))
+    dense_bytes = ntot * data_mem.nfeature() * vd.itemsize
+    budget = int(os.environ.get("MMVAE_DENSE_BYTES", 6 << 30))
+    if not 0 < dense_bytes <= budget:
+        raise NotImplementedError(
+            f"the {vd.name} count matrix ({dense_bytes / 1e6:,.0f} MB) "
+            f"exceeds MMVAE_DENSE_BYTES={budget / 1e6:,.0f} MB: training "
+            f"beyond the dense-resident budget (ELL, rotation, host "
+            f"streaming) is not ported yet (ROADMAP.md Queue 1 item 12)")
+    TLOG(f"Loading data on device (dense-resident, "
+         f"{dense_bytes / 1e6:,.0f} MB {vd.name})")
+    data = build_dense(data_mem, device)
+    covar = None
+    if not getattr(covar_block, "auto_ones", False):
+        covar = build_dense(covar_block, device).float()
+    TLOG("Feature clustering is not applied (not ported yet, ROADMAP.md "
+         "Queue 1 item 8): genes stay in input order")
+    if torch.device(device).type == "cuda":
+        from ..ops import _cuda
+
+        _cuda.lib()  # build the kernels now, outside the epoch timing
+
+    runner = DenseEpochRunner(
+        fast, data, B, seed=opt.seed, covar=covar,
+        covar_dim=covar_block.nfeature(),
+        record_fn=recorder.encode if recorder is not None else None)
+    q = fast.pack(init_params)
+    po = (fast.pack_opt_state(init_opt_state) if init_opt_state is not None
+          else fast.optimizer.init(q))
+    kl = (fast.kl_max, fast.kl_min, fast.kl_discount)
+    metrics = MetricsLogger(metrics_path)
+    loss_vec: list[float] = []
+    for epoch in range(start_epoch, opt.max_epoch):
+        t0 = time.time()
+        record_now = recorder is not None and (epoch + 1) % opt.recording == 0
+        q, po, reps, enc = runner(q, po, epoch, record=record_now)
+        epoch_loss = float(reps.cpu().numpy().mean())
+        dt = time.time() - t0
+        loss_vec.append(epoch_loss)
+        TLOG(f"[{epoch + 1:>20}] {epoch_loss:>20.6f}"
+             f"  ({runner.nbatch * B / dt:,.0f} cells/sec, on-device)")
+        metrics.log_epoch(
+            epoch, loss=epoch_loss,
+            kl_weight=float(kl_weight_schedule(epoch, *kl)),
+            cells_per_sec=round(runner.nbatch * B / dt, 1), ondevice=True)
+        params = fast.unpack(q)
+        if record_now:
+            recorder.ingest(batches, enc)
+            recorder.update_on_epoch(params, epoch)
+        if on_epoch_end is not None:
+            on_epoch_end(epoch, params, fast.unpack_opt_state(po), loss_vec)
+    TLOG("Done training")
+    return fast.unpack(q), loss_vec

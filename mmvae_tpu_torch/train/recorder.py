@@ -1,0 +1,92 @@
+"""Artifact recorder: per-epoch latent posteriors and parameter dumps.
+
+Port of ``mmvae_tpu/train/recorder.py`` (``LatentRecorder``,
+``flatten_params``, ``zeropad``) with the same file names and formats:
+
+- ``${out}_<epoch>.{mu_mean,mu_lnvar}.gz`` — N x latent posterior
+  matrices assembled batch by batch (reference nbvae_recorder_t,
+  include/models/nb.hh:569-662);
+- ``${out}_<epoch>_<param>.gz`` — every named parameter as gzipped dense
+  text, weights in the reference's (out, in) orientation (nb.hh:599-615).
+
+Writes are synchronous (the JAX package's background writer is not
+ported).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from mmvae_tpu.io.writers import write_data_file
+
+
+def zeropad(t: int, tmax: int) -> str:
+    """Pad ``t`` to the digit width of ``tmax`` (utils/util.hh:98-107)."""
+    return str(t).zfill(len(str(tmax)))
+
+
+def flatten_params(params: dict) -> dict[str, np.ndarray]:
+    """Flat {name: array} with reference-style keys and orientation
+    (weights are stored (in, out); dumps are (out, in))."""
+    out: dict[str, np.ndarray] = {}
+    for name, p in params.items():
+        if isinstance(p, dict):
+            for sub, arr in p.items():
+                a = arr.detach().cpu().numpy()
+                out[f"{name}.{sub}"] = (a.T if sub == "weight" and a.ndim == 2
+                                        else a)
+        else:
+            out[name] = p.detach().cpu().numpy()
+    return out
+
+
+class LatentRecorder:
+    """N x latent posterior collector and artifact writer.
+
+    ``encode_fn(params, x) -> (mean, lnvar)`` is the no-covariate encode
+    (the reference records with ``encode_mu(x)``, nb.hh:628)."""
+
+    def __init__(self, header: str, max_epoch: int, ntot: int,
+                 encode_fn: Callable):
+        self.header = header
+        self.max_epoch = max_epoch
+        self.ntot = ntot
+        self.encode_fn = encode_fn
+        self.mean_out = np.zeros((ntot, 0), np.float32)
+        self.lnvar_out = np.zeros((ntot, 0), np.float32)
+
+    def encode(self, params: dict, x: torch.Tensor):
+        with torch.no_grad():
+            return self.encode_fn(params, x)
+
+    def _ensure(self, attr: str, cols: int) -> np.ndarray:
+        mat = getattr(self, attr)
+        if mat.shape[1] < cols:
+            mat = np.zeros((self.ntot, cols), np.float32)
+            setattr(self, attr, mat)
+        return mat
+
+    def _put(self, batch, mean: np.ndarray, lnvar: np.ndarray) -> None:
+        batch = np.asarray(batch)
+        ok = batch < self.ntot
+        self._ensure("mean_out", mean.shape[1])[batch[ok]] = mean[ok]
+        self._ensure("lnvar_out", lnvar.shape[1])[batch[ok]] = lnvar[ok]
+
+    def ingest(self, batches, enc) -> None:
+        """A whole epoch of posteriors collected on the device: ``enc``
+        is the (mean, lnvar) pair of shape (nbatch, B, latent), applied in
+        batch order so wrap-around duplicates resolve to the last visit."""
+        mean_all = enc[0].cpu().numpy()
+        lnvar_all = enc[1].cpu().numpy()
+        for b, batch in enumerate(np.asarray(batches)):
+            self._put(batch, mean_all[b], lnvar_all[b])
+
+    def update_on_epoch(self, params: dict, epoch: int) -> None:
+        tag = f"{self.header}_{zeropad(epoch, self.max_epoch)}"
+        write_data_file(f"{tag}.mu_mean.gz", self.mean_out)
+        write_data_file(f"{tag}.mu_lnvar.gz", self.lnvar_out)
+        for key, arr in flatten_params(params).items():
+            write_data_file(f"{tag}_{key}.gz", arr)

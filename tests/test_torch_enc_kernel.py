@@ -1,6 +1,6 @@
 """The port's count encoder (mmvae_tpu_torch/ops/enc_kernel.py) against
-the JAX package's: the XLA spec ``_xla_encode`` and the Pallas kernel in
-interpret mode.
+the JAX package's, forward and weight VJP: the XLA spec ``_xla_encode``
+and the Pallas kernels in interpret mode.
 
 Tolerance: the only difference is float32 reassociation of the D-term
 sums, so every comparison is scaled by the sum of the terms' magnitudes,
@@ -8,6 +8,7 @@ sums, so every comparison is scaled by the sum of the terms' magnitudes,
 ``|port - jax| <= 1e-5 * S + 1e-6``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -94,9 +95,11 @@ def test_cpu_call_counts_no_launch():
 
 
 def test_kernel_route_refuses_grad_weights():
-    """The kernel route has no backward yet (K5): it raises instead of
-    returning an output without gradient.  Checked on the validation
-    seam, which runs before any CUDA call."""
+    """The raw kernel route records no graph: called directly with
+    weights that require grad it raises (gradients go through
+    ``count_encode``, whose backward is K5) instead of returning an output
+    without gradient.  Checked on the validation seam, which runs before
+    any CUDA call."""
     x, WL, WX = _inputs(4, 64, 2, 1, "int8")
     wl = torch.from_numpy(WL).requires_grad_()
     with pytest.raises(NotImplementedError, match="K5"):
@@ -120,3 +123,50 @@ def test_kernel_route_validates_arguments(bad):
     with pytest.raises((TypeError, ValueError)):
         tek._check_kernel_args(x, WL, WX)
 
+
+
+# ----------------------------------------------------------------------
+# backward (K5): the weight VJP, same scaled tolerance with
+# S = |g1|^T |log1p x| (|g2|^T |x| for dWX)
+# ----------------------------------------------------------------------
+
+@CASES
+@pytest.mark.parametrize("interpret", [False, True])
+def test_count_encode_vjp_matches_jax(monkeypatch, dtype, interpret):
+    """The port's autograd of ``count_encode`` (plain backward on the CPU)
+    against ``jax.vjp`` of the JAX op: its XLA spec, or its Pallas
+    backward kernel in interpret mode."""
+    monkeypatch.setattr(jek, "_INTERPRET", interpret)
+    x, WL, WX = _inputs(13, 1000, 3, 2, dtype, seed=2)
+    rng = np.random.default_rng(7)
+    g1 = rng.normal(size=(13, 3)).astype(np.float32)
+    g2 = rng.normal(size=(13, 2)).astype(np.float32)
+    _, vjp = jax.vjp(lambda wl, wx: jek.count_encode(
+        jnp.asarray(x), wl, wx, None, False)[:2], jnp.asarray(WL),
+        jnp.asarray(WX))
+    eL, eX = vjp((jnp.asarray(g1), jnp.asarray(g2)))
+    wl = torch.from_numpy(WL).requires_grad_()
+    wx = torch.from_numpy(WX).requires_grad_()
+    hL, hX = tek.count_encode(torch.from_numpy(x), wl, wx)
+    torch.autograd.backward([hL, hX], [torch.from_numpy(g1),
+                                       torch.from_numpy(g2)])
+    xf = x.astype(np.float64)
+    assert_close_scaled(wl.grad.numpy(), eL,
+                        np.abs(g1.T).astype(np.float64) @ np.log1p(xf))
+    assert_close_scaled(wx.grad.numpy(), eX,
+                        np.abs(g2.T).astype(np.float64) @ np.abs(xf))
+
+
+def test_bwd_plain_version_is_autograd_of_forward():
+    x, WL, WX = _inputs(6, 300, 2, 2, "int16", seed=4)
+    g1, g2 = torch.randn(6, 2), torch.randn(6, 2)
+    wl = torch.from_numpy(WL).requires_grad_()
+    wx = torch.from_numpy(WX).requires_grad_()
+    hL, hX = tek.count_encode_ref(torch.from_numpy(x), wl, wx)
+    dWL, dWX = torch.autograd.grad([hL, hX], [wl, wx], [g1, g2])
+    eL, eX = tek.count_encode_bwd_ref(torch.from_numpy(x), g1, g2)
+    torch.testing.assert_close(eL, dWL)
+    torch.testing.assert_close(eX, dWX)
+    before = tek.count_encode_bwd.launches
+    tek.count_encode_bwd(torch.from_numpy(x), g1, None)
+    assert tek.count_encode_bwd.launches == before  # CPU: plain version

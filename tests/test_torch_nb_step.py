@@ -1,0 +1,197 @@
+"""The port's fused step (mmvae_tpu_torch/ops/nb_step.py) against the JAX
+package's: the XLA spec ``xla_step_nll`` with ``jax.grad``, and the
+Pallas kernels in interpret mode (``nb_step_report``,
+``nb_step_boot_gradonly`` and the raw kernel outputs).
+
+On the CPU every wrapper runs its plain version, so these tests hold the
+plain versions and the gradient assembly of ``nb_step_boot_gradonly``
+against JAX; the CUDA kernels are held against the same plain versions
+on the card by ``chip_smoke.py``.
+
+Tolerances, the JAX suite's own (tests/test_nb_step.py): values
+``rtol=3e-5`` (float32 reassociation of a sum over B x D terms);
+gradients ``rtol=5e-4, atol=5e-6 * max|ref|`` (the Pallas kernels use
+the shift-into-Stirling lgamma / digamma and one shared reciprocal, the
+plain version exact float32 ``lgamma`` / ``digamma``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mmvae_tpu.ops import nb_step as jns
+from mmvae_tpu_torch.ops import enc_kernel as tek
+from mmvae_tpu_torch.ops import nb_step as tns
+
+# (counts, storage): all <= 7 (select-product tiles), integers up to 40
+# (the mixed product / Stirling tiles), non-integer (Stirling tiles)
+CASES = [("le7", np.float32), ("integer", np.float32),
+         ("nonint", np.float32), ("le7", np.int8), ("integer", np.int16)]
+DIFF = (1, 3, 4, 5, 6, 7, 8, 9)  # zm, zn, depth, wd, wc, bias2, wn, bias_n
+NAMES = ["zm", "zn", "depth", "wd", "wc", "bias2", "wn", "bias_n"]
+
+
+def _inputs(regime, dtype, B=10, D=1100, seed=0):
+    rng = np.random.default_rng(seed)
+    if regime == "le7":
+        x = rng.poisson(0.8, size=(B, D)).clip(0, 6).astype(np.float32)
+    elif regime == "integer":
+        x = rng.poisson(9.0, size=(B, D)).clip(0, 40).astype(np.float32)
+    else:
+        x = rng.poisson(0.8, size=(B, D)).astype(np.float32)
+        x[0, :7] += 0.5
+    x = x.astype(dtype)
+    zm = rng.normal(size=(B, 2)).astype(np.float32)
+    c = rng.normal(size=(B, 1)).astype(np.float32)
+    zn = rng.normal(size=(B, 1)).astype(np.float32)
+    depth = (np.abs(rng.normal(size=(B, 1))) + 0.3).astype(np.float32)
+    w = [(rng.normal(size=s) * 0.2).astype(np.float32)
+         for s in ((2, D), (1, D), (D,), (1, D), (D,))]
+    return [x, zm, c, zn, depth, *w]
+
+
+def _jax(args):
+    return [jnp.asarray(a) for a in args]
+
+
+def _torch(args, grad=False):
+    out = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    if grad:
+        for i in DIFF:
+            out[i].requires_grad_()
+    return out
+
+
+def _assert_grads(got, want):
+    for name, a, b in zip(NAMES, got, want):
+        b = np.asarray(b)
+        scale = max(1e-3, float(np.abs(b).max()))
+        np.testing.assert_allclose(a.detach().numpy(), b, rtol=5e-4,
+                                   atol=5e-6 * scale,
+                                   err_msg=f"grad mismatch: {name}")
+
+
+def _jax_grads(fn, args):
+    def loss(*d):
+        a = list(_jax(args))
+        for i, v in zip(DIFF, d):
+            a[i] = v
+        return fn(*a)
+
+    d = tuple(jnp.asarray(args[i]) for i in DIFF)
+    return jax.value_and_grad(loss, argnums=tuple(range(len(DIFF))))(*d)
+
+
+@pytest.mark.parametrize("include_const", [False, True])
+@pytest.mark.parametrize("regime,dtype", CASES)
+def test_step_nll_matches_xla_spec(regime, dtype, include_const):
+    args = _inputs(regime, dtype)
+    v, g = _jax_grads(lambda *a: jns.xla_step_nll(
+        *a, include_const=include_const), args)
+    targs = _torch(args, grad=True)
+    got = tns.step_nll_ref(*targs, include_const=include_const)
+    np.testing.assert_allclose(float(got.detach()), float(v), rtol=3e-5)
+    got.backward()
+    _assert_grads([targs[i].grad for i in DIFF], g)
+
+
+PALLAS = [("le7", np.float32), ("integer", np.int16), ("nonint", np.float32)]
+
+
+@pytest.mark.parametrize("regime,dtype", PALLAS)
+def test_report_matches_pallas_interpret(monkeypatch, regime, dtype):
+    monkeypatch.setattr(jns, "_INTERPRET", True)
+    args = _inputs(regime, dtype, seed=1)
+    want = jns.nb_step_report(*_jax(args), include_const=True)
+    got = tns.nb_step_report(*_torch(args), include_const=True)
+    np.testing.assert_allclose(float(got), float(want), rtol=3e-5)
+
+
+@pytest.mark.parametrize("regime,dtype", PALLAS)
+def test_boot_gradonly_matches_pallas_interpret(monkeypatch, regime, dtype):
+    monkeypatch.setattr(jns, "_INTERPRET", True)
+    args = _inputs(regime, dtype, seed=2)
+    v, g = _jax_grads(jns.nb_step_boot_gradonly, args)
+    targs = _torch(args, grad=True)
+    got = tns.nb_step_boot_gradonly(*targs)
+    assert float(got.detach()) == 0.0 == float(v)  # the grad-only primal
+    (got * 1.5).backward()  # the backward scales by the cotangent
+    _assert_grads([targs[i].grad / 1.5 for i in DIFF], g)
+
+
+def test_raw_kernel_outputs_match_pallas_interpret(monkeypatch):
+    """Each plain version's raw outputs against its Pallas kernel's:
+    K1 lse, K2 (gout, rsum, u1, dzn), K3 (fout, u2)."""
+    monkeypatch.setattr(jns, "_INTERPRET", True)
+    args = _inputs("integer", np.int16, B=9, D=1100, seed=3)
+    x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n = _jax(args)
+    xp, zmp, cp, znp, dpp, W, dims = jns._prep(
+        x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n)
+    B, D, R, C, Rn = (dims[k] for k in ("B", "D", "R", "C", "Rn"))
+    l = jns._lse_call(zmp, cp, W, dims["bp"], dims["Dp"],
+                      jns._tile_for(dims["bp"]), D, R, C)
+    _, gout, rsum, u1, dzn = jns._valgrad_call(
+        xp, zmp, cp, znp, dpp, l, W, D=D, B=B, need_value=False)
+    fout, u2 = jns._finish_call(zmp, cp, l, rsum, W, D=D)
+
+    t = _torch(args)
+    zc = torch.cat([t[1], t[2]], 1)
+    Wt = tns.stack_rows(*t[5:])
+    lt = tns.lse(zc, Wt, R, C)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(l)[:B], rtol=1e-6)
+    got = tns.valgrad(t[0], zc, t[3], t[4], lt, Wt, R, C, Rn)
+    fin = tns.finish(zc, lt, got[1].contiguous(), Wt, R, C)
+    T = R + C + Rn + 2
+    want = [np.asarray(gout)[:T, :D], np.asarray(rsum)[:B],
+            np.asarray(u1)[:B], np.asarray(dzn)[:B],
+            np.asarray(fout)[:R + C + 1, :D], np.asarray(u2)[:B]]
+    for name, a, b in zip(["gout", "rsum", "u1", "dzn", "fout", "u2"],
+                          [*got, *fin], want):
+        scale = max(1e-3, float(np.abs(b).max()))
+        np.testing.assert_allclose(a.numpy(), b, rtol=5e-4,
+                                   atol=5e-6 * scale, err_msg=name)
+
+
+def test_cpu_wrappers_launch_no_kernel():
+    args = _torch(_inputs("le7", np.int8, B=4, D=64))
+    before = [f.launches for f in (tns.lse, tns.value, tns.valgrad,
+                                   tns.finish)]
+    tns.nb_step_report(*args)
+    tns.nb_step_boot_gradonly(*args)
+    assert [f.launches for f in (tns.lse, tns.value, tns.valgrad,
+                                 tns.finish)] == before
+
+
+@pytest.mark.parametrize("kernel", ["lse", "value", "valgrad", "finish",
+                                    "count_encode_bwd"])
+def test_kernel_routes_refuse_cpu_tensors(kernel):
+    """The kernel routes take CUDA tensors only: a CPU tensor there
+    raises before any CUDA call (the public wrappers send CPU tensors to
+    the plain versions instead)."""
+    x, zm, c, zn, depth, *w = _torch(_inputs("le7", np.int8, B=4, D=64))
+    zc = torch.cat([zm, c], 1)
+    W = tns.stack_rows(*w)
+    l = tns.lse_ref(zc, W, 2, 1)
+    call = {
+        "lse": lambda: tns._lse_kernel(zc, W, 2, 1),
+        "value": lambda: tns._value_kernel(x, zc, zn, depth, l, W, 2, 1, 1,
+                                           True),
+        "valgrad": lambda: tns._valgrad_kernel(x, zc, zn, depth, l, W, 2, 1,
+                                               1),
+        "finish": lambda: tns._finish_kernel(zc, l, l, W, 2, 1),
+        "count_encode_bwd": lambda: tek._bwd_kernel_route(x, zm, zn),
+    }[kernel]
+    with pytest.raises(ValueError, match="no kernel"):
+        call()
+
+
+def test_kernel_routes_refuse_unsupported_widths():
+    x, zm, c, zn, depth, *w = _torch(_inputs("le7", np.int8, B=4, D=64))
+    zc = torch.cat([zm, c], 1)
+    W = tns.stack_rows(*w)
+    with pytest.raises(ValueError, match="stacked rows"):
+        tns._dims(zc, W, 2, 1, Rn=13)
+    with pytest.raises(ValueError, match="do not match"):
+        tns._dims(zm, W, 2, 1)
