@@ -31,10 +31,26 @@ exits non-zero without the final line):
    more epoch;
 9. full-size training: two epochs of the dense-resident epoch runner
    over phase 5's 100,000 x 20,000 int8 counts, with a profile of 100
-   batches.
+   batches;
+10. the joint vMF+NB model's kernel variants against their plain
+    versions: ``count_encode`` with row stats (a training batch, 5 + 3
+    rows, and the serving launch, 2 + 0 rows), its backward (K5) at the
+    5 + 3 rows, ``value`` and ``valgrad``
+    with ``pb`` and exp-nu in phase 6's regimes, with elements at the
+    NU_HI clamp;
+11. one joint batch step, kernel route against plain route;
+12. the joint trainer CLI end to end (its main path): ``vmfnb_vae`` on
+    phase 4's matrix for 2 epochs with recording and a checkpoint, every
+    kernel of the path launched, ``--resume`` for one more epoch; then
+    ``encode --model vmfnb`` on that checkpoint, resident and streaming
+    (bitwise equal), against the plain unfolded encoder;
+13. full-size joint training: two epochs over phase 5's counts, with a
+    profile of 100 batches.
 
-The last two lines are the kernels' JSON record and
-``{"ok": true, "device": {...}}``.
+Each main path (phases 4, 8 and 12) is driven with every launch counter
+set to 0 just before it and read just after.  The last two lines are the
+kernels' JSON record (with each kernel's bound at the main path's shape)
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -96,7 +112,9 @@ def device_profile(fn, reps: int = 1):
     ``device_profile.kernels`` holds the number of kernels per call."""
     from torch.profiler import ProfilerActivity, profile
 
-    for _attempt in range(2):  # a trace with no device activity is retried
+    # every call launches the same kernels, so a trace whose device event
+    # count is not a positive multiple of reps lost events: it is retried
+    for _attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -108,13 +126,13 @@ def device_profile(fn, reps: int = 1):
                     and ev.name != "Activity Buffer Request"):
                 per[ev.name] = per.get(ev.name, 0.0) + ev.device_time_total
                 n += 1
-        if n:
+        if n and n % reps == 0:
             break
     else:
-        # the profiler saw no kernel twice: time with CUDA events instead
+        # no whole trace in three: time with CUDA events instead
         device_profile.kernels = 0
         ms = cuda_ms(fn, warmup=1, reps=reps)
-        return ms, {"(CUDA events; the profiler recorded no kernel)": ms}
+        return ms, {"(CUDA events; the profiler lost kernels)": ms}
     device_profile.kernels = n / reps
     per = {k: v / reps / 1e3 for k, v in per.items()}
     return sum(per.values()), per
@@ -233,11 +251,14 @@ def plain_encode(params, x):
 
 
 def random_params(model, device):
-    """Seeded params with non-trivial learned standardization."""
+    """Seeded params with non-trivial learned standardization (on the
+    scale of the model's encoder input: log1p counts for NB, their unit
+    row for the joint model)."""
     params = model.init(torch.Generator().manual_seed(SEED), device=device)
     g = torch.Generator().manual_seed(SEED + 1)
     D = model.data_dim
-    params["x_mean"] = torch.rand((1, D), generator=g).to(device) * 1.5
+    scale = 1.5 if "mu_encoding" in params else 1.5 / D ** 0.5
+    params["x_mean"] = torch.rand((1, D), generator=g).to(device) * scale
     params["ln_x_sd"] = (torch.randn((1, D), generator=g) * 0.5).to(device)
     return params
 
@@ -441,25 +462,32 @@ def step_inputs(g, B, D, dtype, regime):
     return x, zc, zn, depth.contiguous(), W.contiguous(), (R, C, Rn)
 
 
-def grad_magnitudes(x, zc, zn, depth, l, W, R, C, Rn):
+def grad_magnitudes(x, zc, zn, depth, l, W, R, C, Rn, joint=False):
     """float64 per-element magnitudes of what K2 sums: |dls| and |dnupre|
     bounded by the magnitudes of their own terms (the cancellations in
     t - x/mu and in digamma(nu) - digamma(nu + x) are where float32
-    rounding lands)."""
+    rounding lands).  ``joint``: W's last row is pb and nu is exp-clamp."""
     d = lambda t: t.double()  # noqa: E731
     zc, zn, depth, l, W, x = map(d, (zc, zn, depth, l, W, x))
     RC, base = R + C, R + C + 1
     h = zc @ W[:RC] + W[RC]
     p = torch.exp(h - l)
-    mu = p * depth + 1e-4
+    pe = p * torch.exp(W[base + Rn + 1]) if joint else p
+    mu = pe * depth + 1e-4
     npre = zn @ W[base:base + Rn] + W[base + Rn]
-    sp = torch.nn.functional.softplus(npre)
-    nu = sp.clamp(1e-4, 1e4) + 1e-4
+    if joint:
+        sp = torch.exp(npre)
+        nu = sp.clamp(max=1e4) + 1e-4
+        dsp = sp * (sp < 1e4)  # the true dnupre is 0 where nu is clamped
+    else:
+        sp = torch.nn.functional.softplus(npre)
+        nu = sp.clamp(1e-4, 1e4) + 1e-4
+        dsp = torch.sigmoid(npre)
     t = (x + nu) / (mu + nu)
-    dls = (t.abs() + x / mu) * p * depth
+    dls = (t.abs() + x / mu) * pe * depth
     dnu = (torch.digamma(nu).abs() + torch.digamma(nu + x).abs() + t
            + torch.log(nu).abs() + torch.log(mu + nu).abs() + 1.0)
-    dnp = dnu * torch.sigmoid(npre)
+    dnp = dnu * dsp
     return p, dls, dnp
 
 
@@ -551,20 +579,209 @@ def phase_train_kernels(card):
     return worst, main_times
 
 
-def phase_batch_step(card):
+STATS_CASES = [(100, D_GENES, 5, 3, torch.int8),    # a training batch
+               (1600, D_GENES, 2, 0, torch.int8)]   # the serving launch
+
+
+def joint_step_inputs(g, B, D, dtype, regime):
+    """``step_inputs`` for the joint model's variant: a zero covariate
+    and covariate row (as the joint step hands the kernels), the pb row
+    last, and a nu bias that puts exp(nu_pre) far above NU_HI in 0.5% of
+    the columns (the clamp's mask)."""
+    x, zc, zn, depth, W, (R, C, Rn) = step_inputs(g, B, D, dtype, regime)
+    zc[:, R:] = 0.0
+    W[R:R + C] = 0.0
+    hot = torch.rand((D,), generator=g, device=DEV) < 0.005
+    W[R + C + 1 + Rn] += hot.float() * 12.0  # exp(nu_pre) ~ 1.6e5
+    pb = torch.randn((1, D), generator=g, device=DEV) * 0.3
+    return x, zc, zn, depth, torch.cat([W, pb]).contiguous(), (R, C, Rn)
+
+
+def phase_variant_kernels(card):
+    """Phase 10: K4 with row stats, K6 and K2 in the joint model's
+    pb / exp-nu variant, against their plain versions."""
+    from mmvae_tpu_torch.ops import enc_kernel as enc
+    from mmvae_tpu_torch.ops import nb_step as ns
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    worst = {k: 0.0 for k in ("count_encode[stats]", "nb_value[pb,nu_exp]",
+                              "nb_valgrad[pb,nu_exp]")}
+    times = {}
+    log(f"[phase 10] new kernel variants vs plain (f32, TF32 off); K4s: "
+        f"{TOL}, stats tol 1e-5 * stat + 1e-6; K2: {TRAIN_TOL}; K6: both "
+        f"held to the float64 sum, |kernel - f64| <= 2 |plain - f64| + "
+        f"2.01e-5 * S")
+    for M, D, r1, r2, dt in STATS_CASES:
+        x = make_counts(g, M, D, dt)
+        WL = torch.randn((r1, D), generator=g, device=DEV) * 0.1
+        WX = (torch.randn((r2, D), generator=g, device=DEV) * 0.01
+              if r2 else None)
+        kern = lambda: enc.count_encode(x, WL, WX, want_stats=True)  # noqa
+        plain = lambda: enc.count_encode_ref(x, WL, WX, want_stats=True)  # noqa
+        got, want, again = kern(), plain(), kern()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("count_encode[stats] not bitwise repeatable")
+        xf = x.double()
+        e1, q1 = scaled_err(got[0], want[0],
+                            xf.log1p().abs() @ WL.double().abs().T)
+        e2, q2 = (scaled_err(got[1], want[1], xf.abs() @ WX.double().abs().T)
+                  if r2 else (0.0, 0.0))
+        e3, q3 = scaled_err(got[2], want[2], want[2].double().abs())
+        q = max(q1, q2, q3)
+        if not q <= 1.0:
+            raise AssertionError(f"count_encode[stats] disagrees at "
+                                 f"{(M, D, r1, r2, dt)}: err/tol {q:.3g}")
+        worst["count_encode[stats]"] = max(worst["count_encode[stats]"], e1,
+                                          e2, e3)
+        k_dev, _ = device_profile(kern, 20)
+        p_dev, _ = device_profile(plain, 20)
+        times[("count_encode[stats]", M)] = (k_dev, p_dev)
+        log(f"[phase 10] [{card}] count_encode[stats] M={M} D={D} r1={r1} "
+            f"r2={r2} {str(dt).replace('torch.', '')}: max_abs_err hL "
+            f"{e1:.3g} hX {e2:.3g} stats {e3:.3g} (err/tol {q:.3g}); device "
+            f"time kernel {k_dev:.4f} ms, plain {p_dev:.4f} ms")
+        if not r2:
+            continue
+        # K5 at the joint step's 5 + 3 cotangent columns
+        g1 = torch.randn((M, r1), generator=g, device=DEV)
+        g2 = torch.randn((M, r2), generator=g, device=DEV)
+        kern = lambda: enc.count_encode_bwd(x, g1, g2)  # noqa: E731
+        plain = lambda: enc.count_encode_bwd_ref(x, g1, g2)  # noqa: E731
+        got, want, again = kern(), plain(), kern()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("count_encode_bwd not bitwise repeatable")
+        e, q = 0.0, 0.0
+        for gt, wt, S in zip(got, want, (g1.double().abs().T @ xf.log1p(),
+                                         g2.double().abs().T @ xf.abs())):
+            ei, qi = ratio(gt, wt, S)
+            e, q = max(e, ei), max(q, qi)
+        if not q <= 1.0:
+            raise AssertionError(f"count_encode_bwd (5 + 3) disagrees: "
+                                 f"err/tol {q:.3g}")
+        k_dev, _ = device_profile(kern, 20)
+        p_dev, _ = device_profile(plain, 20)
+        log(f"[phase 10] [{card}] count_encode_bwd M={M} D={D} r1={r1} "
+            f"r2={r2}: err {e:.3g} (err/tol {q:.3g}; {TRAIN_TOL}); device "
+            f"time kernel {k_dev:.4f} ms, plain {p_dev:.4f} ms")
+    for case, (B, D, dt, regime) in enumerate(REGIMES):
+        x, zc, zn, depth, W, (R, C, Rn) = joint_step_inputs(g, B, D, dt,
+                                                            regime)
+        lr = ns.lse_ref(zc, W, R, C)
+        _, dls_m, dnp_m = grad_magnitudes(x, zc, zn, depth, lr, W, R, C, Rn,
+                                          joint=True)
+        base = R + C + 1
+        npre = zn @ W[base:base + Rn] + W[base + Rn]
+        clamped = int((torch.exp(npre) >= 1e4).sum())
+        if not clamped:
+            raise AssertionError("no element of exp(nu_pre) reached NU_HI")
+        calls = {
+            "nb_value[pb,nu_exp]": (
+                lambda: ns.value(x, zc, zn, depth, lr, W, R, C, Rn, True,
+                                 True),
+                lambda: ns.value_ref(x, zc, zn, depth, lr, W, R, C, Rn, True,
+                                     True)),
+            "nb_valgrad[pb,nu_exp]": (
+                lambda: ns.valgrad(x, zc, zn, depth, lr, W, R, C, Rn, True),
+                lambda: ns.valgrad_ref(x, zc, zn, depth, lr, W, R, C, Rn,
+                                       True)),
+        }
+        with torch.no_grad():
+            xd, Wd = x.double(), W.double()
+            npd = ns._nupre(zn.double(), Wd, base, Rn)
+            terms = ns._terms(xd, ns._h(zc.double(), Wd, R + C)
+                              - lr.double(), npd, depth.double(), True,
+                              Wd[base + Rn + 1], True)
+        azc, azn = zc.double().abs(), zn.double().abs()
+        aW = W.double().abs()
+        bounds = {
+            "nb_valgrad[pb,nu_exp]": (
+                torch.cat([azc.T @ dls_m, dls_m.sum(0, True), azn.T @ dnp_m,
+                           dnp_m.sum(0, True), dls_m.sum(0, True)]),
+                dls_m.sum(1, True), dls_m @ aW[:R].T,
+                dnp_m @ aW[base:base + Rn].T),
+        }
+        parts = []
+        for name, (kern, plain) in calls.items():
+            got, want = kern(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            again = kern()
+            again = again if isinstance(again, tuple) else (again,)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} not bitwise repeatable")
+            e, q, f64 = 0.0, 0.0, ""
+            if name == "nb_value[pb,nu_exp]":
+                # where nu sits at the clamp (1e4) both sides round the
+                # cancelling ~1e5-sized parts of a term in float32: each
+                # is held to the float64 sum, the kernel to twice the
+                # plain version's error plus phase 6's tolerance
+                ref = terms.sum()
+                e_k = (got[0].double() - ref).abs().item()
+                e_p = (want[0].double() - ref).abs().item()
+                e = (got[0].double() - want[0].double()).abs().item()
+                q = e_k / (2.0 * e_p + 2.01e-5 * terms.abs().sum().item())
+                f64 = (f" [float64 sum {ref.item():.6g}: kernel off by "
+                       f"{e_k:.4g}, plain by {e_p:.4g}]")
+            else:
+                for gt, wt, S in zip(got, want, bounds[name]):
+                    ei, qi = ratio(gt, wt, S)
+                    e, q = max(e, ei), max(q, qi)
+            if not q <= 1.0:
+                raise AssertionError(f"{name} disagrees with plain at "
+                                     f"{(B, D, dt, regime)}: err/tol {q:.3g}"
+                                     f"{f64}")
+            worst[name] = max(worst[name], e)
+            k_dev, _ = device_profile(kern, 20)
+            p_dev, _ = device_profile(plain, 20)
+            if case == MAIN_CASE:
+                times[(name, B)] = (k_dev, p_dev)
+            parts.append(f"{name} err {e:.3g} (err/tol {q:.3g}){f64} kernel "
+                         f"{k_dev:.4f} / plain {p_dev:.4f} ms")
+        log(f"[phase 10] [{card}] B={B} D={D} {str(dt).replace('torch.', '')}"
+            f" {regime} ({clamped} elements at the NU_HI clamp): "
+            + "; ".join(parts))
+    return worst, {
+        "count_encode[stats]": times[("count_encode[stats]",
+                                      STATS_CASES[0][0])],
+        "nb_value[pb,nu_exp]": times[("nb_value[pb,nu_exp]", B_TRAIN)],
+        "nb_valgrad[pb,nu_exp]": times[("nb_valgrad[pb,nu_exp]", B_TRAIN)],
+        "count_encode[stats] serving": times[("count_encode[stats]",
+                                              STATS_CASES[1][0])]}
+
+
+def model_and_step(joint: bool):
+    """(model, packed-step class) of the NB or the joint model at the
+    default architecture and D = 20,000."""
+    if joint:
+        from mmvae_tpu_torch.models.vmfnb import VMFNBVAE
+        from mmvae_tpu_torch.ops.vmfnb_fast import VMFNBFastStep
+
+        return VMFNBVAE(data_dim=D_GENES), VMFNBFastStep
     from mmvae_tpu_torch.models.nb import NBVAE
-    from mmvae_tpu_torch.ops.nb_fast import NBFastStep, batch_rand
+    from mmvae_tpu_torch.ops.nb_fast import NBFastStep
+
+    return NBVAE(data_dim=D_GENES), NBFastStep
+
+
+def phase_batch_step(card, joint=False):
+    """Phase 7 (NB) / phase 11 (joint): one batch step, kernel route
+    against plain route, with the same draws."""
+    from mmvae_tpu_torch.ops.nb_fast import batch_rand
     from mmvae_tpu_torch.train.config import TrainingOptions
 
-    g = torch.Generator(device=DEV).manual_seed(SEED + 4)
-    model = NBVAE(data_dim=D_GENES)
+    tag = "[phase 11]" if joint else "[phase 7]"
+    g = torch.Generator(device=DEV).manual_seed(SEED + (7 if joint else 4))
+    model, step_cls = model_and_step(joint)
     topt = TrainingOptions()
     params = random_params(model, DEV)
     x = make_counts(g, B_TRAIN, D_GENES, torch.int8)
     c = torch.ones((B_TRAIN, 1), device=DEV)
     out = {}
     for plain in (False, True):
-        fast = NBFastStep(model, topt, plain=plain)
+        fast = step_cls(model, topt, plain=plain)
         rand = batch_rand(fast.draw_rand(
             torch.Generator(device=DEV).manual_seed(SEED + 5), 1,
             B_TRAIN), 0)
@@ -601,8 +818,19 @@ def phase_batch_step(card):
                 1, keepdim=True) + 1e-30)).max().item())
         # params: Adam maps a gradient to about +-lr by its sign, so an
         # element whose gradient is below 1e-4 of its row's scale may
-        # flip; those are counted, the rest held to 2e-5 (2% of lr)
+        # flip; the rest are held to 2e-5 (2% of lr).  In the joint model
+        # so may an element whose final first moment is below 2% of its
+        # row's scale, and the kappa row, whose gradient is mostly the
+        # float32 cancellation of df / kappa against the Baricz midpoint
+        # (df = 9,999).  No parameter bound holds those (a flip moves one
+        # by up to 2 x nboot x lr, which no route can exceed): they are
+        # counted and rest on the gradient and moment checks above
         small = (gp2.abs() < 1e-4 * scale)
+        if joint:
+            mu_p = rows(op["mu"][k])
+            small |= mu_p.abs() < 2e-2 * mu_p.abs().amax(1, keepdim=True)
+            if k == "P":
+                small[fast.rows.kappa_w] = True
         dP = (qk[k] - qp[k]).reshape(gp2.shape).abs()
         q_p = (dP[~small].max().item() / 2e-5) if (~small).any() else 0.0
         if not (q_g <= 1.0 and max(mom) <= 1.0 and q_p <= 1.0):
@@ -612,88 +840,182 @@ def phase_batch_step(card):
         lines.append(f"{k}: first-step grad err/tol {q_g:.3g}; Adam mu/nu "
                      f"err/tol {mom[0]:.3g}/{mom[1]:.3g}; params max diff "
                      f"{dP.max().item():.3g} ({int(small.sum())} elements "
-                     f"with a near-zero gradient, max diff there "
+                     f"with a near-zero gradient{' or moment' if joint else ''}"
+                     f", held by the moment check only, max diff there "
                      f"{dP[small].max().item() if small.any() else 0:.3g}; "
                      f"elsewhere err/tol {q_p:.3g})")
     if int(ok["count"]) != 3 or int(op["count"]) != 3:
         raise AssertionError("Adam count after one batch step is not 3")
-    log(f"[phase 7] [{card}] one batch step, kernel route vs plain route, "
-        f"same draws: " + "; ".join(lines))
+    log(f"{tag} [{card}] one {'joint' if joint else 'NB'} batch step, "
+        f"kernel route vs plain route, same draws: " + "; ".join(lines))
 
 
-KERNEL_NAMES = ["count_encode", "count_encode_bwd", "nb_lse", "nb_value",
-                "nb_valgrad", "nb_finish"]
+# every kernel instance of the port: (name, wrapper, launch counter,
+# source, the TPU kernel it replaces)
+KERNELS = [
+    ("count_encode", "enc.count_encode", "launches", "count_encode.cu",
+     "enc_kernel.py:183"),
+    ("count_encode[stats]", "enc.count_encode", "stats_launches",
+     "count_encode.cu", "enc_kernel.py:183"),
+    ("count_encode_bwd", "enc.count_encode_bwd", "launches",
+     "count_encode_bwd.cu", "enc_kernel.py:216"),
+    ("nb_lse", "ns.lse", "launches", "nb_lse.cu", "nb_step.py:320"),
+    ("nb_value", "ns.value", "launches", "nb_value.cu", "nb_step.py:424"),
+    ("nb_value[pb,nu_exp]", "ns.value", "joint_launches", "nb_value.cu",
+     "nb_step.py:424"),
+    ("nb_valgrad", "ns.valgrad", "launches", "nb_valgrad.cu",
+     "nb_step.py:621"),
+    ("nb_valgrad[pb,nu_exp]", "ns.valgrad", "joint_launches",
+     "nb_valgrad.cu", "nb_step.py:621"),
+    ("nb_finish", "ns.finish", "launches", "nb_finish.cu", "nb_step.py:704"),
+]
+NB_PATH = ["count_encode", "count_encode_bwd", "nb_lse", "nb_value",
+           "nb_valgrad", "nb_finish"]
+JOINT_PATH = ["count_encode[stats]", "count_encode_bwd", "nb_lse",
+              "nb_value[pb,nu_exp]", "nb_valgrad[pb,nu_exp]", "nb_finish"]
 
 
-def kernel_wrappers():
+def _counters():
     from mmvae_tpu_torch.ops import enc_kernel as enc
     from mmvae_tpu_torch.ops import nb_step as ns
 
-    return dict(zip(KERNEL_NAMES, (enc.count_encode, enc.count_encode_bwd,
-                                   ns.lse, ns.value, ns.valgrad, ns.finish)))
+    objs = {"enc": enc, "ns": ns}
+    out = {}
+    for name, wrapper, attr, _, _ in KERNELS:
+        mod, fn = wrapper.split(".")
+        out[name] = (getattr(objs[mod], fn), attr)
+    return out
 
 
-def phase_train_cli(card, tmp, mtx):
-    from mmvae_tpu_torch.cli import nb_vae
-    from mmvae_tpu_torch.models.nb import NBVAE
+def reset_launches() -> None:
+    """Set every kernel's launch counter to 0 (just before a main path)."""
+    for w, attr in _counters().values():
+        setattr(w, attr, 0)
+
+
+def read_launches() -> dict:
+    """Every kernel's launch count since :func:`reset_launches`."""
+    return {name: getattr(w, attr) for name, (w, attr) in _counters().items()}
+
+
+def phase_train_cli(card, tmp, mtx, joint=False):
+    """Phase 8 (``nb_vae``) / phase 12 (``vmfnb_vae``): the trainer CLI
+    on the synthetic matrix, 2 epochs with recording and a checkpoint,
+    then ``--resume`` for epoch 3; returns the first run's launches."""
+    from mmvae_tpu_torch.cli import nb_vae, vmfnb_vae
     from mmvae_tpu_torch.train.recorder import flatten_params
 
-    out = os.path.join(tmp, "train")
-    ck = os.path.join(tmp, "train_ckpt")
+    tag, cli = ("[phase 12]", vmfnb_vae) if joint else ("[phase 8]", nb_vae)
+    path = JOINT_PATH if joint else NB_PATH
+    name = "vmfnb_vae" if joint else "nb_vae"
+    out = os.path.join(tmp, "joint" if joint else "train")
+    ck = out + "_ckpt"
     args = ["--mtx", mtx, "--batch_size", str(B_TRAIN), "--device", DEV,
             "--recording", "2"]
-    wr = kernel_wrappers()
-    for w in wr.values():
-        w.launches = 0
+    reset_launches()
     t0 = time.time()
-    err = run_cli(nb_vae, args + ["--out", out, "--max_epoch", "2",
-                                  "--checkpoint_dir", ck])
+    err = run_cli(cli, args + ["--out", out, "--max_epoch", "2",
+                               "--checkpoint_dir", ck])
     wall = time.time() - t0
-    launches = {k: w.launches for k, w in wr.items()}
-    if min(launches.values()) < 1:
-        raise AssertionError(f"the training main path skipped a kernel: "
+    launches = read_launches()
+    if min(launches[k] for k in path) < 1:
+        raise AssertionError(f"the {name} main path skipped a kernel: "
                              f"{launches}")
     if "dense-resident" not in err:
-        raise AssertionError("training did not run dense-resident")
+        raise AssertionError(f"{name} did not run dense-resident")
     scores = np.loadtxt(out + ".scores.gz", ndmin=1)
     if scores.shape != (2,) or not np.isfinite(scores).all():
         raise AssertionError(f"scores.gz: {scores}")
     # recording artifacts: the JAX CLI's names and shapes
-    names = flatten_params(NBVAE(data_dim=D_GENES).init(
+    names = flatten_params(model_and_step(joint)[0].init(
         torch.Generator().manual_seed(0)))
     want = {f"{out}_1.mu_mean.gz": (N_CLI, 2), f"{out}_1.mu_lnvar.gz":
             (N_CLI, 2)}
     want.update({f"{out}_1_{k}.gz": v.shape for k, v in names.items()})
-    for path, shape in want.items():
-        a = np.loadtxt(path, ndmin=2)
+    for p, shape in want.items():
+        a = np.loadtxt(p, ndmin=2)
         if a.shape != (shape if len(shape) == 2 else (shape[0], 1)) or \
                 not np.isfinite(a).all():
-            raise AssertionError(f"{path}: shape {a.shape}, want {shape}")
+            raise AssertionError(f"{p}: shape {a.shape}, want {shape}")
     rates = [ln.split("] ", 1)[-1] for ln in err.splitlines()
              if "cells/sec" in ln]
-    log(f"[phase 8] [{card}] nb_vae CLI, {N_CLI} x {D_GENES}, 2 epochs: "
+    log(f"{tag} [{card}] {name} CLI, {N_CLI} x {D_GENES}, 2 epochs: "
         f"scores {scores.tolist()}; {len(want)} recording artifacts with "
-        f"the JAX CLI's names and shapes; kernel launches {launches}; "
-        f"epochs: {' | '.join(rates)}; CLI wall {wall:.2f}s")
-    err = run_cli(nb_vae, args + ["--out", out + "_r", "--max_epoch", "3",
-                                  "--resume", ck])
+        f"the JAX CLI's names and shapes; kernel launches "
+        f"{ {k: launches[k] for k in path} }; epochs: {' | '.join(rates)}; "
+        f"CLI wall {wall:.2f}s")
+    err = run_cli(cli, args + ["--out", out + "_r", "--max_epoch", "3",
+                               "--resume", ck])
     s3 = np.loadtxt(out + "_r.scores.gz", ndmin=1)
     if (s3.shape != (3,) or not np.array_equal(s3[:2], scores)
             or not np.isfinite(s3).all() or "Resumed from" not in err):
         raise AssertionError(f"resume: scores {s3}")
-    log(f"[phase 8] [{card}] --resume from the checkpoint ran epoch 3: "
+    log(f"{tag} [{card}] --resume from the checkpoint ran epoch 3: "
         f"scores {s3.tolist()}")
+    return launches, ck
+
+
+def phase_joint_encode(card, tmp, mtx, ck):
+    """Phase 12, serving: ``encode --model vmfnb`` on the trained joint
+    checkpoint, resident and streaming (bitwise equal), against the plain
+    unfolded encoder on the card."""
+    from mmvae_tpu_torch.cli import encode
+    from mmvae_tpu_torch.models.nb import params_from_numpy
+    from mmvae_tpu_torch.models.vmfnb import VMFNBVAE
+    from mmvae_tpu_torch.train.checkpoint import load_checkpoint
+
+    args = ["--model", "vmfnb", "--mtx", mtx, "--checkpoint", ck,
+            "--batch_size", "100", "--device", DEV]
+    reset_launches()
+    err = run_cli(encode, args + ["--out", os.path.join(tmp, "jres")])
+    launches = read_launches()["count_encode[stats]"]
+    if "dense-resident" not in err or launches < 1:
+        raise AssertionError(f"joint resident sweep: {launches} launches")
+    res = [np.loadtxt(os.path.join(tmp, f"jres.mu_{k}.gz"), ndmin=2)
+           for k in ("mean", "lnvar")]
+    model = VMFNBVAE(data_dim=D_GENES)
+    params = params_from_numpy(load_checkpoint(ck, model)[0], DEV)
+    with torch.inference_mode():
+        x = torch.from_numpy(read_mtx_dense(mtx)).to(DEV)
+        want = [t.double().cpu().numpy()
+                for t in model.shared_encode_mu(params, x)]
+    worst = 0.0
+    for got, w in zip(res, want):
+        if got.shape != (N_CLI, 2) or not np.isfinite(got).all():
+            raise AssertionError(f"bad joint encode output {got.shape}")
+        # the fold reorders float32 sums over 20,000 genes: 1e-4 of the
+        # output's scale, plus the %g text rounding (6 digits)
+        lim = 1e-4 * np.abs(w).max() + 1e-5 * np.abs(w)
+        worst = max(worst, float(np.max(np.abs(got - w) / lim)))
+    if not worst <= 1.0:
+        raise AssertionError(f"joint encode vs plain: err/tol {worst:.3g}")
+    os.environ["MMVAE_DENSE_BYTES"] = "1"
+    try:
+        err = run_cli(encode, args + ["--out", os.path.join(tmp, "jstr")])
+    finally:
+        del os.environ["MMVAE_DENSE_BYTES"]
+    if "resident fast path skipped" not in err:
+        raise AssertionError("joint streaming sweep did not run")
+    for k, a in zip(("mean", "lnvar"), res):
+        b = np.loadtxt(os.path.join(tmp, f"jstr.mu_{k}.gz"), ndmin=2)
+        if not np.array_equal(a, b):
+            raise AssertionError(f"joint streaming mu_{k} != resident")
+    log(f"[phase 12] [{card}] encode --model vmfnb: {launches} "
+        f"count_encode[stats] launches; outputs ({N_CLI}, 2) match the "
+        f"plain unfolded encoder (err/tol {worst:.3g}; tol 1e-4 * max|ref| "
+        f"+ 1e-5 * |ref|); streaming equals resident bitwise")
     return launches
 
 
-def phase_train_full(card, data):
-    from mmvae_tpu_torch.models.nb import NBVAE
-    from mmvae_tpu_torch.ops.nb_fast import NBFastStep
+def phase_train_full(card, data, joint=False):
+    """Phase 9 (NB) / phase 13 (joint): two epochs of the dense-resident
+    epoch runner at full width, and a profile of 100 batches."""
     from mmvae_tpu_torch.train.config import TrainingOptions
     from mmvae_tpu_torch.train.loop import DenseEpochRunner
 
-    model = NBVAE(data_dim=D_GENES)
-    fast = NBFastStep(model, TrainingOptions())
+    tag = "[phase 13]" if joint else "[phase 9]"
+    model, step_cls = model_and_step(joint)
+    fast = step_cls(model, TrainingOptions())
     params = model.init(torch.Generator().manual_seed(SEED), device=DEV)
     runner = DenseEpochRunner(fast, data, B_TRAIN, seed=SEED)
     q = fast.pack(params)
@@ -707,17 +1029,18 @@ def phase_train_full(card, data):
         times.append(time.perf_counter() - t0)
     if not (np.isfinite(losses).all() and losses[1] < losses[0]):
         raise AssertionError(f"full-size training loss {losses}")
-    log(f"[phase 9] [{card}] training {N_FULL} x {D_GENES} int8, B="
-        f"{B_TRAIN}, nboot 3: epoch losses {losses[0]:.4f} -> "
-        f"{losses[1]:.4f}; epoch times {times[0]:.2f}s, {times[1]:.2f}s; "
-        f"second epoch {N_FULL / times[1]:,.1f} cells/sec")
+    N = data.shape[0]
+    log(f"{tag} [{card}] {'joint' if joint else 'NB'} training {N} x "
+        f"{D_GENES} int8, B={B_TRAIN}, nboot 3: epoch losses "
+        f"{losses[0]:.4f} -> {losses[1]:.4f}; epoch times {times[0]:.2f}s, "
+        f"{times[1]:.2f}s; second epoch {N / times[1]:,.1f} cells/sec")
     nprof = 100
     sub = DenseEpochRunner(fast, data[:nprof * B_TRAIN], B_TRAIN, seed=SEED)
     rand = sub.draw(2)
     busy, per = device_profile(lambda: sub(q, po, 2, rand=rand))
     per_batch = times[1] * 1e3 / runner.nbatch
     top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
-    log(f"[phase 9] [{card}] profile of {nprof} batches: device busy "
+    log(f"{tag} [{card}] profile of {nprof} batches: device busy "
         f"{busy / nprof:.3f} ms per batch in "
         f"{device_profile.kernels / nprof:.0f} device kernels and copies, "
         f"against {per_batch:.3f} ms wall per batch of the unprofiled "
@@ -725,7 +1048,65 @@ def phase_train_full(card, data):
         f"{1 - busy / nprof / per_batch:.1%}); top kernels over the "
         f"{nprof} batches: "
         + "; ".join(f"{k[:48]} {v:.1f} ms" for k, v in top))
-    return N_FULL / times[1]
+    return N / times[1]
+
+
+# H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and
+# float32 FLOP/s outside the tensor cores
+PEAK_BYTES = 3.35e12
+PEAK_F32 = 67e12
+# operations per (row, column) element of each kernel, counted from its
+# source on the main path's integer-count regime (an add, a multiply or a
+# transcendental is 1, an FMA 2), at R = 2, C = 1, Rn = 1
+OPS_PER_ELEMENT = {
+    "nb_lse": 11,        # logits 7, exp of the shifted logit 2, online sum 2
+    "nb_value": 80,      # logits 7, mu 4, nu 11, mixed-regime lgamma ~47,
+                         # the three logs and the value terms 11
+    "nb_value[pb,nu_exp]": 76,    # logits 7, mu 5 (the exp(pb) multiply),
+                         # nu 6 (nu_pre 3, exp, min, add), lgamma ~47,
+                         # the three logs and the value terms 11
+    "nb_valgrad": 110,   # logits 7, mu 4, nu 11, mixed-regime digamma ~56,
+                         # the shared divide 8, dls/dnu 16, sums 8
+    "nb_valgrad[pb,nu_exp]": 101,  # logits 7, mu 5, nu 6, digamma ~56,
+                         # the shared divide 3 (no sigmoid), dls/dnu 15
+                         # (one clamp test), sums 9 (with the pb row)
+    "nb_finish": 22,     # logits 7, p 3, fout 8, u2 4
+}
+
+
+def bound_ms(name: str, shape: dict) -> tuple[float, str]:
+    """The least time the card could take for the kernel's work on the
+    main path's shape: the larger of (each input read once, each output
+    written once) / HBM rate and operations / float32 rate."""
+    B, D, xb = shape["B"], shape["D"], shape["x_bytes"]
+    if name.startswith("count_encode"):
+        r = shape["r1"] + shape["r2"]
+        stats = name.endswith("[stats]")
+        if name == "count_encode_bwd":
+            nbytes = B * D * xb + B * r * 4 + r * D * 4
+        else:
+            nbytes = B * D * xb + r * D * 4 + B * r * 4 + (B * 16 if stats
+                                                            else 0)
+        ops = B * D * (2 * r + 1 + (3 if stats else 0))
+    else:
+        R, C, Rn = 2, 1, 1
+        T = R + C + Rn + 2 + (1 if "[pb" in name else 0)
+        base = name.split("[")[0]
+        ops = B * D * OPS_PER_ELEMENT[name]
+        rows = B * (R + C + Rn + 2) * 4          # latents, depth, lse
+        if base == "nb_lse":
+            nbytes = B * (R + C) * 4 + (R + C + 1) * D * 4 + B * 4
+        elif base == "nb_value":
+            nbytes = B * D * xb + T * D * 4 + rows + 4
+        elif base == "nb_valgrad":
+            nbytes = (B * D * xb + T * D * 4 + rows + T * D * 4
+                      + B * (1 + R + Rn) * 4)
+        else:  # nb_finish
+            nbytes = (B * (R + C + 2) * 4 + 2 * (R + C + 1) * D * 4
+                      + B * R * 4)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def main() -> int:
@@ -750,37 +1131,51 @@ def main() -> int:
         log(f"[phase 1] ptxas ({os.path.relpath(_cuda.BUILD_LOG)} has the "
             f"full report): {ptxas_summary(f.read())}")
 
-    worst, (k_dev, p_dev) = phase_kernels(enc, card)
+    worst, times = {}, {}
+    worst["count_encode"], times["count_encode"] = phase_kernels(enc, card)
     phase_chunks(enc)
+    for w, t in (phase_variant_kernels(card), phase_train_kernels(card)):
+        worst.update(w)
+        times.update(t)
+    phase_batch_step(card)
+    phase_batch_step(card, joint=True)
     with tempfile.TemporaryDirectory() as tmp:
         serve_launches, mtx = phase_cli(card, tmp)
+        nb_launches, _ = phase_train_cli(card, tmp, mtx)
+        j_launches, ck = phase_train_cli(card, tmp, mtx, joint=True)
+        enc_launches = phase_joint_encode(card, tmp, mtx, ck)
         data = full_size_counts()
         phase_full(card, data)
-        t_worst, t_times = phase_train_kernels(card)
-        phase_batch_step(card)
-        launches = phase_train_cli(card, tmp, mtx)
         phase_train_full(card, data)
+        phase_train_full(card, data, joint=True)
+        del data
+    launches = {k: nb_launches[k] for k in NB_PATH}
+    launches.update({k: j_launches[k] for k in JOINT_PATH
+                     if k not in NB_PATH})
 
-    log(f"[summary] serving CLI: {serve_launches} count_encode launches; "
-        f"training CLI: {launches}")
+    log(f"[summary] serving CLI (nb): {serve_launches} count_encode "
+        f"launches; training CLIs: nb_vae "
+        f"{ {k: nb_launches[k] for k in NB_PATH} }, vmfnb_vae "
+        f"{ {k: j_launches[k] for k in JOINT_PATH} }; encode --model "
+        f"vmfnb: {enc_launches} count_encode[stats] launches")
     log(card)
-    sources = {
-        "count_encode": ("count_encode.cu", "enc_kernel.py:183"),
-        "count_encode_bwd": ("count_encode_bwd.cu", "enc_kernel.py:216"),
-        "nb_lse": ("nb_lse.cu", "nb_step.py:320"),
-        "nb_value": ("nb_value.cu", "nb_step.py:424"),
-        "nb_valgrad": ("nb_valgrad.cu", "nb_step.py:621"),
-        "nb_finish": ("nb_finish.cu", "nb_step.py:704"),
-    }
-    t_worst["count_encode"] = worst
-    t_times["count_encode"] = (k_dev, p_dev)
-    print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda",
-        "source": f"mmvae_tpu_torch/csrc/{src}",
-        "replaces": f"mmvae_tpu/ops/{rep}",
-        "launches": launches[name], "max_abs_err": t_worst[name],
-        "ms": t_times[name][0], "plain_ms": t_times[name][1]}
-        for name, (src, rep) in sources.items()]}), flush=True)
+    int8 = dict(B=B_TRAIN, D=D_GENES, x_bytes=1)
+    shapes = {"count_encode": dict(int8, B=1600, r1=2, r2=0),
+              "count_encode[stats]": dict(int8, r1=5, r2=3),
+              "count_encode_bwd": dict(int8, r1=2, r2=2)}
+    records = []
+    for name, _, _, src, rep in KERNELS:
+        b_ms, b_by = bound_ms(name, shapes.get(name, int8))
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"mmvae_tpu_torch/csrc/{src}",
+            "replaces": f"mmvae_tpu/ops/{rep}",
+            "launches": launches[name], "max_abs_err": worst[name],
+            "ms": times[name][0], "plain_ms": times[name][1],
+            "bound_ms": b_ms, "bound_by": b_by,
+            # no single PyTorch call computes any of these functions
+            "library_ms": None})
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,7 @@
 """Shared CLI scaffolding of the port's trainers: one parser over the
-option groups, index auto-build and covariate auto-creation.
+option groups, index auto-build and covariate auto-creation, the flags
+every trainer refuses, and the run itself (resume, checkpoints,
+recording, scores).
 
 Port of the JAX-free part of ``mmvae_tpu/cli/common.py`` (that module
 loads JAX at import), mirroring the setup phase of the reference mains
@@ -12,12 +14,18 @@ from __future__ import annotations
 import argparse
 import os
 
-from mmvae_tpu.data.block import MtxDataBlock, MtxMemoryBlock, create_ones_like
-from mmvae_tpu.io.index import build_mmutil_index
-from mmvae_tpu.io.mtx import peek_mtx_header
-from mmvae_tpu.utils.logging import TLOG, WLOG
+import torch
 
+from ..data.block import MtxDataBlock, MtxMemoryBlock, create_ones_like
+from ..io.index import build_mmutil_index
+from ..io.mtx import peek_mtx_header
+from ..io.writers import write_vector_file
+from ..models.nb import adam_from_numpy, params_from_numpy
+from ..train.checkpoint import load_checkpoint, load_opt_state, save_checkpoint
 from ..train.config import MMVaeOptions, TrainingOptions
+from ..train.loop import train_vae_model
+from ..train.recorder import LatentRecorder
+from ..utils.logging import ELOG, TLOG, WLOG
 
 # auto data mode: hold the CSC arrays in host RAM below this estimate
 _INMEM_BYTES = int(os.environ.get("MMVAE_INMEM_BYTES", 4 << 30))
@@ -94,3 +102,75 @@ def prepare_blocks(opts: MMVaeOptions):
     if auto_covar:
         covar_block.auto_ones = True
     return data_block, covar_block
+
+
+def add_device_flag(g) -> None:
+    g.add_argument("--device", default="cuda",
+                   help="torch device of the run; 'cuda' needs a GPU "
+                        "(never falls back to the CPU)")
+
+
+def refuse_unported(hidden: str | None, topt: TrainingOptions) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP.md item for what
+    the port's trainers do not do yet; ``hidden`` names the hidden-layer
+    flags that were given, if any."""
+    item = None
+    if hidden:
+        item = f"hidden layers ({hidden})", 11
+    elif not (topt.fused and topt.fused_step):
+        item = "--no_fused_step / --no_fused (the generic step path)", 11
+    elif topt.data_parallel or topt.dp_shard:
+        item = "--data_parallel / --dp_shard", 13
+    elif topt.tensor_parallel > 1:
+        item = "--tensor_parallel > 1", 13
+    elif topt.num_hosts > 1:
+        item = "multi-host training (--num_hosts > 1)", 13
+    if item is not None:
+        raise NotImplementedError(
+            f"{item[0]}: not ported yet (ROADMAP.md Queue 1 item {item[1]})")
+
+
+def resolve_device(name: str) -> torch.device | None:
+    """The run's device with TF32 switched off (full float32 matmuls), or
+    None, logged, when it is CUDA and no card is available."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        ELOG(f"--device {name}: no CUDA device is available; pass "
+             f"--device cpu to run on the CPU")
+        return None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def run_training(opts: MMVaeOptions, topt: TrainingOptions, model, fast,
+                 data_block, covar_block, device) -> int:
+    """Initialise (or ``--resume``) the parameters and the Adam state,
+    train on the dense-resident packed step with recording and
+    checkpoints, and write ``${out}.scores.gz``."""
+    params = model.init(torch.Generator().manual_seed(topt.seed),
+                        device=device)
+    recorder = LatentRecorder(opts.out, topt.max_epoch, data_block.ntot(),
+                              encode_fn=model.encode_mu)
+    start_epoch, init_opt_state, prev_losses = 0, None, []
+    if topt.resume:
+        params_np, start_epoch, prev_losses = load_checkpoint(topt.resume,
+                                                              model)
+        params = params_from_numpy(params_np, device)
+        init_opt_state = adam_from_numpy(load_opt_state(topt.resume, model),
+                                         device)
+        TLOG(f"Resumed from {topt.resume} at epoch {start_epoch}")
+
+    def on_epoch_end(epoch, p, o, losses):
+        save_checkpoint(topt.checkpoint_dir, p, epoch, topt.seed,
+                        prev_losses + losses, opt_state=o)
+
+    TLOG("Training the model...")
+    params, scores = train_vae_model(
+        fast, recorder, data_block, covar_block, topt, params, device,
+        start_epoch=start_epoch, init_opt_state=init_opt_state,
+        on_epoch_end=on_epoch_end if topt.checkpoint_dir else None,
+        metrics_path=opts.out + ".metrics.jsonl")
+    write_vector_file(opts.out + ".scores.gz", prev_losses + scores)
+    TLOG("Done")
+    return 0

@@ -1,13 +1,15 @@
 """``encode`` — whole-dataset encoding with a trained checkpoint (serving).
 
-Port of ``mmvae_tpu/cli/encode.py`` for ``--model nb``: load a
-checkpoint written by either package (``--checkpoint_dir`` of the
-trainers, or :func:`mmvae_tpu_torch.train.checkpoint.save_checkpoint`),
-sweep the full dataset once, and write the ``.mu_mean.gz`` /
-``.mu_lnvar.gz`` posterior matrices.
+Port of ``mmvae_tpu/cli/encode.py`` for ``--model nb`` and ``--model
+vmfnb`` (the joint model's shared encoder): load a checkpoint written by
+either package (``--checkpoint_dir`` of the trainers, or
+:func:`mmvae_tpu_torch.train.checkpoint.save_checkpoint`), sweep the
+full dataset once, and write the ``.mu_mean.gz`` / ``.mu_lnvar.gz``
+posterior matrices.
 
-    python -m mmvae_tpu_torch.cli.encode --model nb --mtx data.mtx.gz \
-        --checkpoint ckpt_dir --out encoded [--device cuda]
+    python -m mmvae_tpu_torch.cli.encode --model nb|vmfnb \
+        --mtx data.mtx.gz --checkpoint ckpt_dir --out encoded \
+        [--device cuda]
 
 When N x D fits ``MMVAE_DENSE_BYTES`` (default 6 GiB, in the narrowest
 lossless dtype) and N is a multiple of ``--batch_size``, the counts are
@@ -26,16 +28,16 @@ import time
 import numpy as np
 import torch
 
-from mmvae_tpu.data.block import MtxDataBlock
-from mmvae_tpu.io.index import build_mmutil_index
-from mmvae_tpu.io.writers import write_data_file
-from mmvae_tpu.utils.logging import ELOG, TLOG
-
+from ..data.block import MtxDataBlock
+from ..io.index import build_mmutil_index
+from ..io.writers import write_data_file
 from ..models.nb import NBVAE, params_from_numpy
+from ..models.vmfnb import VMFNBVAE
 from ..train.checkpoint import load_checkpoint
 from ..train.config import _csv_ints
 from ..train.loop import (as_memory_block, build_dense, encode_resident,
                           encode_streaming)
+from ..utils.logging import ELOG, TLOG
 from .common import warn_unknown_args
 
 
@@ -74,9 +76,8 @@ def main(argv=None) -> int:
     ns, unknown = p.parse_known_args(argv)
     warn_unknown_args(unknown)
 
-    if ns.model != "nb":
-        item = "9, vMF-VAE" if ns.model == "vmf" else (
-            "10, joint and mixture models")
+    if ns.model not in ("nb", "vmfnb"):
+        item = "9, vMF-VAE" if ns.model == "vmf" else "10, mixture model"
         raise NotImplementedError(
             f"--model {ns.model}: not ported yet (ROADMAP.md Queue 1 "
             f"item {item})")
@@ -98,12 +99,13 @@ def main(argv=None) -> int:
     db = MtxDataBlock(ns.mtx, idx, ns.batch_size)
     D, N = db.nfeature(), db.ntot()
 
-    model = NBVAE(data_dim=D, covar_dim=1,
-                  mean_encoding=ns.mean_encoding,
-                  mean_decoding=ns.mean_decoding,
-                  mean_latent=ns.mean_latent,
-                  overdisp_encoding=ns.overdisp_encoding,
-                  overdisp_latent=ns.overdisp_latent, do_relu=ns.do_relu)
+    shape = dict(data_dim=D, mean_encoding=ns.mean_encoding,
+                 mean_decoding=ns.mean_decoding, mean_latent=ns.mean_latent,
+                 overdisp_encoding=ns.overdisp_encoding,
+                 overdisp_latent=ns.overdisp_latent, do_relu=ns.do_relu)
+    # --kappa_min / --kappa_max do not enter the encoder
+    model = (NBVAE(covar_dim=1, **shape) if ns.model == "nb"
+             else VMFNBVAE(**shape))
     params_np, epoch, _ = load_checkpoint(ns.checkpoint, model)
     params = params_from_numpy(params_np, device)
     TLOG(f"Loaded checkpoint at epoch {epoch - 1}")

@@ -3,12 +3,17 @@
 //
 //     hL = log1p(x) @ WL^T      (M, nl)
 //     hX = float(x) @ WX^T      (M, nx)
+//     st = [sum L, sum L^2, sum L, sum L^2]   (M, 4), L = log1p(x)
 //
 // for integer (int8 / int16) or float32 counts x (M, D) and float32
-// weight rows WL (nl, D), WX (nx, D), all row-major and contiguous.
+// weight rows WL (nl, D), WX (nx, D), all row-major and contiguous.  The
+// row stats are optional (STATS): the joint vMF+NB model takes its row
+// L2 norms from them; with no filter the filtered pair equals the plain
+// one.
 //
 // Replaces the Pallas TPU kernel mmvae_tpu/ops/enc_kernel.py:
-// _make_fwd_kernel / _fwd_call (want_stats=False).  The TPU kernel walks
+// _make_fwd_kernel / _fwd_call, without and with want_stats (the filt
+// variant of the mixture model is not ported here).  The TPU kernel walks
 // D tiles in grid order and carries per-row sums in VMEM scratch; here a
 // block owns kRows rows of x and loops over D inside the block, which
 // takes the place of that sequential grid axis.  Nothing carries between
@@ -33,7 +38,9 @@
 //   * kRows x NW f32 accumulators stay in registers (NW, the compile-time
 //     bound on nl + nx, is 1, 2, 4, 8 or 16);
 //   * a row is reduced by warp shuffles, then across warps through shared
-//     memory in a fixed order.
+//     memory in a fixed order;
+//   * the STATS instance adds two per-row register sums (L and L * L, L
+//     as above) and reduces them the same way.
 // A row's result therefore depends only on D and that row's data — not
 // on M, on which block ran it, or on the storage type of x (int8, int16
 // and float32 holding the same integers give the same bits) — so a sweep
@@ -76,15 +83,17 @@ __device__ __forceinline__ float log1p_count(T v, const float* lut) {
 
 // NW: compile-time bound on nl + nx (1, 2, 4, 8 or 16), so the
 // accumulators stay in registers and a narrow launch spends no
-// instructions on unused weight rows.
-template <typename T, int NW>
+// instructions on unused weight rows.  STATS: also write st (M, 4).
+template <typename T, int NW, bool STATS>
 __global__ void __launch_bounds__(kThreads)
 count_encode_fwd_kernel(const T* __restrict__ x, int64_t M, int64_t D,
                         const float* __restrict__ WL, int nl,
                         const float* __restrict__ WX, int nx,
                         float* __restrict__ hL, int64_t ldl,
-                        float* __restrict__ hX, int64_t ldx) {
-  __shared__ float red[kWarps][kRows][NW];  // per-warp partial sums
+                        float* __restrict__ hX, int64_t ldx,
+                        float* __restrict__ st) {
+  constexpr int NS = STATS ? 2 : 0;         // per-row stats: sum L, sum L^2
+  __shared__ float red[kWarps][kRows][NW + NS];  // per-warp partial sums
   __shared__ float lut[kLut];
 
   const int nw = nl + nx;
@@ -103,11 +112,11 @@ count_encode_fwd_kernel(const T* __restrict__ x, int64_t M, int64_t D,
     xr[r] = x + (live[r] ? (row0 + r) * D : 0);
   }
 
-  float acc[kRows][NW];
+  float acc[kRows][NW + NS];
 #pragma unroll
   for (int r = 0; r < kRows; ++r)
 #pragma unroll
-    for (int k = 0; k < NW; ++k) acc[r][k] = 0.f;
+    for (int k = 0; k < NW + NS; ++k) acc[r][k] = 0.f;
 
   for (int64_t d0 = tid; d0 < D; d0 += kStep) {
     // issue every load of the step before any use: kCols x NW weights
@@ -137,6 +146,11 @@ count_encode_fwd_kernel(const T* __restrict__ x, int64_t M, int64_t D,
 #pragma unroll
         for (int k = 0; k < NW; ++k)
           if (k < nw) acc[r][k] = fmaf(k < nl ? lx : xf, w[j][k], acc[r][k]);
+        // masked columns and rows read 0, and log1p(0) = 0
+        if constexpr (STATS) {
+          acc[r][NW] += lx;
+          acc[r][NW + 1] = fmaf(lx, lx, acc[r][NW + 1]);
+        }
       }
     }
   }
@@ -146,7 +160,7 @@ count_encode_fwd_kernel(const T* __restrict__ x, int64_t M, int64_t D,
 #pragma unroll
   for (int r = 0; r < kRows; ++r) {
 #pragma unroll
-    for (int k = 0; k < NW; ++k) {
+    for (int k = 0; k < NW + NS; ++k) {
       float v = acc[r][k];
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -170,46 +184,69 @@ count_encode_fwd_kernel(const T* __restrict__ x, int64_t M, int64_t D,
         hX[row * ldx + (k - nl)] = s;
     }
   }
+  if constexpr (STATS) {
+    if (tid < kRows * NS) {
+      const int r = tid / NS;
+      const int k = tid - r * NS;
+      const int64_t row = row0 + r;
+      if (row < M) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w) s += red[w][r][NW + k];
+        st[row * 4 + k] = s;      // unfiltered pair
+        st[row * 4 + 2 + k] = s;  // filtered pair: no filter, the same sums
+      }
+    }
+  }
 }
 
 template <typename T, int NW>
 void launch(const void* x, int64_t M, int64_t D, const void* WL, int nl,
             const void* WX, int nx, void* hL, int64_t ldl, void* hX,
-            int64_t ldx, cudaStream_t stream) {
+            int64_t ldx, void* st, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((M + kRows - 1) / kRows));
-  count_encode_fwd_kernel<T, NW><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), M, D, static_cast<const float*>(WL), nl,
-      static_cast<const float*>(WX), nx, static_cast<float*>(hL), ldl,
-      static_cast<float*>(hX), ldx);
+  const T* xp = static_cast<const T*>(x);
+  const auto* wl = static_cast<const float*>(WL);
+  const auto* wx = static_cast<const float*>(WX);
+  auto* hl = static_cast<float*>(hL);
+  auto* hx = static_cast<float*>(hX);
+  if (st != nullptr)
+    count_encode_fwd_kernel<T, NW, true><<<grid, kThreads, 0, stream>>>(
+        xp, M, D, wl, nl, wx, nx, hl, ldl, hx, ldx, static_cast<float*>(st));
+  else
+    count_encode_fwd_kernel<T, NW, false><<<grid, kThreads, 0, stream>>>(
+        xp, M, D, wl, nl, wx, nx, hl, ldl, hx, ldx, nullptr);
 }
 
 template <typename T>
 void launch_rows(const void* x, int64_t M, int64_t D, const void* WL,
                  int nl, const void* WX, int nx, void* hL, int64_t ldl,
-                 void* hX, int64_t ldx, cudaStream_t stream) {
+                 void* hX, int64_t ldx, void* st, cudaStream_t stream) {
   const int nw = nl + nx;
   if (nw <= 1)
-    launch<T, 1>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, stream);
+    launch<T, 1>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, stream);
   else if (nw <= 2)
-    launch<T, 2>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, stream);
+    launch<T, 2>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, stream);
   else if (nw <= 4)
-    launch<T, 4>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, stream);
+    launch<T, 4>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, stream);
   else if (nw <= 8)
-    launch<T, 8>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, stream);
+    launch<T, 8>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, stream);
   else
-    launch<T, kMaxW>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, stream);
+    launch<T, kMaxW>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = int16, 2 = int8.  hL / hX point at the first
 // output column of this launch's weight-row group, with row strides
-// ldl / ldx.  Returns cudaGetLastError() after the launch (0 = launched).
+// ldl / ldx.  st is the (M, 4) row-stats output, or null for the
+// instance without stats.  Returns cudaGetLastError() after the launch
+// (0 = launched).
 extern "C" int mmvae_count_encode_fwd(const void* x, int dtype, int64_t M,
                                       int64_t D, const void* WL, int nl,
                                       const void* WX, int nx, void* hL,
                                       int64_t ldl, void* hX, int64_t ldx,
-                                      void* stream) {
+                                      void* st, void* stream) {
   if (nl < 0 || nx < 0 || nl + nx < 1 || nl + nx > kMaxW || M < 0 || D < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
@@ -218,13 +255,13 @@ extern "C" int mmvae_count_encode_fwd(const void* x, int dtype, int64_t M,
   const auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      launch_rows<float>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, s);
+      launch_rows<float>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, s);
       break;
     case 1:
-      launch_rows<int16_t>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, s);
+      launch_rows<int16_t>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, s);
       break;
     case 2:
-      launch_rows<int8_t>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, s);
+      launch_rows<int8_t>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

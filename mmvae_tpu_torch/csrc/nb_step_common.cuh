@@ -14,7 +14,9 @@
 //   zn    (B, Rn)     z_nu
 //   depth (B, 1), lse (B, 1), rsum (B, 1)
 //   W     (T, D)      stacked rows [wd (R) | wc (C) | bias2 | wn (Rn) |
-//                     bias_n], T = R + C + Rn + 2
+//                     bias_n], T = R + C + Rn + 2; the joint vMF+NB
+//                     model's variant (JOINT) appends the post-softmax
+//                     log-bias row pb, T = R + C + Rn + 3
 //
 // Layout shared by the column-tile kernels.  The TPU kernels walk D tiles
 // in grid order and carry per-row sums in VMEM scratch; here a block owns
@@ -258,10 +260,28 @@ static inline cudaError_t launch_reduce(const float* parts, int64_t nparts, int6
   return cudaGetLastError();
 }
 
-// checks shared by the C entry points
-inline bool dims_ok(int64_t B, int64_t D, int R, int C, int Rn) {
+// The joint variant's overdispersion decode: nu = clamp(exp(npre), 0,
+// NU_HI) + EPS (vmfnb.hh:488-493), against the NB model's softplus-clip.
+__device__ __forceinline__ float exp_nu(float sp) {
+  return fminf(sp, kNuHi) + kEps;
+}
+
+// exp(pb) of the block's column, once per thread: row pbi of the W
+// column in registers (1 when the variant has no pb row)
+template <int NT>
+__device__ __forceinline__ float exp_pb(const float (&w)[NT], int pbi) {
+  float e = 1.f;
+#pragma unroll
+  for (int k = 0; k < NT; ++k)
+    if (k == pbi) e = expf(w[k]);
+  return e;
+}
+
+// checks shared by the C entry points; extra = 1 for the pb row
+inline bool dims_ok(int64_t B, int64_t D, int R, int C, int Rn,
+                    int extra = 0) {
   return B >= 1 && D >= 1 && R >= 1 && C >= 0 && Rn >= 1 &&
-         R + C + Rn + 2 <= kMaxT && num_tiles(D) <= 0x7fffffff &&
+         R + C + Rn + 2 + extra <= kMaxT && num_tiles(D) <= 0x7fffffff &&
          B <= 0x7fffffff;
 }
 

@@ -10,8 +10,9 @@
 //
 // Replaces the Pallas TPU kernel mmvae_tpu/ops/nb_step.py:
 // _make_valgrad_kernel / _valgrad_call with need_value=False, the form
-// every boot step runs (need_value=True, has_pb and nu_exp wait for the
-// joint model).  The math follows the TPU kernel line by line:
+// every boot step runs, in two variants: the NB model's, and the joint
+// vMF+NB model's (JOINT = has_pb and nu_exp).  need_value=True is not
+// ported.  The math follows the TPU kernel line by line:
 //   * softplus and the sigmoid the backward needs share one exp(-|z|);
 //   * ONE divide gives 1/(mu+nu), 1/mu and the sigmoid's 1/(1+e):
 //     rec = 1/((1+e) mu (mu+nu)).  dP/P of the select-product is a divide
@@ -20,6 +21,12 @@
 //   * grad-only: log(mu+nu) - log(nu) = -log(nu / (mu+nu)), one log;
 //   * the digamma difference takes the block's regime (all counts <= 7,
 //     all integer, or general), chosen from every valid count of the tile.
+// JOINT: mu = pe * depth + EPS with pe = p * exp(pb), exp(pb) once per
+// column; dls uses pe, while K3's coupling term keeps the plain p, so
+// gw = gout - fout stays right.  nu = clamp(exp(npre), 0, NU_HI) + EPS:
+// no sigmoid, so rec = 1/(mu (mu+nu)) without the (1+e) factor, and
+// dnupre = dnu * exp(npre) where exp(npre) < NU_HI (the lower clamp never
+// binds).  The pb gradient row, colsum(dls), is one more per-column row.
 //
 // Two kinds of reduction (layout in nb_step_common.cuh): the per-column
 // rows of gout sum over the B rows inside the block (row groups combine
@@ -39,8 +46,13 @@ namespace {
 
 using namespace nbk;
 
-template <typename T, int NT>
-__global__ void __launch_bounds__(kThreads)
+// JOINT asks for three blocks per SM (at most 80 registers a thread):
+// left to itself, ptxas gives its NT = 8 instances 94 registers for int8
+// and float32 counts, two blocks per SM, and they ran 1.5x their int16
+// twin.  The NB instances ask for one block per SM: a bound of three made
+// them ~10% slower on the H100.
+template <typename T, int NT, bool JOINT>
+__global__ void __launch_bounds__(kThreads, JOINT ? 3 : 1)
 valgrad_kernel(const T* __restrict__ x, const float* __restrict__ zc,
                const float* __restrict__ zn, const float* __restrict__ depth,
                const float* __restrict__ lse, const float* __restrict__ W,
@@ -54,10 +66,12 @@ valgrad_kernel(const T* __restrict__ x, const float* __restrict__ zc,
   const bool valid = c < D;
   const int RC = R + C;
   const int base = RC + 1;
-  const int Tn = RC + Rn + 2;
+  const int pbi = RC + Rn + 2;  // the pb row (JOINT)
+  const int Tn = RC + Rn + 2 + (JOINT ? 1 : 0);
   const int K = 1 + R + Rn;
   float w[NT];
   load_wcol<NT>(W, D, c, valid, Tn, w);
+  const float epb = JOINT ? exp_pb<NT>(w, pbi) : 1.f;
   const int regime = block_regime<T>(x, B, D, c, valid, ty);
   float acc[NT];
 #pragma unroll
@@ -72,28 +86,40 @@ valgrad_kernel(const T* __restrict__ x, const float* __restrict__ zc,
       const float dep = __ldg(depth + b);
       const float h = compute_h<NT>(zc + b * RC, w, RC);
       const float p = expf(h - __ldg(lse + b));
-      const float mu = p * dep + kEps;
+      const float pe = JOINT ? p * epb : p;
+      const float mu = pe * dep + kEps;
       const float npre = compute_nupre<NT>(zn + b * Rn, w, base, Rn);
-      const float e = expf(-fabsf(npre));
-      const float sp = fmaxf(npre, 0.f) + log1pf(e);
-      const float nu = fminf(fmaxf(sp, kNuLo), kNuHi) + kEps;
+      // JOINT: sp = exp(npre); otherwise softplus and the sigmoid share
+      // one exp(-|npre|)
+      const float e = JOINT ? 0.f : expf(-fabsf(npre));
+      const float sp = JOINT ? expf(npre) : fmaxf(npre, 0.f) + log1pf(e);
+      const float nu =
+          JOINT ? exp_nu(sp) : fminf(fmaxf(sp, kNuLo), kNuHi) + kEps;
       const float dg = dg_term(regime, xv, nu);
       // the one shared divide
       const float mn = mu + nu;
       const float v = mu * mn;
-      const float u = 1.f + e;
-      float rec = 1.f / (u * v);
-      const float r = rec * v;
-      const float sig = npre >= 0.f ? r : e * r;
-      rec = rec * u;
+      float rec, sig = 0.f;
+      if (JOINT) {
+        rec = 1.f / v;
+      } else {
+        const float u = 1.f + e;
+        rec = 1.f / (u * v);
+        const float r = rec * v;
+        sig = npre >= 0.f ? r : e * r;
+        rec = rec * u;
+      }
       const float inv_mn = rec * mu;
       const float inv_mu = rec * mn;
       const float dln = -logf(nu * inv_mn);
       const float t = (xv + nu) * inv_mn;
       const float dmu = t - xv * inv_mu;
-      dls = dmu * p * dep;
+      dls = dmu * pe * dep;
       const float dnu = dg + t + dln - 1.f;
-      dnp = (sp > kNuLo && sp < kNuHi) ? dnu * sig : 0.f;
+      if (JOINT)
+        dnp = sp < kNuHi ? dnu * sp : 0.f;
+      else
+        dnp = (sp > kNuLo && sp < kNuHi) ? dnu * sig : 0.f;
       const float* zcr = zc + b * RC;
       const float* znr = zn + b * Rn;
 #pragma unroll
@@ -103,6 +129,7 @@ valgrad_kernel(const T* __restrict__ x, const float* __restrict__ zc,
         if (k >= base && k < base + Rn)
           acc[k] = fmaf(__ldg(znr + (k - base)), dnp, acc[k]);
         if (k == base + Rn) acc[k] += dnp;
+        if (JOINT && k == pbi) acc[k] += dls;
       }
     }
     // per-row sums over this warp's 32 columns: [rsum | u1 | dzn]
@@ -139,7 +166,7 @@ valgrad_kernel(const T* __restrict__ x, const float* __restrict__ zc,
   }
 }
 
-template <typename T>
+template <typename T, bool JOINT>
 void launch(const void* x, const float* zc, const float* zn,
             const float* depth, const float* lse, const float* W, int64_t B,
             int64_t D, int R, int C, int Rn, float* gout, float* parts,
@@ -147,12 +174,23 @@ void launch(const void* x, const float* zc, const float* zn,
   const dim3 grid(static_cast<unsigned>(num_tiles(D)));
   const dim3 block(kTileCols, kRowGroups);
   const T* xp = static_cast<const T*>(x);
-  if (R + C + Rn + 2 <= 8)
-    valgrad_kernel<T, 8><<<grid, block, 0, s>>>(xp, zc, zn, depth, lse, W, B,
-                                                D, R, C, Rn, gout, parts);
-  else
-    valgrad_kernel<T, kMaxT><<<grid, block, 0, s>>>(
+  if (R + C + Rn + 2 + (JOINT ? 1 : 0) <= 8)
+    valgrad_kernel<T, 8, JOINT><<<grid, block, 0, s>>>(
         xp, zc, zn, depth, lse, W, B, D, R, C, Rn, gout, parts);
+  else
+    valgrad_kernel<T, kMaxT, JOINT><<<grid, block, 0, s>>>(
+        xp, zc, zn, depth, lse, W, B, D, R, C, Rn, gout, parts);
+}
+
+template <typename T>
+void launch_variant(const void* x, const float* zc, const float* zn,
+                    const float* depth, const float* lse, const float* W,
+                    int64_t B, int64_t D, int R, int C, int Rn, bool joint,
+                    float* gout, float* parts, cudaStream_t s) {
+  if (joint)
+    launch<T, true>(x, zc, zn, depth, lse, W, B, D, R, C, Rn, gout, parts, s);
+  else
+    launch<T, false>(x, zc, zn, depth, lse, W, B, D, R, C, Rn, gout, parts, s);
 }
 
 }  // namespace
@@ -162,15 +200,19 @@ extern "C" int64_t mmvae_nb_valgrad_ws(int64_t B, int64_t D, int R, int Rn) {
   return num_parts(D) * B * (1 + R + Rn);
 }
 
-// dtype: 0 = float32, 1 = int16, 2 = int8.  Writes gout (R+C+Rn+2, D) and
-// rowout (B, 1 + R + Rn) = [rsum | u1 | dzn].  Returns cudaGetLastError()
-// after the two launches (0 = launched).
+// dtype: 0 = float32, 1 = int16, 2 = int8.  joint = 1 selects the pb /
+// exp-nu variant, whose W and gout have the pb row last.  Writes gout
+// (R+C+Rn+2+joint, D) and rowout (B, 1 + R + Rn) = [rsum | u1 | dzn].
+// Returns cudaGetLastError() after the two launches (0 = launched).
 extern "C" int mmvae_nb_valgrad(const void* x, int dtype, const void* zc,
                                 const void* zn, const void* depth,
                                 const void* lse, const void* W, int64_t B,
-                                int64_t D, int R, int C, int Rn, void* gout,
-                                void* ws, void* rowout, void* stream) {
-  if (!dims_ok(B, D, R, C, Rn)) return static_cast<int>(cudaErrorInvalidValue);
+                                int64_t D, int R, int C, int Rn, int joint,
+                                void* gout, void* ws, void* rowout,
+                                void* stream) {
+  if (!dims_ok(B, D, R, C, Rn, joint != 0) || (joint != 0 && joint != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool jt = joint != 0;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* zcp = static_cast<const float*>(zc);
   const auto* znp = static_cast<const float*>(zn);
@@ -181,13 +223,16 @@ extern "C" int mmvae_nb_valgrad(const void* x, int dtype, const void* zc,
   auto* parts = static_cast<float*>(ws);
   switch (dtype) {
     case 0:
-      launch<float>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, gp, parts, s);
+      launch_variant<float>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, jt, gp,
+                            parts, s);
       break;
     case 1:
-      launch<int16_t>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, gp, parts, s);
+      launch_variant<int16_t>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, jt, gp,
+                              parts, s);
       break;
     case 2:
-      launch<int8_t>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, gp, parts, s);
+      launch_variant<int8_t>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, jt, gp,
+                             parts, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

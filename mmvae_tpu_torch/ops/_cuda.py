@@ -112,7 +112,7 @@ def _bind(lib) -> None:
         _vp, _i32, _i64, _i64,   # x, dtype code, M, D
         _vp, _i32, _vp, _i32,    # WL, nl, WX, nx
         _vp, _i64, _vp, _i64,    # hL, ldl, hX, ldx
-        _vp,                     # cudaStream_t
+        _vp, _vp,                # row stats (or null), cudaStream_t
     ]
     lib.mmvae_count_encode_fwd.restype = _i32
     lib.mmvae_count_encode_bwd.argtypes = [
@@ -132,9 +132,11 @@ def _bind(lib) -> None:
     dims = [_i64, _i64, _i32, _i32, _i32]  # B, D, R, C, Rn
     lib.mmvae_nb_lse.argtypes = [_vp, _vp, _i64, _i64, _i32, _i32,
                                  _vp, _vp, _vp]
-    lib.mmvae_nb_value.argtypes = [_vp, _i32, *rows, _vp, *dims, _i32,
+    # value: ..., with_const, joint, ws, out, stream
+    lib.mmvae_nb_value.argtypes = [_vp, _i32, *rows, _vp, *dims, _i32, _i32,
                                    _vp, _vp, _vp]
-    lib.mmvae_nb_valgrad.argtypes = [_vp, _i32, *rows, _vp, *dims,
+    # valgrad: ..., joint, gout, ws, rowout, stream
+    lib.mmvae_nb_valgrad.argtypes = [_vp, _i32, *rows, _vp, *dims, _i32,
                                      _vp, _vp, _vp, _vp]
     lib.mmvae_nb_finish.argtypes = [_vp, _vp, _vp, _vp, _i64, _i64, _i32,
                                     _i32, _vp, _vp, _vp, _vp]

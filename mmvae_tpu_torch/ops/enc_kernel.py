@@ -1,13 +1,16 @@
-"""Fused count-encoder contraction: ``(log1p(x) @ WL^T, x @ WX^T)``.
+"""Fused count-encoder contraction: ``(log1p(x) @ WL^T, x @ WX^T)`` and,
+optionally, the row stats ``[sum L, sum L^2, sum L, sum L^2]``
+(``L = log1p(x)``) the joint vMF+NB model's row norms come from.
 
-Port of ``mmvae_tpu/ops/enc_kernel.py`` (without the row stats that only
-the vMF-side models use).  :func:`count_encode` is a
+Port of ``mmvae_tpu/ops/enc_kernel.py`` (``want_stats`` included; the
+mixture model's ``filt`` is not ported yet).  :func:`count_encode` is a
 ``torch.autograd.Function`` over two kernels, each with its plain
 PyTorch version beside it:
 
-- forward (K4): :func:`count_encode_ref`, or the CUDA kernel
-  ``csrc/count_encode.cu``, which reads the integer counts once and forms
-  ``log1p(x)`` in registers;
+- forward (K4, and K4s with ``want_stats``): :func:`count_encode_ref`,
+  or the CUDA kernel ``csrc/count_encode.cu``, which reads the integer
+  counts once and forms ``log1p(x)`` in registers; the stats take no
+  gradient;
 - backward (K5): :func:`count_encode_bwd` — ``dWL = g1^T log1p(x)``,
   ``dWX = g2^T x`` — :func:`count_encode_bwd_ref`, or the CUDA kernel
   ``csrc/count_encode_bwd.cu``.
@@ -16,7 +19,8 @@ Both run in float32 (the JAX package's bf16 operand views emulate the
 TPU's DEFAULT matmul precision and are not ported).  Each picks by where
 ``x`` lies: a CPU tensor goes to the plain version; a CUDA tensor
 launches the kernel or raises — there is no fallback on the card.
-``count_encode.launches`` and ``count_encode_bwd.launches`` count kernel
+``count_encode.launches`` (no stats), ``count_encode.stats_launches``
+(the stats instance) and ``count_encode_bwd.launches`` count kernel
 launches.
 """
 
@@ -29,14 +33,21 @@ MAX_ROWS_PER_LAUNCH = 16  # weight rows the kernel keeps in registers
 
 
 def count_encode_ref(x: torch.Tensor, WL: torch.Tensor,
-                     WX: torch.Tensor | None = None
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: float32 ``(log1p(x) @ WL^T, x @ WX^T)``."""
+                     WX: torch.Tensor | None = None,
+                     want_stats: bool = False) -> tuple:
+    """Plain version: float32 ``(log1p(x) @ WL^T, x @ WX^T)``, and with
+    ``want_stats`` the (M, 4) row stats ``[sum L, sum L^2, sum L,
+    sum L^2]`` of ``L = log1p(x)`` (``_xla_encode`` with no filter)."""
     xf = x.float()
-    hL = torch.log1p(xf) @ WL.T
-    if WX is None:
-        return hL, xf.new_empty((x.shape[0], 0))
-    return hL, xf @ WX.T
+    L = torch.log1p(xf)
+    hL = L @ WL.T
+    hX = xf.new_empty((x.shape[0], 0)) if WX is None else xf @ WX.T
+    if not want_stats:
+        return hL, hX
+    with torch.no_grad():
+        s, ssq = L.sum(1), (L * L).sum(1)
+        stats = torch.stack([s, ssq, s, ssq], dim=1)
+    return hL, hX, stats
 
 
 def count_encode_bwd_ref(x: torch.Tensor, g1: torch.Tensor,
@@ -50,36 +61,44 @@ def count_encode_bwd_ref(x: torch.Tensor, g1: torch.Tensor,
 
 class _CountEncode(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, WL, WX):
+    def forward(ctx, x, WL, WX, want_stats):
         ctx.save_for_backward(x)
         ctx.has_wx = WX is not None
         if x.device.type == "cpu":
-            return count_encode_ref(x, WL, WX)
-        return _kernel_route(x, WL, WX)
+            out = count_encode_ref(x, WL, WX, want_stats)
+        else:
+            out = _kernel_route(x, WL, WX, want_stats)
+        if want_stats:
+            ctx.mark_non_differentiable(out[2])
+        return out
 
     @staticmethod
-    def backward(ctx, gL, gX):
+    def backward(ctx, gL, gX, *_g_stats):
         (x,) = ctx.saved_tensors
         if not ctx.needs_input_grad[1] and not ctx.needs_input_grad[2]:
-            return None, None, None
+            return None, None, None, None
         dWL, dWX = count_encode_bwd(x, gL, gX if ctx.has_wx else None)
-        return None, dWL, dWX
+        return None, dWL, dWX, None
 
 
 def count_encode(x: torch.Tensor, WL: torch.Tensor,
-                 WX: torch.Tensor | None = None
-                 ) -> tuple[torch.Tensor, torch.Tensor]:
+                 WX: torch.Tensor | None = None,
+                 want_stats: bool = False) -> tuple:
     """``(hL, hX) = (log1p(x) @ WL^T, float(x) @ WX^T)`` in float32,
     differentiable in WL and WX (backward: :func:`count_encode_bwd`).
+    With ``want_stats`` a third output, the (M, 4) row stats
+    ``[sum L, sum L^2, sum L, sum L^2]`` of ``L = log1p(x)`` in float32,
+    which carry no gradient.
 
     x  : (M, D) counts, int8 / int16 / float32 — data, no gradient
     WL : (r1, D) float32 rows contracted against log1p(x)
     WX : (r2, D) float32 rows contracted against x, or None (r2 = 0)
     """
-    return _CountEncode.apply(x, WL, WX)
+    return _CountEncode.apply(x, WL, WX, bool(want_stats))
 
 
 count_encode.launches = 0
+count_encode.stats_launches = 0
 
 
 def count_encode_bwd(x: torch.Tensor, g1: torch.Tensor,
@@ -135,7 +154,7 @@ def _check_kernel_args(x, WL, WX) -> torch.Tensor:
     return WX
 
 
-def _kernel_route(x, WL, WX):
+def _kernel_route(x, WL, WX, want_stats=False):
     WX = _check_kernel_args(x, WL, WX)
     if x.device.type != "cuda":
         raise ValueError(f"count_encode: no kernel for device {x.device}")
@@ -146,11 +165,15 @@ def _kernel_route(x, WL, WX):
     r1, r2 = WL.shape[0], WX.shape[0]
     hL = torch.empty((M, r1), dtype=torch.float32, device=x.device)
     hX = torch.empty((M, r2), dtype=torch.float32, device=x.device)
+    st = (torch.empty((M, 4), dtype=torch.float32, device=x.device)
+          if want_stats else None)
+    out = (hL, hX, st) if want_stats else (hL, hX)
     if M == 0:
-        return hL, hX
+        return out
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        # one launch per group of <= 16 stacked rows [WL; WX]
+        # one launch per group of <= 16 stacked rows [WL; WX]; the first
+        # launch alone writes the stats
         for g0 in range(0, r1 + r2, MAX_ROWS_PER_LAUNCH):
             g1 = min(g0 + MAX_ROWS_PER_LAUNCH, r1 + r2)
             l0, l1 = min(g0, r1), min(g1, r1)
@@ -161,11 +184,15 @@ def _kernel_route(x, WL, WX):
                 WX.data_ptr() + 4 * x0 * D, x1 - x0,
                 hL.data_ptr() + 4 * l0, r1,
                 hX.data_ptr() + 4 * x0, r2,
+                st.data_ptr() if st is not None and g0 == 0 else None,
                 stream,
             )
             _cuda.check(rc, "count_encode")
-            count_encode.launches += 1
-    return hL, hX
+            if st is not None and g0 == 0:
+                count_encode.stats_launches += 1
+            else:
+                count_encode.launches += 1
+    return out
 
 
 def _bwd_kernel_route(x, g1, g2):

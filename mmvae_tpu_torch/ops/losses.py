@@ -1,9 +1,11 @@
-"""ELBO terms of the NB-VAE.
+"""ELBO terms of the NB-VAE and the joint vMF+NB model.
 
-Port of ``mmvae_tpu/ops/losses.py`` (``gaussian_kl`` :29,
-``kl_weight_schedule`` :124, ``nb_nllik`` / ``nb_loss`` :49-95).  The
-training step uses the first two; ``nb_nllik`` and ``nb_loss`` are the
-unfused reference formulas, kept for the tests.
+Port of ``mmvae_tpu/ops/losses.py`` (``l2_normalize`` :23,
+``gaussian_kl`` :29, ``kl_weight_schedule`` :124, ``nb_nllik`` /
+``nb_loss`` :49-95).  The training steps use ``gaussian_kl`` and
+``kl_weight_schedule``; ``l2_normalize`` serves the joint model's plain
+encoder; ``nb_nllik`` and ``nb_loss`` are the unfused reference
+formulas, kept for the tests.
 """
 
 from __future__ import annotations
@@ -11,6 +13,13 @@ from __future__ import annotations
 import torch
 
 from .nb_elbo import _lgamma_pos
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Row L2 normalization matching ``F::normalize`` (p=2, eps=1e-12):
+    divide by ``max(norm, 1e-12)`` (``losses.py:23-26``)."""
+    norm = torch.sqrt(torch.sum(x * x, dim=dim, keepdim=True))
+    return x / torch.clamp_min(norm, 1e-12)
 
 
 def gaussian_kl(mean: torch.Tensor, lnvar: torch.Tensor) -> torch.Tensor:

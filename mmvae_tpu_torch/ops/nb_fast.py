@@ -1,9 +1,11 @@
 """Packed NB-VAE training step: reporting pass + bootstrap Adam steps.
 
-Port of ``mmvae_tpu/ops/nb_fast.py`` (``_Rows``, ``NBFastStep``,
-``PackedFastStep.batch_step`` with its ``rand=`` entry point,
+Port of ``mmvae_tpu/ops/nb_fast.py`` (``_Rows``, ``PackedFastStep``
+with ``batch_step``'s ``rand=`` entry point, ``NBFastStep``,
 ``_make_packed_optimizer``) for the reference's default architecture
 (direct D->R encoder and R->D decoder, no hidden layers).
+:class:`PackedFastStep` is the skeleton the joint model's step
+(``ops/vmfnb_fast.py``) shares.
 
 - **Packed parameters.**  Every D-sized parameter row lives in one
   (K, D) float32 matrix ``P``; every small parameter in one flat vector
@@ -23,7 +25,7 @@ autograd, the JAX package's XLA path — used to hold the kernel route
 against it on the card.
 
 Randomness is passed in (``rand``), never drawn in the step:
-:meth:`NBFastStep.draw_rand` draws a whole epoch from a
+:meth:`PackedFastStep.draw_rand` draws a whole epoch from a
 ``torch.Generator``, and the parity tests feed JAX's ``draw_rand`` draws
 through :func:`rand_from_numpy`, so both packages see the same noise.
 """
@@ -185,30 +187,154 @@ def batch_rand(rand: dict, b: int) -> dict:
             "boot_eps": tuple(e[b] for e in rand["boot_eps"])}
 
 
-class NBFastStep:
+class PackedFastStep:
+    """Shared skeleton of the packed fast steps (JAX ``PackedFastStep``,
+    ``ops/nb_fast.py:196-335``).
+
+    A subclass gives ``_make_rows(model)``, ``_sv_entries()`` (the
+    small-vector segments, in order), ``_eps_widths()`` (the latent width
+    of each reparameterization draw), ``supports(model)``, ``pack`` /
+    ``unpack`` and ``_loss(q, x, c, ridx, eps, beta, include_const,
+    boot)``; :meth:`batch_step`, :meth:`draw_rand`, the small-vector
+    layout and the packed optimizer are common.  The epoch runner in
+    ``train/loop.py`` drives any subclass through this protocol.
+    ``plain=True`` selects the plain route of the same step (the JAX
+    package's XLA path) instead of the kernels."""
+
+    #: what the port raises where the JAX package would fall back to its
+    #: generic step path for a model the packed step does not support
+    UNSUPPORTED = ("this architecture needs the generic step path, which "
+                   "is not ported yet (ROADMAP.md Queue 1 item 11)")
+
+    def __init__(self, model, opt, kl=(1.0, 1e-2, 0.1), plain: bool = False):
+        if not self.supports(model):
+            raise NotImplementedError(self.UNSUPPORTED)
+        self.model = model
+        self.opt = opt
+        self.kl_max, self.kl_min, self.kl_discount = kl
+        self.plain = plain
+        self.rows = self._make_rows(model)
+        self._sv_segs, self._sv_len = self._seg_layout(self._sv_entries())
+        self.optimizer = PackedAdam(opt.lr, opt.grad_clip, opt.weight_decay)
+        self._beta = None
+
+    # ------------------------------------------------------------------
+    # layout: pack / unpack work on params AND on Adam-moment trees
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _seg_layout(entries):
+        """``name -> (offset, shape)`` segment table and total length of
+        the packed small vector."""
+        segs, off = {}, 0
+        for name, shape in entries:
+            segs[name] = (off, shape)
+            off += math.prod(shape)
+        return segs, off
+
+    def _sv(self, sv, name):
+        off, shape = self._sv_segs[name]
+        return sv[off:off + math.prod(shape)].reshape(shape)
+
+    def _pack_sv(self, t: dict) -> torch.Tensor:
+        return torch.cat([t[top][leaf].reshape(-1) for top, leaf in
+                          (n.split(".") for n in self._sv_segs)])
+
+    def _unpack_sv(self, sv, out: dict) -> dict:
+        for name in self._sv_segs:
+            top, leaf = name.split(".")
+            out.setdefault(top, {})[leaf] = self._sv(sv, name)
+        return out
+
+    def pack_opt_state(self, state: dict) -> dict:
+        """Named Adam state ``{count, mu, nu}`` -> packed."""
+        return {"count": state["count"], "mu": self.pack(state["mu"]),
+                "nu": self.pack(state["nu"])}
+
+    def unpack_opt_state(self, state: dict) -> dict:
+        return {"count": state["count"], "mu": self.unpack(state["mu"]),
+                "nu": self.unpack(state["nu"])}
+
+    @staticmethod
+    def _reparam(eps, mean, lnvar):
+        return mean + eps * torch.exp(lnvar / 2.0)
+
+    # ------------------------------------------------------------------
+    # randomness
+    # ------------------------------------------------------------------
+    def draw_rand(self, gen: torch.Generator, nbatch: int, B: int) -> dict:
+        """Every draw of ``nbatch`` batch steps, with the structure of the
+        JAX package's ``draw_rand``: ``rep_eps`` (one (nbatch, B, w) per
+        width of :meth:`_eps_widths`), ``ridx`` (nbatch, nboot, B),
+        ``boot_eps`` ((nbatch, nboot, B, w) per width), drawn on the
+        generator's device in one go."""
+        nb = self.opt.nboot
+        dev = gen.device
+
+        def normal(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        widths = self._eps_widths()
+        rep_eps = tuple(normal(nbatch, B, w) for w in widths)
+        ridx = torch.randint(0, B, (nbatch, nb, B), generator=gen,
+                             device=dev)
+        boot_eps = tuple(normal(nbatch, nb, B, w) for w in widths)
+        return dict(rep_eps=rep_eps, ridx=ridx, boot_eps=boot_eps)
+
+    def _beta_for(self, epoch_f: float, device) -> torch.Tensor:
+        key = (float(epoch_f), str(device))
+        if self._beta is None or self._beta[0] != key:
+            beta = kl_weight_schedule(epoch_f, self.kl_max, self.kl_min,
+                                      self.kl_discount).to(device)
+            self._beta = (key, beta)
+        return self._beta[1]
+
+    def batch_step(self, q: dict, opt_state: dict, x, c, epoch_f,
+                   rand: dict):
+        """One reference batch step on packed state: the reporting pass
+        (no update) and ``nboot`` bootstrap-resampled Adam steps
+        (mmvae_alg.hh:277-311).  Returns (q, opt_state, report)."""
+        beta = self._beta_for(epoch_f, x.device)
+        with torch.no_grad():
+            report = self._loss(q, x, c, None, rand["rep_eps"], beta,
+                                include_const=True, boot=False)
+        for i in range(self.opt.nboot):
+            qq = {k: v.detach().requires_grad_() for k, v in q.items()}
+            eps = tuple(e[i] for e in rand["boot_eps"])
+            loss = self._loss(qq, x, c, rand["ridx"][i], eps, beta,
+                              include_const=False, boot=True)
+            gP, gsv = torch.autograd.grad(loss, (qq["P"], qq["sv"]))
+            with torch.no_grad():
+                q, opt_state = self.optimizer.update(
+                    {"P": gP, "sv": gsv}, opt_state, q)
+        return q, opt_state, report
+
+
+class NBFastStep(PackedFastStep):
     """Packed-parameter step for :class:`~mmvae_tpu_torch.models.nb.NBVAE`:
     converts between the named parameter dict (artifact and checkpoint
     surface) and ``{P: (K, D), sv: (n,)}``, and runs one reference batch
     step — reporting pass plus ``nboot`` bootstrap Adam steps
     (mmvae_alg.hh:277-311) — on the packed state."""
 
-    def __init__(self, model, opt, kl=(1.0, 1e-2, 0.1), plain: bool = False):
-        if not self.supports(model):
-            raise NotImplementedError(
-                "the packed step needs the direct (no hidden layer) NB "
-                "architecture; hidden layers are not ported yet (ROADMAP.md "
-                "Queue 1 item 11, generic step path)")
-        self.model = model
-        self.opt = opt
-        self.kl_max, self.kl_min, self.kl_discount = kl
-        self.plain = plain
-        self.rows = _Rows(R=model.mean_latent, C=model.covar_dim,
-                          H=model.overdisp_encoding,
-                          Rn=model.overdisp_latent)
+    UNSUPPORTED = ("the packed step needs the direct (no hidden layer) NB "
+                   "architecture; hidden layers are not ported yet "
+                   "(ROADMAP.md Queue 1 item 11, generic step path)")
+
+    @staticmethod
+    def supports(model) -> bool:
+        from ..models.nb import NBVAE
+
+        return (isinstance(model, NBVAE) and not model.mean_encoding
+                and not model.mean_decoding)
+
+    @staticmethod
+    def _make_rows(model):
+        return _Rows(R=model.mean_latent, C=model.covar_dim,
+                     H=model.overdisp_encoding, Rn=model.overdisp_latent)
+
+    def _sv_entries(self):
         R, C, H, Rn = self.rows.R, self.rows.C, self.rows.H, self.rows.Rn
-        segs, off = {}, 0
-        for name, shape in [
-                ("mu_encoding.bias", (R,)),
+        return [("mu_encoding.bias", (R,)),
                 ("covar_encoding.weight", (C, R)),
                 ("covar_encoding.bias", (R,)),
                 ("mu_representation_mean.weight", (R, R)),
@@ -220,26 +346,10 @@ class NBFastStep:
                 ("nu_representation_mean.bias", (Rn,)),
                 ("nu_representation_logvariance.weight", (H, Rn)),
                 ("nu_representation_logvariance.bias", (Rn,)),
-                ("depth.bias", (1,))]:
-            segs[name] = (off, shape)
-            off += math.prod(shape)
-        self._sv_segs, self._sv_len = segs, off
-        self.optimizer = PackedAdam(opt.lr, opt.grad_clip, opt.weight_decay)
-        self._beta = None
+                ("depth.bias", (1,))]
 
-    @staticmethod
-    def supports(model) -> bool:
-        from ..models.nb import NBVAE
-
-        return (isinstance(model, NBVAE) and not model.mean_encoding
-                and not model.mean_decoding)
-
-    # ------------------------------------------------------------------
-    # layout: pack / unpack work on params AND on Adam-moment trees
-    # ------------------------------------------------------------------
-    def _sv(self, sv, name):
-        off, shape = self._sv_segs[name]
-        return sv[off:off + math.prod(shape)].reshape(shape)
+    def _eps_widths(self):
+        return (self.rows.R, self.rows.Rn)  # (mu, nu)
 
     def pack(self, t: dict) -> dict:
         P = torch.cat([
@@ -258,12 +368,10 @@ class NBFastStep:
             t["depth"]["weight"].T,
         ], dim=0).contiguous()
         assert P.shape[0] == self.rows.K
-        sv = torch.cat([t[top][leaf].reshape(-1) for top, leaf in
-                        (n.split(".") for n in self._sv_segs)])
-        return {"P": P, "sv": sv}
+        return {"P": P, "sv": self._pack_sv(t)}
 
     def unpack(self, q: dict) -> dict:
-        P, sv = q["P"], q["sv"]
+        P = q["P"]
         r = self.rows
         out = {
             "x_mean": P[r.x_mean][None, :],
@@ -278,19 +386,7 @@ class NBFastStep:
             "nu_encoding": {"weight": P[r.nu_enc_w].T},
             "depth": {"weight": P[r.depth_w][:, None]},
         }
-        for name in self._sv_segs:
-            top, leaf = name.split(".")
-            out.setdefault(top, {})[leaf] = self._sv(sv, name)
-        return out
-
-    def pack_opt_state(self, state: dict) -> dict:
-        """Named Adam state ``{count, mu, nu}`` -> packed."""
-        return {"count": state["count"], "mu": self.pack(state["mu"]),
-                "nu": self.pack(state["nu"])}
-
-    def unpack_opt_state(self, state: dict) -> dict:
-        return {"count": state["count"], "mu": self.unpack(state["mu"]),
-                "nu": self.unpack(state["nu"])}
+        return self._unpack_sv(q["sv"], out)
 
     # ------------------------------------------------------------------
     # compute
@@ -338,8 +434,8 @@ class NBFastStep:
             x = x.index_select(0, ridx)
             c = c.index_select(0, ridx)
         mu_mean, mu_lnvar, nu_mean, nu_lnvar, depth = self._heads(q, x, c)
-        z_mu = mu_mean + eps[0] * torch.exp(mu_lnvar / 2.0)
-        z_nu = nu_mean + eps[1] * torch.exp(nu_lnvar / 2.0)
+        z_mu = self._reparam(eps[0], mu_mean, mu_lnvar)
+        z_nu = self._reparam(eps[1], nu_mean, nu_lnvar)
         kl = gaussian_kl(mu_mean, mu_lnvar) + gaussian_kl(nu_mean, nu_lnvar)
         args = (x, z_mu, c, z_nu, depth, *self._kernel_rows(q["P"]))
         if self.plain:
@@ -349,52 +445,3 @@ class NBFastStep:
         else:
             nll = nb_step_report(*args, include_const=include_const)
         return (nll + beta * kl) / x.shape[0]
-
-    # ------------------------------------------------------------------
-    # randomness
-    # ------------------------------------------------------------------
-    def draw_rand(self, gen: torch.Generator, nbatch: int, B: int) -> dict:
-        """Every draw of ``nbatch`` batch steps, with the structure of the
-        JAX package's ``draw_rand``: ``rep_eps`` ((nbatch, B, R),
-        (nbatch, B, Rn)), ``ridx`` (nbatch, nboot, B), ``boot_eps``
-        ((nbatch, nboot, B, R), (nbatch, nboot, B, Rn)), drawn on the
-        generator's device in one go."""
-        R, Rn, nb = self.rows.R, self.rows.Rn, self.opt.nboot
-        dev = gen.device
-
-        def normal(*shape):
-            return torch.randn(shape, generator=gen, device=dev)
-
-        rep_eps = (normal(nbatch, B, R), normal(nbatch, B, Rn))
-        ridx = torch.randint(0, B, (nbatch, nb, B), generator=gen,
-                             device=dev)
-        boot_eps = (normal(nbatch, nb, B, R), normal(nbatch, nb, B, Rn))
-        return dict(rep_eps=rep_eps, ridx=ridx, boot_eps=boot_eps)
-
-    def _beta_for(self, epoch_f: float, device) -> torch.Tensor:
-        key = (float(epoch_f), str(device))
-        if self._beta is None or self._beta[0] != key:
-            beta = kl_weight_schedule(epoch_f, self.kl_max, self.kl_min,
-                                      self.kl_discount).to(device)
-            self._beta = (key, beta)
-        return self._beta[1]
-
-    def batch_step(self, q: dict, opt_state: dict, x, c, epoch_f,
-                   rand: dict):
-        """One reference batch step on packed state: the reporting pass
-        (no update) and ``nboot`` bootstrap-resampled Adam steps.
-        Returns (q, opt_state, report)."""
-        beta = self._beta_for(epoch_f, x.device)
-        with torch.no_grad():
-            report = self._loss(q, x, c, None, rand["rep_eps"], beta,
-                                include_const=True, boot=False)
-        for i in range(self.opt.nboot):
-            qq = {k: v.detach().requires_grad_() for k, v in q.items()}
-            eps = tuple(e[i] for e in rand["boot_eps"])
-            loss = self._loss(qq, x, c, rand["ridx"][i], eps, beta,
-                              include_const=False, boot=True)
-            gP, gsv = torch.autograd.grad(loss, (qq["P"], qq["sv"]))
-            with torch.no_grad():
-                q, opt_state = self.optimizer.update(
-                    {"P": gP, "sv": gsv}, opt_state, q)
-        return q, opt_state, report

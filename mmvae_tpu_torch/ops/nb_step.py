@@ -1,11 +1,21 @@
-"""Fused NB-VAE step: reporting NLL and the grad-only boot-step NLL.
+"""Fused NB step: reporting NLL and the grad-only boot-step NLL.
 
-Port of ``mmvae_tpu/ops/nb_step.py`` for the default NB model.  The
-decoder logits ``h = zm @ wd + c @ wc + bias2`` and the overdispersion
-pre-activation ``zn @ wn + bias_n`` are built inside the kernels from the
-(B, R) latents and the stacked weight rows ``W = [wd; wc; bias2; wn;
-bias_n]`` (T = R + C + Rn + 2 rows), so the only (B, D) tensor any kernel
-reads is the count matrix ``x`` (int8, int16 or float32).
+Port of ``mmvae_tpu/ops/nb_step.py`` for the default NB model and the
+NB half of the joint vMF+NB model.  The decoder logits
+``h = zm @ wd + c @ wc + bias2`` and the overdispersion pre-activation
+``zn @ wn + bias_n`` are built inside the kernels from the (B, R)
+latents and the stacked weight rows ``W = [wd; wc; bias2; wn; bias_n]``
+(T = R + C + Rn + 2 rows), so the only (B, D) tensor any kernel reads is
+the count matrix ``x`` (int8, int16 or float32).
+
+The joint model's variant (``pb`` / ``nu_exp``, vmfnb.hh:462-493) adds
+the post-softmax log-bias ``pb`` as the last stacked row (T = R + C +
+Rn + 3; ``mu = exp(log_softmax(h) + pb) * depth``) and decodes
+``nu = clamp(exp(nu_pre), 0, NU_HI)`` instead of the softplus-clip.  K6
+and K2 and their plain versions take both as one ``joint`` flag, as the
+kernels' one JOINT instance does; only :func:`step_nll_ref` keeps
+``pb=`` / ``nu_exp=`` apart, as ``xla_step_nll`` does.  K1 and K3 read
+only the first R + C + 1 rows, so they take either W unchanged.
 
 Four kernels, each a wrapper with a plain PyTorch version beside it:
 
@@ -17,16 +27,18 @@ Four kernels, each a wrapper with a plain PyTorch version beside it:
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel (``mmvae_tpu_torch/csrc/nb_*.cu``) or raises — there
-is no fallback on the card.  ``<wrapper>.launches`` counts launches.
+is no fallback on the card.  ``<wrapper>.launches`` counts the launches
+of the NB instance, ``value.joint_launches`` and
+``valgrad.joint_launches`` those of the joint one.
 
 :func:`nb_step_report` runs K1 then K6.  :func:`nb_step_boot_gradonly`
-is a ``torch.autograd.Function`` whose forward runs K1, K2, K3 and
-assembles the gradients (``_boot_fwd_impl``, nb_step.py:844-868), and
-whose backward scales them by the incoming cotangent (``_boot_bwd``); its
-primal is 0.0, as on the JAX kernel path: boot losses are consumed by the
-gradient only.  :func:`step_nll_ref` is the differentiable plain
-specification (``xla_step_nll``); the JAX package's joint-model options
-``pb`` / ``nu_exp`` and tensor-parallel ``model_axis`` are not ported.
+and :func:`nb_step_boot_joint_gradonly` are ``torch.autograd.Function``s
+whose forward runs K1, K2, K3 and assembles the gradients
+(``_boot_fwd_impl``, nb_step.py:844-868), and whose backward scales them
+by the incoming cotangent (``_boot_bwd``); their primal is 0.0, as on
+the JAX kernel path: boot losses are consumed by the gradient only.
+:func:`step_nll_ref` is the differentiable plain specification
+(``xla_step_nll``); tensor-parallel ``model_axis`` is not ported.
 """
 
 from __future__ import annotations
@@ -36,7 +48,7 @@ import torch
 from .enc_kernel import _DTYPE_CODE
 from .nb_elbo import EPS, NU_HI, NU_LO
 
-MAX_STACKED_ROWS = 16  # T = R + C + Rn + 2 the kernels take
+MAX_STACKED_ROWS = 16  # T = R + C + Rn + 2 (+ 1 with pb) the kernels take
 
 
 def _softplus(v: torch.Tensor) -> torch.Tensor:
@@ -44,12 +56,20 @@ def _softplus(v: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(v, torch.zeros_like(v))
 
 
-def _terms(x, ls, nu_pre, depth, include_const: bool) -> torch.Tensor:
+def _terms(x, ls, nu_pre, depth, include_const: bool, pb=None,
+           nu_exp: bool = False) -> torch.Tensor:
     """Per-element NB NLL terms from log-softmax ``ls`` and the
-    overdispersion pre-activation (reference nb.hh:453-460, 511-531)."""
+    overdispersion pre-activation (reference nb.hh:453-460, 511-531);
+    ``pb`` is added after the log-softmax and ``nu_exp`` decodes
+    ``clamp(exp(nu_pre), 0, NU_HI)`` (vmfnb.hh:462-493)."""
     x = x.float()
+    if pb is not None:
+        ls = ls + pb
     mu = torch.exp(ls) * depth + EPS
-    nu = torch.clamp(_softplus(nu_pre), NU_LO, NU_HI) + EPS
+    if nu_exp:
+        nu = torch.clamp(torch.exp(nu_pre), 0.0, NU_HI) + EPS
+    else:
+        nu = torch.clamp(_softplus(nu_pre), NU_LO, NU_HI) + EPS
     denom = torch.log(mu + nu)
     terms = (torch.lgamma(nu) - torch.lgamma(nu + x)
              + x * (denom - torch.log(mu)) + nu * (denom - torch.log(nu)))
@@ -58,20 +78,29 @@ def _terms(x, ls, nu_pre, depth, include_const: bool) -> torch.Tensor:
     return terms
 
 
-def step_nll_ref(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n,
-                 include_const: bool = False) -> torch.Tensor:
+def step_nll_ref(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb=None,
+                 include_const: bool = False, nu_exp: bool = False
+                 ) -> torch.Tensor:
     """Plain, differentiable specification of the fused step NLL
-    (``xla_step_nll``, nb_step.py:102)."""
+    (``xla_step_nll``, nb_step.py:102): ``pb`` an optional (D,) log-bias
+    after the log-softmax, ``nu_exp`` the exp-clamp nu decode."""
     h = zm @ wd + c @ wc + bias2
     return _terms(x, torch.log_softmax(h, dim=1), zn @ wn + bias_n, depth,
-                  include_const).sum()
+                  include_const, pb, nu_exp).sum()
 
 
-def stack_rows(wd, wc, bias2, wn, bias_n) -> torch.Tensor:
-    """``W = [wd; wc; bias2; wn; bias_n]`` (T, D), the host stacking of
-    ``_prep`` (nb_step.py:732) without the TPU's 8-row and lane padding."""
-    return torch.cat([wd, wc, bias2.reshape(1, -1), wn,
-                      bias_n.reshape(1, -1)], dim=0).contiguous()
+def stack_rows(wd, wc, bias2, wn, bias_n, pb=None) -> torch.Tensor:
+    """``W = [wd; wc; bias2; wn; bias_n(; pb)]`` (T, D), the host stacking
+    of ``_prep`` (nb_step.py:732-745) without the TPU's 8-row and lane
+    padding: the ``pb`` row goes last."""
+    rows = [wd, wc, bias2.reshape(1, -1), wn, bias_n.reshape(1, -1)]
+    if pb is not None:
+        rows.append(pb.reshape(1, -1))
+    return torch.cat(rows, dim=0).contiguous()
+
+
+def _pb_row(W, R, C, Rn, joint):
+    return W[R + C + Rn + 2] if joint else None
 
 
 def _h(zc, W, RC):
@@ -91,29 +120,35 @@ def lse_ref(zc, W, R, C):
     return torch.logsumexp(_h(zc, W, R + C), dim=1, keepdim=True)
 
 
-def value_ref(x, zc, zn, depth, lse, W, R, C, Rn, with_const: bool):
-    """Scalar NB NLL with ``log_softmax(h) = h - lse``."""
+def value_ref(x, zc, zn, depth, lse, W, R, C, Rn, with_const: bool,
+              joint: bool = False):
+    """Scalar NB NLL with ``log_softmax(h) = h - lse``; ``joint``: W's
+    last row is the post-softmax log-bias and nu decodes exp-clamp."""
     RC = R + C
     return _terms(x, _h(zc, W, RC) - lse, _nupre(zn, W, RC + 1, Rn), depth,
-                  with_const).sum()
+                  with_const, _pb_row(W, R, C, Rn, joint), joint).sum()
 
 
-def valgrad_ref(x, zc, zn, depth, lse, W, R, C, Rn):
+def valgrad_ref(x, zc, zn, depth, lse, W, R, C, Rn, joint: bool = False):
     """K2's outputs from autograd of the plain NLL (``include_const``
     off): ``dls = d nll / d h`` with the normaliser ``lse`` held fixed,
     ``dnp = d nll / d nu_pre``, assembled as (gout (T, D), rsum (B, 1),
-    u1 (B, R), dzn (B, Rn))."""
+    u1 (B, R), dzn (B, Rn)); with ``joint`` gout's last row is
+    ``d nll / d pb = colsum(dls)``."""
     RC = R + C
     base = RC + 1
     zc, zn, depth, lse, W = (t.detach() for t in (zc, zn, depth, lse, W))
     with torch.enable_grad():
         h = _h(zc, W, RC).requires_grad_()
         npre = _nupre(zn, W, base, Rn).requires_grad_()
-        nll = _terms(x, h - lse, npre, depth, False).sum()
+        nll = _terms(x, h - lse, npre, depth, False,
+                     _pb_row(W, R, C, Rn, joint), joint).sum()
         dls, dnp = torch.autograd.grad(nll, (h, npre))
-    gout = torch.cat([zc.T @ dls, dls.sum(0, keepdim=True), zn.T @ dnp,
-                      dnp.sum(0, keepdim=True)])
-    return (gout, dls.sum(1, keepdim=True), dls @ W[:R].T,
+    rows = [zc.T @ dls, dls.sum(0, keepdim=True), zn.T @ dnp,
+            dnp.sum(0, keepdim=True)]
+    if joint:
+        rows.append(dls.sum(0, keepdim=True))
+    return (torch.cat(rows), dls.sum(1, keepdim=True), dls @ W[:R].T,
             dnp @ W[base:base + Rn].T)
 
 
@@ -154,15 +189,16 @@ def _check(what: str, x, named: dict) -> torch.device:
     return dev
 
 
-def _dims(zc, W, R, C, Rn=1):
+def _dims(zc, W, R, C, Rn=1, extra=0):
     B, D = zc.shape[0], W.shape[1]
     if zc.dim() != 2 or W.dim() != 2 or zc.shape[1] != R + C:
         raise ValueError(f"zc {tuple(zc.shape)} / W {tuple(W.shape)} do not "
                          f"match R={R}, C={C}")
-    if R < 1 or C < 0 or Rn < 1 or R + C + Rn + 2 > MAX_STACKED_ROWS:
+    if (R < 1 or C < 0 or Rn < 1
+            or R + C + Rn + 2 + extra > MAX_STACKED_ROWS):
         raise ValueError(f"the step kernels take R >= 1, Rn >= 1 and "
-                         f"R + C + Rn + 2 <= {MAX_STACKED_ROWS} stacked rows "
-                         f"(R={R}, C={C}, Rn={Rn})")
+                         f"R + C + Rn + 2 (+ 1 with pb) <= {MAX_STACKED_ROWS}"
+                         f" stacked rows (R={R}, C={C}, Rn={Rn})")
     if B < 1 or D < 1:
         raise ValueError(f"empty operands (B={B}, D={D})")
     return B, D
@@ -212,65 +248,82 @@ def _lse_kernel(zc, W, R, C):
 lse.launches = 0
 
 
-def _row_inputs(what, x, zc, zn, depth, norm, W, R, C, Rn):
-    B, D = _dims(zc, W, R, C, Rn)
+def _row_inputs(what, x, zc, zn, depth, norm, W, R, C, Rn, joint):
+    B, D = _dims(zc, W, R, C, Rn, int(joint))
     if tuple(x.shape) != (B, D):
         raise ValueError(f"{what}: x has shape {tuple(x.shape)}, expected "
                          f"{(B, D)}")
     dev = _check(what, x, {
         "zc": (zc, (B, R + C)), "zn": (zn, (B, Rn)), "depth": (depth, (B, 1)),
-        "lse": (norm, (B, 1)), "W": (W, (R + C + Rn + 2, D))})
+        "lse": (norm, (B, 1)), "W": (W, (R + C + Rn + 2 + joint, D))})
     return B, D, dev
 
 
 def value(x, zc, zn, depth, norm, W, R: int, C: int, Rn: int,
-          with_const: bool = True) -> torch.Tensor:
+          with_const: bool = True, joint: bool = False) -> torch.Tensor:
     """K6: scalar NB NLL given the row normaliser ``norm`` (reporting
-    pass); ``with_const`` adds ``lgamma(x + 1)``."""
+    pass); ``with_const`` adds ``lgamma(x + 1)``; ``joint`` the joint
+    model's variant (W's last row is ``pb``, nu decodes exp-clamp)."""
     if x.device.type == "cpu":
-        return value_ref(x, zc, zn, depth, norm, W, R, C, Rn, with_const)
-    return _value_kernel(x, zc, zn, depth, norm, W, R, C, Rn, with_const)
+        return value_ref(x, zc, zn, depth, norm, W, R, C, Rn, with_const,
+                         joint)
+    return _value_kernel(x, zc, zn, depth, norm, W, R, C, Rn, with_const,
+                         joint)
 
 
-def _value_kernel(x, zc, zn, depth, norm, W, R, C, Rn, with_const):
+def _value_kernel(x, zc, zn, depth, norm, W, R, C, Rn, with_const,
+                  joint=False):
+    joint = bool(joint)
     B, D, dev = _row_inputs("nb_step.value", x, zc, zn, depth, norm, W, R,
-                            C, Rn)
+                            C, Rn, joint)
     ws = _f32((_lib().mmvae_nb_value_ws(D),), dev)
     out = _f32((), dev)
     _call(dev, "nb_step.value", "mmvae_nb_value", x.data_ptr(),
           _DTYPE_CODE[x.dtype], zc.data_ptr(), zn.data_ptr(),
           depth.data_ptr(), norm.data_ptr(), W.data_ptr(), B, D, R, C, Rn,
-          int(with_const), ws.data_ptr(), out.data_ptr())
-    value.launches += 1
+          int(with_const), int(joint), ws.data_ptr(), out.data_ptr())
+    if joint:
+        value.joint_launches += 1
+    else:
+        value.launches += 1
     return out
 
 
 value.launches = 0
+value.joint_launches = 0
 
 
-def valgrad(x, zc, zn, depth, norm, W, R: int, C: int, Rn: int):
+def valgrad(x, zc, zn, depth, norm, W, R: int, C: int, Rn: int,
+            joint: bool = False):
     """K2 (grad-only): (gout (T, D), rsum (B, 1), u1 (B, R), dzn (B, Rn))
-    of the NLL without ``lgamma(x + 1)``, normaliser ``norm`` held fixed."""
+    of the NLL without ``lgamma(x + 1)``, normaliser ``norm`` held fixed;
+    ``joint`` the joint model's variant (gout's last row is the ``pb``
+    gradient)."""
     if x.device.type == "cpu":
-        return valgrad_ref(x, zc, zn, depth, norm, W, R, C, Rn)
-    return _valgrad_kernel(x, zc, zn, depth, norm, W, R, C, Rn)
+        return valgrad_ref(x, zc, zn, depth, norm, W, R, C, Rn, joint)
+    return _valgrad_kernel(x, zc, zn, depth, norm, W, R, C, Rn, joint)
 
 
-def _valgrad_kernel(x, zc, zn, depth, norm, W, R, C, Rn):
+def _valgrad_kernel(x, zc, zn, depth, norm, W, R, C, Rn, joint=False):
+    joint = bool(joint)
     B, D, dev = _row_inputs("nb_step.valgrad", x, zc, zn, depth, norm, W,
-                            R, C, Rn)
+                            R, C, Rn, joint)
     ws = _f32((_lib().mmvae_nb_valgrad_ws(B, D, R, Rn),), dev)
-    gout = _f32((R + C + Rn + 2, D), dev)
+    gout = _f32((R + C + Rn + 2 + joint, D), dev)
     rows = _f32((B, 1 + R + Rn), dev)
     _call(dev, "nb_step.valgrad", "mmvae_nb_valgrad", x.data_ptr(),
           _DTYPE_CODE[x.dtype], zc.data_ptr(), zn.data_ptr(),
           depth.data_ptr(), norm.data_ptr(), W.data_ptr(), B, D, R, C, Rn,
-          gout.data_ptr(), ws.data_ptr(), rows.data_ptr())
-    valgrad.launches += 1
+          int(joint), gout.data_ptr(), ws.data_ptr(), rows.data_ptr())
+    if joint:
+        valgrad.joint_launches += 1
+    else:
+        valgrad.launches += 1
     return gout, rows[:, :1], rows[:, 1:1 + R], rows[:, 1 + R:]
 
 
 valgrad.launches = 0
+valgrad.joint_launches = 0
 
 
 def finish(zc, norm, rsum, W, R: int, C: int):
@@ -306,22 +359,52 @@ finish.launches = 0
 # public ops
 # ----------------------------------------------------------------------
 
-def _operands(zm, c, zn, depth, wd, wc, bias2, wn, bias_n):
+def _operands(zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb=None):
     zc = torch.cat([zm, c], dim=1).contiguous()
-    W = stack_rows(wd, wc, bias2, wn, bias_n)
+    W = stack_rows(wd, wc, bias2, wn, bias_n, pb)
     return zc, zn.contiguous(), depth.contiguous(), W
 
 
 def nb_step_report(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n,
-                   include_const: bool = True) -> torch.Tensor:
+                   include_const: bool = True, pb=None) -> torch.Tensor:
     """Reporting-pass NLL (value only, no gradient; reference
-    mmvae_alg.hh:277-285): K1 then K6."""
+    mmvae_alg.hh:277-285): K1 then K6.  With ``pb``, the joint model's NB
+    half (``nb_step_report(pb=pb, nu_exp=True)``, nb_step.py:765-788):
+    the post-softmax log-bias and the exp-clamp nu decode."""
     R, C, Rn = zm.shape[1], c.shape[1], zn.shape[1]
     with torch.no_grad():
         zc, zn, depth, W = _operands(zm, c, zn, depth, wd, wc, bias2, wn,
-                                     bias_n)
+                                     bias_n, pb)
         return value(x, zc, zn, depth, lse(zc, W, R, C), W, R, C, Rn,
-                     include_const)
+                     include_const, pb is not None)
+
+
+def _boot_fwd_impl(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb):
+    """K1 -> K2 -> K3 and the gradient assembly of the grad-only boot
+    step (nb_step.py:801-868): the cotangents of (zm, zn, depth, wd, wc,
+    bias2, wn, bias_n) and, with ``pb``, of ``pb``."""
+    R, C, Rn = zm.shape[1], c.shape[1], zn.shape[1]
+    zc, znc, dep, W = _operands(zm, c, zn, depth, wd, wc, bias2, wn, bias_n,
+                                pb)
+    norm = lse(zc, W, R, C)
+    gout, rsum, u1, dzn = valgrad(x, zc, znc, dep, norm, W, R, C, Rn,
+                                  pb is not None)
+    # d nll / d depth = rowsum(dmu * pe) = rsum / depth exactly; at
+    # depth == 0 the 0/0 is zeroed (depth >= 0 at every call site)
+    dd = torch.where(dep > 0, rsum / torch.clamp_min(dep, 1e-30),
+                     torch.zeros_like(rsum))
+    # K3 recomputes the plain p: the coupling term has no exp(pb)
+    fout, u2 = finish(zc, norm, rsum, W, R, C)
+    # dh = dls - p * rowsum(dls): gout holds the dls contractions,
+    # fout the p * rowsum ones
+    gw = gout[:R + C + 1] - fout
+    base = R + C + 1
+    res = [u1 - rsum * u2, dzn, dd, gw[:R], gw[R:R + C], gw[R + C],
+           gout[base:base + Rn], gout[base + Rn]]
+    if pb is not None:
+        # pb sits outside the log-softmax: no coupling subtraction
+        res.append(gout[base + Rn + 1])
+    return res
 
 
 class _BootGradOnly(torch.autograd.Function):
@@ -329,31 +412,19 @@ class _BootGradOnly(torch.autograd.Function):
     one pass (K1 -> K2 -> K3) and saves it; the backward scales."""
 
     @staticmethod
-    def forward(ctx, x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n):
-        R, C, Rn = zm.shape[1], c.shape[1], zn.shape[1]
-        zc, znc, dep, W = _operands(zm, c, zn, depth, wd, wc, bias2, wn,
-                                    bias_n)
-        norm = lse(zc, W, R, C)
-        gout, rsum, u1, dzn = valgrad(x, zc, znc, dep, norm, W, R, C, Rn)
-        # d nll / d depth = rowsum(dmu * p) = rsum / depth exactly; at
-        # depth == 0 the 0/0 is zeroed (depth >= 0 at every call site)
-        dd = torch.where(dep > 0, rsum / torch.clamp_min(dep, 1e-30),
-                         torch.zeros_like(rsum))
-        fout, u2 = finish(zc, norm, rsum, W, R, C)
-        # dh = dls - p * rowsum(dls): gout holds the dls contractions,
-        # fout the p * rowsum ones
-        gw = gout[:R + C + 1] - fout
-        base = R + C + 1
-        ctx.save_for_backward(u1 - rsum * u2, dzn, dd, gw[:R], gw[R:R + C],
-                              gw[R + C], gout[base:base + Rn],
-                              gout[base + Rn])
+    def forward(ctx, x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb):
+        ctx.joint = pb is not None
+        ctx.save_for_backward(*_boot_fwd_impl(x, zm, c, zn, depth, wd, wc,
+                                              bias2, wn, bias_n, pb))
         return zm.new_zeros(())
 
     @staticmethod
     def backward(ctx, g):
-        d_zm, d_zn, d_dep, d_wd, d_wc, d_b2, d_wn, d_bn = ctx.saved_tensors
+        saved = ctx.saved_tensors
+        d_zm, d_zn, d_dep, d_wd, d_wc, d_b2, d_wn, d_bn = saved[:8]
+        d_pb = g * saved[8] if ctx.joint else None
         return (None, g * d_zm, None, g * d_zn, g * d_dep, g * d_wd,
-                g * d_wc, g * d_b2, g * d_wn, g * d_bn)
+                g * d_wc, g * d_b2, g * d_wn, g * d_bn, d_pb)
 
 
 def nb_step_boot_gradonly(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n
@@ -362,4 +433,14 @@ def nb_step_boot_gradonly(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n
     gradient in (zm, zn, depth, wd, wc, bias2, wn, bias_n) is the NLL's;
     x and c are data.  Never use it where the loss value is read."""
     return _BootGradOnly.apply(x, zm, c, zn, depth, wd, wc, bias2, wn,
-                               bias_n)
+                               bias_n, None)
+
+
+def nb_step_boot_joint_gradonly(x, zm, c, zn, depth, wd, wc, bias2, wn,
+                                bias_n, pb) -> torch.Tensor:
+    """:func:`nb_step_boot_gradonly` for the joint model's NB half
+    (nb_step.py:991-1005): ``pb`` (D,) is the post-softmax log-bias and
+    nu decodes as ``clamp(exp(.), 0, NU_HI)``; the gradient also reaches
+    ``pb``.  Primal 0.0: never use it where the loss value is read."""
+    return _BootGradOnly.apply(x, zm, c, zn, depth, wd, wc, bias2, wn,
+                               bias_n, pb)

@@ -9,8 +9,10 @@ of ``train_vae_model``) and of the two sweeps of
 - :class:`DenseEpochRunner` / :func:`train_vae_model`: the (N, D) counts
   live on the device in their narrow integer dtype; each epoch walks the
   reference's sequential wrap-around batch schedule (a contiguous slice
-  when N % B == 0) through the packed fast step, with every random draw
-  of the epoch made up front;
+  when N % B == 0) through a packed fast step (any
+  :class:`~mmvae_tpu_torch.ops.nb_fast.PackedFastStep`: the NB model's
+  or the joint model's), with every random draw of the epoch made up
+  front;
 - :func:`encode_resident`: ``chunk`` batches of B rows go through the
   encoder per kernel launch (the encoder works row by row, so grouping
   changes no result);
@@ -27,14 +29,13 @@ import time
 import numpy as np
 import torch
 
-from mmvae_tpu.data.block import MtxDataBlock, MtxMemoryBlock
-from mmvae_tpu.data.pipeline import sequential_batches
-from mmvae_tpu.io import native
-from mmvae_tpu.utils.logging import TLOG
-from mmvae_tpu.utils.metrics import MetricsLogger
-
+from ..data.block import MtxDataBlock, MtxMemoryBlock
+from ..data.pipeline import sequential_batches
+from ..io import native
 from ..ops.losses import kl_weight_schedule
 from ..ops.nb_fast import batch_rand
+from ..utils.logging import TLOG
+from ..utils.metrics import MetricsLogger
 
 
 def as_memory_block(block):

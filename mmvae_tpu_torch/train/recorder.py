@@ -20,7 +20,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from mmvae_tpu.io.writers import write_data_file
+from ..io.writers import write_data_file
 
 
 def zeropad(t: int, tmax: int) -> str:

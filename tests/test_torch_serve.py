@@ -6,6 +6,7 @@ The posterior files are ``%g`` text (6 significant digits), so they are
 compared with ``rtol=1e-4, atol=1e-5``.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -90,24 +91,62 @@ def test_device_cuda_without_gpu_fails(served, tmp_path):
     assert not os.listdir(tmp_path)
 
 
-PORT_MODULES = [
-    "cli.encode", "cli.nb_vae", "cli.common", "cli.make_synthetic",
-    "models.nb", "models.modules", "ops.enc_kernel", "ops.nb_step",
-    "ops.nb_fast", "ops.nb_elbo", "ops.losses", "ops.initializers",
-    "ops._cuda", "train.loop", "train.checkpoint", "train.recorder",
-    "train.config"]
-
-
 def test_port_serving_imports_no_jax():
-    """Every module of the port imports without loading JAX."""
-    code = ("import sys, importlib\n"
-            + "".join(f"importlib.import_module('mmvae_tpu_torch.{m}')\n"
-                      for m in PORT_MODULES)
-            + "assert 'jax' not in sys.modules, 'jax imported'")
+    """Every module of the port imports without loading JAX or any module
+    of the JAX package, and ``chip_smoke.py`` imports none of either."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import mmvae_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,"
+        " 'mmvae_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax'"
+        " or m.startswith('jax.') or m == 'mmvae_tpu'"
+        " or m.startswith('mmvae_tpu.'))\n"
+        "assert not bad, bad\n"
+        "assert len(names) >= 30, names\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=dict(os.environ, PYTHONPATH=ROOT),
                        timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            imported.add(node.module or "")
+    assert any(m.startswith("mmvae_tpu_torch") for m in imported)
+    bad = {m for m in imported
+           if m.split(".")[0] in ("jax", "jaxlib", "mmvae_tpu")}
+    assert not bad, bad
+
+
+def test_port_data_block_matches_jax(tmp_path):
+    """The port's copy of ``MtxDataBlock`` yields the same batches as the
+    JAX package's on a small synthetic ``.mtx.gz``, with the wrap-around
+    schedule of both copies of ``sequential_batches``."""
+    from mmvae_tpu.data.block import MtxDataBlock as JBlock
+    from mmvae_tpu.data.pipeline import sequential_batches as jseq
+    from mmvae_tpu_torch.cli import make_synthetic
+    from mmvae_tpu_torch.data.block import MtxDataBlock as PBlock
+    from mmvae_tpu_torch.data.pipeline import sequential_batches as pseq
+
+    mtx = str(tmp_path / "syn.mtx.gz")
+    assert make_synthetic.main(["--out", mtx, "--genes", "50", "--cells",
+                                "70", "--depth_mean", "200", "--seed", "3",
+                                "--index"]) == 0
+    jb = JBlock(mtx, mtx + ".index", 16)
+    pb = PBlock(mtx, mtx + ".index", 16)
+    assert (pb.ntot(), pb.nfeature()) == (jb.ntot(), jb.nfeature())
+    batches = pseq(pb.ntot(), 16)
+    assert [list(b) for b in batches] == [list(b) for b in jseq(70, 16)]
+    for batch in batches:
+        jb.clear()
+        pb.clear()
+        np.testing.assert_array_equal(pb.read(batch), jb.read(batch))
 
 
 def test_other_models_not_ported(served, tmp_path):
@@ -121,8 +160,8 @@ def test_other_models_not_ported(served, tmp_path):
 def test_build_dense_numpy_fill_matches_native(served, monkeypatch):
     """The host fill without the C++ extension gives the same narrow
     matrix as the native one."""
-    from mmvae_tpu.data.block import MtxDataBlock
-    from mmvae_tpu.io import native
+    from mmvae_tpu_torch.data.block import MtxDataBlock
+    from mmvae_tpu_torch.io import native
 
     mtx = served[0]
     blk = loop.as_memory_block(MtxDataBlock(mtx, mtx + ".index", 40))
