@@ -29,9 +29,10 @@ exits non-zero without the final line):
    phase 4's synthetic matrix for 2 epochs with recording and a
    checkpoint, every kernel's launch count > 0, then ``--resume`` for one
    more epoch;
-9. full-size training: two epochs of the dense-resident epoch runner
-   over phase 5's 100,000 x 20,000 int8 counts, with a profile of 100
-   batches;
+9. full-width training: two epochs of the dense-resident epoch runner
+   over the first 40,000 of phase 5's 100,000 x 20,000 int8 counts (the
+   depth cut keeps the script inside half its time limit), with a
+   profile of 100 batches;
 10. the joint vMF+NB model's kernel variants against their plain
     versions: ``count_encode`` with row stats (a training batch, 5 + 3
     rows, and the serving launch, 2 + 0 rows), its backward (K5) at the
@@ -44,11 +45,27 @@ exits non-zero without the final line):
     kernel of the path launched, ``--resume`` for one more epoch; then
     ``encode --model vmfnb`` on that checkpoint, resident and streaming
     (bitwise equal), against the plain unfolded encoder;
-13. full-size joint training: two epochs over phase 5's counts, with a
+13. full-width joint training: two epochs over the first 40,000 of phase
+    5's counts, with a profile of 100 batches;
+14. the labeled mixture's kernel instance K4f (``count_encode`` with the
+    annotation-filtered row stats) against its plain version, with a
+    marker-gene mask (10 components of 200 genes from seed 0, ~90% of the
+    genes outside it): the training launch (B = 100, 12 + 3 rows) in
+    int8, int16 and float32 counts, the serving launch (M = 1600,
+    12 + 1 rows) and a two-launch case (22 + 3 rows); bitwise
+    repeatability, 1 launch == 16 launches, and K5 at 12 + 3 rows;
+15. one mixture batch step, kernel route against plain route;
+16. the mixture CLIs end to end (their main path): ``vmfnb_vae --annot
+    --row`` on phase 4's matrix for 2 epochs with recording (``.clust.gz``)
+    and a checkpoint, every kernel of the path launched, ``--resume`` for
+    one more epoch; then ``encode --model mixture``, resident and
+    streaming (bitwise equal), against the plain unfolded encoder with
+    the same Gumbel noise;
+17. full-size mixture training: two epochs over phase 5's counts, with a
     profile of 100 batches.
 
-Each main path (phases 4, 8 and 12) is driven with every launch counter
-set to 0 just before it and read just after.  The last two lines are the
+Each main path (phases 4, 8, 12 and 16) is driven with every launch
+counter set to 0 just before it and read just after.  The last two lines are the
 kernels' JSON record (with each kernel's bound at the main path's shape)
 and ``{"ok": true, "device": {...}}``.
 """
@@ -74,6 +91,10 @@ SEED = 0
 D_GENES = 20000
 N_CLI = 4000        # cells of the synthetic CLI matrix
 N_FULL = 100_000    # cells of the full-size phases
+# cells the earlier slices' full-size training phases (9, 13) walk: their
+# depth is cut so that the script keeps inside half its time limit; the
+# newest slice's phase (17) walks all N_FULL
+N_EARLIER = 40_000
 B_TRAIN = 100
 DEV = "cuda"
 TOL = "|kernel - plain| <= 1e-5 * S + 1e-6, S = |log1p x| @ |WL|^T (|x| @ |WX|^T)"
@@ -253,14 +274,47 @@ def plain_encode(params, x):
 def random_params(model, device):
     """Seeded params with non-trivial learned standardization (on the
     scale of the model's encoder input: log1p counts for NB, their unit
-    row for the joint model)."""
+    row for the vMF+NB models) and, for the mixture, component
+    directions that are not uniform."""
     params = model.init(torch.Generator().manual_seed(SEED), device=device)
     g = torch.Generator().manual_seed(SEED + 1)
     D = model.data_dim
     scale = 1.5 if "mu_encoding" in params else 1.5 / D ** 0.5
     params["x_mean"] = torch.rand((1, D), generator=g).to(device) * scale
     params["ln_x_sd"] = (torch.randn((1, D), generator=g) * 0.5).to(device)
+    if "ln_vmf_mu" in params:
+        params["ln_vmf_mu"] = torch.randn(tuple(params["ln_vmf_mu"].shape),
+                                          generator=g).to(device)
     return params
+
+
+K_MIX = 10  # mixture components of the full-size configuration
+
+
+def marker_label(genes: int = 200) -> np.ndarray:
+    """(D, K) marker-gene annotation from seed 0: each of the K_MIX
+    components holds ``genes`` genes drawn at random (overlaps allowed),
+    so about D (1 - (1 - genes / D)^K) genes are covered (~1,900 of
+    20,000)."""
+    rng = np.random.default_rng(SEED)
+    L = np.zeros((D_GENES, K_MIX), np.float32)
+    for k in range(K_MIX):
+        L[rng.choice(D_GENES, genes, replace=False), k] = 1.0
+    return L
+
+
+def write_annotation(tmp: str, label: np.ndarray) -> tuple[str, str]:
+    """``--annot`` / ``--row`` files whose ``Annotation.matrix()`` is
+    ``label`` (pairs grouped by component, so labels keep its order)."""
+    row = os.path.join(tmp, "genes.txt")
+    annot = os.path.join(tmp, "markers.txt")
+    with open(row, "w") as f:
+        f.writelines(f"gene{i}\n" for i in range(label.shape[0]))
+    with open(annot, "w") as f:
+        for k in range(label.shape[1]):
+            f.writelines(f"gene{i} marker{k}\n"
+                         for i in np.nonzero(label[:, k])[0])
+    return annot, row
 
 
 class _Tee(io.TextIOBase):
@@ -752,10 +806,111 @@ def phase_variant_kernels(card):
                                               STATS_CASES[1][0])]}
 
 
-def model_and_step(joint: bool):
-    """(model, packed-step class) of the NB or the joint model at the
-    default architecture and D = 20,000."""
-    if joint:
+FILT_CASES = [(100, D_GENES, 12, 3, torch.int8),    # a training batch
+              (100, D_GENES, 12, 3, torch.int16),
+              (100, D_GENES, 12, 3, torch.float32),
+              (1600, D_GENES, 12, 1, torch.int8),   # the serving launch
+              (100, D_GENES, 22, 3, torch.int8)]    # K = 20: two launches
+
+
+def phase_filt_kernels(card):
+    """Phase 14: K4f (``count_encode`` with the annotation filter) against
+    its plain version at the mixture's shapes, bitwise repeatable and
+    invariant to row grouping; K5 at the mixture step's 12 + 3 rows."""
+    from mmvae_tpu_torch.ops import enc_kernel as enc
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 14)
+    filt = torch.from_numpy(marker_label().any(axis=1).astype(
+        np.float32)).to(DEV)
+    covered = int(filt.sum().item())
+    worst, times = 0.0, {}
+    log(f"[phase 14] K4f count_encode[filt] vs plain (f32, TF32 off), "
+        f"marker mask of {K_MIX} x 200 genes covering {covered} of "
+        f"{D_GENES}; {TOL}, stats tol 1e-5 * stat + 1e-6")
+    for M, D, r1, r2, dt in FILT_CASES:
+        x = make_counts(g, M, D, dt)
+        WL = torch.randn((r1, D), generator=g, device=DEV) * 0.1
+        WX = torch.randn((r2, D), generator=g, device=DEV) * 0.01
+        kern = lambda: enc.count_encode(x, WL, WX, want_stats=True,  # noqa
+                                        filt=filt)
+        plain = lambda: enc.count_encode_ref(x, WL, WX, want_stats=True,  # noqa
+                                             filt=filt)
+        got, want, again = kern(), plain(), kern()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("count_encode[filt] not bitwise repeatable")
+        if torch.equal(got[2][:, 2:], got[2][:, :2]):
+            raise AssertionError("filtered stats equal the plain stats")
+        xf = x.double()
+        e1, q1 = scaled_err(got[0], want[0],
+                            xf.log1p().abs() @ WL.double().abs().T)
+        e2, q2 = scaled_err(got[1], want[1], xf.abs() @ WX.double().abs().T)
+        e3, q3 = scaled_err(got[2], want[2], want[2].double().abs())
+        q = max(q1, q2, q3)
+        if not q <= 1.0:
+            raise AssertionError(f"count_encode[filt] disagrees at "
+                                 f"{(M, D, r1, r2, dt)}: err/tol {q:.3g}")
+        worst = max(worst, e1, e2, e3)
+        k_dev, _ = device_profile(kern, 20)
+        p_dev, _ = device_profile(plain, 20)
+        times[(M, r1, dt)] = (k_dev, p_dev)
+        log(f"[phase 14] [{card}] count_encode[filt] M={M} D={D} r1={r1} "
+            f"r2={r2} {str(dt).replace('torch.', '')} "
+            f"({-(-(r1 + r2) // enc.MAX_ROWS_PER_LAUNCH)} launch(es)): "
+            f"max_abs_err hL {e1:.3g} hX {e2:.3g} stats {e3:.3g} (err/tol "
+            f"{q:.3g}); device time kernel {k_dev:.4f} ms, plain "
+            f"{p_dev:.4f} ms")
+    # the serving launch: one launch over 1600 rows == 16 of 100, bitwise
+    x = make_counts(g, 1600, D_GENES, torch.int8)
+    WL = torch.randn((12, D_GENES), generator=g, device=DEV) * 0.1
+    WX = torch.randn((1, D_GENES), generator=g, device=DEV) * 0.01
+    one = enc.count_encode(x, WL, WX, want_stats=True, filt=filt)
+    parts = [enc.count_encode(x[i:i + 100], WL, WX, want_stats=True,
+                              filt=filt) for i in range(0, 1600, 100)]
+    torch.cuda.synchronize()
+    for i, a in enumerate(one):
+        if not torch.equal(a, torch.cat([p[i] for p in parts])):
+            raise AssertionError("count_encode[filt]: 1 launch x 1600 rows "
+                                 "!= 16 launches x 100 rows")
+    # K5 at the mixture step's 12 + 3 cotangent columns
+    x = make_counts(g, B_TRAIN, D_GENES, torch.int8)
+    g1 = torch.randn((B_TRAIN, 12), generator=g, device=DEV)
+    g2 = torch.randn((B_TRAIN, 3), generator=g, device=DEV)
+    kern = lambda: enc.count_encode_bwd(x, g1, g2)  # noqa: E731
+    plain = lambda: enc.count_encode_bwd_ref(x, g1, g2)  # noqa: E731
+    got, want, again = kern(), plain(), kern()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("count_encode_bwd not bitwise repeatable")
+    xf = x.double()
+    e, q = 0.0, 0.0
+    for gt, wt, S in zip(got, want, (g1.double().abs().T @ xf.log1p(),
+                                     g2.double().abs().T @ xf.abs())):
+        ei, qi = ratio(gt, wt, S)
+        e, q = max(e, ei), max(q, qi)
+    if not q <= 1.0:
+        raise AssertionError(f"count_encode_bwd (12 + 3) disagrees: "
+                             f"err/tol {q:.3g}")
+    k_dev, _ = device_profile(kern, 20)
+    p_dev, _ = device_profile(plain, 20)
+    log(f"[phase 14] [{card}] 1 launch x 1600 rows == 16 launches x 100 "
+        f"rows, bitwise (hL, hX, stats); count_encode_bwd M={B_TRAIN} "
+        f"D={D_GENES} r1=12 r2=3: err {e:.3g} (err/tol {q:.3g}; "
+        f"{TRAIN_TOL}); device time kernel {k_dev:.4f} ms, plain "
+        f"{p_dev:.4f} ms")
+    return worst, times[(B_TRAIN, 12, torch.int8)]
+
+
+def model_and_step(kind: str):
+    """(model, packed-step class) of the NB, joint or mixture model at
+    the default architecture and D = 20,000 (the mixture with
+    :func:`marker_label`)."""
+    if kind == "mixture":
+        from mmvae_tpu_torch.models.vmfnb_mixture import VMFNBMixtureVAE
+        from mmvae_tpu_torch.ops.vmfnb_fast import VMFNBMixtureFastStep
+
+        return VMFNBMixtureVAE(label=marker_label()), VMFNBMixtureFastStep
+    if kind == "joint":
         from mmvae_tpu_torch.models.vmfnb import VMFNBVAE
         from mmvae_tpu_torch.ops.vmfnb_fast import VMFNBFastStep
 
@@ -766,15 +921,42 @@ def model_and_step(joint: bool):
     return NBVAE(data_dim=D_GENES), NBFastStep
 
 
-def phase_batch_step(card, joint=False):
-    """Phase 7 (NB) / phase 11 (joint): one batch step, kernel route
-    against plain route, with the same draws."""
+PHASE = {"nb": {"step": 7, "cli": 8, "full": 9},
+         "joint": {"step": 11, "cli": 12, "full": 13},
+         "mixture": {"step": 15, "cli": 16, "full": 17}}
+
+
+def first_boot_grad(fast, q, x, c, rand, dtype=torch.float32):
+    """{P, sv}: the packed gradient of the first boot loss, before any
+    update, with every parameter and draw in ``dtype``."""
+    qq = {k: v.detach().to(dtype).requires_grad_() for k, v in q.items()}
+    loss = fast._loss(qq, x, c, rand["ridx"][0],
+                      tuple(e[0].to(dtype) for e in rand["boot_eps"]),
+                      fast._beta_for(0.0, x.device).to(dtype), False, True)
+    return dict(zip(("P", "sv"), torch.autograd.grad(
+        loss, (qq["P"], qq["sv"]))))
+
+
+def anchored(k_row, p_row, ref_row, floor):
+    """(kernel's and plain's worst error on a row against its float64
+    reference, and the kernel's err/tol: tol = 2 x plain's + floor)."""
+    e_k = (k_row.double() - ref_row).abs().max().item()
+    e_p = (p_row.double() - ref_row).abs().max().item()
+    return e_k, e_p, e_k / (2.0 * e_p + floor)
+
+
+def phase_batch_step(card, kind="nb"):
+    """Phase 7 (NB) / 11 (joint) / 15 (mixture): one batch step, kernel
+    route against plain route, with the same draws.  The mixture's kappa
+    row is held to the plain route's float64 step (see below)."""
     from mmvae_tpu_torch.ops.nb_fast import batch_rand
     from mmvae_tpu_torch.train.config import TrainingOptions
 
-    tag = "[phase 11]" if joint else "[phase 7]"
-    g = torch.Generator(device=DEV).manual_seed(SEED + (7 if joint else 4))
-    model, step_cls = model_and_step(joint)
+    tag = f"[phase {PHASE[kind]['step']}]"
+    joint = kind != "nb"
+    g = torch.Generator(device=DEV).manual_seed(
+        SEED + {"nb": 4, "joint": 7, "mixture": 15}[kind])
+    model, step_cls = model_and_step(kind)
     topt = TrainingOptions()
     params = random_params(model, DEV)
     x = make_counts(g, B_TRAIN, D_GENES, torch.int8)
@@ -787,13 +969,16 @@ def phase_batch_step(card, joint=False):
             B_TRAIN), 0)
         q = fast.pack(params)
         po = fast.optimizer.init(q)
-        # the first boot step's gradient, before any update
-        qq = {k: v.detach().requires_grad_() for k, v in q.items()}
-        loss = fast._loss(qq, x, c, rand["ridx"][0],
-                          tuple(e[0] for e in rand["boot_eps"]),
-                          fast._beta_for(0.0, x.device), False, True)
-        grads = dict(zip(("P", "sv"), torch.autograd.grad(
-            loss, (qq["P"], qq["sv"]))))
+        grads = first_boot_grad(fast, q, x, c, rand)
+        if plain and kind == "mixture":
+            g64 = first_boot_grad(fast, q, x, c, rand, torch.float64)
+            q64 = {k: v.double() for k, v in q.items()}
+            rand64 = dict(rand, rep_eps=tuple(e.double() for e in
+                                              rand["rep_eps"]),
+                          boot_eps=tuple(e.double() for e in
+                                         rand["boot_eps"]))
+            _, po64, _ = fast.batch_step(q64, fast.optimizer.init(q64), x,
+                                         c, 0.0, rand64)
         q2, po2, rep = fast.batch_step(q, po, x, c, 0.0, rand)
         torch.cuda.synchronize()
         out[plain] = (grads, q2, po2, rep)
@@ -809,13 +994,39 @@ def phase_batch_step(card, joint=False):
         # row), tol 1e-4 of the row's largest gradient
         gk2, gp2 = rows(gk[k]), rows(gp[k])
         scale = gp2.abs().amax(1, keepdim=True)
-        q_g = ((gk2 - gp2).abs() / (1e-4 * scale + 1e-12)).max().item()
+        q_row = ((gk2 - gp2).abs() / (1e-4 * scale + 1e-12)).amax(1)
+        anchor = kind == "mixture" and k == "P"
+        kw = fast.rows.kappa_w if anchor else None
+        if anchor:
+            # the kappa row is a float32 cancellation in either route
+            # (df / kappa against the Baricz midpoint, df = dd / 2 - 1;
+            # measured: the plain route alone is off its float64 value by
+            # several times 1e-4 of the row's scale): both routes are held
+            # to the plain route's float64 step, the kernel's worst error
+            # on the row to twice the plain route's plus the usual bound
+            e_k, e_p, q_row[kw] = anchored(gk2[kw], gp2[kw], g64["P"][kw],
+                                           1e-4 * scale[kw].item())
+            lines.append(f"kappa row gradient vs float64: kernel off by "
+                         f"{e_k:.3g}, plain by {e_p:.3g} (err/tol "
+                         f"{q_row[kw].item():.3g})")
+        q_g = q_row.max().item()
+        worst_row = int(q_row.argmax())
         # Adam moments after the step: tol 1e-3 of the row's scale
         mom = []
         for m in ("mu", "nu"):
             a2, b2 = rows(ok[m][k]), rows(op[m][k])
-            mom.append(((a2 - b2).abs() / (1e-3 * b2.abs().amax(
-                1, keepdim=True) + 1e-30)).max().item())
+            floor = 1e-3 * b2.abs().amax(1, keepdim=True)
+            m_row = ((a2 - b2).abs() / (floor + 1e-30)).amax(1)
+            if anchor:
+                e_k, e_p, m_row[kw] = anchored(a2[kw], b2[kw],
+                                               po64[m][k][kw],
+                                               floor[kw].item())
+                lines.append(f"kappa row Adam {m} vs float64: kernel off "
+                             f"by {e_k:.3g}, plain by {e_p:.3g} (err/tol "
+                             f"{m_row[kw].item():.3g})")
+            mom.append(m_row.max().item())
+            worst_row = (worst_row if m_row.max() <= 1.0
+                         else int(m_row.argmax()))
         # params: Adam maps a gradient to about +-lr by its sign, so an
         # element whose gradient is below 1e-4 of its row's scale may
         # flip; the rest are held to 2e-5 (2% of lr).  In the joint model
@@ -836,7 +1047,8 @@ def phase_batch_step(card, joint=False):
         if not (q_g <= 1.0 and max(mom) <= 1.0 and q_p <= 1.0):
             raise AssertionError(f"batch step {k}: grad err/tol {q_g:.3g}, "
                                  f"moments {mom[0]:.3g}/{mom[1]:.3g}, "
-                                 f"params {q_p:.3g}")
+                                 f"params {q_p:.3g} (worst row "
+                                 f"{worst_row})")
         lines.append(f"{k}: first-step grad err/tol {q_g:.3g}; Adam mu/nu "
                      f"err/tol {mom[0]:.3g}/{mom[1]:.3g}; params max diff "
                      f"{dP.max().item():.3g} ({int(small.sum())} elements "
@@ -846,8 +1058,8 @@ def phase_batch_step(card, joint=False):
                      f"elsewhere err/tol {q_p:.3g})")
     if int(ok["count"]) != 3 or int(op["count"]) != 3:
         raise AssertionError("Adam count after one batch step is not 3")
-    log(f"{tag} [{card}] one {'joint' if joint else 'NB'} batch step, "
-        f"kernel route vs plain route, same draws: " + "; ".join(lines))
+    log(f"{tag} [{card}] one {kind} batch step, kernel route vs plain "
+        f"route, same draws: " + "; ".join(lines))
 
 
 # every kernel instance of the port: (name, wrapper, launch counter,
@@ -856,6 +1068,8 @@ KERNELS = [
     ("count_encode", "enc.count_encode", "launches", "count_encode.cu",
      "enc_kernel.py:183"),
     ("count_encode[stats]", "enc.count_encode", "stats_launches",
+     "count_encode.cu", "enc_kernel.py:183"),
+    ("count_encode[filt]", "enc.count_encode", "filt_launches",
      "count_encode.cu", "enc_kernel.py:183"),
     ("count_encode_bwd", "enc.count_encode_bwd", "launches",
      "count_encode_bwd.cu", "enc_kernel.py:216"),
@@ -873,6 +1087,8 @@ NB_PATH = ["count_encode", "count_encode_bwd", "nb_lse", "nb_value",
            "nb_valgrad", "nb_finish"]
 JOINT_PATH = ["count_encode[stats]", "count_encode_bwd", "nb_lse",
               "nb_value[pb,nu_exp]", "nb_valgrad[pb,nu_exp]", "nb_finish"]
+MIXTURE_PATH = ["count_encode[filt]"] + JOINT_PATH[1:]
+PATHS = {"nb": NB_PATH, "joint": JOINT_PATH, "mixture": MIXTURE_PATH}
 
 
 def _counters():
@@ -898,20 +1114,26 @@ def read_launches() -> dict:
     return {name: getattr(w, attr) for name, (w, attr) in _counters().items()}
 
 
-def phase_train_cli(card, tmp, mtx, joint=False):
-    """Phase 8 (``nb_vae``) / phase 12 (``vmfnb_vae``): the trainer CLI
-    on the synthetic matrix, 2 epochs with recording and a checkpoint,
-    then ``--resume`` for epoch 3; returns the first run's launches."""
+def phase_train_cli(card, tmp, mtx, kind="nb"):
+    """Phase 8 (``nb_vae``) / 12 (``vmfnb_vae``) / 16 (``vmfnb_vae
+    --annot --row``): the trainer CLI on the synthetic matrix, 2 epochs
+    with recording and a checkpoint, then ``--resume`` for epoch 3;
+    returns the first run's launches and the checkpoint."""
     from mmvae_tpu_torch.cli import nb_vae, vmfnb_vae
     from mmvae_tpu_torch.train.recorder import flatten_params
 
-    tag, cli = ("[phase 12]", vmfnb_vae) if joint else ("[phase 8]", nb_vae)
-    path = JOINT_PATH if joint else NB_PATH
-    name = "vmfnb_vae" if joint else "nb_vae"
-    out = os.path.join(tmp, "joint" if joint else "train")
+    tag = f"[phase {PHASE[kind]['cli']}]"
+    cli = nb_vae if kind == "nb" else vmfnb_vae
+    path = PATHS[kind]
+    name = {"nb": "nb_vae", "joint": "vmfnb_vae",
+            "mixture": "vmfnb_vae --annot --row"}[kind]
+    out = os.path.join(tmp, {"nb": "train"}.get(kind, kind))
     ck = out + "_ckpt"
     args = ["--mtx", mtx, "--batch_size", str(B_TRAIN), "--device", DEV,
             "--recording", "2"]
+    if kind == "mixture":
+        annot, row = write_annotation(tmp, marker_label())
+        args += ["--annot", annot, "--row", row]
     reset_launches()
     t0 = time.time()
     err = run_cli(cli, args + ["--out", out, "--max_epoch", "2",
@@ -927,10 +1149,12 @@ def phase_train_cli(card, tmp, mtx, joint=False):
     if scores.shape != (2,) or not np.isfinite(scores).all():
         raise AssertionError(f"scores.gz: {scores}")
     # recording artifacts: the JAX CLI's names and shapes
-    names = flatten_params(model_and_step(joint)[0].init(
+    names = flatten_params(model_and_step(kind)[0].init(
         torch.Generator().manual_seed(0)))
     want = {f"{out}_1.mu_mean.gz": (N_CLI, 2), f"{out}_1.mu_lnvar.gz":
             (N_CLI, 2)}
+    if kind == "mixture":
+        want[f"{out}_1.clust.gz"] = (N_CLI, K_MIX)
     want.update({f"{out}_1_{k}.gz": v.shape for k, v in names.items()})
     for p, shape in want.items():
         a = np.loadtxt(p, ndmin=2)
@@ -1007,14 +1231,95 @@ def phase_joint_encode(card, tmp, mtx, ck):
     return launches
 
 
-def phase_train_full(card, data, joint=False):
-    """Phase 9 (NB) / phase 13 (joint): two epochs of the dense-resident
-    epoch runner at full width, and a profile of 100 batches."""
+def phase_mixture_encode(card, tmp, mtx, ck):
+    """Phase 16, serving: ``encode --model mixture`` on the trained
+    mixture checkpoint, resident and streaming (bitwise equal), against
+    the plain unfolded encoder (``vmf_forward(training=False)`` +
+    ``nb_encode_mu``) on the card with the CLI's Gumbel noise (seed 0)."""
+    from mmvae_tpu_torch.cli import encode
+    from mmvae_tpu_torch.models.nb import params_from_numpy
+    from mmvae_tpu_torch.train.checkpoint import load_checkpoint
+
+    annot, row = write_annotation(tmp, marker_label())
+    args = ["--model", "mixture", "--mtx", mtx, "--checkpoint", ck,
+            "--batch_size", str(B_TRAIN), "--annot", annot, "--row", row,
+            "--device", DEV]
+    names = ("mu_mean", "mu_lnvar", "clust")
+    reset_launches()
+    t0 = time.time()
+    err = run_cli(encode, args + ["--out", os.path.join(tmp, "mres")])
+    wall = time.time() - t0
+    launches = read_launches()["count_encode[filt]"]
+    if "dense-resident" not in err or launches < 1:
+        raise AssertionError(f"mixture resident sweep: {launches} launches")
+    res = [np.loadtxt(os.path.join(tmp, f"mres.{k}.gz"), ndmin=2)
+           for k in names]
+    model = model_and_step("mixture")[0]
+    params = params_from_numpy(load_checkpoint(ck, model)[0], DEV)
+    u = model.gumbel_uniforms(B_TRAIN, SEED)
+    with torch.inference_mode():
+        x = torch.from_numpy(read_mtx_dense(mtx)).to(DEV)
+        vmf = model.vmf_forward(params, x, False, gumbel_u=u)
+        mean, lnvar = model.nb_encode_mu(params, x, vmf.latent)
+        g = -torch.log(-torch.log(u.double().to(DEV))).repeat(
+            N_CLI // B_TRAIN, 1)
+        top2 = torch.topk(vmf.logits.double() + g, 2, dim=1).values
+        margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+        want = [t.double().cpu().numpy() for t in (mean, lnvar, vmf.latent)]
+    for got, shape in zip(res, ((N_CLI, 2), (N_CLI, 2), (N_CLI, K_MIX))):
+        if got.shape != shape or not np.isfinite(got).all():
+            raise AssertionError(f"bad mixture encode output {got.shape}")
+    # a flip of the hard draw needs the top two of logits + g within the
+    # float32 error of the fold; elsewhere the assignments must agree
+    same = res[2].argmax(1) == want[2].argmax(1)
+    near = margin <= 1e-4
+    if (~same & ~near).any() or near.sum() > N_CLI // 1000 + 1:
+        raise AssertionError(f"mixture assignments: {int((~same).sum())} "
+                             f"differ, {int(near.sum())} near-ties")
+    worst = 0.0
+    for got, w, rows in ((res[0], want[0], same), (res[1], want[1], None),
+                         (res[2], want[2], same)):
+        if rows is not None:
+            got, w = got[rows], w[rows]
+        # the fold reorders float32 sums over 20,000 genes: 1e-4 of the
+        # output's scale, plus the %g text rounding (6 digits)
+        lim = 1e-4 * np.abs(w).max() + 1e-5 * np.abs(w)
+        worst = max(worst, float(np.max(np.abs(got - w) / lim)))
+    if not worst <= 1.0:
+        raise AssertionError(f"mixture encode vs plain: err/tol {worst:.3g}")
+    os.environ["MMVAE_DENSE_BYTES"] = "1"
+    try:
+        err = run_cli(encode, args + ["--out", os.path.join(tmp, "mstr")])
+    finally:
+        del os.environ["MMVAE_DENSE_BYTES"]
+    if "resident fast path skipped" not in err:
+        raise AssertionError("mixture streaming sweep did not run")
+    for k, a in zip(names, res):
+        b = np.loadtxt(os.path.join(tmp, f"mstr.{k}.gz"), ndmin=2)
+        if not np.array_equal(a, b):
+            raise AssertionError(f"mixture streaming {k} != resident")
+    counts = np.bincount(res[2].argmax(1), minlength=K_MIX).tolist()
+    log(f"[phase 16] [{card}] encode --model mixture: {launches} "
+        f"count_encode[filt] launches; outputs ({N_CLI}, 2), ({N_CLI}, 2), "
+        f"({N_CLI}, {K_MIX}) match the plain unfolded encoder with the same "
+        f"noise (assignments equal on {int(same.sum())} of {N_CLI} rows, "
+        f"{int(near.sum())} near-ties; err/tol {worst:.3g}; tol 1e-4 * "
+        f"max|ref| + 1e-5 * |ref|); cells per component {counts}; streaming "
+        f"equals resident bitwise; CLI wall {wall:.2f}s")
+    return launches
+
+
+def phase_train_full(card, data, kind="nb"):
+    """Phase 9 (NB) / 13 (joint) / 17 (mixture): two epochs of the
+    dense-resident epoch runner at full width, and a profile of 100
+    batches; phases 9 and 13 over the first N_EARLIER cells."""
     from mmvae_tpu_torch.train.config import TrainingOptions
     from mmvae_tpu_torch.train.loop import DenseEpochRunner
 
-    tag = "[phase 13]" if joint else "[phase 9]"
-    model, step_cls = model_and_step(joint)
+    tag = f"[phase {PHASE[kind]['full']}]"
+    if kind != "mixture":
+        data = data[:N_EARLIER]
+    model, step_cls = model_and_step(kind)
     fast = step_cls(model, TrainingOptions())
     params = model.init(torch.Generator().manual_seed(SEED), device=DEV)
     runner = DenseEpochRunner(fast, data, B_TRAIN, seed=SEED)
@@ -1030,7 +1335,7 @@ def phase_train_full(card, data, joint=False):
     if not (np.isfinite(losses).all() and losses[1] < losses[0]):
         raise AssertionError(f"full-size training loss {losses}")
     N = data.shape[0]
-    log(f"{tag} [{card}] {'joint' if joint else 'NB'} training {N} x "
+    log(f"{tag} [{card}] {kind} training {N} x "
         f"{D_GENES} int8, B={B_TRAIN}, nboot 3: epoch losses "
         f"{losses[0]:.4f} -> {losses[1]:.4f}; epoch times {times[0]:.2f}s, "
         f"{times[1]:.2f}s; second epoch {N / times[1]:,.1f} cells/sec")
@@ -1081,13 +1386,16 @@ def bound_ms(name: str, shape: dict) -> tuple[float, str]:
     B, D, xb = shape["B"], shape["D"], shape["x_bytes"]
     if name.startswith("count_encode"):
         r = shape["r1"] + shape["r2"]
-        stats = name.endswith("[stats]")
+        # the row stats: an add and an FMA (3); the filtered pair: a
+        # multiply by the mask, an add and an FMA (4 more), and the mask
+        stats = name.endswith(("[stats]", "[filt]"))
+        filt = name.endswith("[filt]")
         if name == "count_encode_bwd":
             nbytes = B * D * xb + B * r * 4 + r * D * 4
         else:
-            nbytes = B * D * xb + r * D * 4 + B * r * 4 + (B * 16 if stats
-                                                            else 0)
-        ops = B * D * (2 * r + 1 + (3 if stats else 0))
+            nbytes = (B * D * xb + r * D * 4 + B * r * 4
+                      + (B * 16 if stats else 0) + (D * 4 if filt else 0))
+        ops = B * D * (2 * r + 1 + (3 if stats else 0) + (4 if filt else 0))
     else:
         R, C, Rn = 2, 1, 1
         T = R + C + Rn + 2 + (1 if "[pb" in name else 0)
@@ -1137,31 +1445,39 @@ def main() -> int:
     for w, t in (phase_variant_kernels(card), phase_train_kernels(card)):
         worst.update(w)
         times.update(t)
-    phase_batch_step(card)
-    phase_batch_step(card, joint=True)
+    worst["count_encode[filt]"], times["count_encode[filt]"] = (
+        phase_filt_kernels(card))
+    for kind in ("nb", "joint", "mixture"):
+        phase_batch_step(card, kind)
     with tempfile.TemporaryDirectory() as tmp:
         serve_launches, mtx = phase_cli(card, tmp)
         nb_launches, _ = phase_train_cli(card, tmp, mtx)
-        j_launches, ck = phase_train_cli(card, tmp, mtx, joint=True)
+        j_launches, ck = phase_train_cli(card, tmp, mtx, "joint")
         enc_launches = phase_joint_encode(card, tmp, mtx, ck)
+        m_launches, mck = phase_train_cli(card, tmp, mtx, "mixture")
+        menc_launches = phase_mixture_encode(card, tmp, mtx, mck)
         data = full_size_counts()
         phase_full(card, data)
-        phase_train_full(card, data)
-        phase_train_full(card, data, joint=True)
+        for kind in ("nb", "joint", "mixture"):
+            phase_train_full(card, data, kind)
         del data
     launches = {k: nb_launches[k] for k in NB_PATH}
     launches.update({k: j_launches[k] for k in JOINT_PATH
                      if k not in NB_PATH})
+    launches["count_encode[filt]"] = m_launches["count_encode[filt]"]
 
     log(f"[summary] serving CLI (nb): {serve_launches} count_encode "
         f"launches; training CLIs: nb_vae "
         f"{ {k: nb_launches[k] for k in NB_PATH} }, vmfnb_vae "
-        f"{ {k: j_launches[k] for k in JOINT_PATH} }; encode --model "
-        f"vmfnb: {enc_launches} count_encode[stats] launches")
+        f"{ {k: j_launches[k] for k in JOINT_PATH} }, vmfnb_vae --annot "
+        f"{ {k: m_launches[k] for k in MIXTURE_PATH} }; encode --model "
+        f"vmfnb: {enc_launches} count_encode[stats] launches; encode "
+        f"--model mixture: {menc_launches} count_encode[filt] launches")
     log(card)
     int8 = dict(B=B_TRAIN, D=D_GENES, x_bytes=1)
     shapes = {"count_encode": dict(int8, B=1600, r1=2, r2=0),
               "count_encode[stats]": dict(int8, r1=5, r2=3),
+              "count_encode[filt]": dict(int8, r1=12, r2=3),
               "count_encode_bwd": dict(int8, r1=2, r2=2)}
     records = []
     for name, _, _, src, rep in KERNELS:

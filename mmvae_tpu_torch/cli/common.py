@@ -147,11 +147,14 @@ def run_training(opts: MMVaeOptions, topt: TrainingOptions, model, fast,
                  data_block, covar_block, device) -> int:
     """Initialise (or ``--resume``) the parameters and the Adam state,
     train on the dense-resident packed step with recording and
-    checkpoints, and write ``${out}.scores.gz``."""
+    checkpoints, and write ``${out}.scores.gz``.  The recorder's encode
+    and its extra artifact come from ``model.record_encoder``."""
     params = model.init(torch.Generator().manual_seed(topt.seed),
                         device=device)
+    encode_fn, extra_name = model.record_encoder(topt.seed,
+                                                 data_block.size())
     recorder = LatentRecorder(opts.out, topt.max_epoch, data_block.ntot(),
-                              encode_fn=model.encode_mu)
+                              encode_fn=encode_fn, extra_name=extra_name)
     start_epoch, init_opt_state, prev_losses = 0, None, []
     if topt.resume:
         params_np, start_epoch, prev_losses = load_checkpoint(topt.resume,

@@ -1,15 +1,18 @@
 """``encode`` — whole-dataset encoding with a trained checkpoint (serving).
 
-Port of ``mmvae_tpu/cli/encode.py`` for ``--model nb`` and ``--model
-vmfnb`` (the joint model's shared encoder): load a checkpoint written by
-either package (``--checkpoint_dir`` of the trainers, or
+Port of ``mmvae_tpu/cli/encode.py`` for ``--model nb``, ``--model
+vmfnb`` (the joint model's shared encoder) and ``--model mixture`` (the
+labeled mixture, with ``--annot`` and ``--row``): load a checkpoint
+written by either package (``--checkpoint_dir`` of the trainers, or
 :func:`mmvae_tpu_torch.train.checkpoint.save_checkpoint`), sweep the
 full dataset once, and write the ``.mu_mean.gz`` / ``.mu_lnvar.gz``
-posterior matrices.
+posterior matrices, and for the mixture the ``.clust.gz`` assignments:
+the frozen model's hard Gumbel draw, with one (B, K) matrix of uniforms
+from ``--seed`` reused for every batch.
 
-    python -m mmvae_tpu_torch.cli.encode --model nb|vmfnb \
+    python -m mmvae_tpu_torch.cli.encode --model nb|vmfnb|mixture \
         --mtx data.mtx.gz --checkpoint ckpt_dir --out encoded \
-        [--device cuda]
+        [--annot annot.txt --row features.txt --seed 0] [--device cuda]
 
 When N x D fits ``MMVAE_DENSE_BYTES`` (default 6 GiB, in the narrowest
 lossless dtype) and N is a multiple of ``--batch_size``, the counts are
@@ -33,12 +36,14 @@ from ..io.index import build_mmutil_index
 from ..io.writers import write_data_file
 from ..models.nb import NBVAE, params_from_numpy
 from ..models.vmfnb import VMFNBVAE
+from ..models.vmfnb_mixture import VMFNBMixtureVAE
 from ..train.checkpoint import load_checkpoint
 from ..train.config import _csv_ints
 from ..train.loop import (as_memory_block, build_dense, encode_resident,
                           encode_streaming)
 from ..utils.logging import ELOG, TLOG
 from .common import warn_unknown_args
+from .vmfnb_vae import load_label, resolve_kappa_defaults
 
 
 def main(argv=None) -> int:
@@ -76,11 +81,12 @@ def main(argv=None) -> int:
     ns, unknown = p.parse_known_args(argv)
     warn_unknown_args(unknown)
 
-    if ns.model not in ("nb", "vmfnb"):
-        item = "9, vMF-VAE" if ns.model == "vmf" else "10, mixture model"
+    if ns.model == "vmf":
         raise NotImplementedError(
-            f"--model {ns.model}: not ported yet (ROADMAP.md Queue 1 "
-            f"item {item})")
+            "--model vmf: not ported yet (ROADMAP.md Queue 1 item 9, "
+            "vMF-VAE)")
+    if ns.model == "mixture" and not (ns.annot and ns.row):
+        raise ValueError("--model mixture needs --annot and --row")
     if ns.tensor_parallel > 1:
         raise NotImplementedError(
             "--tensor_parallel > 1: not ported yet (ROADMAP.md Queue 1 "
@@ -99,16 +105,25 @@ def main(argv=None) -> int:
     db = MtxDataBlock(ns.mtx, idx, ns.batch_size)
     D, N = db.nfeature(), db.ntot()
 
-    shape = dict(data_dim=D, mean_encoding=ns.mean_encoding,
+    shape = dict(mean_encoding=ns.mean_encoding,
                  mean_decoding=ns.mean_decoding, mean_latent=ns.mean_latent,
                  overdisp_encoding=ns.overdisp_encoding,
                  overdisp_latent=ns.overdisp_latent, do_relu=ns.do_relu)
-    # --kappa_min / --kappa_max do not enter the encoder
-    model = (NBVAE(covar_dim=1, **shape) if ns.model == "nb"
-             else VMFNBVAE(**shape))
+    if ns.model == "mixture":
+        # kappa enters the mixture's E-step, hence its assignments
+        kmin, kmax = resolve_kappa_defaults(ns.kappa_min, ns.kappa_max, True)
+        model = VMFNBMixtureVAE(label=load_label(ns.annot, ns.row, D),
+                                kappa_min=kmin, kappa_max=kmax, **shape)
+    elif ns.model == "nb":
+        model = NBVAE(data_dim=D, covar_dim=1, **shape)
+    else:  # --kappa_min / --kappa_max do not enter the joint encoder
+        model = VMFNBVAE(data_dim=D, **shape)
     params_np, epoch, _ = load_checkpoint(ns.checkpoint, model)
     params = params_from_numpy(params_np, device)
     TLOG(f"Loaded checkpoint at epoch {epoch - 1}")
+    prep = (model.prepare_encoder(params, model.gumbel_uniforms(
+        ns.batch_size, ns.seed)) if ns.model == "mixture"
+        else model.prepare_encoder(params))
 
     # same gate as the JAX CLI: a cheap pre-check at 1 byte/count before
     # the whole-file CSC read, then the byte check in the narrow dtype
@@ -139,18 +154,17 @@ def main(argv=None) -> int:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             t0 = time.time()
-            mean, lnvar = encode_resident(model, params, data,
-                                          ns.batch_size, ns.chunk_batches)
-            mean_out, lnvar_out = mean.cpu().numpy(), lnvar.cpu().numpy()
+            outs = [t.cpu().numpy() for t in encode_resident(
+                model, params, data, ns.batch_size, ns.chunk_batches, prep)]
             dt = time.time() - t0
             TLOG(f"Encoded {N} cells in {dt:.3f}s "
                  f"({N / dt:,.0f} cells/sec, dense-resident)")
         else:
-            mean_out, lnvar_out = encode_streaming(
-                model, params, db, ns.batch_size, ns.chunk_batches, device)
+            outs = encode_streaming(model, params, db, ns.batch_size,
+                                    ns.chunk_batches, device, prep)
 
-    write_data_file(f"{ns.out}.mu_mean.gz", mean_out)
-    write_data_file(f"{ns.out}.mu_lnvar.gz", lnvar_out)
+    for name, out in zip(("mu_mean", "mu_lnvar", "clust"), outs):
+        write_data_file(f"{ns.out}.{name}.gz", out)
     TLOG("Done")
     return 0
 

@@ -3,17 +3,19 @@
 //
 //     hL = log1p(x) @ WL^T      (M, nl)
 //     hX = float(x) @ WX^T      (M, nx)
-//     st = [sum L, sum L^2, sum L, sum L^2]   (M, 4), L = log1p(x)
+//     st = [sum L, sum L^2, sum L*f, sum L^2*f]   (M, 4), L = log1p(x)
 //
 // for integer (int8 / int16) or float32 counts x (M, D) and float32
 // weight rows WL (nl, D), WX (nx, D), all row-major and contiguous.  The
 // row stats are optional (STATS): the joint vMF+NB model takes its row
-// L2 norms from them; with no filter the filtered pair equals the plain
-// one.
+// L2 norms from them.  The filter f (D,) float32 is optional too (FILT,
+// with STATS only): the labeled mixture's annotation mask, whose
+// filtered pair gives the norm of its masked vMF input; with no filter
+// the filtered pair equals the plain one.
 //
 // Replaces the Pallas TPU kernel mmvae_tpu/ops/enc_kernel.py:
-// _make_fwd_kernel / _fwd_call, without and with want_stats (the filt
-// variant of the mixture model is not ported here).  The TPU kernel walks
+// _make_fwd_kernel / _fwd_call, without and with want_stats, and with
+// filt (K4f).  The TPU kernel walks
 // D tiles in grid order and carries per-row sums in VMEM scratch; here a
 // block owns kRows rows of x and loops over D inside the block, which
 // takes the place of that sequential grid axis.  Nothing carries between
@@ -40,7 +42,10 @@
 //   * a row is reduced by warp shuffles, then across warps through shared
 //     memory in a fixed order;
 //   * the STATS instance adds two per-row register sums (L and L * L, L
-//     as above) and reduces them the same way.
+//     as above) and reduces them the same way; the FILT instance two more
+//     (L * f and L * f * L): the thread that loads a step's weights also
+//     loads its kCols filter values, once per block, and reuses them for
+//     the block's kRows rows.
 // A row's result therefore depends only on D and that row's data — not
 // on M, on which block ran it, or on the storage type of x (int8, int16
 // and float32 holding the same integers give the same bits) — so a sweep
@@ -84,15 +89,19 @@ __device__ __forceinline__ float log1p_count(T v, const float* lut) {
 // NW: compile-time bound on nl + nx (1, 2, 4, 8 or 16), so the
 // accumulators stay in registers and a narrow launch spends no
 // instructions on unused weight rows.  STATS: also write st (M, 4).
-template <typename T, int NW, bool STATS>
+// FILT (with STATS): the filtered pair of st is taken against f.
+template <typename T, int NW, bool STATS, bool FILT>
 __global__ void __launch_bounds__(kThreads)
 count_encode_fwd_kernel(const T* __restrict__ x, int64_t M, int64_t D,
                         const float* __restrict__ WL, int nl,
                         const float* __restrict__ WX, int nx,
                         float* __restrict__ hL, int64_t ldl,
                         float* __restrict__ hX, int64_t ldx,
-                        float* __restrict__ st) {
-  constexpr int NS = STATS ? 2 : 0;         // per-row stats: sum L, sum L^2
+                        float* __restrict__ st,
+                        const float* __restrict__ f) {
+  static_assert(STATS || !FILT, "the filter only enters the stats");
+  // per-row stats: sum L, sum L^2 (and with FILT sum L*f, sum L*f*L)
+  constexpr int NS = STATS ? (FILT ? 4 : 2) : 0;
   __shared__ float red[kWarps][kRows][NW + NS];  // per-warp partial sums
   __shared__ float lut[kLut];
 
@@ -123,6 +132,7 @@ count_encode_fwd_kernel(const T* __restrict__ x, int64_t M, int64_t D,
     // (read once per block, reused for all kRows rows) and
     // kRows x kCols counts; lanes of a warp read neighbouring columns
     float w[kCols][NW];
+    float fv[kCols];
     T xv[kRows][kCols];
 #pragma unroll
     for (int j = 0; j < kCols; ++j) {
@@ -133,6 +143,7 @@ count_encode_fwd_kernel(const T* __restrict__ x, int64_t M, int64_t D,
         w[j][k] = (in && k < nw)
                       ? (k < nl ? WL[k * D + c] : WX[(k - nl) * D + c])
                       : 0.f;
+      if constexpr (FILT) fv[j] = in ? f[c] : 0.f;
 #pragma unroll
       for (int r = 0; r < kRows; ++r)
         xv[r][j] = (in && live[r]) ? xr[r][c] : T(0);
@@ -150,6 +161,11 @@ count_encode_fwd_kernel(const T* __restrict__ x, int64_t M, int64_t D,
         if constexpr (STATS) {
           acc[r][NW] += lx;
           acc[r][NW + 1] = fmaf(lx, lx, acc[r][NW + 1]);
+        }
+        if constexpr (FILT) {
+          const float lf = lx * fv[j];
+          acc[r][NW + 2] += lf;
+          acc[r][NW + 3] = fmaf(lf, lx, acc[r][NW + 3]);
         }
       }
     }
@@ -193,8 +209,9 @@ count_encode_fwd_kernel(const T* __restrict__ x, int64_t M, int64_t D,
         float s = 0.f;
 #pragma unroll
         for (int w = 0; w < kWarps; ++w) s += red[w][r][NW + k];
-        st[row * 4 + k] = s;      // unfiltered pair
-        st[row * 4 + 2 + k] = s;  // filtered pair: no filter, the same sums
+        st[row * 4 + k] = s;
+        // no filter: the filtered pair is the plain one
+        if constexpr (!FILT) st[row * 4 + 2 + k] = s;
       }
     }
   }
@@ -203,36 +220,44 @@ count_encode_fwd_kernel(const T* __restrict__ x, int64_t M, int64_t D,
 template <typename T, int NW>
 void launch(const void* x, int64_t M, int64_t D, const void* WL, int nl,
             const void* WX, int nx, void* hL, int64_t ldl, void* hX,
-            int64_t ldx, void* st, cudaStream_t stream) {
+            int64_t ldx, void* st, const void* filt, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((M + kRows - 1) / kRows));
   const T* xp = static_cast<const T*>(x);
   const auto* wl = static_cast<const float*>(WL);
   const auto* wx = static_cast<const float*>(WX);
   auto* hl = static_cast<float*>(hL);
   auto* hx = static_cast<float*>(hX);
-  if (st != nullptr)
-    count_encode_fwd_kernel<T, NW, true><<<grid, kThreads, 0, stream>>>(
-        xp, M, D, wl, nl, wx, nx, hl, ldl, hx, ldx, static_cast<float*>(st));
+  auto* s = static_cast<float*>(st);
+  const auto* f = static_cast<const float*>(filt);
+  if (f != nullptr)
+    count_encode_fwd_kernel<T, NW, true, true><<<grid, kThreads, 0, stream>>>(
+        xp, M, D, wl, nl, wx, nx, hl, ldl, hx, ldx, s, f);
+  else if (s != nullptr)
+    count_encode_fwd_kernel<T, NW, true, false><<<grid, kThreads, 0, stream>>>(
+        xp, M, D, wl, nl, wx, nx, hl, ldl, hx, ldx, s, nullptr);
   else
-    count_encode_fwd_kernel<T, NW, false><<<grid, kThreads, 0, stream>>>(
-        xp, M, D, wl, nl, wx, nx, hl, ldl, hx, ldx, nullptr);
+    count_encode_fwd_kernel<T, NW, false, false>
+        <<<grid, kThreads, 0, stream>>>(xp, M, D, wl, nl, wx, nx, hl, ldl,
+                                        hx, ldx, nullptr, nullptr);
 }
 
 template <typename T>
 void launch_rows(const void* x, int64_t M, int64_t D, const void* WL,
                  int nl, const void* WX, int nx, void* hL, int64_t ldl,
-                 void* hX, int64_t ldx, void* st, cudaStream_t stream) {
+                 void* hX, int64_t ldx, void* st, const void* filt,
+                 cudaStream_t stream) {
   const int nw = nl + nx;
   if (nw <= 1)
-    launch<T, 1>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, stream);
+    launch<T, 1>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, filt, stream);
   else if (nw <= 2)
-    launch<T, 2>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, stream);
+    launch<T, 2>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, filt, stream);
   else if (nw <= 4)
-    launch<T, 4>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, stream);
+    launch<T, 4>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, filt, stream);
   else if (nw <= 8)
-    launch<T, 8>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, stream);
+    launch<T, 8>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, filt, stream);
   else
-    launch<T, kMaxW>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, stream);
+    launch<T, kMaxW>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, filt,
+                     stream);
 }
 
 }  // namespace
@@ -240,14 +265,18 @@ void launch_rows(const void* x, int64_t M, int64_t D, const void* WL,
 // dtype: 0 = float32, 1 = int16, 2 = int8.  hL / hX point at the first
 // output column of this launch's weight-row group, with row strides
 // ldl / ldx.  st is the (M, 4) row-stats output, or null for the
-// instance without stats.  Returns cudaGetLastError() after the launch
-// (0 = launched).
+// instance without stats; filt the (D,) float32 filter of the stats'
+// filtered pair, or null (it needs st).  Returns cudaGetLastError()
+// after the launch (0 = launched).
 extern "C" int mmvae_count_encode_fwd(const void* x, int dtype, int64_t M,
                                       int64_t D, const void* WL, int nl,
                                       const void* WX, int nx, void* hL,
                                       int64_t ldl, void* hX, int64_t ldx,
-                                      void* st, void* stream) {
+                                      void* st, const void* filt,
+                                      void* stream) {
   if (nl < 0 || nx < 0 || nl + nx < 1 || nl + nx > kMaxW || M < 0 || D < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (filt != nullptr && st == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   if ((M + kRows - 1) / kRows > 0x7fffffff)
@@ -255,13 +284,16 @@ extern "C" int mmvae_count_encode_fwd(const void* x, int dtype, int64_t M,
   const auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0:
-      launch_rows<float>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, s);
+      launch_rows<float>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, filt,
+                         s);
       break;
     case 1:
-      launch_rows<int16_t>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, s);
+      launch_rows<int16_t>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st,
+                           filt, s);
       break;
     case 2:
-      launch_rows<int8_t>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st, s);
+      launch_rows<int8_t>(x, M, D, WL, nl, WX, nx, hL, ldl, hX, ldx, st,
+                          filt, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

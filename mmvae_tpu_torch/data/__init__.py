@@ -1,2 +1,3 @@
-"""Host data blocks and batch schedules: the port's copy of
-``mmvae_tpu/data/block.py`` and ``pipeline.py``."""
+"""Host data blocks, batch schedules and the feature annotation: the
+port's copy of ``mmvae_tpu/data/block.py``, ``pipeline.py`` and
+``annotation.py``."""

@@ -129,6 +129,12 @@ class NBVAE(nn.Module):
         """(mean, lnvar) of q(z_mu | x) — reference nb.hh:403-431."""
         return self.encode_prepared(params, self.prepare_encoder(params), x)
 
+    def record_encoder(self, seed: int, B: int):
+        """The recorder's encode ``(params, x) -> (mean, lnvar)`` and its
+        extra artifact's name (none); seed and B do not enter it."""
+        del seed, B
+        return self.encode_mu, None
+
 
 def params_from_numpy(tree: dict, device: torch.device | str = "cpu"
                       ) -> dict:

@@ -168,3 +168,9 @@ class VMFNBVAE(nn.Module):
         """(mean, lnvar) of q(z | x), the recorder's and the serving
         CLI's encode (reference vmfnb.hh:449-460)."""
         return self.encode_prepared(params, self.prepare_encoder(params), x)
+
+    def record_encoder(self, seed: int, B: int):
+        """The recorder's encode ``(params, x) -> (mean, lnvar)`` and its
+        extra artifact's name (none); seed and B do not enter it."""
+        del seed, B
+        return self.encode_mu, None

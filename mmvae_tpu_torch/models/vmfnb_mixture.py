@@ -1,0 +1,327 @@
+"""Labeled-mixture vMF + NB VAE.
+
+Port of ``mmvae_tpu/models/vmfnb_mixture.py`` (reference
+include/models/vmfnb_mixture.hh:268-848) for what the packed step and
+serving need: the parameter tree (``init``), ``_filter`` / ``dd`` /
+``masks``, ``_can_fuse_step``, the plain unfolded specification
+(``normalize_nb_x``, ``normalize_vmf_x``, ``vmf_forward``,
+``nb_encode_mu``) and a folded encoder for recording and serving.
+``forward``, ``nb_decode_*``, ``fused_step_*`` and
+``mixture_composite_loss`` belong to the generic step path (ROADMAP.md
+Queue 1 item 11) and are not ported.
+
+The vMF half is a K-component mixture: the (D, K) parameter
+``ln_vmf_mu`` masked by the fixed (D, K) 0/1 annotation ``label``; the
+responsibilities come from the E-step ``log_softmax(<xn, mu> * kappa)``
+(soft in training, a hard Gumbel-softmax draw at eval); the NB mean
+encoder mixes K stacked heads ``nb_mu_representation_mean_k`` (weight
+(K, H, R), bias (K, R)) by those responsibilities.
+
+The hard draw's noise: JAX draws ``uniform(key, (B, K), 1e-20, 1)`` from
+one fixed key for every batch, so every batch sees the same (B, K)
+matrix.  The port takes that matrix as ``gumbel_u`` (the tests hand it
+JAX's uniforms); :meth:`VMFNBMixtureVAE.gumbel_uniforms` draws one from
+a ``torch.Generator`` seeded with the run's seed, and a call over a
+multiple of B rows tiles it (a resident chunk of 16 batches sees it 16
+times, as 16 separate batches would).
+
+The folded encoder (:meth:`prepare_encoder` / :meth:`encode_prepared`)
+is ONE filtered count-encoder call (K4f): ``log1p(x)`` against ``[Wt;
+vmu]``, ``x`` against the ``ln_kappa`` row, and the plain and filtered
+row stats, with the identities of the packed step
+(``mmvae_tpu/ops/vmfnb_fast.py:685-713``)::
+
+    |(L + eps) f|^2      = sum(f L^2) + 2 eps sum(f L) + eps^2 dd
+    (L + eps) f . vmu    = L . vmu + eps sum(vmu)      (vmu f = vmu)
+
+for a 0/1 filter f (which ``Annotation.matrix`` gives).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.enc_kernel import count_encode
+from ..ops.fastmath import fasterlog
+from ..ops.initializers import linear_apply, torch_linear_init
+from ..ops.losses import l2_normalize
+from ..ops.nb_elbo import NU_HI
+from .modules import apply_stack, init_linear_stack
+
+
+class VMFOut(NamedTuple):
+    """Reference vmf_out_t (``vmf_forward``'s result)."""
+
+    mu: torch.Tensor      # (D, K) unit columns
+    logits: torch.Tensor  # (n, K) log responsibilities
+    latent: torch.Tensor  # (n, K) responsibilities (soft) or one-hot (eval)
+    recon: torch.Tensor   # (n, D)
+    kappa: torch.Tensor   # (n, 1)
+
+
+def hard_assignment(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Hard Gumbel-softmax with the straight-through form
+    (vmfnb_mixture.hh:692-695): ``(hard - y_soft) + y_soft`` in that
+    order, whose float32 value is not always exactly one-hot."""
+    g = -torch.log(-torch.log(u))
+    y_soft = torch.softmax(logits + g, dim=1)
+    hard = F.one_hot(torch.argmax(y_soft, dim=1),
+                     logits.shape[1]).to(y_soft.dtype)
+    return (hard - y_soft).detach() + y_soft
+
+
+def _tile_rows(u: torch.Tensor, M: int) -> torch.Tensor:
+    """The (B, K) noise for M rows: M must be a multiple of B."""
+    B = u.shape[0]
+    if M % B:
+        raise ValueError(f"Gumbel noise of {B} rows cannot serve {M} rows")
+    return u if M == B else u.repeat(M // B, 1)
+
+
+class VMFNBMixtureVAE(nn.Module):
+    """Static configuration (reference ctor: vmfnb_mixture.hh:355-467);
+    ``label`` is the fixed (D, K) membership matrix from
+    :class:`mmvae_tpu_torch.data.annotation.Annotation`.  The parameters
+    are passed to each call, as in the JAX package."""
+
+    def __init__(self, label: np.ndarray, mean_encoding: tuple[int, ...] = (),
+                 mean_decoding: tuple[int, ...] = (), mean_latent: int = 2,
+                 overdisp_encoding: int = 1, overdisp_latent: int = 1,
+                 kappa_min: float = 0.1, kappa_max: float = 100.0,
+                 do_relu: bool = False, nu_max: float = 1e4):
+        super().__init__()
+        self.label = np.asarray(label, dtype=np.float32)
+        self.mean_encoding = tuple(mean_encoding)
+        self.mean_decoding = tuple(mean_decoding)
+        self.mean_latent = mean_latent
+        self.overdisp_encoding = overdisp_encoding
+        self.overdisp_latent = overdisp_latent
+        self.kappa_min = kappa_min
+        self.kappa_max = kappa_max
+        self.do_relu = do_relu
+        self.nu_max = nu_max
+        self._masks: dict = {}
+
+    @property
+    def data_dim(self) -> int:
+        return int(self.label.shape[0])
+
+    @property
+    def n_components(self) -> int:
+        return int(self.label.shape[1])
+
+    def _filter(self) -> np.ndarray:
+        """(1, D) mask of features covered by any component
+        (vmfnb_mixture.hh:460-464)."""
+        return (self.label.sum(axis=1, keepdims=True).T > 0).astype(
+            np.float32)
+
+    @property
+    def dd(self) -> float:
+        """Effective dimensionality of the vMF loss (vmfnb_mixture.hh:464)."""
+        return float(self._filter().sum())
+
+    def masks(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(label^T (K, D), filter (D,))`` as float32 tensors on
+        ``device``, made once per device."""
+        key = str(torch.device(device))
+        if key not in self._masks:
+            self._masks[key] = (
+                torch.tensor(self.label.T.copy(), device=device),
+                torch.tensor(self._filter()[0], device=device))
+        return self._masks[key]
+
+    # ------------------------------------------------------------------
+    def init(self, generator: torch.Generator,
+             device: torch.device | str = "cpu") -> dict:
+        """LibTorch-initialized parameters, in the JAX package's names,
+        order and shapes (``VMFNBMixtureVAE.init``)."""
+        D, K, R = self.data_dim, self.n_components, self.mean_latent
+
+        def lin(d_in, d_out):
+            return torch_linear_init(generator, d_in, d_out, device=device)
+
+        params: dict = {
+            "x_mean": torch.zeros((1, D), device=device),
+            "ln_x_sd": torch.ones((1, D), device=device),
+            "mu_bias": torch.zeros((1, D), device=device),
+            "nu_bias": torch.zeros((1, D), device=device),
+            "ln_vmf_mu": torch.zeros((D, K), device=device),
+        }
+        hidden = list(self.mean_encoding)
+        enc, _, d_prev = init_linear_stack(
+            generator, "nb_mu_encoding", D, hidden, None if hidden else R,
+            device=device)
+        params.update(enc)
+        heads = [lin(d_prev, R) for _ in range(K)]
+        params["nb_mu_representation_mean_k"] = {
+            "weight": torch.stack([h["weight"] for h in heads]),  # (K, H, R)
+            "bias": torch.stack([h["bias"] for h in heads]),      # (K, R)
+        }
+        params["nb_mu_representation_logvariance"] = lin(d_prev, R)
+        dec, _, _ = init_linear_stack(
+            generator, "nb_mu_decoding", R, list(self.mean_decoding), D,
+            device=device)
+        params.update(dec)
+        H, Rn = self.overdisp_encoding, self.overdisp_latent
+        params["nb_nu_encoding"] = lin(D, H)
+        params["nb_nu_representation_mean"] = lin(H, Rn)
+        params["nb_nu_representation_logvariance"] = lin(H, Rn)
+        params["nb_nu_decoding"] = lin(Rn, D)
+        params["depth"] = lin(D, 1)
+        params["ln_kappa"] = lin(D, 1)
+        return params
+
+    def _enc_names(self) -> list[str]:
+        hidden = list(self.mean_encoding)
+        if hidden:
+            return [f"nb_mu_encoding_{i + 1}" for i in range(len(hidden))]
+        return ["nb_mu_encoding"]
+
+    def _can_fuse_step(self) -> bool:
+        """The fused step kernels bake NU_HI as the nu clamp and need a
+        direct mu decoder (JAX ``VMFNBMixtureVAE._can_fuse_step``)."""
+        return not self.mean_decoding and self.nu_max == NU_HI
+
+    # ------------------------------------------------------------------
+    # the plain specification (vmfnb_mixture.hh:538-560, 656-696)
+    # ------------------------------------------------------------------
+    def normalize_nb_x(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        xn = l2_normalize(torch.log1p(x.float()), dim=1)
+        return (xn - params["x_mean"]) / (F.softplus(params["ln_x_sd"])
+                                          + 1e-2)
+
+    def normalize_vmf_x(self, x: torch.Tensor) -> torch.Tensor:
+        eps = 1e-2 / float(x.shape[1])
+        filt = self.masks(x.device)[1]
+        return l2_normalize((torch.log1p(x.float()) + eps) * filt, dim=1)
+
+    def _kappa(self, ln_kappa: torch.Tensor) -> torch.Tensor:
+        return torch.exp(torch.clamp(ln_kappa, fasterlog(self.kappa_min),
+                                     fasterlog(self.kappa_max)))
+
+    def vmf_forward(self, params: dict, x: torch.Tensor, training: bool,
+                    gumbel_u: torch.Tensor | None = None) -> VMFOut:
+        """The vMF mixture: E-step responsibilities (soft in training,
+        the hard Gumbel draw with the (B, K) uniforms ``gumbel_u`` at
+        eval) and the masked reconstruction."""
+        label, filt = self.masks(x.device)
+        eps = 1e-2 / float(x.shape[1])
+        # columns of (exp(ln_mu) + eps) * label, L2-normalized over features
+        vmf_mu = l2_normalize((torch.exp(params["ln_vmf_mu"]) + eps)
+                              * label.T, dim=0)
+        kappa = self._kappa(linear_apply(params["ln_kappa"], x.float()))
+        logits = torch.log_softmax((self.normalize_vmf_x(x) @ vmf_mu)
+                                   * kappa, dim=1)
+        if training:
+            latent = torch.exp(logits)
+        else:
+            if gumbel_u is None:
+                raise ValueError("vmf_forward(training=False) needs the "
+                                 "Gumbel uniforms gumbel_u")
+            latent = hard_assignment(
+                logits, _tile_rows(gumbel_u.to(x.device), x.shape[0]))
+        recon = (latent @ vmf_mu.T) * filt
+        return VMFOut(vmf_mu, logits, latent, recon, kappa)
+
+    def _heads(self, params: dict, h: torch.Tensor, z: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The K mean heads mixed by the responsibilities z, and the
+        shared log-variance head (vmfnb_mixture.hh:482-500)."""
+        lnvar = torch.clamp(
+            linear_apply(params["nb_mu_representation_logvariance"], h),
+            -4.0, 4.0)
+        heads = params["nb_mu_representation_mean_k"]
+        mu_k = (torch.einsum("nh,khr->nkr", h, heads["weight"])
+                + heads["bias"][None])
+        return torch.sum(mu_k * z[:, :, None], dim=1), lnvar
+
+    def nb_encode_mu(self, params: dict, x: torch.Tensor, z: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mean, lnvar) of the NB posterior, unfolded."""
+        h = apply_stack(params, self._enc_names(),
+                        self.normalize_nb_x(params, x), self.do_relu,
+                        relu_last=True)
+        return self._heads(params, h, z)
+
+    # ------------------------------------------------------------------
+    # recording and serving: the folded encoder
+    # ------------------------------------------------------------------
+    def gumbel_uniforms(self, B: int, seed: int) -> torch.Tensor:
+        """The (B, K) uniforms in [1e-20, 1) of the eval-mode hard draw,
+        from a CPU ``torch.Generator`` seeded with ``seed`` (the same on
+        every device)."""
+        g = torch.Generator().manual_seed(int(seed))
+        return torch.rand((B, self.n_components), generator=g).clamp_min_(
+            1e-20)
+
+    def prepare_encoder(self, params: dict, gumbel_u: torch.Tensor) -> dict:
+        """Parameter-only part of the folded encoder: the stacked K4f rows
+        ``[Wt; vmu]`` (H1 + K, D), the ``ln_kappa`` row, the ``x_mean``
+        term, ``sum(vmu)`` per component, and the noise on the device."""
+        first = params[self._enc_names()[0]]
+        dev = first["weight"].device
+        label, filt = self.masks(dev)
+        sd = F.softplus(params["ln_x_sd"]) + 1e-2            # (1, D)
+        Wt = (first["weight"] / sd.T).T                       # (H1, D)
+        eps = 1e-2 / float(self.data_dim)
+        vmu = l2_normalize((torch.exp(params["ln_vmf_mu"].T) + eps) * label,
+                           dim=1)                             # (K, D)
+        return {"WL": torch.cat([Wt, vmu]).contiguous(),
+                "WX": params["ln_kappa"]["weight"].T.contiguous(),
+                "xm": (params["x_mean"] @ Wt.T)[0], "bias": first["bias"],
+                "fsum": vmu.sum(1), "filt": filt,
+                "kbias": params["ln_kappa"]["bias"],
+                "u": gumbel_u.to(dev), "h1": Wt.shape[0]}
+
+    def encode_prepared(self, params: dict, prep: dict, x: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(mean, lnvar, hard assignment) of every row of x (a multiple
+        of the noise's B rows) from one K4f call."""
+        hL, hX, st = count_encode(x, prep["WL"], prep["WX"],
+                                  want_stats=True, filt=prep["filt"])
+        H1 = prep["h1"]
+        _, ssq, s_f, ssq_f = st.unbind(1)
+        eps = 1e-2 / float(self.data_dim)
+        inv_nL = 1.0 / torch.clamp_min(torch.sqrt(ssq), 1e-12)
+        h = hL[:, :H1] * inv_nL[:, None] - prep["xm"] + prep["bias"]
+        if self.do_relu:
+            h = torch.relu(h)
+        h = apply_stack(params, self._enc_names()[1:], h, self.do_relu,
+                        relu_last=True)
+        nv = torch.sqrt(ssq_f + 2.0 * eps * s_f + eps * eps * self.dd)
+        t = ((hL[:, H1:] + eps * prep["fsum"])
+             / torch.clamp_min(nv, 1e-12)[:, None])
+        kappa = self._kappa(hX + prep["kbias"])
+        logits = torch.log_softmax(t * kappa, dim=1)
+        latent = hard_assignment(logits, _tile_rows(prep["u"], x.shape[0]))
+        mean, lnvar = self._heads(params, h, latent)
+        return mean, lnvar, latent
+
+    def encode_mu(self, params: dict, x: torch.Tensor,
+                  gumbel_u: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(mean, lnvar, hard assignment) with the model frozen, as the
+        reference records (vmfnb_mixture.hh:741-795)."""
+        return self.encode_prepared(
+            params, self.prepare_encoder(params, gumbel_u), x)
+
+    def record_encoder(self, seed: int, B: int):
+        """The recorder's encode ``(params, x) -> (mean, lnvar, clust)``
+        with the uniforms of ``seed`` for B-row batches, and the name of
+        its extra artifact."""
+        u = self.gumbel_uniforms(B, seed)
+        on_device: dict = {}
+
+        def encode(params, x):
+            key = str(x.device)
+            if key not in on_device:  # one host->device copy per device
+                on_device[key] = u.to(x.device)
+            return self.encode_mu(params, x, on_device[key])
+
+        return encode, "clust"

@@ -112,7 +112,7 @@ def _bind(lib) -> None:
         _vp, _i32, _i64, _i64,   # x, dtype code, M, D
         _vp, _i32, _vp, _i32,    # WL, nl, WX, nx
         _vp, _i64, _vp, _i64,    # hL, ldl, hX, ldx
-        _vp, _vp,                # row stats (or null), cudaStream_t
+        _vp, _vp, _vp,           # row stats, filter (or null), stream
     ]
     lib.mmvae_count_encode_fwd.restype = _i32
     lib.mmvae_count_encode_bwd.argtypes = [

@@ -1,16 +1,17 @@
 """Fused count-encoder contraction: ``(log1p(x) @ WL^T, x @ WX^T)`` and,
-optionally, the row stats ``[sum L, sum L^2, sum L, sum L^2]``
-(``L = log1p(x)``) the joint vMF+NB model's row norms come from.
+optionally, the row stats ``[sum L, sum L^2, sum L*f, sum L^2*f]``
+(``L = log1p(x)``, ``f`` an optional feature filter) the vMF+NB models'
+row norms come from.
 
-Port of ``mmvae_tpu/ops/enc_kernel.py`` (``want_stats`` included; the
-mixture model's ``filt`` is not ported yet).  :func:`count_encode` is a
+Port of ``mmvae_tpu/ops/enc_kernel.py`` (``want_stats`` and the labeled
+mixture's ``filt`` included).  :func:`count_encode` is a
 ``torch.autograd.Function`` over two kernels, each with its plain
 PyTorch version beside it:
 
-- forward (K4, and K4s with ``want_stats``): :func:`count_encode_ref`,
-  or the CUDA kernel ``csrc/count_encode.cu``, which reads the integer
-  counts once and forms ``log1p(x)`` in registers; the stats take no
-  gradient;
+- forward (K4; K4s with ``want_stats``; K4f with ``want_stats`` and
+  ``filt``): :func:`count_encode_ref`, or the CUDA kernel
+  ``csrc/count_encode.cu``, which reads the integer counts once and forms
+  ``log1p(x)`` in registers; the stats take no gradient;
 - backward (K5): :func:`count_encode_bwd` — ``dWL = g1^T log1p(x)``,
   ``dWX = g2^T x`` — :func:`count_encode_bwd_ref`, or the CUDA kernel
   ``csrc/count_encode_bwd.cu``.
@@ -20,8 +21,8 @@ TPU's DEFAULT matmul precision and are not ported).  Each picks by where
 ``x`` lies: a CPU tensor goes to the plain version; a CUDA tensor
 launches the kernel or raises — there is no fallback on the card.
 ``count_encode.launches`` (no stats), ``count_encode.stats_launches``
-(the stats instance) and ``count_encode_bwd.launches`` count kernel
-launches.
+(the stats instance), ``count_encode.filt_launches`` (the filtered-stats
+instance) and ``count_encode_bwd.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -32,13 +33,23 @@ _DTYPE_CODE = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
 MAX_ROWS_PER_LAUNCH = 16  # weight rows the kernel keeps in registers
 
 
+def _check_filt(filt, want_stats: bool):
+    if filt is not None and not want_stats:
+        raise ValueError("count_encode: filt only enters the row stats; "
+                         "pass want_stats=True")
+
+
 def count_encode_ref(x: torch.Tensor, WL: torch.Tensor,
                      WX: torch.Tensor | None = None,
-                     want_stats: bool = False) -> tuple:
+                     want_stats: bool = False,
+                     filt: torch.Tensor | None = None) -> tuple:
     """Plain version: float32 ``(log1p(x) @ WL^T, x @ WX^T)``, and with
-    ``want_stats`` the (M, 4) row stats ``[sum L, sum L^2, sum L,
-    sum L^2]`` of ``L = log1p(x)`` (``_xla_encode`` with no filter)."""
-    xf = x.float()
+    ``want_stats`` the (M, 4) row stats ``[sum L, sum L^2, sum L*f,
+    sum L^2*f]`` of ``L = log1p(x)`` (``_xla_encode``; without ``filt``
+    the filtered pair is the plain one).  It computes in WL's dtype:
+    float32 on every path, float64 where a check needs an anchor."""
+    _check_filt(filt, want_stats)
+    xf = x.to(WL.dtype)
     L = torch.log1p(xf)
     hL = L @ WL.T
     hX = xf.new_empty((x.shape[0], 0)) if WX is None else xf @ WX.T
@@ -46,7 +57,12 @@ def count_encode_ref(x: torch.Tensor, WL: torch.Tensor,
         return hL, hX
     with torch.no_grad():
         s, ssq = L.sum(1), (L * L).sum(1)
-        stats = torch.stack([s, ssq, s, ssq], dim=1)
+        if filt is None:
+            sf, ssqf = s, ssq
+        else:
+            Lm = L * filt.reshape(1, -1)
+            sf, ssqf = Lm.sum(1), (Lm * L).sum(1)
+        stats = torch.stack([s, ssq, sf, ssqf], dim=1)
     return hL, hX, stats
 
 
@@ -61,13 +77,13 @@ def count_encode_bwd_ref(x: torch.Tensor, g1: torch.Tensor,
 
 class _CountEncode(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, WL, WX, want_stats):
+    def forward(ctx, x, WL, WX, want_stats, filt):
         ctx.save_for_backward(x)
         ctx.has_wx = WX is not None
         if x.device.type == "cpu":
-            out = count_encode_ref(x, WL, WX, want_stats)
+            out = count_encode_ref(x, WL, WX, want_stats, filt)
         else:
-            out = _kernel_route(x, WL, WX, want_stats)
+            out = _kernel_route(x, WL, WX, want_stats, filt)
         if want_stats:
             ctx.mark_non_differentiable(out[2])
         return out
@@ -76,29 +92,35 @@ class _CountEncode(torch.autograd.Function):
     def backward(ctx, gL, gX, *_g_stats):
         (x,) = ctx.saved_tensors
         if not ctx.needs_input_grad[1] and not ctx.needs_input_grad[2]:
-            return None, None, None, None
+            return None, None, None, None, None
         dWL, dWX = count_encode_bwd(x, gL, gX if ctx.has_wx else None)
-        return None, dWL, dWX, None
+        return None, dWL, dWX, None, None
 
 
 def count_encode(x: torch.Tensor, WL: torch.Tensor,
                  WX: torch.Tensor | None = None,
-                 want_stats: bool = False) -> tuple:
+                 want_stats: bool = False,
+                 filt: torch.Tensor | None = None) -> tuple:
     """``(hL, hX) = (log1p(x) @ WL^T, float(x) @ WX^T)`` in float32,
     differentiable in WL and WX (backward: :func:`count_encode_bwd`).
     With ``want_stats`` a third output, the (M, 4) row stats
-    ``[sum L, sum L^2, sum L, sum L^2]`` of ``L = log1p(x)`` in float32,
-    which carry no gradient.
+    ``[sum L, sum L^2, sum L*f, sum L^2*f]`` of ``L = log1p(x)`` in
+    float32, which carry no gradient.
 
-    x  : (M, D) counts, int8 / int16 / float32 — data, no gradient
-    WL : (r1, D) float32 rows contracted against log1p(x)
-    WX : (r2, D) float32 rows contracted against x, or None (r2 = 0)
+    x    : (M, D) counts, int8 / int16 / float32 — data, no gradient
+    WL   : (r1, D) float32 rows contracted against log1p(x)
+    WX   : (r2, D) float32 rows contracted against x, or None (r2 = 0)
+    filt : optional (D,) or (1, D) float32 filter of the stats' second
+           pair (the labeled mixture's feature mask; with ``want_stats``
+           only); without it the second pair equals the first
     """
-    return _CountEncode.apply(x, WL, WX, bool(want_stats))
+    _check_filt(filt, want_stats)
+    return _CountEncode.apply(x, WL, WX, bool(want_stats), filt)
 
 
 count_encode.launches = 0
 count_encode.stats_launches = 0
+count_encode.filt_launches = 0
 
 
 def count_encode_bwd(x: torch.Tensor, g1: torch.Tensor,
@@ -114,7 +136,7 @@ def count_encode_bwd(x: torch.Tensor, g1: torch.Tensor,
 count_encode_bwd.launches = 0
 
 
-def _check_kernel_args(x, WL, WX) -> torch.Tensor:
+def _check_kernel_args(x, WL, WX, filt=None) -> torch.Tensor:
     """Everything the kernel does not take raises here, before any CUDA
     call; returns WX as a (r2, D) tensor."""
     if torch.is_grad_enabled() and (
@@ -138,24 +160,31 @@ def _check_kernel_args(x, WL, WX) -> torch.Tensor:
                          f"{tuple(WX.shape)}")
     if WL.shape[0] + WX.shape[0] < 1:
         raise ValueError("count_encode: needs at least one weight row")
+    if filt is not None and filt.numel() != D:
+        raise ValueError(f"count_encode: filt must have D={D} elements, "
+                         f"got {tuple(filt.shape)}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"count_encode: x must be int8, int16 or float32, "
                         f"got {x.dtype}")
-    for name, t in (("x", x), ("WL", WL), ("WX", WX)):
+    named = [("x", x), ("WL", WL), ("WX", WX)]
+    if filt is not None:
+        named.append(("filt", filt))
+    for name, t in named:
         if t.device != x.device:
             raise ValueError(f"count_encode: {name} is on {t.device}, "
                              f"x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"count_encode: {name} must be contiguous")
-    for name, t in (("WL", WL), ("WX", WX)):
+    for name, t in named[1:]:
         if t.dtype != torch.float32:
             raise TypeError(f"count_encode: {name} must be float32, got "
                             f"{t.dtype}")
     return WX
 
 
-def _kernel_route(x, WL, WX, want_stats=False):
-    WX = _check_kernel_args(x, WL, WX)
+def _kernel_route(x, WL, WX, want_stats=False, filt=None):
+    _check_filt(filt, want_stats)
+    WX = _check_kernel_args(x, WL, WX, filt)
     if x.device.type != "cuda":
         raise ValueError(f"count_encode: no kernel for device {x.device}")
     from . import _cuda
@@ -173,7 +202,7 @@ def _kernel_route(x, WL, WX, want_stats=False):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         # one launch per group of <= 16 stacked rows [WL; WX]; the first
-        # launch alone writes the stats
+        # launch alone writes the stats, and alone reads the filter
         for g0 in range(0, r1 + r2, MAX_ROWS_PER_LAUNCH):
             g1 = min(g0 + MAX_ROWS_PER_LAUNCH, r1 + r2)
             l0, l1 = min(g0, r1), min(g1, r1)
@@ -185,10 +214,13 @@ def _kernel_route(x, WL, WX, want_stats=False):
                 hL.data_ptr() + 4 * l0, r1,
                 hX.data_ptr() + 4 * x0, r2,
                 st.data_ptr() if st is not None and g0 == 0 else None,
+                filt.data_ptr() if filt is not None and g0 == 0 else None,
                 stream,
             )
             _cuda.check(rc, "count_encode")
-            if st is not None and g0 == 0:
+            if filt is not None and g0 == 0:
+                count_encode.filt_launches += 1
+            elif st is not None and g0 == 0:
                 count_encode.stats_launches += 1
             else:
                 count_encode.launches += 1

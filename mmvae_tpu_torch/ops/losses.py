@@ -1,10 +1,11 @@
-"""ELBO terms of the NB-VAE and the joint vMF+NB model.
+"""ELBO terms of the NB-VAE and the vMF+NB models.
 
 Port of ``mmvae_tpu/ops/losses.py`` (``l2_normalize`` :23,
-``gaussian_kl`` :29, ``kl_weight_schedule`` :124, ``nb_nllik`` /
-``nb_loss`` :49-95).  The training steps use ``gaussian_kl`` and
-``kl_weight_schedule``; ``l2_normalize`` serves the joint model's plain
-encoder; ``nb_nllik`` and ``nb_loss`` are the unfused reference
+``gaussian_kl`` :29, ``uniform_kl`` :38, ``kl_weight_schedule`` :124,
+``nb_nllik`` / ``nb_loss`` :49-95).  The training steps use
+``gaussian_kl``, ``kl_weight_schedule`` and (the labeled mixture)
+``uniform_kl``; ``l2_normalize`` serves the vMF+NB models' plain
+encoders; ``nb_nllik`` and ``nb_loss`` are the unfused reference
 formulas, kept for the tests.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .fastmath import fasterlog
 from .nb_elbo import _lgamma_pos
 
 
@@ -26,6 +28,14 @@ def gaussian_kl(mean: torch.Tensor, lnvar: torch.Tensor) -> torch.Tensor:
     """KL(N(mean, exp(lnvar)) || N(0, I)), summed over all elements
     (reference nb.hh:533-537)."""
     return -0.5 * torch.sum(1.0 + lnvar - mean * mean - torch.exp(lnvar))
+
+
+def uniform_kl(ln_q: torch.Tensor) -> torch.Tensor:
+    """KL(q || uniform over K) summed over the batch, from the (n, K) log
+    responsibilities (reference vmfnb_mixture.hh:698-706); ``fasterlog(K)``
+    as the reference has it, not ``log(K)``."""
+    k = ln_q.shape[1]
+    return torch.sum(torch.exp(ln_q) * (ln_q + fasterlog(float(k))))
 
 
 def kl_weight_schedule(epoch: float, kl_max: float, kl_min: float,

@@ -1,8 +1,9 @@
-"""Packed fast step for the joint vMF+NB model.
+"""Packed fast steps for the joint vMF+NB model and the labeled mixture.
 
 Port of ``mmvae_tpu/ops/vmfnb_fast.py`` (``_JRows`` :64,
-``VMFNBFastStep`` :139-423) for the direct joint architecture (no hidden
-encoder or decoder layers, no ``--vmf_decoding``, the default nu clamp):
+``VMFNBFastStep`` :139-423, ``_MRows`` :427, ``VMFNBMixtureFastStep``
+:500-779) for the direct architectures (no hidden encoder or decoder
+layers, no ``--vmf_decoding``, the default nu clamp).  The joint step:
 
 - **One count-encoder pass per loss.**  Every (B, D) view the model
   reads — the L2-normalized log1p counts of the standardized encoder,
@@ -23,11 +24,20 @@ encoder or decoder layers, no ``--vmf_decoding``, the default nu clamp):
   the kernels are handed ``c = 0 (B, 1)`` and ``wc = 0 (1, D)``, as in
   the JAX package.
 
-``VMFNBFastStep(..., plain=True)`` is the plain route of the same step
-(``count_encode_ref`` and ``step_nll_ref`` under autograd, the JAX
-package's XLA path).  Draws come in through ``rand``: three
-reparameterizations per loss, ``(nb, nu, vmf)``, as in JAX's
-``_draw_batch``.
+The mixture step (:class:`VMFNBMixtureFastStep`) is the same recipe
+with the mixture's collapses (vmfnb_mixture.hh:482-560, 607-654): the
+masked component directions ``vmu`` live as K packed rows, so ONE
+count-encoder pass with the annotation filter (K4f:
+``count_encode(x, [Wt; vmu], ndk_rows, want_stats=True, filt=)``) gives
+the encoder contraction, the E-step contraction ``L @ vmu^T`` and the
+plain and filtered row norms; the loss needs only ``<yobs, recon> =
+sum(latent * (yobs @ vmu^T))``, so no (B, D) reconstruction is formed.
+
+``plain=True`` is the plain route of either step (``count_encode_ref``
+and ``step_nll_ref`` under autograd, the JAX package's XLA path).  Draws
+come in through ``rand``: three reparameterizations per loss, ``(nb, nu,
+vmf)``, in the joint step, two, ``(mu, nu)``, in the mixture's, as in
+JAX's ``_draw_batch``.
 """
 
 from __future__ import annotations
@@ -40,7 +50,7 @@ import torch
 from .enc_kernel import count_encode, count_encode_ref
 from .fastmath import fasterlog
 from .lbessel import lbessel
-from .losses import gaussian_kl
+from .losses import gaussian_kl, l2_normalize, uniform_kl
 from .nb_fast import PackedFastStep
 from .nb_step import (_softplus, nb_step_boot_joint_gradonly, nb_step_report,
                       step_nll_ref)
@@ -209,22 +219,35 @@ class VMFNBFastStep(PackedFastStep):
     # ------------------------------------------------------------------
     # compute
     # ------------------------------------------------------------------
+    def _mu_hidden(self, q, h_core):
+        """The shared mu encoder's hidden layer and its log-variance head
+        (vmfnb.hh:449-460) from the standardized encoder contraction."""
+        sv = q["sv"]
+        h = h_core + self._sv(sv, "nb_mu_encoding.bias")
+        if self.model.do_relu:
+            h = torch.relu(h)  # the encoder stack ReLUs its last layer
+        mu_lnvar = torch.clamp(
+            h @ self._sv(sv, "nb_mu_representation_logvariance.weight")
+            + self._sv(sv, "nb_mu_representation_logvariance.bias"),
+            -4.0, 4.0)
+        return h, mu_lnvar
+
     def _heads(self, q, h_core, ndk):
         """The shared mu encoder and the three raw-count heads
         (vmfnb.hh:449-460, 477-486, 498, 535-538) from the standardized
         encoder contraction ``h_core`` and the raw-count contraction
         ``ndk`` of one count-encoder pass."""
         sv = q["sv"]
-        H = self.rows.H
-        h = h_core + self._sv(sv, "nb_mu_encoding.bias")
-        if self.model.do_relu:
-            h = torch.relu(h)  # the encoder stack ReLUs its last layer
+        h, mu_lnvar = self._mu_hidden(q, h_core)
         mu_mean = (h @ self._sv(sv, "nb_mu_representation_mean.weight")
                    + self._sv(sv, "nb_mu_representation_mean.bias"))
-        mu_lnvar = torch.clamp(
-            h @ self._sv(sv, "nb_mu_representation_logvariance.weight")
-            + self._sv(sv, "nb_mu_representation_logvariance.bias"),
-            -4.0, 4.0)
+        return (mu_mean, mu_lnvar, *self._ndk_heads(q, ndk))
+
+    def _ndk_heads(self, q, ndk):
+        """The nu encoder, depth and kappa heads from the raw-count
+        contraction ``ndk`` (vmfnb.hh:477-486, 498, 535-538)."""
+        sv = q["sv"]
+        H = self.rows.H
         # the joint model ALWAYS ReLUs the nu hidden layer (vmfnb.hh:481)
         nu_h = torch.relu(ndk[:, :H] + self._sv(sv, "nb_nu_encoding.bias"))
         nu_mean = (nu_h @ self._sv(sv, "nb_nu_representation_mean.weight")
@@ -238,7 +261,37 @@ class VMFNBFastStep(PackedFastStep):
         kappa = torch.exp(torch.clamp(ln_kappa,
                                       fasterlog(self.model.kappa_min),
                                       fasterlog(self.model.kappa_max)))
-        return mu_mean, mu_lnvar, nu_mean, nu_lnvar, depth, kappa
+        return nu_mean, nu_lnvar, depth, kappa
+
+    def _nb_nll(self, q, x, z_nb, z_nu, depth, include_const: bool,
+                boot: bool):
+        """The NB half: the kernels' ``pb`` / exp-nu variant (or the plain
+        ``step_nll_ref``).  The vMF+NB models have no covariate pathway;
+        the kernels are handed ``c = 0 (B, 1)`` and ``wc = 0 (1, D)``."""
+        P = q["P"]
+        r = self.rows
+        B = x.shape[0]
+        cz = torch.zeros((B, 1), dtype=torch.float32, device=x.device)
+        wcz = torch.zeros((1, x.shape[1]), dtype=torch.float32,
+                          device=x.device)
+        args = (x, z_nb, cz, z_nu, depth, P[r.mu_dec_w], wcz, P[r.mu_dec_b],
+                P[r.nu_dec_w], P[r.nu_dec_b] - P[r.nu_bias])
+        pb = P[r.mu_bias]
+        if self.plain:
+            return step_nll_ref(*args, pb=pb, include_const=include_const,
+                                nu_exp=True)
+        if boot:
+            return nb_step_boot_joint_gradonly(*args, pb)
+        return nb_step_report(*args, include_const=include_const, pb=pb)
+
+    @staticmethod
+    def _vmf_llik(cos_k, kappa, dd: float):
+        """Per-row vMF log-likelihood over ``dd`` features from the
+        kappa-weighted cosine ``cos_k`` (vmfnb.hh:554-574)."""
+        df = max(0.5 * dd - 1.0, 0.0)
+        k = kappa[:, 0]
+        llik = cos_k + (df * torch.log(k) - lbessel(k, df))
+        return llik - 0.5 * dd * fasterlog(2.0 * math.pi)
 
     def _vmf_nll(self, q, t, z_vmf, kappa):
         """vMF negative log-likelihood without the (B, D) reconstruction:
@@ -254,12 +307,8 @@ class VMFNBFastStep(PackedFastStep):
         # |v| >= |b_v| > 0 in practice; the clamp mirrors l2_normalize's
         # eps guard and keeps the sqrt's gradient finite at 0
         norm = torch.clamp_min(torch.sqrt(torch.clamp_min(sq, 0.0)), 1e-12)
-        dd = float(self.model.data_dim)
-        df = max(0.5 * dd - 1.0, 0.0)
-        k = kappa[:, 0]
-        llik = (dot / norm) * k
-        llik = llik + (df * torch.log(k) - lbessel(k, df))
-        llik = llik - 0.5 * dd * fasterlog(2.0 * math.pi)
+        llik = self._vmf_llik((dot / norm) * kappa[:, 0], kappa,
+                              float(self.model.data_dim))
         return -torch.sum(llik)
 
     def _loss(self, q, x, c, ridx, eps, beta, include_const: bool,
@@ -296,20 +345,236 @@ class VMFNBFastStep(PackedFastStep):
         z_nu = self._reparam(eps[1], nu_mean, nu_lnvar)
         z_vmf = self._reparam(eps[2], mu_mean, mu_lnvar)
         kl = gaussian_kl(mu_mean, mu_lnvar) + gaussian_kl(nu_mean, nu_lnvar)
-
-        B = x.shape[0]
-        cz = torch.zeros((B, 1), dtype=torch.float32, device=x.device)
-        wcz = torch.zeros((1, x.shape[1]), dtype=torch.float32,
-                          device=x.device)
-        args = (x, z_nb, cz, z_nu, depth, P[r.mu_dec_w], wcz, P[r.mu_dec_b],
-                P[r.nu_dec_w], P[r.nu_dec_b] - P[r.nu_bias])
-        pb = P[r.mu_bias]
-        if self.plain:
-            nll = step_nll_ref(*args, pb=pb, include_const=include_const,
-                               nu_exp=True)
-        elif boot:
-            nll = nb_step_boot_joint_gradonly(*args, pb)
-        else:
-            nll = nb_step_report(*args, include_const=include_const, pb=pb)
+        nll = self._nb_nll(q, x, z_nb, z_nu, depth, include_const, boot)
         vmf = self._vmf_nll(q, t, z_vmf, kappa)
-        return (nll + vmf + beta * kl) / B
+        return (nll + vmf + beta * kl) / x.shape[0]
+
+
+@dataclass(frozen=True)
+class _MRows:
+    """Row indices of the packed (Krows, D) mixture parameter matrix (the
+    JAX package's layout; rows up to the kappa row sit where
+    :class:`_JRows` has them)."""
+
+    R: int
+    H: int
+    Rn: int
+    K: int  # mixture components
+
+    @property
+    def mu_dec_w(self):  # (R, D)
+        return slice(0, self.R)
+
+    @property
+    def mu_dec_b(self):
+        return self.R
+
+    @property
+    def mu_bias(self):
+        return self.R + 1
+
+    @property
+    def nu_dec_w(self):  # (Rn, D)
+        return slice(self.R + 2, self.R + 2 + self.Rn)
+
+    @property
+    def nu_dec_b(self):
+        return self.R + 2 + self.Rn
+
+    @property
+    def nu_bias(self):
+        return self.R + 3 + self.Rn
+
+    @property
+    def x_mean(self):
+        return self.R + 4 + self.Rn
+
+    @property
+    def ln_x_sd(self):
+        return self.R + 5 + self.Rn
+
+    @property
+    def mu_enc_w(self):  # (R, D), transposed storage
+        a = self.R + 6 + self.Rn
+        return slice(a, a + self.R)
+
+    @property
+    def ndk_rows(self):  # (H + 2, D): nu encoder, depth, ln_kappa rows
+        a = 2 * self.R + 6 + self.Rn
+        return slice(a, a + self.H + 2)
+
+    @property
+    def nu_enc_w(self):  # (H, D), transposed storage
+        a = 2 * self.R + 6 + self.Rn
+        return slice(a, a + self.H)
+
+    @property
+    def depth_w(self):
+        return 2 * self.R + 6 + self.Rn + self.H
+
+    @property
+    def kappa_w(self):
+        return 2 * self.R + 7 + self.Rn + self.H
+
+    @property
+    def vmf_mu_rows(self):  # (K, D): ln_vmf_mu, transposed storage
+        a = 2 * self.R + 8 + self.Rn + self.H
+        return slice(a, a + self.K)
+
+    @property
+    def Krows(self):
+        return 2 * self.R + 8 + self.Rn + self.H + self.K
+
+
+class VMFNBMixtureFastStep(VMFNBFastStep):
+    """Packed fast step for
+    :class:`~mmvae_tpu_torch.models.vmfnb_mixture.VMFNBMixtureVAE`: the
+    joint step's NB half, nu / depth / kappa heads and vMF likelihood,
+    with the mixture's E-step, responsibility-weighted mean heads and
+    uniform KL."""
+
+    UNSUPPORTED = ("the packed mixture step needs the direct architecture "
+                   "(no --mean_encoding / --mean_decoding) with the default "
+                   "nu clamp; the JAX package falls back to its generic "
+                   "step path there, which is not ported yet (ROADMAP.md "
+                   "Queue 1 item 11)")
+
+    @staticmethod
+    def supports(model) -> bool:
+        from ..models.vmfnb_mixture import VMFNBMixtureVAE
+
+        return (isinstance(model, VMFNBMixtureVAE) and not model.mean_encoding
+                and not model.mean_decoding and model._can_fuse_step())
+
+    @staticmethod
+    def _make_rows(model):
+        return _MRows(R=model.mean_latent, H=model.overdisp_encoding,
+                      Rn=model.overdisp_latent, K=model.n_components)
+
+    def _sv_entries(self):
+        R, H, Rn, K = self.rows.R, self.rows.H, self.rows.Rn, self.rows.K
+        return [("nb_mu_encoding.bias", (R,)),
+                ("nb_mu_representation_mean_k.weight", (K, R, R)),
+                ("nb_mu_representation_mean_k.bias", (K, R)),
+                ("nb_mu_representation_logvariance.weight", (R, R)),
+                ("nb_mu_representation_logvariance.bias", (R,)),
+                ("nb_nu_encoding.bias", (H,)),
+                ("nb_nu_representation_mean.weight", (H, Rn)),
+                ("nb_nu_representation_mean.bias", (Rn,)),
+                ("nb_nu_representation_logvariance.weight", (H, Rn)),
+                ("nb_nu_representation_logvariance.bias", (Rn,)),
+                ("depth.bias", (1,)),
+                ("ln_kappa.bias", (1,))]
+
+    def _eps_widths(self):
+        # (mu, nu): training uses the soft E-step, so the Gumbel key that
+        # JAX splits off draws nothing here (vmfnb_mixture.hh:688-691)
+        return (self.rows.R, self.rows.Rn)
+
+    # ------------------------------------------------------------------
+    # layout
+    # ------------------------------------------------------------------
+    def pack(self, t: dict) -> dict:
+        P = torch.cat([
+            t["nb_mu_decoding"]["weight"],              # (R, D)
+            t["nb_mu_decoding"]["bias"][None, :],
+            t["mu_bias"],                               # (1, D)
+            t["nb_nu_decoding"]["weight"],              # (Rn, D)
+            t["nb_nu_decoding"]["bias"][None, :],
+            t["nu_bias"],
+            t["x_mean"],
+            t["ln_x_sd"],
+            t["nb_mu_encoding"]["weight"].T,            # (R, D)
+            t["nb_nu_encoding"]["weight"].T,            # (H, D)
+            t["depth"]["weight"].T,                     # (1, D)
+            t["ln_kappa"]["weight"].T,                  # (1, D)
+            t["ln_vmf_mu"].T,                           # (K, D)
+        ], dim=0).contiguous()
+        assert P.shape[0] == self.rows.Krows
+        return {"P": P, "sv": self._pack_sv(t)}
+
+    def unpack(self, q: dict) -> dict:
+        P = q["P"]
+        r = self.rows
+        out = {
+            "x_mean": P[r.x_mean][None, :],
+            "ln_x_sd": P[r.ln_x_sd][None, :],
+            "mu_bias": P[r.mu_bias][None, :],
+            "nu_bias": P[r.nu_bias][None, :],
+            "ln_vmf_mu": P[r.vmf_mu_rows].T,
+            "nb_mu_decoding": {"weight": P[r.mu_dec_w],
+                               "bias": P[r.mu_dec_b]},
+            "nb_nu_decoding": {"weight": P[r.nu_dec_w],
+                               "bias": P[r.nu_dec_b]},
+            "nb_mu_encoding": {"weight": P[r.mu_enc_w].T},
+            "nb_nu_encoding": {"weight": P[r.nu_enc_w].T},
+            "depth": {"weight": P[r.depth_w][:, None]},
+            "ln_kappa": {"weight": P[r.kappa_w][:, None]},
+        }
+        return self._unpack_sv(q["sv"], out)
+
+    # ------------------------------------------------------------------
+    # compute
+    # ------------------------------------------------------------------
+    def _loss(self, q, x, c, ridx, eps, beta, include_const: bool,
+              boot: bool):
+        del c  # no covariate pathway
+        if ridx is not None:
+            # resample the INPUT rows and re-encode them: the row
+            # transforms and stats commute with the gather
+            x = x.index_select(0, ridx)
+        P = q["P"]
+        r = self.rows
+        R = r.R
+        label, filt = self.model.masks(P.device)
+        D = float(self.model.data_dim)
+        dd = float(self.model.dd)
+        # normalized masked component directions (vmfnb_mixture.hh:538-560):
+        # zero outside each component's label, hence outside the filter
+        eps_f = 1e-2 / D
+        vmu = l2_normalize((torch.exp(P[r.vmf_mu_rows]) + eps_f) * label,
+                           dim=1)                           # (K, D)
+        fsum = torch.sum(vmu, dim=1)
+        sd = _softplus(P[r.ln_x_sd]) + 1e-2
+        Wt = P[r.mu_enc_w] / sd
+        # ONE filtered count-encoder pass (K4f): the standardized mu
+        # encoder, the shared core product L @ vmu^T of both vMF dots, the
+        # nu / depth / kappa rows and the plain + filtered row stats:
+        #   |(L + eps) f|^2 = sum(f L^2) + 2 eps sum(f L) + eps^2 dd
+        #   |L + eps'|^2    = |L|^2 + 2 eps' sum(L) + D eps'^2
+        enc = count_encode_ref if self.plain else count_encode
+        out, ndk, stats = enc(x, torch.cat([Wt, vmu]), P[r.ndk_rows],
+                              want_stats=True, filt=filt)
+        s, ssq, s_f, ssq_f = stats.unbind(1)
+        eps_y = 1e-2 / dd
+        inv_nL = 1.0 / torch.clamp_min(torch.sqrt(ssq), 1e-12)
+        nv = torch.sqrt(ssq_f + 2.0 * eps_f * s_f + eps_f * eps_f * dd)
+        inv_nV = 1.0 / torch.clamp_min(nv, 1e-12)
+        ny = torch.sqrt(ssq + 2.0 * eps_y * s + D * eps_y * eps_y)
+        inv_nY = 1.0 / torch.clamp_min(ny, 1e-12)
+        nu_mean, nu_lnvar, depth, kappa = self._ndk_heads(q, ndk)
+        # the E-step (vmfnb_mixture.hh:680-691)
+        core = out[:, R:]                                   # (B, K)
+        t_estep = (core + eps_f * fsum) * inv_nV[:, None]
+        logits = torch.log_softmax(t_estep * kappa, dim=1)
+        latent = torch.exp(logits)
+        # the responsibility-weighted mean heads (vmfnb_mixture.hh:482-500)
+        h, mu_lnvar = self._mu_hidden(
+            q, out[:, :R] * inv_nL[:, None] - P[r.x_mean] @ Wt.T)
+        sv = q["sv"]
+        mu_k = (torch.einsum("nh,khr->nkr", h, self._sv(
+                    sv, "nb_mu_representation_mean_k.weight"))
+                + self._sv(sv, "nb_mu_representation_mean_k.bias")[None])
+        mu_mean = torch.sum(mu_k * latent[:, :, None], dim=1)
+        z_mu = self._reparam(eps[0], mu_mean, mu_lnvar)
+        z_nu = self._reparam(eps[1], nu_mean, nu_lnvar)
+        kl = (gaussian_kl(mu_mean, mu_lnvar) + gaussian_kl(nu_mean, nu_lnvar)
+              + uniform_kl(logits))
+        nll = self._nb_nll(q, x, z_mu, z_nu, depth, include_const, boot)
+        # the vMF loss without the (B, D) recon: recon = (latent @ vmu) *
+        # filt, and <yobs, recon> = sum(latent * (yobs @ vmu^T), 1)
+        # (vmfnb_mixture.hh:610-629), a row scaling of the same core
+        t = (core + eps_y * fsum) * inv_nY[:, None]
+        dot = torch.sum(latent * t, dim=1)
+        vmf_nll = -torch.sum(self._vmf_llik(dot * kappa[:, 0], kappa, dd))
+        return (nll + vmf_nll + beta * kl) / x.shape[0]

@@ -14,8 +14,9 @@ of ``train_vae_model``) and of the two sweeps of
   or the joint model's), with every random draw of the epoch made up
   front;
 - :func:`encode_resident`: ``chunk`` batches of B rows go through the
-  encoder per kernel launch (the encoder works row by row, so grouping
-  changes no result);
+  encoder per kernel launch (the encoder works row by row, and the
+  mixture's per-batch noise is tiled over the chunk, so grouping changes
+  no result);
 - :func:`encode_streaming`: batches read from the out-of-core block in
   the reference's sequential wrap-around order, ``chunk`` batches per
   host->device copy.
@@ -65,50 +66,50 @@ def build_dense(block, device: torch.device | str) -> torch.Tensor:
 
 
 def encode_resident(model, params: dict, data: torch.Tensor, B: int,
-                    chunk: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(N, R) mean and log-variance of every row of the device-resident
-    ``data`` (N % B == 0), ``chunk`` batches per encoder call."""
+                    chunk: int, prep: dict | None = None) -> tuple:
+    """(N, width) outputs of the encoder — mean and log-variance, and
+    the mixture's assignments — for every row of the device-resident
+    ``data`` (N % B == 0), ``chunk`` batches per encoder call.  ``prep``
+    is ``model.prepare_encoder``'s result (made here when None)."""
     N = data.shape[0]
     if N % B:
         raise ValueError(f"resident sweep needs N % B == 0 (N={N}, B={B})")
-    prep = model.prepare_encoder(params)
+    if prep is None:
+        prep = model.prepare_encoder(params)
     rows = max(1, chunk) * B
-    means, lnvars = [], []
-    for lo in range(0, N, rows):
-        mean, lnvar = model.encode_prepared(params, prep, data[lo:lo + rows])
-        means.append(mean)
-        lnvars.append(lnvar)
-    return torch.cat(means), torch.cat(lnvars)
+    outs = [model.encode_prepared(params, prep, data[lo:lo + rows])
+            for lo in range(0, N, rows)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
 def encode_streaming(model, params: dict, db, B: int, chunk: int,
-                     device: torch.device | str
-                     ) -> tuple[np.ndarray, np.ndarray]:
-    """(N, R) host mean and log-variance over the reference's
-    sequential wrap-around batches read from ``db``; ``chunk`` batches
-    ride one host->device copy and one encoder call."""
+                     device: torch.device | str, prep: dict | None = None
+                     ) -> tuple:
+    """(N, width) host outputs of the encoder (as
+    :func:`encode_resident`) over the reference's sequential wrap-around
+    batches read from ``db``; ``chunk`` batches ride one host->device
+    copy and one encoder call."""
     N, D = db.ntot(), db.nfeature()
     batches = sequential_batches(N, B)
-    prep = model.prepare_encoder(params)
+    if prep is None:
+        prep = model.prepare_encoder(params)
     chunk = max(1, chunk)
-    mean_out = lnvar_out = None
+    host = None
     for i in range(0, len(batches), chunk):
         grp = batches[i:i + chunk]
         xs = np.empty((len(grp) * B, D), np.float32)
         for j, batch in enumerate(grp):
             db.clear()
             xs[j * B:(j + 1) * B] = db.read(batch)
-        mean, lnvar = model.encode_prepared(
-            params, prep, torch.from_numpy(xs).to(device))
-        mean, lnvar = mean.cpu().numpy(), lnvar.cpu().numpy()
-        if mean_out is None:
-            mean_out = np.zeros((N, mean.shape[1]), np.float32)
-            lnvar_out = np.zeros((N, lnvar.shape[1]), np.float32)
+        outs = [t.cpu().numpy() for t in model.encode_prepared(
+            params, prep, torch.from_numpy(xs).to(device))]
+        if host is None:
+            host = [np.zeros((N, o.shape[1]), np.float32) for o in outs]
         for j, batch in enumerate(grp):
             # wrapped duplicates rewrite identical rows
-            mean_out[batch] = mean[j * B:(j + 1) * B]
-            lnvar_out[batch] = lnvar[j * B:(j + 1) * B]
-    return mean_out, lnvar_out
+            for h, o in zip(host, outs):
+                h[batch] = o[j * B:(j + 1) * B]
+    return tuple(host)
 
 
 def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
@@ -127,8 +128,8 @@ class DenseEpochRunner:
     (mmvae_alg.hh:261-266): batch b is rows (b*B + i) % N, a contiguous
     slice when N % B == 0.  The covariate is the all-ones column unless a
     dense (N, C) covariate matrix is given.  ``record_fn(params, x) ->
-    (mean, lnvar)`` is evaluated right after each batch's updates on a
-    recording epoch (the recorder's observation point,
+    (mean, lnvar[, extra])`` is evaluated right after each batch's
+    updates on a recording epoch (the recorder's observation point,
     mmvae_alg.hh:315-317)."""
 
     def __init__(self, fast, data: torch.Tensor, B: int, seed: int = 0,
@@ -161,10 +162,10 @@ class DenseEpochRunner:
 
     def __call__(self, q: dict, opt_state: dict, epoch: int,
                  record: bool = False, rand: dict | None = None):
-        """Run one epoch; returns (q, opt_state, reports (nbatch,),
-        (mean, lnvar) of shape (nbatch, B, R) on a recording epoch, else
-        None).  ``rand`` overrides the epoch's draws (tests feed the JAX
-        package's)."""
+        """Run one epoch; returns (q, opt_state, reports (nbatch,), the
+        record_fn outputs stacked to (nbatch, B, width) on a recording
+        epoch, else None).  ``rand`` overrides the epoch's draws (tests
+        feed the JAX package's)."""
         rand = self.draw(epoch) if rand is None else rand
         reps = torch.empty(self.nbatch, dtype=torch.float32,
                            device=self.device)
@@ -175,13 +176,13 @@ class DenseEpochRunner:
                 q, opt_state, x, c, float(epoch), batch_rand(rand, b))
             reps[b] = rep
             if record:
-                mean, lnvar = self.record_fn(self.fast.unpack(q), x)
+                outs = self.record_fn(self.fast.unpack(q), x)
                 if enc is None:
                     enc = tuple(torch.empty((self.nbatch, *t.shape),
                                             dtype=t.dtype, device=t.device)
-                                for t in (mean, lnvar))
-                enc[0][b] = mean
-                enc[1][b] = lnvar
+                                for t in outs)
+                for e, t in zip(enc, outs):
+                    e[b] = t
         return q, opt_state, reps, enc
 
 

@@ -7,7 +7,10 @@ Port of ``mmvae_tpu/train/recorder.py`` (``LatentRecorder``,
   matrices assembled batch by batch (reference nbvae_recorder_t,
   include/models/nb.hh:569-662);
 - ``${out}_<epoch>_<param>.gz`` — every named parameter as gzipped dense
-  text, weights in the reference's (out, in) orientation (nb.hh:599-615).
+  text, weights in the reference's (out, in) orientation (nb.hh:599-615);
+  the mixture's stacked (K, H, R) heads as one file per component;
+- ``${out}_<epoch>.clust.gz`` — the mixture's N x K assignments, when the
+  encode returns a third output (vmfnb_mixture.hh:797-804).
 
 Writes are synchronous (the JAX package's background writer is not
 ported).
@@ -36,8 +39,14 @@ def flatten_params(params: dict) -> dict[str, np.ndarray]:
         if isinstance(p, dict):
             for sub, arr in p.items():
                 a = arr.detach().cpu().numpy()
-                out[f"{name}.{sub}"] = (a.T if sub == "weight" and a.ndim == 2
-                                        else a)
+                if a.ndim == 3:
+                    # stacked per-component heads: one 2-D entry each
+                    for k in range(a.shape[0]):
+                        out[f"{name}.{k}.{sub}"] = (a[k].T if sub == "weight"
+                                                    else a[k])
+                else:
+                    out[f"{name}.{sub}"] = (a.T if sub == "weight"
+                                            and a.ndim == 2 else a)
         else:
             out[name] = p.detach().cpu().numpy()
     return out
@@ -47,16 +56,20 @@ class LatentRecorder:
     """N x latent posterior collector and artifact writer.
 
     ``encode_fn(params, x) -> (mean, lnvar)`` is the no-covariate encode
-    (the reference records with ``encode_mu(x)``, nb.hh:628)."""
+    (the reference records with ``encode_mu(x)``, nb.hh:628).  With
+    ``extra_name`` it returns a third per-row matrix, written as
+    ``.<extra_name>.gz`` (the mixture's assignments, ``clust``)."""
 
     def __init__(self, header: str, max_epoch: int, ntot: int,
-                 encode_fn: Callable):
+                 encode_fn: Callable, extra_name: str | None = None):
         self.header = header
         self.max_epoch = max_epoch
         self.ntot = ntot
         self.encode_fn = encode_fn
+        self.extra_name = extra_name
         self.mean_out = np.zeros((ntot, 0), np.float32)
         self.lnvar_out = np.zeros((ntot, 0), np.float32)
+        self.extra_out = np.zeros((ntot, 0), np.float32)
 
     def encode(self, params: dict, x: torch.Tensor):
         with torch.no_grad():
@@ -69,24 +82,24 @@ class LatentRecorder:
             setattr(self, attr, mat)
         return mat
 
-    def _put(self, batch, mean: np.ndarray, lnvar: np.ndarray) -> None:
-        batch = np.asarray(batch)
-        ok = batch < self.ntot
-        self._ensure("mean_out", mean.shape[1])[batch[ok]] = mean[ok]
-        self._ensure("lnvar_out", lnvar.shape[1])[batch[ok]] = lnvar[ok]
-
     def ingest(self, batches, enc) -> None:
         """A whole epoch of posteriors collected on the device: ``enc``
-        is the (mean, lnvar) pair of shape (nbatch, B, latent), applied in
-        batch order so wrap-around duplicates resolve to the last visit."""
-        mean_all = enc[0].cpu().numpy()
-        lnvar_all = enc[1].cpu().numpy()
-        for b, batch in enumerate(np.asarray(batches)):
-            self._put(batch, mean_all[b], lnvar_all[b])
+        is the (mean, lnvar[, extra]) tuple of shape (nbatch, B, width),
+        applied in batch order so wrap-around duplicates resolve to the
+        last visit."""
+        attrs = ("mean_out", "lnvar_out", "extra_out")[:len(enc)]
+        for attr, t in zip(attrs, enc):
+            a = t.cpu().numpy()
+            mat = self._ensure(attr, a.shape[2])
+            for b, batch in enumerate(np.asarray(batches)):
+                ok = batch < self.ntot
+                mat[batch[ok]] = a[b][ok]
 
     def update_on_epoch(self, params: dict, epoch: int) -> None:
         tag = f"{self.header}_{zeropad(epoch, self.max_epoch)}"
         write_data_file(f"{tag}.mu_mean.gz", self.mean_out)
         write_data_file(f"{tag}.mu_lnvar.gz", self.lnvar_out)
+        if self.extra_name is not None:
+            write_data_file(f"{tag}.{self.extra_name}.gz", self.extra_out)
         for key, arr in flatten_params(params).items():
             write_data_file(f"{tag}_{key}.gz", arr)

@@ -161,7 +161,7 @@ def test_device_cuda_without_gpu_fails(runs, tmp_path):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--annot", "a.txt", "--row", "r.txt"], "item 10"),
+    (["--no_fused"], "item 11"),
     (["--mean_encoding", "8"], "item 11"),
     (["--vmf_decoding", "8"], "item 11"),
     (["--no_fused_step"], "item 11"),
@@ -172,6 +172,6 @@ def test_unported_options_raise(runs, tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
         vmfnb_vae.main(common + ["--out", str(tmp_path / "x"), "--device",
                                  "cpu", *flags])
-    with pytest.raises(NotImplementedError, match="item 10, mixture"):
-        port_encode.main(["--model", "mixture", "--mtx", common[1],
+    with pytest.raises(NotImplementedError, match="item 9, vMF-VAE"):
+        port_encode.main(["--model", "vmf", "--mtx", common[1],
                           "--checkpoint", "none", "--out", "x"])
