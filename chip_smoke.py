@@ -32,7 +32,7 @@ exits non-zero without the final line):
 9. full-width training: two epochs of the dense-resident epoch runner
    over the first 40,000 of phase 5's 100,000 x 20,000 int8 counts (the
    depth cut keeps the script inside half its time limit), with a
-   profile of 100 batches;
+   profile of 20 batches;
 10. the joint vMF+NB model's kernel variants against their plain
     versions: ``count_encode`` with row stats (a training batch, 5 + 3
     rows, and the serving launch, 2 + 0 rows), its backward (K5) at the
@@ -45,8 +45,8 @@ exits non-zero without the final line):
     kernel of the path launched, ``--resume`` for one more epoch; then
     ``encode --model vmfnb`` on that checkpoint, resident and streaming
     (bitwise equal), against the plain unfolded encoder;
-13. full-width joint training: two epochs over the first 40,000 of phase
-    5's counts, with a profile of 100 batches;
+13. full-width joint training: two epochs over the first 20,000 of phase
+    5's counts, with a profile of 20 batches;
 14. the labeled mixture's kernel instance K4f (``count_encode`` with the
     annotation-filtered row stats) against its plain version, with a
     marker-gene mask (10 components of 200 genes from seed 0, ~90% of the
@@ -61,11 +61,35 @@ exits non-zero without the final line):
     one more epoch; then ``encode --model mixture``, resident and
     streaming (bitwise equal), against the plain unfolded encoder with
     the same Gumbel noise;
-17. full-size mixture training: two epochs over phase 5's counts, with a
-    profile of 100 batches.
+17. full-width mixture training: two epochs over the first 20,000 of
+    phase 5's counts, with a profile of 20 batches;
+18. the generic step's kernels against their plain versions: K7
+    (``nb_elbo_fwd``, both ``with_const`` instances), K8
+    (``nb_elbo_bwd``) and K2v (``valgrad(need_value=True)``) at B = 100,
+    D = 20,000 (int8 counts <= 7, int8 integers up to 127, non-integer
+    float32) and at a ragged D = 1,003, with elements on both sides of
+    both overdispersion clamp edges; bitwise repeatability, K2v's value
+    against K6 and its gradient outputs equal to K2's, bitwise; device
+    times at the main path's case (int8 integers, D = 20,000);
+19. one generic batch step per route, kernel route against plain route:
+    ``--mean_encoding 16`` (the v2 step kernels), ``--mean_decoding 16``
+    and ``--no_fused_step`` (K7 / K8), and the README's library trainer
+    (``fused_step_boot``, K2v);
+20. the generic step end to end (the main path of K7, K8 and K2v):
+    ``nb_vae --mean_encoding 16 --mean_decoding 16`` on phase 4's matrix
+    for 2 epochs with recording and a checkpoint, ``--resume`` for one
+    more; ``--no_fused_step`` and ``--no_fused`` for one epoch each; the
+    README's library trainer through ``train_vae_model`` for one epoch;
+    ``encode --model nb`` on the hidden-layer checkpoint against the
+    plain unfolded encoder (the width 16 is a test width: the reference
+    publishes no hidden-layer default);
+21. full-width generic training: ``nb_vae --no_fused_step``'s step at
+    the default architecture, two epochs over the first 40,000 of phase
+    5's counts (phase 9's model and data: the two phases price the packed
+    step against the generic one), with a profile of 100 batches.
 
-Each main path (phases 4, 8, 12 and 16) is driven with every launch
-counter set to 0 just before it and read just after.  The last two lines are the
+Each main path (phases 4, 8, 12, 16 and the runs of 20) is driven with
+every launch counter set to 0 just before it and read just after.  The last two lines are the
 kernels' JSON record (with each kernel's bound at the main path's shape)
 and ``{"ok": true, "device": {...}}``.
 """
@@ -91,10 +115,12 @@ SEED = 0
 D_GENES = 20000
 N_CLI = 4000        # cells of the synthetic CLI matrix
 N_FULL = 100_000    # cells of the full-size phases
-# cells the earlier slices' full-size training phases (9, 13) walk: their
-# depth is cut so that the script keeps inside half its time limit; the
-# newest slice's phase (17) walks all N_FULL
+# cells the full-size training phases walk: their depth is cut so that
+# the script keeps inside half its time limit on a slow host; the NB
+# packed and generic steps (9, 21) share the longer walk, which prices
+# the one against the other
 N_EARLIER = 40_000
+N_SHORT = 20_000    # the joint and mixture models (13, 17)
 B_TRAIN = 100
 DEV = "cuda"
 TOL = "|kernel - plain| <= 1e-5 * S + 1e-6, S = |log1p x| @ |WL|^T (|x| @ |WX|^T)"
@@ -279,7 +305,7 @@ def random_params(model, device):
     params = model.init(torch.Generator().manual_seed(SEED), device=device)
     g = torch.Generator().manual_seed(SEED + 1)
     D = model.data_dim
-    scale = 1.5 if "mu_encoding" in params else 1.5 / D ** 0.5
+    scale = 1.5 if type(model).__name__ == "NBVAE" else 1.5 / D ** 0.5
     params["x_mean"] = torch.rand((1, D), generator=g).to(device) * scale
     params["ln_x_sd"] = (torch.randn((1, D), generator=g) * 0.5).to(device)
     if "ln_vmf_mu" in params:
@@ -923,7 +949,8 @@ def model_and_step(kind: str):
 
 PHASE = {"nb": {"step": 7, "cli": 8, "full": 9},
          "joint": {"step": 11, "cli": 12, "full": 13},
-         "mixture": {"step": 15, "cli": 16, "full": 17}}
+         "mixture": {"step": 15, "cli": 16, "full": 17},
+         "generic": {"step": 19, "cli": 20, "full": 21}}
 
 
 def first_boot_grad(fast, q, x, c, rand, dtype=torch.float32):
@@ -1062,6 +1089,478 @@ def phase_batch_step(card, kind="nb"):
         f"route, same draws: " + "; ".join(lines))
 
 
+# ----------------------------------------------------------------------
+# the generic step phases (18-21)
+# ----------------------------------------------------------------------
+
+ELBO_CASES = [(B_TRAIN, D_GENES, torch.int8, "counts<=7"),
+              (B_TRAIN, D_GENES, torch.int8, "integer"),
+              (B_TRAIN, D_GENES, torch.float32, "non-integer"),
+              (B_TRAIN, 1003, torch.int8, "integer")]
+ELBO_MAIN = 1  # int8 integer counts at B = 100, D = 20000: the main path
+# softplus(nu_pre) on both sides of each clamp edge (NU_LO = 1e-4,
+# NU_HI = 1e4), far enough from it that float32 rounding cannot move an
+# element across, and far outside it
+EDGE_SOFTPLUS = (0.5e-4, 2e-4, 0.99e4, 1.01e4)
+
+
+def elbo_inputs(g, B, D, dtype, regime):
+    """K7 / K8 operands at the trainer's scales: counts in the named
+    regime (integer cases with a run of 127s), logits of a few tenths,
+    nu_pre ~ N(0, 1) with elements at and beyond both clamp edges, and
+    library-size depth."""
+    x = make_counts(g, B, D, dtype)
+    if regime == "counts<=7":
+        x = x.clamp(max=7)
+    elif dtype != torch.float32:
+        x[0, :50] = 127
+    h = torch.randn((B, D), generator=g, device=DEV) * 0.5
+    npre = torch.randn((B, D), generator=g, device=DEV)
+    edges = torch.tensor(EDGE_SOFTPLUS, dtype=torch.float64)
+    # softplus^-1(s) = log(expm1(s)), which is s to float32 above 30
+    npre[1, :4] = torch.where(edges > 30, edges, torch.log(torch.expm1(
+        edges.clamp(max=30)))).float().to(DEV)
+    npre[2, :2] = torch.tensor([-12.0, 2.0e4], device=DEV)
+    depth = (x.float().sum(1, keepdim=True)
+             * (0.5 + torch.rand((B, 1), generator=g, device=DEV)))
+    return x, h, npre, depth.contiguous()
+
+
+def elbo_magnitudes(x, h, npre, depth, lse, with_const):
+    """float64 magnitudes of what K7 and K8 sum, each bounded by its own
+    terms' magnitudes: (p, |terms| (B, D), |dmu| (B, D), |dnu| (B, D))."""
+    from mmvae_tpu_torch.ops.nb_elbo import NU_HI, NU_LO
+
+    x, h, npre, depth, lse = (t.double() for t in (x, h, npre, depth, lse))
+    p = torch.exp(h - lse)
+    mu = p * depth + 1e-4
+    sp = torch.nn.functional.softplus(npre)
+    nu = sp.clamp(NU_LO, NU_HI) + 1e-4
+    lmn, lmu, lnu = (torch.log(v).abs() for v in (mu + nu, mu, nu))
+    terms = (torch.lgamma(nu).abs() + torch.lgamma(nu + x).abs()
+             + x * (lmn + lmu) + nu * (lmn + lnu))
+    if with_const:
+        terms = terms + torch.lgamma(x + 1.0).abs()
+    t = (x + nu) / (mu + nu)
+    dnu = ((torch.digamma(nu).abs() + torch.digamma(nu + x).abs() + t + lmn
+            + lnu + 1.0) * torch.sigmoid(npre))
+    return p, terms, t + x / mu, dnu
+
+
+def phase_generic_kernels(card):
+    """Phase 18: K7 (both instances), K8 and K2v against their plain
+    versions; K2v's value against K6 and its gradients against K2."""
+    from mmvae_tpu_torch.ops import nb_elbo as ne
+    from mmvae_tpu_torch.ops import nb_step as ns
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 18)
+    names = ("nb_elbo_fwd", "nb_elbo_fwd[const]", "nb_elbo_bwd",
+             "nb_valgrad[value]")
+    worst, times = {k: 0.0 for k in names}, {}
+    log(f"[phase 18] K7, K8, K2v vs plain (f32, TF32 off); {TRAIN_TOL} "
+        f"(scalars: S the sum over all terms; K7 rows and K8 elements: per "
+        f"row or element); nu_pre at softplus {EDGE_SOFTPLUS} and beyond")
+
+    def check(name, kern, plain, bounds, case, timed):
+        got, want, again = kern(), plain(), kern()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name} not bitwise repeatable")
+        e, q = 0.0, 0.0
+        for gt, wt, S in zip(got, want, bounds):
+            ei, qi = ratio(gt, wt, S)
+            e, q = max(e, ei), max(q, qi)
+        if not q <= 1.0:
+            raise AssertionError(f"{name} disagrees with plain at {case}: "
+                                 f"err/tol {q:.3g}")
+        worst[name] = max(worst[name], e)
+        line = f"{name} err {e:.3g} (err/tol {q:.3g})"
+        if not timed:
+            return got, line, None
+        k_dev, _ = device_profile(kern, 20)
+        p_dev, _ = device_profile(plain, 20)
+        return got, f"{line} kernel {k_dev:.4f} / plain {p_dev:.4f} ms", (
+            k_dev, p_dev)
+
+    for case, (B, D, dt, regime) in enumerate(ELBO_CASES):
+        x, h, npre, depth = elbo_inputs(g, B, D, dt, regime)
+        tag = (B, D, str(dt).replace("torch.", ""), regime)
+        parts, t_case = [], {}
+        for const in (False, True):
+            name = "nb_elbo_fwd[const]" if const else "nb_elbo_fwd"
+            lse = torch.logsumexp(h, 1, keepdim=True)
+            p, terms, dmu_m, _ = elbo_magnitudes(x, h, npre, depth, lse,
+                                                 const)
+            dep = depth.double()
+            bounds = (terms.sum(), 1.0 + lse.double().abs(),
+                      (dmu_m * p * dep).sum(1, keepdim=True),
+                      (dmu_m * p).sum(1, keepdim=True))
+            fwd, line, t_case[name] = check(
+                name, lambda: ne.elbo_fwd(x, h, npre, depth, const),
+                lambda: ne.elbo_fwd_ref(x, h, npre, depth, const), bounds,
+                tag, case == ELBO_MAIN)
+            parts.append(line)
+        _, lse, rs, _ = (t.contiguous() for t in fwd)
+        p, _, dmu_m, dnu_m = elbo_magnitudes(x, h, npre, depth, lse, False)
+        gv = torch.tensor(1.3, device=DEV)
+        (dh, dnu), line, t_case["nb_elbo_bwd"] = check(
+            "nb_elbo_bwd", lambda: ne.elbo_bwd(gv, x, h, npre, depth, lse, rs),
+            lambda: ne.elbo_bwd_ref(gv, x, h, npre, depth, lse, rs),
+            (1.3 * (dmu_m * p * depth.double() + p * rs.double().abs()),
+             1.3 * dnu_m), tag, case == ELBO_MAIN)
+        masked = int((dnu == 0).sum())
+        # zero outside (NU_LO, NU_HI); inside, at NU_HI, dnu is a float32
+        # cancellation that may round to 0, so only the NU_LO side is
+        # required to be nonzero (the elementwise check holds the rest)
+        outside = torch.stack([dnu[1, 0], dnu[1, 3], dnu[2, 0], dnu[2, 1]])
+        if (outside != 0).any() or dnu[1, 1] == 0:
+            raise AssertionError(f"K8's clamp mask at the edges: "
+                                 f"{dnu[1, :4].tolist()}, {dnu[2, :2].tolist()}")
+        parts.append(line + f" ({masked} dnu zeroed by the clamp)")
+        # K2v on the step kernels' operands
+        xs, zc, zn, sdep, W, (R, C, Rn) = step_inputs(g, B, D, dt, regime)
+        if regime != "counts<=7" and dt != torch.float32:
+            xs[0, :50] = 127
+        lr = ns.lse_ref(zc, W, R, C)
+        _, dls_m, dnp_m = grad_magnitudes(xs, zc, zn, sdep, lr, W, R, C, Rn)
+        base = R + C + 1
+        with torch.no_grad():
+            vterms = ns._terms(xs.double(), ns._h(zc.double(), W.double(),
+                                                   R + C) - lr.double(),
+                               ns._nupre(zn.double(), W.double(), base, Rn),
+                               sdep.double(), False)
+        azc, azn, aW = zc.double().abs(), zn.double().abs(), W.double().abs()
+        vS = vterms.abs().sum()
+        kv, line, t_case["nb_valgrad[value]"] = check(
+            "nb_valgrad[value]",
+            lambda: ns.valgrad(xs, zc, zn, sdep, lr, W, R, C, Rn,
+                               need_value=True),
+            lambda: ns.valgrad_ref(xs, zc, zn, sdep, lr, W, R, C, Rn,
+                                   need_value=True),
+            (torch.cat([azc.T @ dls_m, dls_m.sum(0, True), azn.T @ dnp_m,
+                        dnp_m.sum(0, True)]), dls_m.sum(1, True),
+             dls_m @ aW[:R].T, dnp_m @ aW[base:base + Rn].T, vS), tag,
+            case == ELBO_MAIN)
+        k2 = ns.valgrad(xs, zc, zn, sdep, lr, W, R, C, Rn)
+        k6 = ns.value(xs, zc, zn, sdep, lr, W, R, C, Rn, with_const=False)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(kv[:4], k2)):
+            raise AssertionError("K2v's gradient outputs differ from K2's")
+        _, q6 = ratio(kv[4], k6, vS)
+        if not q6 <= 1.0:
+            raise AssertionError(f"K2v value vs K6: err/tol {q6:.3g}")
+        parts.append(line + f"; value {kv[4].item():.7g} vs K6 "
+                     f"{k6.item():.7g} (err/tol {q6:.3g}); gradients == K2 "
+                     f"bitwise")
+        if case == ELBO_MAIN:
+            times.update(t_case)
+        log(f"[phase 18] [{card}] B={B} D={D} {tag[2]} {regime}: "
+            + "; ".join(parts))
+    return worst, times
+
+
+# route label -> (architecture, step options, the README's K2v trainer)
+GENERIC_ROUTES = {
+    "v2 step kernels, --mean_encoding 16": (dict(mean_encoding=(16,)), {},
+                                            False),
+    "v1 ELBO kernels, --mean_decoding 16": (dict(mean_decoding=(16,)), {},
+                                            False),
+    "v1 ELBO kernels, --no_fused_step": ({}, dict(fused_step=False), False),
+    "README fused_step_boot (K2v)": ({}, {}, True),
+}
+
+
+def generic_trainer(model, topt, plain=False, readme=False):
+    """The step ``nb_vae`` builds for ``model`` and ``topt``
+    (``make_step``), or with ``readme`` the README's library trainer:
+    the generic ``Trainer`` with ``fused_step_report`` and the
+    value-bearing ``fused_step_boot`` (K2v)."""
+    from mmvae_tpu_torch.cli.nb_vae import make_step
+    from mmvae_tpu_torch.ops.losses import nb_loss
+    from mmvae_tpu_torch.train.loop import Trainer
+
+    if not readme:
+        return make_step(model, topt, plain=plain)[0]
+    return Trainer(
+        lambda p, x, c, e, t: model.forward(p, x, c, e, t, plain=plain),
+        lambda x, out, b: nb_loss(x, *out, b), topt,
+        eps_widths=(model.mean_latent, model.overdisp_latent),
+        report_loss_override=lambda p, x, c, e, b: model.fused_step_report(
+            p, x, c, e, b, plain=plain),
+        boot_loss_override=lambda p, x, c, e, b: model.fused_step_boot(
+            p, x, c, e, b, need_value=True, plain=plain))
+
+
+def phase_generic_step(card):
+    """Phase 19: one generic batch step per route, kernel route against
+    plain route on the same draws: the first boot loss and its gradient
+    per leaf and row (tol 1e-4 of the row's largest gradient), the Adam
+    moments after the step (1e-3 of the row's scale), the parameters
+    (2e-5, elements with a gradient below 1e-4 of their row's scale held
+    by the moment check only) and the report (rel 1e-5)."""
+    from mmvae_tpu_torch.models.nb import NBVAE
+    from mmvae_tpu_torch.ops.nb_fast import (batch_rand, tree_leaves,
+                                             tree_unflatten)
+    from mmvae_tpu_torch.train.config import TrainingOptions
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    x = make_counts(g, B_TRAIN, D_GENES, torch.int8)
+    c = torch.ones((B_TRAIN, 1), device=DEV)
+    def rows(t):
+        """A leaf as rows over its D-sized axis (weights are stored (in,
+        out), so the encoder's (D, H) first layers turn over): the packed
+        step's parameter rows, which phase 7 holds row by row."""
+        if t.dim() == 1:
+            return t.reshape(1, -1)
+        return t.T if t.shape[0] == D_GENES else t
+
+    for label, (arch, flags, readme) in GENERIC_ROUTES.items():
+        model = NBVAE(data_dim=D_GENES, **arch)
+        params = random_params(model, DEV)
+        out = {}
+        for plain in (False, True):
+            tr = generic_trainer(model, TrainingOptions(**flags), plain,
+                                 readme)
+            rand = batch_rand(tr.draw_rand(
+                torch.Generator(device=DEV).manual_seed(SEED + 5), 1,
+                B_TRAIN), 0)
+            leaves = [v.detach().requires_grad_() for v in
+                      tree_leaves(params)]
+            r = rand["ridx"][0]
+            loss = tr._boot(tree_unflatten(params, leaves),
+                            x.index_select(0, r), c.index_select(0, r),
+                            tuple(e[0] for e in rand["boot_eps"]),
+                            tr._beta_for(0.0, x.device))
+            grads = torch.autograd.grad(loss, leaves)
+            p2, o2, rep = tr.batch_step(params, tr.optimizer.init(params),
+                                        x, c, 0.0, rand)
+            torch.cuda.synchronize()
+            out[plain] = (loss.detach(), grads, p2, o2, rep)
+        (lk, gk, pk, ok, rk), (lp, gp, pp, op, rp) = out[False], out[True]
+        rep_err = abs(rk.item() - rp.item()) / abs(rp.item())
+        if not rep_err <= 1e-5:
+            raise AssertionError(f"{label}: report rel err {rep_err:.3g}")
+        lines = [f"report {rk.item():.6f} vs {rp.item():.6f} (rel "
+                 f"{rep_err:.2g})"]
+        if readme:
+            # the K2v boot loss is the value, not 0.0
+            l_err = abs(lk.item() - lp.item()) / abs(lp.item())
+            if not l_err <= 1e-5:
+                raise AssertionError(f"{label}: boot loss rel err {l_err:.3g}")
+            lines.append(f"first boot loss {lk.item():.6f} vs "
+                         f"{lp.item():.6f} (rel {l_err:.2g})")
+        q_g = q_m = q_p = 0.0
+        n_small, worst_leaf = 0, None
+        names = leaf_names(params)
+        for i, (a, b) in enumerate(zip(gk, gp)):
+            a2, b2 = rows(a), rows(b)
+            scale = b2.abs().amax(1, keepdim=True)
+            q_i = ((a2 - b2).abs() / (1e-4 * scale + 1e-12)).max().item()
+            if q_i > q_g:
+                q_g, worst_leaf = q_i, names[i]
+            for m in ("mu", "nu"):
+                ma = rows(tree_leaves(ok[m])[i])
+                mb = rows(tree_leaves(op[m])[i])
+                floor = 1e-3 * mb.abs().amax(1, keepdim=True)
+                q_m = max(q_m, ((ma - mb).abs() / (floor + 1e-30))
+                          .max().item())
+            small = b2.abs() < 1e-4 * scale
+            n_small += int(small.sum())
+            dP = (rows(tree_leaves(pk)[i]) - rows(tree_leaves(pp)[i])).abs()
+            if (~small).any():
+                q_p = max(q_p, dP[~small].max().item() / 2e-5)
+        if not (q_g <= 1.0 and q_m <= 1.0 and q_p <= 1.0):
+            raise AssertionError(f"{label}: grad err/tol {q_g:.3g} (worst "
+                                 f"leaf {worst_leaf}), moments {q_m:.3g}, "
+                                 f"params {q_p:.3g}")
+        if int(ok["count"]) != 3 or int(op["count"]) != 3:
+            raise AssertionError(f"{label}: Adam count is not 3")
+        lines.append(f"{len(gk)} leaves: first-step grad err/tol {q_g:.3g} "
+                     f"({worst_leaf}); "
+                     f"Adam moments err/tol {q_m:.3g}; params err/tol "
+                     f"{q_p:.3g} ({n_small} elements with a near-zero "
+                     f"gradient held by the moment check only)")
+        log(f"[phase 19] [{card}] one generic batch step ({label}), kernel "
+            f"route vs plain route, same draws: " + "; ".join(lines))
+
+
+def leaf_names(tree: dict, prefix: str = "") -> list[str]:
+    """Dotted names of a nested dict's leaves in ``tree_leaves`` order."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out.extend(leaf_names(v, f"{prefix}{k}.") if isinstance(v, dict)
+                   else [prefix + k])
+    return out
+
+
+def plain_encode_hidden(params, x, names):
+    """Independent plain reference of ``encode_mu`` for a hidden-layer
+    encoder (no ReLU): the unfolded standardization, as the JAX model
+    writes it."""
+    sd = torch.nn.functional.softplus(params["ln_x_sd"]) + 1e-4
+    h = (torch.log1p(x.float()) - params["x_mean"]) / sd
+    for n in names:
+        h = h @ params[n]["weight"] + params[n]["bias"]
+    lin = lambda n: h @ params[n]["weight"] + params[n]["bias"]  # noqa: E731
+    return (lin("mu_representation_mean"),
+            lin("mu_representation_logvariance").clamp(-4.0, 4.0))
+
+
+def phase_generic_cli(card, tmp, mtx):
+    """Phase 20: ``nb_vae`` on the generic step (the main path of K7 and
+    K8) with hidden layers, recording, a checkpoint and ``--resume``;
+    ``--no_fused_step`` and ``--no_fused`` once each; the README's library
+    trainer with K2v (the main path of K2v) through ``train_vae_model``;
+    ``encode --model nb`` on the hidden-layer checkpoint.  Every launch
+    counter is reset just before each run and read just after."""
+    from mmvae_tpu_torch.cli import encode, nb_vae
+    from mmvae_tpu_torch.data.block import MtxMemoryBlock, create_ones_like
+    from mmvae_tpu_torch.io.index import build_mmutil_index
+    from mmvae_tpu_torch.models.nb import NBVAE, params_from_numpy
+    from mmvae_tpu_torch.train.checkpoint import load_checkpoint
+    from mmvae_tpu_torch.train.config import TrainingOptions
+    from mmvae_tpu_torch.train.loop import train_vae_model
+    from mmvae_tpu_torch.train.recorder import flatten_params
+
+    tag = "[phase 20]"
+    hidden = ["--mean_encoding", "16", "--mean_decoding", "16"]
+    args = ["--mtx", mtx, "--batch_size", str(B_TRAIN), "--device", DEV]
+    out = os.path.join(tmp, "gen")
+    ck = out + "_ckpt"
+
+    def step_line(err):
+        steps = [ln.split("Step: ", 1)[1] for ln in err.splitlines()
+                 if "Step: " in ln]
+        if len(steps) != 1:
+            raise AssertionError(f"expected one Step line, got {steps}")
+        return steps[0]
+
+    reset_launches()
+    t0 = time.time()
+    err = run_cli(nb_vae, args + hidden + ["--recording", "2", "--out", out,
+                                           "--max_epoch", "2",
+                                           "--checkpoint_dir", ck])
+    wall = time.time() - t0
+    launches = read_launches()
+    route = step_line(err)
+    if "v1 ELBO kernels" not in route or min(
+            launches[k] for k in GENERIC_PATH) < 1:
+        raise AssertionError(f"nb_vae {' '.join(hidden)}: route {route!r}, "
+                             f"launches {launches}")
+    scores = np.loadtxt(out + ".scores.gz", ndmin=1)
+    if scores.shape != (2,) or not np.isfinite(scores).all():
+        raise AssertionError(f"scores.gz: {scores}")
+    model = NBVAE(data_dim=D_GENES, mean_encoding=(16,), mean_decoding=(16,))
+    names = flatten_params(model.init(torch.Generator().manual_seed(0)))
+    want = {f"{out}_1.mu_mean.gz": (N_CLI, 2),
+            f"{out}_1.mu_lnvar.gz": (N_CLI, 2)}
+    want.update({f"{out}_1_{k}.gz": v.shape for k, v in names.items()})
+    for path, shape in want.items():
+        a = np.loadtxt(path, ndmin=2)
+        if a.shape != (shape if len(shape) == 2 else (shape[0], 1)) or \
+                not np.isfinite(a).all():
+            raise AssertionError(f"{path}: shape {a.shape}, want {shape}")
+    rates = [ln.split("] ", 1)[-1] for ln in err.splitlines()
+             if "cells/sec" in ln]
+    log(f"{tag} [{card}] nb_vae {' '.join(hidden)}, {N_CLI} x {D_GENES}, 2 "
+        f"epochs: step {route!r}; scores {scores.tolist()}; {len(want)} "
+        f"recording artifacts with the JAX CLI's names and shapes; kernel "
+        f"launches { {k: launches[k] for k in GENERIC_PATH} }; epochs: "
+        f"{' | '.join(rates)}; CLI wall {wall:.2f}s")
+    err = run_cli(nb_vae, args + hidden + ["--out", out + "_r",
+                                           "--max_epoch", "3", "--resume",
+                                           ck])
+    s3 = np.loadtxt(out + "_r.scores.gz", ndmin=1)
+    if (s3.shape != (3,) or not np.array_equal(s3[:2], scores)
+            or not np.isfinite(s3).all() or "Resumed from" not in err):
+        raise AssertionError(f"resume: scores {s3}")
+    log(f"{tag} [{card}] --resume from the checkpoint ran epoch 3: scores "
+        f"{s3.tolist()}")
+
+    for flags, expect, path in (
+            (["--no_fused_step"], "v1 ELBO kernels", GENERIC_PATH),
+            (["--no_fused"], "forward + nb_loss",
+             ["count_encode", "count_encode_bwd"])):
+        reset_launches()
+        err = run_cli(nb_vae, args + flags + [
+            "--out", os.path.join(tmp, "g" + flags[0][2:]), "--max_epoch",
+            "1"])
+        n = read_launches()
+        route = step_line(err)
+        elbo = [k for k in GENERIC_PATH if k.startswith("nb_elbo")]
+        ran = {k: n[k] for k in path}
+        if (expect not in route or min(ran.values()) < 1
+                or (expect == "forward + nb_loss"
+                    and any(n[k] for k in elbo))):
+            raise AssertionError(f"nb_vae {flags[0]}: route {route!r}, "
+                                 f"launches {n}")
+        log(f"{tag} [{card}] nb_vae {flags[0]}, 1 epoch: step {route!r}; "
+            f"launches {ran}; "
+            + [ln.split("] ", 1)[-1] for ln in err.splitlines()
+               if "cells/sec" in ln][-1])
+
+    # the README's library trainer: K2v on its main path
+    data = MtxMemoryBlock(mtx, mtx + ".index", B_TRAIN, count_dtype="auto")
+    ones = os.path.join(tmp, "ones.mtx.gz")
+    create_ones_like(data, ones)
+    build_mmutil_index(ones, ones + ".index")
+    covar = MtxMemoryBlock(ones, ones + ".index", B_TRAIN)
+    covar.auto_ones = True
+    lib_model = NBVAE(data_dim=D_GENES)
+    topt = TrainingOptions(max_epoch=1)
+    trainer = generic_trainer(lib_model, topt, readme=True)
+    reset_launches()
+    tee = _Tee(sys.stderr)
+    with contextlib.redirect_stderr(tee):
+        _, lib_scores = train_vae_model(
+            trainer, None, data, covar, topt,
+            lib_model.init(torch.Generator().manual_seed(SEED), device=DEV),
+            DEV)
+    readme_launches = read_launches()
+    if min(readme_launches[k] for k in README_PATH) < 1 or not np.isfinite(
+            lib_scores).all():
+        raise AssertionError(f"README trainer: scores {lib_scores}, "
+                             f"launches {readme_launches}")
+    log(f"{tag} [{card}] README library trainer (fused_step_report / "
+        f"fused_step_boot, K2v), 1 epoch: score {lib_scores}; launches "
+        f"{ {k: readme_launches[k] for k in README_PATH} }; "
+        + [ln.split("] ", 1)[-1] for ln in tee.buf.getvalue().splitlines()
+           if "cells/sec" in ln][-1])
+
+    # serving the hidden-layer checkpoint
+    enc_out = os.path.join(tmp, "genc")
+    reset_launches()
+    run_cli(encode, ["--model", "nb", "--mtx", mtx, "--checkpoint", ck,
+                     "--batch_size", str(B_TRAIN), "--device", DEV, "--out",
+                     enc_out, *hidden])
+    enc_launches = read_launches()["count_encode"]
+    res = [np.loadtxt(f"{enc_out}.mu_{k}.gz", ndmin=2)
+           for k in ("mean", "lnvar")]
+    params = params_from_numpy(load_checkpoint(ck, model)[0], DEV)
+    with torch.inference_mode():
+        xd = torch.from_numpy(read_mtx_dense(mtx)).to(DEV)
+        ref = [t.double().cpu().numpy() for t in plain_encode_hidden(
+            params, xd, model._enc_names())]
+    worst = 0.0
+    for got, w in zip(res, ref):
+        if got.shape != (N_CLI, 2) or not np.isfinite(got).all():
+            raise AssertionError(f"bad hidden-layer encode output "
+                                 f"{got.shape}")
+        # the fold reorders float32 sums over 20,000 genes: 1e-4 of the
+        # output's scale, plus the %g text rounding (6 digits)
+        lim = 1e-4 * np.abs(w).max() + 1e-5 * np.abs(w)
+        worst = max(worst, float(np.max(np.abs(got - w) / lim)))
+    if not worst <= 1.0 or enc_launches < 1:
+        raise AssertionError(f"hidden-layer encode vs plain: err/tol "
+                             f"{worst:.3g}, {enc_launches} launches")
+    log(f"{tag} [{card}] encode --model nb {' '.join(hidden)}: "
+        f"{enc_launches} count_encode launches; outputs ({N_CLI}, 2) match "
+        f"the plain unfolded encoder (err/tol {worst:.3g}; tol 1e-4 * "
+        f"max|ref| + 1e-5 * |ref|)")
+    return launches, readme_launches
+
+
 # every kernel instance of the port: (name, wrapper, launch counter,
 # source, the TPU kernel it replaces)
 KERNELS = [
@@ -1082,6 +1581,14 @@ KERNELS = [
     ("nb_valgrad[pb,nu_exp]", "ns.valgrad", "joint_launches",
      "nb_valgrad.cu", "nb_step.py:621"),
     ("nb_finish", "ns.finish", "launches", "nb_finish.cu", "nb_step.py:704"),
+    ("nb_elbo_fwd", "ne.elbo_fwd", "launches", "nb_elbo.cu",
+     "nb_elbo.py:234"),
+    ("nb_elbo_fwd[const]", "ne.elbo_fwd", "const_launches", "nb_elbo.cu",
+     "nb_elbo.py:234"),
+    ("nb_elbo_bwd", "ne.elbo_bwd", "launches", "nb_elbo.cu",
+     "nb_elbo.py:301"),
+    ("nb_valgrad[value]", "ns.valgrad", "value_launches", "nb_valgrad.cu",
+     "nb_step.py:621"),
 ]
 NB_PATH = ["count_encode", "count_encode_bwd", "nb_lse", "nb_value",
            "nb_valgrad", "nb_finish"]
@@ -1089,13 +1596,20 @@ JOINT_PATH = ["count_encode[stats]", "count_encode_bwd", "nb_lse",
               "nb_value[pb,nu_exp]", "nb_valgrad[pb,nu_exp]", "nb_finish"]
 MIXTURE_PATH = ["count_encode[filt]"] + JOINT_PATH[1:]
 PATHS = {"nb": NB_PATH, "joint": JOINT_PATH, "mixture": MIXTURE_PATH}
+# nb_vae on the generic step with the v1 ELBO kernels (a hidden decoder
+# or --no_fused_step), and the README's library trainer (K2v)
+GENERIC_PATH = ["count_encode", "count_encode_bwd", "nb_elbo_fwd",
+                "nb_elbo_fwd[const]", "nb_elbo_bwd"]
+README_PATH = ["count_encode", "count_encode_bwd", "nb_lse", "nb_value",
+               "nb_valgrad[value]", "nb_finish"]
 
 
 def _counters():
     from mmvae_tpu_torch.ops import enc_kernel as enc
+    from mmvae_tpu_torch.ops import nb_elbo as ne
     from mmvae_tpu_torch.ops import nb_step as ns
 
-    objs = {"enc": enc, "ns": ns}
+    objs = {"enc": enc, "ne": ne, "ns": ns}
     out = {}
     for name, wrapper, attr, _, _ in KERNELS:
         mod, fn = wrapper.split(".")
@@ -1310,17 +1824,23 @@ def phase_mixture_encode(card, tmp, mtx, ck):
 
 
 def phase_train_full(card, data, kind="nb"):
-    """Phase 9 (NB) / 13 (joint) / 17 (mixture): two epochs of the
-    dense-resident epoch runner at full width, and a profile of 100
-    batches; phases 9 and 13 over the first N_EARLIER cells."""
+    """Phase 9 (NB) / 13 (joint) / 17 (mixture) / 21 (NB on the generic
+    step, ``nb_vae --no_fused_step``): two epochs of the dense-resident
+    epoch runner at full width over the first N_EARLIER cells (N_SHORT for
+    the joint and mixture models), and a profile of 100 batches for the
+    generic step, 20 for the others (processing a trace takes about a
+    second a batch, the largest cost of these phases)."""
     from mmvae_tpu_torch.train.config import TrainingOptions
     from mmvae_tpu_torch.train.loop import DenseEpochRunner
 
     tag = f"[phase {PHASE[kind]['full']}]"
-    if kind != "mixture":
-        data = data[:N_EARLIER]
-    model, step_cls = model_and_step(kind)
-    fast = step_cls(model, TrainingOptions())
+    data = data[:N_SHORT if kind in ("joint", "mixture") else N_EARLIER]
+    if kind == "generic":
+        model = model_and_step("nb")[0]
+        fast = generic_trainer(model, TrainingOptions(fused_step=False))
+    else:
+        model, step_cls = model_and_step(kind)
+        fast = step_cls(model, TrainingOptions())
     params = model.init(torch.Generator().manual_seed(SEED), device=DEV)
     runner = DenseEpochRunner(fast, data, B_TRAIN, seed=SEED)
     q = fast.pack(params)
@@ -1339,7 +1859,7 @@ def phase_train_full(card, data, kind="nb"):
         f"{D_GENES} int8, B={B_TRAIN}, nboot 3: epoch losses "
         f"{losses[0]:.4f} -> {losses[1]:.4f}; epoch times {times[0]:.2f}s, "
         f"{times[1]:.2f}s; second epoch {N / times[1]:,.1f} cells/sec")
-    nprof = 100
+    nprof = 100 if kind == "generic" else 20
     sub = DenseEpochRunner(fast, data[:nprof * B_TRAIN], B_TRAIN, seed=SEED)
     rand = sub.draw(2)
     busy, per = device_profile(lambda: sub(q, po, 2, rand=rand))
@@ -1376,6 +1896,16 @@ OPS_PER_ELEMENT = {
                          # the shared divide 3 (no sigmoid), dls/dnu 15
                          # (one clamp test), sums 9 (with the pb row)
     "nb_finish": 22,     # logits 7, p 3, fout 8, u2 4
+    "nb_valgrad[value]": 164,  # nb_valgrad's 110, the mixed-regime
+                         # lgamma ~47 and the value terms 7
+    "nb_elbo_fwd": 95,   # online max / sum of exp 5; p, mu 4; nu 8;
+                         # the reciprocals and dmu 7; lgamma_pos of nu
+                         # and nu + x ~55; the logs and terms 11; the
+                         # three row sums 5
+    "nb_elbo_fwd[const]": 123,  # and lgamma_pos(x + 1) ~28
+    "nb_elbo_bwd": 99,   # p, mu 4; nu 8; reciprocals and dmu 7; dh 5;
+                         # digamma_pos of nu and nu + x ~61 (16 divides);
+                         # the logs, sigmoid, mask and dnu 14
 }
 
 
@@ -1408,7 +1938,15 @@ def bound_ms(name: str, shape: dict) -> tuple[float, str]:
             nbytes = B * D * xb + T * D * 4 + rows + 4
         elif base == "nb_valgrad":
             nbytes = (B * D * xb + T * D * 4 + rows + T * D * 4
-                      + B * (1 + R + Rn) * 4)
+                      + B * (1 + R + Rn) * 4 + 4)
+        elif base == "nb_elbo_fwd":
+            # x, h, nu_pre and depth read once (a row of h fits on chip,
+            # so the second pass need not reread it); lse, rowsum,
+            # ddepth and the NLL written
+            nbytes = B * D * (xb + 8) + B * 4 + B * 12 + 4
+        elif base == "nb_elbo_bwd":
+            # x, h, nu_pre, g and the three (B, 1) rows read; dh, dnu
+            nbytes = B * D * (xb + 8) + 4 + B * 12 + B * D * 8
         else:  # nb_finish
             nbytes = (B * (R + C + 2) * 4 + 2 * (R + C + 1) * D * 4
                       + B * R * 4)
@@ -1439,32 +1977,56 @@ def main() -> int:
         log(f"[phase 1] ptxas ({os.path.relpath(_cuda.BUILD_LOG)} has the "
             f"full report): {ptxas_summary(f.read())}")
 
+    marks = [("build", time.time())]
+
+    def mark(name):
+        marks.append((name, time.time()))
+
     worst, times = {}, {}
     worst["count_encode"], times["count_encode"] = phase_kernels(enc, card)
     phase_chunks(enc)
+    mark("2-3")
     for w, t in (phase_variant_kernels(card), phase_train_kernels(card)):
         worst.update(w)
         times.update(t)
     worst["count_encode[filt]"], times["count_encode[filt]"] = (
         phase_filt_kernels(card))
+    mark("6, 10, 14")
+    w, t = phase_generic_kernels(card)
+    worst.update(w)
+    times.update(t)
+    mark("18")
     for kind in ("nb", "joint", "mixture"):
         phase_batch_step(card, kind)
+    phase_generic_step(card)
+    mark("7, 11, 15, 19")
     with tempfile.TemporaryDirectory() as tmp:
         serve_launches, mtx = phase_cli(card, tmp)
+        mark("4")
         nb_launches, _ = phase_train_cli(card, tmp, mtx)
         j_launches, ck = phase_train_cli(card, tmp, mtx, "joint")
         enc_launches = phase_joint_encode(card, tmp, mtx, ck)
         m_launches, mck = phase_train_cli(card, tmp, mtx, "mixture")
         menc_launches = phase_mixture_encode(card, tmp, mtx, mck)
+        g_launches, r_launches = phase_generic_cli(card, tmp, mtx)
+        mark("8, 12, 16, 20")
         data = full_size_counts()
         phase_full(card, data)
-        for kind in ("nb", "joint", "mixture"):
+        mark("5")
+        for kind in ("nb", "joint", "mixture", "generic"):
             phase_train_full(card, data, kind)
+            mark(str(PHASE[kind]["full"]))
         del data
+    log("[timing] seconds by phase: " + "; ".join(
+        f"{b[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:]))
+        + f"; since the build {marks[-1][1] - t0:.1f}")
     launches = {k: nb_launches[k] for k in NB_PATH}
     launches.update({k: j_launches[k] for k in JOINT_PATH
                      if k not in NB_PATH})
     launches["count_encode[filt]"] = m_launches["count_encode[filt]"]
+    launches.update({k: g_launches[k] for k in GENERIC_PATH
+                     if k.startswith("nb_elbo")})
+    launches["nb_valgrad[value]"] = r_launches["nb_valgrad[value]"]
 
     log(f"[summary] serving CLI (nb): {serve_launches} count_encode "
         f"launches; training CLIs: nb_vae "
@@ -1472,7 +2034,10 @@ def main() -> int:
         f"{ {k: j_launches[k] for k in JOINT_PATH} }, vmfnb_vae --annot "
         f"{ {k: m_launches[k] for k in MIXTURE_PATH} }; encode --model "
         f"vmfnb: {enc_launches} count_encode[stats] launches; encode "
-        f"--model mixture: {menc_launches} count_encode[filt] launches")
+        f"--model mixture: {menc_launches} count_encode[filt] launches; "
+        f"nb_vae --mean_encoding 16 --mean_decoding 16 "
+        f"{ {k: g_launches[k] for k in GENERIC_PATH} }; README library "
+        f"trainer { {k: r_launches[k] for k in README_PATH} }")
     log(card)
     int8 = dict(B=B_TRAIN, D=D_GENES, x_bytes=1)
     shapes = {"count_encode": dict(int8, B=1600, r1=2, r2=0),

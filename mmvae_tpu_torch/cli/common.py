@@ -110,14 +110,17 @@ def add_device_flag(g) -> None:
                         "(never falls back to the CPU)")
 
 
-def refuse_unported(hidden: str | None, topt: TrainingOptions) -> None:
+def refuse_unported(hidden: str | None, topt: TrainingOptions,
+                    generic_step: bool = False) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP.md item for what
     the port's trainers do not do yet; ``hidden`` names the hidden-layer
-    flags that were given, if any."""
+    flags that were given, if any (a trainer with the generic step path
+    passes none).  ``generic_step``: the trainer has that path (``nb_vae``)
+    and takes ``--no_fused_step`` / ``--no_fused``."""
     item = None
     if hidden:
         item = f"hidden layers ({hidden})", 11
-    elif not (topt.fused and topt.fused_step):
+    elif not (topt.fused and topt.fused_step or generic_step):
         item = "--no_fused_step / --no_fused (the generic step path)", 11
     elif topt.data_parallel or topt.dp_shard:
         item = "--data_parallel / --dp_shard", 13

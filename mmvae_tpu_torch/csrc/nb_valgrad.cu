@@ -9,10 +9,12 @@
 // the finisher K3 supplies) and dnupre = d nll / d (zn @ wn + bias_n).
 //
 // Replaces the Pallas TPU kernel mmvae_tpu/ops/nb_step.py:
-// _make_valgrad_kernel / _valgrad_call with need_value=False, the form
-// every boot step runs, in two variants: the NB model's, and the joint
-// vMF+NB model's (JOINT = has_pb and nu_exp).  need_value=True is not
-// ported.  The math follows the TPU kernel line by line:
+// _make_valgrad_kernel / _valgrad_call in three instances: need_value=False
+// (the form every packed boot step runs) for the NB model and for the joint
+// vMF+NB model (JOINT = has_pb and nu_exp), and need_value=True for the NB
+// model (VALUE: the value-bearing boot step, nb_step_boot).  The joint
+// model's need_value=True is not ported.  The math follows the TPU kernel
+// line by line:
 //   * softplus and the sigmoid the backward needs share one exp(-|z|);
 //   * ONE divide gives 1/(mu+nu), 1/mu and the sigmoid's 1/(1+e):
 //     rec = 1/((1+e) mu (mu+nu)).  dP/P of the select-product is a divide
@@ -27,6 +29,15 @@
 // no sigmoid, so rec = 1/(mu (mu+nu)) without the (1+e) factor, and
 // dnupre = dnu * exp(npre) where exp(npre) < NU_HI (the lower clamp never
 // binds).  The pb gradient row, colsum(dls), is one more per-column row.
+//
+// VALUE adds the NLL without lgamma(x + 1): the lgamma difference in the
+// block's regime (lg_terms, as K6 computes it) plus
+// x (log(mu + nu) - log mu) + nu (log(mu + nu) - log nu), where both log
+// differences are taken as one log of a ratio from the shared reciprocal
+// (the grad-only dln, and -log(mu / (mu + nu))).  Every gradient
+// expression is the grad-only instance's, so the two write the same bits;
+// each warp's value partial is one float per tile, added in a fixed order
+// by a second reduce_parts launch.
 //
 // Two kinds of reduction (layout in nb_step_common.cuh): the per-column
 // rows of gout sum over the B rows inside the block (row groups combine
@@ -51,13 +62,14 @@ using namespace nbk;
 // and float32 counts, two blocks per SM, and they ran 1.5x their int16
 // twin.  The NB instances ask for one block per SM: a bound of three made
 // them ~10% slower on the H100.
-template <typename T, int NT, bool JOINT>
+template <typename T, int NT, bool JOINT, bool VALUE>
 __global__ void __launch_bounds__(kThreads, JOINT ? 3 : 1)
 valgrad_kernel(const T* __restrict__ x, const float* __restrict__ zc,
                const float* __restrict__ zn, const float* __restrict__ depth,
                const float* __restrict__ lse, const float* __restrict__ W,
                int64_t B, int64_t D, int R, int C, int Rn,
-               float* __restrict__ gout, float* __restrict__ parts) {
+               float* __restrict__ gout, float* __restrict__ parts,
+               float* __restrict__ vparts) {
   __shared__ float sacc[kRowGroups][NT][kTileCols];
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
@@ -78,6 +90,7 @@ valgrad_kernel(const T* __restrict__ x, const float* __restrict__ zc,
   for (int k = 0; k < NT; ++k) acc[k] = 0.f;
   const int lane = tx & 31;
   const int64_t part = tile * kWarpCols + (tx >> 5);
+  float val = 0.f;  // VALUE: this thread's NLL terms
 
   for (int64_t b = ty; b < B; b += kRowGroups) {
     float dls = 0.f, dnp = 0.f;
@@ -116,6 +129,9 @@ valgrad_kernel(const T* __restrict__ x, const float* __restrict__ zc,
       const float dmu = t - xv * inv_mu;
       dls = dmu * pe * dep;
       const float dnu = dg + t + dln - 1.f;
+      if (VALUE)
+        val += lg_terms<false>(regime, xv, nu) - xv * logf(mu * inv_mn) +
+               nu * dln;
       if (JOINT)
         dnp = sp < kNuHi ? dnu * sp : 0.f;
       else
@@ -149,6 +165,11 @@ valgrad_kernel(const T* __restrict__ x, const float* __restrict__ zc,
     }
   }
 
+  if (VALUE) {
+    val = warp_sum(val);
+    if (lane == 0) vparts[tile * (kThreads / 32) + ((ty * kTileCols + tx) >> 5)] = val;
+  }
+
   // per-column sums: add the row groups in order
 #pragma unroll
   for (int k = 0; k < NT; ++k) sacc[ty][k][tx] = acc[k];
@@ -166,53 +187,65 @@ valgrad_kernel(const T* __restrict__ x, const float* __restrict__ zc,
   }
 }
 
-template <typename T, bool JOINT>
+template <typename T, bool JOINT, bool VALUE>
 void launch(const void* x, const float* zc, const float* zn,
             const float* depth, const float* lse, const float* W, int64_t B,
             int64_t D, int R, int C, int Rn, float* gout, float* parts,
-            cudaStream_t s) {
+            float* vparts, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>(num_tiles(D)));
   const dim3 block(kTileCols, kRowGroups);
   const T* xp = static_cast<const T*>(x);
   if (R + C + Rn + 2 + (JOINT ? 1 : 0) <= 8)
-    valgrad_kernel<T, 8, JOINT><<<grid, block, 0, s>>>(
-        xp, zc, zn, depth, lse, W, B, D, R, C, Rn, gout, parts);
+    valgrad_kernel<T, 8, JOINT, VALUE><<<grid, block, 0, s>>>(
+        xp, zc, zn, depth, lse, W, B, D, R, C, Rn, gout, parts, vparts);
   else
-    valgrad_kernel<T, kMaxT, JOINT><<<grid, block, 0, s>>>(
-        xp, zc, zn, depth, lse, W, B, D, R, C, Rn, gout, parts);
+    valgrad_kernel<T, kMaxT, JOINT, VALUE><<<grid, block, 0, s>>>(
+        xp, zc, zn, depth, lse, W, B, D, R, C, Rn, gout, parts, vparts);
 }
 
+// joint and need_value never come together (the C entry refuses them)
 template <typename T>
 void launch_variant(const void* x, const float* zc, const float* zn,
                     const float* depth, const float* lse, const float* W,
                     int64_t B, int64_t D, int R, int C, int Rn, bool joint,
-                    float* gout, float* parts, cudaStream_t s) {
+                    bool value, float* gout, float* parts, float* vparts,
+                    cudaStream_t s) {
   if (joint)
-    launch<T, true>(x, zc, zn, depth, lse, W, B, D, R, C, Rn, gout, parts, s);
+    launch<T, true, false>(x, zc, zn, depth, lse, W, B, D, R, C, Rn, gout,
+                           parts, vparts, s);
+  else if (value)
+    launch<T, false, true>(x, zc, zn, depth, lse, W, B, D, R, C, Rn, gout,
+                           parts, vparts, s);
   else
-    launch<T, false>(x, zc, zn, depth, lse, W, B, D, R, C, Rn, gout, parts, s);
+    launch<T, false, false>(x, zc, zn, depth, lse, W, B, D, R, C, Rn, gout,
+                            parts, vparts, s);
 }
 
 }  // namespace
 
-// Workspace floats for mmvae_nb_valgrad: (num_parts(D), B, 1 + R + Rn).
+// Workspace floats for mmvae_nb_valgrad: (num_parts(D), B, 1 + R + Rn)
+// row partials, then one value partial per warp of each tile.
 extern "C" int64_t mmvae_nb_valgrad_ws(int64_t B, int64_t D, int R, int Rn) {
-  return num_parts(D) * B * (1 + R + Rn);
+  return num_parts(D) * B * (1 + R + Rn) + num_tiles(D) * (kThreads / 32);
 }
 
 // dtype: 0 = float32, 1 = int16, 2 = int8.  joint = 1 selects the pb /
-// exp-nu variant, whose W and gout have the pb row last.  Writes gout
-// (R+C+Rn+2+joint, D) and rowout (B, 1 + R + Rn) = [rsum | u1 | dzn].
-// Returns cudaGetLastError() after the two launches (0 = launched).
+// exp-nu variant, whose W and gout have the pb row last; need_value = 1
+// (NB only) also writes the NLL without lgamma(x + 1) to value (one
+// float; unused otherwise).  Writes gout (R+C+Rn+2+joint, D) and rowout
+// (B, 1 + R + Rn) = [rsum | u1 | dzn].  Returns cudaGetLastError() after
+// the launches (0 = launched).
 extern "C" int mmvae_nb_valgrad(const void* x, int dtype, const void* zc,
                                 const void* zn, const void* depth,
                                 const void* lse, const void* W, int64_t B,
                                 int64_t D, int R, int C, int Rn, int joint,
-                                void* gout, void* ws, void* rowout,
-                                void* stream) {
-  if (!dims_ok(B, D, R, C, Rn, joint != 0) || (joint != 0 && joint != 1))
+                                int need_value, void* gout, void* ws,
+                                void* rowout, void* value, void* stream) {
+  if (!dims_ok(B, D, R, C, Rn, joint != 0) || (joint != 0 && joint != 1) ||
+      (need_value != 0 && need_value != 1) || (joint && need_value))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool jt = joint != 0;
+  const bool nv = need_value != 0;
   const auto s = static_cast<cudaStream_t>(stream);
   const auto* zcp = static_cast<const float*>(zc);
   const auto* znp = static_cast<const float*>(zn);
@@ -220,26 +253,31 @@ extern "C" int mmvae_nb_valgrad(const void* x, int dtype, const void* zc,
   const auto* lp = static_cast<const float*>(lse);
   const auto* Wp = static_cast<const float*>(W);
   auto* gp = static_cast<float*>(gout);
+  const int K = 1 + R + Rn;
   auto* parts = static_cast<float*>(ws);
+  auto* vparts = parts + num_parts(D) * B * K;
   switch (dtype) {
     case 0:
-      launch_variant<float>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, jt, gp,
-                            parts, s);
+      launch_variant<float>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, jt, nv,
+                            gp, parts, vparts, s);
       break;
     case 1:
-      launch_variant<int16_t>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, jt, gp,
-                              parts, s);
+      launch_variant<int16_t>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, jt, nv,
+                              gp, parts, vparts, s);
       break;
     case 2:
-      launch_variant<int8_t>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, jt, gp,
-                             parts, s);
+      launch_variant<int8_t>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, jt, nv,
+                             gp, parts, vparts, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t e = cudaGetLastError();
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int K = 1 + R + Rn;
-  return static_cast<int>(launch_reduce(parts, num_parts(D), B, K,
-                                        static_cast<float*>(rowout), K, s));
+  e = launch_reduce(parts, num_parts(D), B, K, static_cast<float*>(rowout), K,
+                    s);
+  if (e != cudaSuccess || !nv) return static_cast<int>(e);
+  return static_cast<int>(launch_reduce(vparts, num_tiles(D) * (kThreads / 32),
+                                        1, 1, static_cast<float*>(value), 1,
+                                        s));
 }

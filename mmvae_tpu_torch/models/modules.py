@@ -1,8 +1,8 @@
 """Shared building blocks: LibTorch-initialized Linear stacks.
 
-Port of the Linear half of ``mmvae_tpu/models/modules.py``; parameter
-dicts keep the reference's ``named_parameters`` names.  The Angular
-layer waits for the vMF port.
+Port of the Linear half of ``mmvae_tpu/models/modules.py`` and its
+reparameterization; parameter dicts keep the reference's
+``named_parameters`` names.  The Angular layer waits for the vMF port.
 """
 
 from __future__ import annotations
@@ -50,8 +50,13 @@ def apply_stack(params: dict, names: list[str], x: torch.Tensor,
     return h
 
 
-def reparameterize(mean: torch.Tensor, lnvar: torch.Tensor) -> torch.Tensor:
-    """Eval-mode reparameterization: the posterior mean (reference
-    include/models/nb.hh:462-472).  The sampling mode comes with the
-    training port."""
-    return mean
+def reparameterize(mean: torch.Tensor, lnvar: torch.Tensor,
+                   eps: torch.Tensor | None = None) -> torch.Tensor:
+    """Gaussian reparameterization (reference include/models/nb.hh:462-472,
+    ``mmvae_tpu/models/modules.py:99-108``): training mode gets its
+    standard-normal noise ``eps`` injected and returns
+    ``mean + eps * exp(lnvar / 2)``; eval mode (``eps`` None) returns the
+    mean."""
+    if eps is None:
+        return mean
+    return mean + eps * torch.exp(lnvar / 2.0)

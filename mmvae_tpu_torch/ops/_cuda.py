@@ -135,13 +135,20 @@ def _bind(lib) -> None:
     # value: ..., with_const, joint, ws, out, stream
     lib.mmvae_nb_value.argtypes = [_vp, _i32, *rows, _vp, *dims, _i32, _i32,
                                    _vp, _vp, _vp]
-    # valgrad: ..., joint, gout, ws, rowout, stream
+    # valgrad: ..., joint, need_value, gout, ws, rowout, value, stream
     lib.mmvae_nb_valgrad.argtypes = [_vp, _i32, *rows, _vp, *dims, _i32,
-                                     _vp, _vp, _vp, _vp]
+                                     _i32, _vp, _vp, _vp, _vp, _vp]
     lib.mmvae_nb_finish.argtypes = [_vp, _vp, _vp, _vp, _i64, _i64, _i32,
                                     _i32, _vp, _vp, _vp, _vp]
+    # elbo fwd: x, dtype, h, nu_pre, depth, B, D, with_const, rows, out,
+    # stream; bwd: g, x, dtype, h, nu_pre, depth, lse, rowsum, B, D, dh,
+    # dnu, stream
+    lib.mmvae_nb_elbo_fwd.argtypes = [_vp, _i32, _vp, _vp, _vp, _i64, _i64,
+                                      _i32, _vp, _vp, _vp]
+    lib.mmvae_nb_elbo_bwd.argtypes = [_vp, _vp, _i32, _vp, _vp, _vp, _vp,
+                                      _vp, _i64, _i64, _vp, _vp, _vp]
     for name in ("mmvae_nb_lse", "mmvae_nb_value", "mmvae_nb_valgrad",
-                 "mmvae_nb_finish"):
+                 "mmvae_nb_finish", "mmvae_nb_elbo_fwd", "mmvae_nb_elbo_bwd"):
         getattr(lib, name).restype = _i32
 
 

@@ -40,8 +40,8 @@ import torch
 
 from .enc_kernel import count_encode, count_encode_ref
 from .losses import gaussian_kl, kl_weight_schedule
-from .nb_step import (_softplus, nb_step_boot_gradonly, nb_step_report,
-                      step_nll_ref)
+from .nb_elbo import _softplus
+from .nb_step import nb_step_boot_gradonly, nb_step_report, step_nll_ref
 
 
 @dataclass(frozen=True)
@@ -119,8 +119,31 @@ class _Rows:
         return self.R + self.C + 8 + self.Rn + self.R + self.H
 
 
+def tree_leaves(tree: dict) -> list:
+    """The tensors of a nested dict in JAX's pytree order (keys sorted,
+    depth first)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out.extend(tree_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def tree_unflatten(template: dict, leaves) -> dict:
+    """A nested dict shaped like ``template`` holding ``leaves`` in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(t):
+        return {k: build(t[k]) if isinstance(t[k], dict) else next(it)
+                for k in sorted(t)}
+
+    return build(template)
+
+
 class PackedAdam:
-    """The JAX trainer's optimizer over ``{P, sv}``: optax's
+    """The JAX trainer's optimizer over any nested dict of tensors (the
+    packed ``{P, sv}`` or the named parameter tree): optax's
     ``chain(clip_by_global_norm(grad_clip), add_decayed_weights(wd),
     scale_by_adam(0.9, 0.999, eps=1e-8), scale(-lr))``
     (``train/loop.py:46-60``, ``ops/nb_fast.py:586-593``).
@@ -128,8 +151,9 @@ class PackedAdam:
     Not ``torch.optim.AdamW``: the clip divides first
     (``g / |g| * max`` when ``|g| >= max``), weight decay is added to the
     gradient before the moments, and the moment count is incremented
-    before the bias correction.  The state is ``{"count": int32 scalar,
-    "mu": {P, sv}, "nu": {P, sv}}``; updates are out of place."""
+    before the bias correction.  The global norm sums the leaves in JAX's
+    pytree order.  The state is ``{"count": int32 scalar, "mu": tree,
+    "nu": tree}``; updates are out of place."""
 
     def __init__(self, lr: float, grad_clip: float, weight_decay: float,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
@@ -139,33 +163,36 @@ class PackedAdam:
 
     @staticmethod
     def init(q: dict) -> dict:
-        dev = q["P"].device
-        return {"count": torch.zeros((), dtype=torch.int32, device=dev),
-                "mu": {k: torch.zeros_like(v) for k, v in q.items()},
-                "nu": {k: torch.zeros_like(v) for k, v in q.items()}}
+        leaves = tree_leaves(q)
+        zeros = [torch.zeros_like(v) for v in leaves]
+        return {"count": torch.zeros((), dtype=torch.int32,
+                                     device=leaves[0].device),
+                "mu": tree_unflatten(q, zeros),
+                "nu": tree_unflatten(q, [z.clone() for z in zeros])}
 
     def update(self, grads: dict, state: dict, q: dict
                ) -> tuple[dict, dict]:
-        keys = sorted(q)  # the leaf order of the JAX pytree
-        g_norm = torch.sqrt(sum((torch.sum(grads[k] * grads[k])
-                                 for k in keys), torch.zeros((),
-                                device=q["P"].device)))
+        gs, ps = tree_leaves(grads), tree_leaves(q)
+        ms, vs = tree_leaves(state["mu"]), tree_leaves(state["nu"])
+        g_norm = torch.sqrt(sum((torch.sum(g * g) for g in gs),
+                                torch.zeros((), device=ps[0].device)))
         trigger = g_norm < self.grad_clip
         count = state["count"] + 1
         cf = count.to(torch.float32)
         # scalar bases: no host-to-device copy (which would synchronise)
         bc1 = 1.0 - torch.pow(self.b1, cf)
         bc2 = 1.0 - torch.pow(self.b2, cf)
-        new_q, mu, nu = {}, {}, {}
-        for k in keys:
-            g = torch.where(trigger, grads[k],
-                            (grads[k] / g_norm) * self.grad_clip)
-            g = g + self.weight_decay * q[k]
-            mu[k] = (1 - self.b1) * g + self.b1 * state["mu"][k]
-            nu[k] = (1 - self.b2) * (g * g) + self.b2 * state["nu"][k]
-            u = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps)
-            new_q[k] = q[k] + u * (-self.lr)
-        return new_q, {"count": count, "mu": mu, "nu": nu}
+        new_q, mu, nu = [], [], []
+        for g, p, m, v in zip(gs, ps, ms, vs):
+            g = torch.where(trigger, g, (g / g_norm) * self.grad_clip)
+            g = g + self.weight_decay * p
+            mu.append((1 - self.b1) * g + self.b1 * m)
+            nu.append((1 - self.b2) * (g * g) + self.b2 * v)
+            u = (mu[-1] / bc1) / (torch.sqrt(nu[-1] / bc2) + self.eps)
+            new_q.append(p + u * (-self.lr))
+        return tree_unflatten(q, new_q), {
+            "count": count, "mu": tree_unflatten(q, mu),
+            "nu": tree_unflatten(q, nu)}
 
 
 def rand_from_numpy(tree, device: torch.device | str = "cpu"):
@@ -178,6 +205,26 @@ def rand_from_numpy(tree, device: torch.device | str = "cpu"):
     a = np.asarray(tree)
     dt = torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32
     return torch.tensor(a, dtype=dt, device=device)
+
+
+def draw_rand(gen: torch.Generator, nbatch: int, B: int, nboot: int,
+              widths: tuple) -> dict:
+    """Every draw of ``nbatch`` batch steps, with the structure of the
+    JAX package's ``draw_rand`` / ``_draw_batch``: ``rep_eps`` (one
+    (nbatch, B, w) per reparameterization width), ``ridx`` (nbatch, nboot,
+    B), ``boot_eps`` ((nbatch, nboot, B, w) per width), drawn on the
+    generator's device in one go.  The packed steps and the generic
+    ``Trainer`` share it."""
+    dev = gen.device
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    rep_eps = tuple(normal(nbatch, B, w) for w in widths)
+    ridx = torch.randint(0, B, (nbatch, nboot, B), generator=gen,
+                         device=dev)
+    boot_eps = tuple(normal(nbatch, nboot, B, w) for w in widths)
+    return dict(rep_eps=rep_eps, ridx=ridx, boot_eps=boot_eps)
 
 
 def batch_rand(rand: dict, b: int) -> dict:
@@ -262,23 +309,8 @@ class PackedFastStep:
     # randomness
     # ------------------------------------------------------------------
     def draw_rand(self, gen: torch.Generator, nbatch: int, B: int) -> dict:
-        """Every draw of ``nbatch`` batch steps, with the structure of the
-        JAX package's ``draw_rand``: ``rep_eps`` (one (nbatch, B, w) per
-        width of :meth:`_eps_widths`), ``ridx`` (nbatch, nboot, B),
-        ``boot_eps`` ((nbatch, nboot, B, w) per width), drawn on the
-        generator's device in one go."""
-        nb = self.opt.nboot
-        dev = gen.device
-
-        def normal(*shape):
-            return torch.randn(shape, generator=gen, device=dev)
-
-        widths = self._eps_widths()
-        rep_eps = tuple(normal(nbatch, B, w) for w in widths)
-        ridx = torch.randint(0, B, (nbatch, nb, B), generator=gen,
-                             device=dev)
-        boot_eps = tuple(normal(nbatch, nb, B, w) for w in widths)
-        return dict(rep_eps=rep_eps, ridx=ridx, boot_eps=boot_eps)
+        """:func:`draw_rand` at the widths of :meth:`_eps_widths`."""
+        return draw_rand(gen, nbatch, B, self.opt.nboot, self._eps_widths())
 
     def _beta_for(self, epoch_f: float, device) -> torch.Tensor:
         key = (float(epoch_f), str(device))
@@ -316,9 +348,10 @@ class NBFastStep(PackedFastStep):
     step — reporting pass plus ``nboot`` bootstrap Adam steps
     (mmvae_alg.hh:277-311) — on the packed state."""
 
-    UNSUPPORTED = ("the packed step needs the direct (no hidden layer) NB "
-                   "architecture; hidden layers are not ported yet "
-                   "(ROADMAP.md Queue 1 item 11, generic step path)")
+    UNSUPPORTED = ("the packed step takes only the direct (no hidden "
+                   "layer) NB architecture; hidden layers train on the "
+                   "generic step, train.loop.Trainer (ROADMAP.md Queue 1 "
+                   "item 11)")
 
     @staticmethod
     def supports(model) -> bool:

@@ -22,21 +22,24 @@ Four kernels, each a wrapper with a plain PyTorch version beside it:
 - :func:`lse` (K1): row logsumexp of ``h``;
 - :func:`value` (K6): the NB NLL given that normaliser (reporting pass);
 - :func:`valgrad` (K2): one pass over ``x`` giving the stacked per-column
-  gradient rows ``gout`` and the per-row ``rsum``, ``u1``, ``dzn``;
+  gradient rows ``gout`` and the per-row ``rsum``, ``u1``, ``dzn``, and
+  with ``need_value`` (K2v, NB only) the NLL without ``lgamma(x + 1)``;
 - :func:`finish` (K3): the softmax-coupling terms ``fout``, ``u2``.
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel (``mmvae_tpu_torch/csrc/nb_*.cu``) or raises — there
 is no fallback on the card.  ``<wrapper>.launches`` counts the launches
 of the NB instance, ``value.joint_launches`` and
-``valgrad.joint_launches`` those of the joint one.
+``valgrad.joint_launches`` those of the joint one,
+``valgrad.value_launches`` those of K2v.
 
-:func:`nb_step_report` runs K1 then K6.  :func:`nb_step_boot_gradonly`
-and :func:`nb_step_boot_joint_gradonly` are ``torch.autograd.Function``s
-whose forward runs K1, K2, K3 and assembles the gradients
-(``_boot_fwd_impl``, nb_step.py:844-868), and whose backward scales them
-by the incoming cotangent (``_boot_bwd``); their primal is 0.0, as on
-the JAX kernel path: boot losses are consumed by the gradient only.
+:func:`nb_step_report` runs K1 then K6.  :func:`nb_step_boot`,
+:func:`nb_step_boot_gradonly` and :func:`nb_step_boot_joint_gradonly`
+are ``torch.autograd.Function``s whose forward runs K1, K2 (K2v for
+``nb_step_boot``), K3 and assembles the gradients (``_boot_fwd_impl``,
+nb_step.py:801-868), and whose backward scales them by the incoming
+cotangent (``_boot_bwd``); the grad-only forms' primal is 0.0, as on the
+JAX kernel path, ``nb_step_boot``'s the NLL without ``lgamma(x + 1)``.
 :func:`step_nll_ref` is the differentiable plain specification
 (``xla_step_nll``); tensor-parallel ``model_axis`` is not ported.
 """
@@ -46,14 +49,9 @@ from __future__ import annotations
 import torch
 
 from .enc_kernel import _DTYPE_CODE
-from .nb_elbo import EPS, NU_HI, NU_LO
+from .nb_elbo import EPS, NU_HI, NU_LO, _softplus
 
 MAX_STACKED_ROWS = 16  # T = R + C + Rn + 2 (+ 1 with pb) the kernels take
-
-
-def _softplus(v: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.softplus``: logaddexp(v, 0)."""
-    return torch.logaddexp(v, torch.zeros_like(v))
 
 
 def _terms(x, ls, nu_pre, depth, include_const: bool, pb=None,
@@ -129,12 +127,14 @@ def value_ref(x, zc, zn, depth, lse, W, R, C, Rn, with_const: bool,
                   with_const, _pb_row(W, R, C, Rn, joint), joint).sum()
 
 
-def valgrad_ref(x, zc, zn, depth, lse, W, R, C, Rn, joint: bool = False):
+def valgrad_ref(x, zc, zn, depth, lse, W, R, C, Rn, joint: bool = False,
+                need_value: bool = False):
     """K2's outputs from autograd of the plain NLL (``include_const``
     off): ``dls = d nll / d h`` with the normaliser ``lse`` held fixed,
     ``dnp = d nll / d nu_pre``, assembled as (gout (T, D), rsum (B, 1),
     u1 (B, R), dzn (B, Rn)); with ``joint`` gout's last row is
-    ``d nll / d pb = colsum(dls)``."""
+    ``d nll / d pb = colsum(dls)``; ``need_value`` appends the NLL
+    itself (equal to ``value_ref(..., with_const=False)``)."""
     RC = R + C
     base = RC + 1
     zc, zn, depth, lse, W = (t.detach() for t in (zc, zn, depth, lse, W))
@@ -148,8 +148,9 @@ def valgrad_ref(x, zc, zn, depth, lse, W, R, C, Rn, joint: bool = False):
             dnp.sum(0, keepdim=True)]
     if joint:
         rows.append(dls.sum(0, keepdim=True))
-    return (torch.cat(rows), dls.sum(1, keepdim=True), dls @ W[:R].T,
-            dnp @ W[base:base + Rn].T)
+    out = (torch.cat(rows), dls.sum(1, keepdim=True), dls @ W[:R].T,
+           dnp @ W[base:base + Rn].T)
+    return (*out, nll.detach()) if need_value else out
 
 
 def finish_ref(zc, lse, rsum, W, R, C):
@@ -294,36 +295,49 @@ value.joint_launches = 0
 
 
 def valgrad(x, zc, zn, depth, norm, W, R: int, C: int, Rn: int,
-            joint: bool = False):
-    """K2 (grad-only): (gout (T, D), rsum (B, 1), u1 (B, R), dzn (B, Rn))
-    of the NLL without ``lgamma(x + 1)``, normaliser ``norm`` held fixed;
-    ``joint`` the joint model's variant (gout's last row is the ``pb``
-    gradient)."""
+            joint: bool = False, need_value: bool = False):
+    """K2: (gout (T, D), rsum (B, 1), u1 (B, R), dzn (B, Rn)) of the NLL
+    without ``lgamma(x + 1)``, normaliser ``norm`` held fixed; ``joint``
+    the joint model's variant (gout's last row is the ``pb`` gradient);
+    ``need_value`` (K2v, NB only) appends that NLL as a 0-d tensor."""
+    if joint and need_value:
+        raise NotImplementedError(
+            "the joint model's value-bearing valgrad is not ported yet "
+            "(ROADMAP.md Queue 2, K2pv)")
     if x.device.type == "cpu":
-        return valgrad_ref(x, zc, zn, depth, norm, W, R, C, Rn, joint)
-    return _valgrad_kernel(x, zc, zn, depth, norm, W, R, C, Rn, joint)
+        return valgrad_ref(x, zc, zn, depth, norm, W, R, C, Rn, joint,
+                           need_value)
+    return _valgrad_kernel(x, zc, zn, depth, norm, W, R, C, Rn, joint,
+                           need_value)
 
 
-def _valgrad_kernel(x, zc, zn, depth, norm, W, R, C, Rn, joint=False):
+def _valgrad_kernel(x, zc, zn, depth, norm, W, R, C, Rn, joint=False,
+                    need_value=False):
     joint = bool(joint)
     B, D, dev = _row_inputs("nb_step.valgrad", x, zc, zn, depth, norm, W,
                             R, C, Rn, joint)
     ws = _f32((_lib().mmvae_nb_valgrad_ws(B, D, R, Rn),), dev)
     gout = _f32((R + C + Rn + 2 + joint, D), dev)
     rows = _f32((B, 1 + R + Rn), dev)
+    nll = _f32((), dev)
     _call(dev, "nb_step.valgrad", "mmvae_nb_valgrad", x.data_ptr(),
           _DTYPE_CODE[x.dtype], zc.data_ptr(), zn.data_ptr(),
           depth.data_ptr(), norm.data_ptr(), W.data_ptr(), B, D, R, C, Rn,
-          int(joint), gout.data_ptr(), ws.data_ptr(), rows.data_ptr())
+          int(joint), int(bool(need_value)), gout.data_ptr(), ws.data_ptr(),
+          rows.data_ptr(), nll.data_ptr())
     if joint:
         valgrad.joint_launches += 1
+    elif need_value:
+        valgrad.value_launches += 1
     else:
         valgrad.launches += 1
-    return gout, rows[:, :1], rows[:, 1:1 + R], rows[:, 1 + R:]
+    out = (gout, rows[:, :1], rows[:, 1:1 + R], rows[:, 1 + R:])
+    return (*out, nll) if need_value else out
 
 
 valgrad.launches = 0
 valgrad.joint_launches = 0
+valgrad.value_launches = 0
 
 
 def finish(zc, norm, rsum, W, R: int, C: int):
@@ -379,16 +393,18 @@ def nb_step_report(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n,
                      include_const, pb is not None)
 
 
-def _boot_fwd_impl(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb):
-    """K1 -> K2 -> K3 and the gradient assembly of the grad-only boot
-    step (nb_step.py:801-868): the cotangents of (zm, zn, depth, wd, wc,
-    bias2, wn, bias_n) and, with ``pb``, of ``pb``."""
+def _boot_fwd_impl(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb,
+                   need_value: bool = False):
+    """K1 -> K2 -> K3 and the gradient assembly of the boot step
+    (nb_step.py:801-868): (the NLL without ``lgamma(x + 1)`` when
+    ``need_value``, else None; the cotangents of (zm, zn, depth, wd, wc,
+    bias2, wn, bias_n) and, with ``pb``, of ``pb``)."""
     R, C, Rn = zm.shape[1], c.shape[1], zn.shape[1]
     zc, znc, dep, W = _operands(zm, c, zn, depth, wd, wc, bias2, wn, bias_n,
                                 pb)
     norm = lse(zc, W, R, C)
-    gout, rsum, u1, dzn = valgrad(x, zc, znc, dep, norm, W, R, C, Rn,
-                                  pb is not None)
+    gout, rsum, u1, dzn, *nll = valgrad(x, zc, znc, dep, norm, W, R, C, Rn,
+                                        pb is not None, need_value)
     # d nll / d depth = rowsum(dmu * pe) = rsum / depth exactly; at
     # depth == 0 the 0/0 is zeroed (depth >= 0 at every call site)
     dd = torch.where(dep > 0, rsum / torch.clamp_min(dep, 1e-30),
@@ -404,19 +420,22 @@ def _boot_fwd_impl(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb):
     if pb is not None:
         # pb sits outside the log-softmax: no coupling subtraction
         res.append(gout[base + Rn + 1])
-    return res
+    return (nll[0] if need_value else None), res
 
 
-class _BootGradOnly(torch.autograd.Function):
-    """Grad-only boot-step NLL: the forward computes every gradient in
-    one pass (K1 -> K2 -> K3) and saves it; the backward scales."""
+class _Boot(torch.autograd.Function):
+    """Boot-step NLL: the forward computes every gradient in one pass
+    (K1 -> K2 -> K3) and saves it; the backward scales.  The primal is
+    the NLL with ``need_value`` (K2v), else 0.0."""
 
     @staticmethod
-    def forward(ctx, x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb):
+    def forward(ctx, x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb,
+                need_value):
         ctx.joint = pb is not None
-        ctx.save_for_backward(*_boot_fwd_impl(x, zm, c, zn, depth, wd, wc,
-                                              bias2, wn, bias_n, pb))
-        return zm.new_zeros(())
+        nll, res = _boot_fwd_impl(x, zm, c, zn, depth, wd, wc, bias2, wn,
+                                  bias_n, pb, need_value)
+        ctx.save_for_backward(*res)
+        return nll if need_value else zm.new_zeros(())
 
     @staticmethod
     def backward(ctx, g):
@@ -424,7 +443,16 @@ class _BootGradOnly(torch.autograd.Function):
         d_zm, d_zn, d_dep, d_wd, d_wc, d_b2, d_wn, d_bn = saved[:8]
         d_pb = g * saved[8] if ctx.joint else None
         return (None, g * d_zm, None, g * d_zn, g * d_dep, g * d_wd,
-                g * d_wc, g * d_b2, g * d_wn, g * d_bn, d_pb)
+                g * d_wc, g * d_b2, g * d_wn, g * d_bn, d_pb, None)
+
+
+def nb_step_boot(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n
+                 ) -> torch.Tensor:
+    """Boot-step NLL without ``lgamma(x + 1)`` (nb_step.py:792), its
+    value from K2v in the same pass as the gradient, differentiable in
+    (zm, zn, depth, wd, wc, bias2, wn, bias_n); x and c are data."""
+    return _Boot.apply(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, None,
+                       True)
 
 
 def nb_step_boot_gradonly(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n
@@ -432,8 +460,8 @@ def nb_step_boot_gradonly(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n
     """Boot-step NLL (no ``lgamma(x + 1)``) whose primal is 0.0 and whose
     gradient in (zm, zn, depth, wd, wc, bias2, wn, bias_n) is the NLL's;
     x and c are data.  Never use it where the loss value is read."""
-    return _BootGradOnly.apply(x, zm, c, zn, depth, wd, wc, bias2, wn,
-                               bias_n, None)
+    return _Boot.apply(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, None,
+                       False)
 
 
 def nb_step_boot_joint_gradonly(x, zm, c, zn, depth, wd, wc, bias2, wn,
@@ -442,5 +470,5 @@ def nb_step_boot_joint_gradonly(x, zm, c, zn, depth, wd, wc, bias2, wn,
     (nb_step.py:991-1005): ``pb`` (D,) is the post-softmax log-bias and
     nu decodes as ``clamp(exp(.), 0, NU_HI)``; the gradient also reaches
     ``pb``.  Primal 0.0: never use it where the loss value is read."""
-    return _BootGradOnly.apply(x, zm, c, zn, depth, wd, wc, bias2, wn,
-                               bias_n, pb)
+    return _Boot.apply(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb,
+                       False)

@@ -9,10 +9,10 @@ of ``train_vae_model``) and of the two sweeps of
 - :class:`DenseEpochRunner` / :func:`train_vae_model`: the (N, D) counts
   live on the device in their narrow integer dtype; each epoch walks the
   reference's sequential wrap-around batch schedule (a contiguous slice
-  when N % B == 0) through a packed fast step (any
-  :class:`~mmvae_tpu_torch.ops.nb_fast.PackedFastStep`: the NB model's
-  or the joint model's), with every random draw of the epoch made up
-  front;
+  when N % B == 0) through a step — a packed fast step (any
+  :class:`~mmvae_tpu_torch.ops.nb_fast.PackedFastStep`) or the generic
+  :class:`Trainer` (``Trainer._batch_step`` on the named parameter tree)
+  — with every random draw of the epoch made up front;
 - :func:`encode_resident`: ``chunk`` batches of B rows go through the
   encoder per kernel launch (the encoder works row by row, and the
   mixture's per-batch noise is tiled over the chunk, so grouping changes
@@ -34,7 +34,8 @@ from ..data.block import MtxDataBlock, MtxMemoryBlock
 from ..data.pipeline import sequential_batches
 from ..io import native
 from ..ops.losses import kl_weight_schedule
-from ..ops.nb_fast import batch_rand
+from ..ops.nb_fast import (PackedAdam, batch_rand, draw_rand, tree_leaves,
+                           tree_unflatten)
 from ..utils.logging import TLOG
 from ..utils.metrics import MetricsLogger
 
@@ -112,6 +113,92 @@ def encode_streaming(model, params: dict, db, B: int, chunk: int,
     return tuple(host)
 
 
+class Trainer:
+    """The generic batch step (JAX ``Trainer``, train/loop.py:109-137,
+    ``_batch_step`` :275-339) on the NAMED parameter tree, behind the
+    packed steps' protocol so :class:`DenseEpochRunner` and
+    :func:`train_vae_model` drive it unchanged: ``pack`` / ``unpack`` /
+    ``pack_opt_state`` / ``unpack_opt_state`` are identities, the
+    optimizer is the JAX chain over the named tree, and ``draw_rand`` has
+    the packed steps' structure (``rep_eps`` (B, R) and (B, Rn), ``ridx``
+    (nboot, B), ``boot_eps``), which JAX's ``_draw_batch`` documents as
+    equal to ``_batch_step``'s in-step draws.
+
+    ``forward(params, x, c, eps, training)`` and ``loss_fn(x, out, beta)``
+    make the reporting loss, ``boot_loss_fn`` (default ``loss_fn``) the
+    boot losses; ``report_loss_override`` / ``boot_loss_override`` with
+    signature ``(params, x, c, eps, beta)`` replace forward + loss, as
+    the models' fused losses do.  ``eps_widths`` are the latent widths of
+    the reparameterization draws (NB: ``(mean_latent,
+    overdisp_latent)``).  Counts stay in their resident dtype."""
+
+    def __init__(self, forward, loss_fn, opt, *, eps_widths,
+                 kl=(1.0, 1e-2, 0.1), boot_loss_fn=None,
+                 report_loss_override=None, boot_loss_override=None):
+        self.forward, self.loss_fn = forward, loss_fn
+        self.boot_loss_fn = boot_loss_fn if boot_loss_fn is not None \
+            else loss_fn
+        self._report_override = report_loss_override
+        self._boot_override = boot_loss_override
+        self.opt = opt
+        self.kl_max, self.kl_min, self.kl_discount = kl
+        self.eps_widths = tuple(eps_widths)
+        self.optimizer = PackedAdam(opt.lr, opt.grad_clip, opt.weight_decay)
+        self._beta = None
+
+    @staticmethod
+    def pack(t: dict) -> dict:
+        return t
+
+    unpack = pack_opt_state = unpack_opt_state = pack
+
+    def draw_rand(self, gen: torch.Generator, nbatch: int, B: int) -> dict:
+        return draw_rand(gen, nbatch, B, self.opt.nboot, self.eps_widths)
+
+    def _beta_for(self, epoch_f: float, device) -> torch.Tensor:
+        key = (float(epoch_f), str(device))
+        if self._beta is None or self._beta[0] != key:
+            beta = kl_weight_schedule(epoch_f, self.kl_max, self.kl_min,
+                                      self.kl_discount).to(device)
+            self._beta = (key, beta)
+        return self._beta[1]
+
+    def _report(self, params, x, c, eps, beta):
+        if self._report_override is not None:
+            return self._report_override(params, x, c, eps, beta)
+        return self.loss_fn(x, self.forward(params, x, c, eps, True), beta)
+
+    def _boot(self, params, x, c, eps, beta):
+        if self._boot_override is not None:
+            return self._boot_override(params, x, c, eps, beta)
+        return self.boot_loss_fn(x, self.forward(params, x, c, eps, True),
+                                 beta)
+
+    def batch_step(self, params: dict, opt_state: dict, x, c, epoch_f,
+                   rand: dict):
+        """The reporting loss (no update) and ``nboot`` bootstrap Adam
+        steps, each on the resampled input rows ``x[ridx]``
+        (mmvae_alg.hh:277-311).  Returns (params, opt_state, report)."""
+        beta = self._beta_for(epoch_f, x.device)
+        with torch.no_grad():
+            report = self._report(params, x, c, rand["rep_eps"], beta)
+        for i in range(self.opt.nboot):
+            ridx = rand["ridx"][i]
+            xb, cb = x.index_select(0, ridx), c.index_select(0, ridx)
+            leaves = [v.detach().requires_grad_() for v in
+                      tree_leaves(params)]
+            loss = self._boot(tree_unflatten(params, leaves), xb, cb,
+                              tuple(e[i] for e in rand["boot_eps"]), beta)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            # a leaf the loss does not reach has a zero gradient, as in JAX
+            grads = [torch.zeros_like(v) if g is None else g
+                     for g, v in zip(grads, leaves)]
+            with torch.no_grad():
+                params, opt_state = self.optimizer.update(
+                    tree_unflatten(params, grads), opt_state, params)
+        return params, opt_state, report
+
+
 def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
     """The generator of one epoch's draws: a pure function of (seed,
     epoch), so a resumed run draws what the uninterrupted one drew."""
@@ -124,6 +211,7 @@ class DenseEpochRunner:
     """One training epoch over device-resident counts (the dense branch
     of ``Trainer.make_ondevice_epoch``, train/loop.py:411-556).
 
+    ``fast`` is a packed step or a :class:`Trainer`.
     The schedule is the reference's sequential wrap-around one
     (mmvae_alg.hh:261-266): batch b is rows (b*B + i) % N, a contiguous
     slice when N % B == 0.  The covariate is the all-ones column unless a

@@ -204,8 +204,8 @@ def test_device_cuda_without_gpu_fails(runs, tmp_path):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("flags", [["--mean_encoding", "8"],
-                                   ["--no_fused_step"], ["--dp_shard"],
+@pytest.mark.parametrize("flags", [["--data_parallel"],
+                                   ["--num_hosts", "2"], ["--dp_shard"],
                                    ["--tensor_parallel", "2"]])
 def test_unported_options_raise(runs, tmp_path, flags):
     _, common = runs
