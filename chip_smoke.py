@@ -86,12 +86,38 @@ exits non-zero without the final line):
 21. full-width generic training: ``nb_vae --no_fused_step``'s step at
     the default architecture, two epochs over the first 40,000 of phase
     5's counts (phase 9's model and data: the two phases price the packed
-    step against the generic one), with a profile of 100 batches.
+    step against the generic one), with a profile of 100 batches;
+22. K2pv (``valgrad(joint=True, need_value=True)``, the value-bearing
+    joint boot step) against its plain version in phase 18's regimes and
+    at D = 1,003, with exp(nu_pre) on both sides of the NU_HI clamp:
+    bitwise repeatability, the gradient outputs equal to K2p's bitwise,
+    the value held to the float64 sum and to K6p; device times at the
+    main path's case;
+23. one generic batch step per route of the vMF+NB models, kernel route
+    against plain route: the joint model with ``--mean_encoding 16`` and
+    ``--vmf_decoding 16`` (the v2 step kernels), ``--mean_decoding 16``
+    and ``--no_fused_step`` (``forward`` + the composite loss) and the
+    JAX README's library trainer (K2pv); the mixture with
+    ``--mean_encoding 16``, ``--no_fused_step`` and the library trainer;
+    the ``ln_kappa`` leaves held to the float64 step;
+24. ``vmfnb_vae`` on the generic step end to end: ``--mean_encoding 16
+    --vmf_decoding 16`` and, with ``--annot --row``, ``--mean_encoding
+    16`` for 2 epochs with recording and a checkpoint, ``--resume`` for
+    one more; ``--mean_decoding 16``, ``--no_fused_step`` and
+    ``--no_fused`` for one epoch each; the library trainer of each model
+    for one epoch (the main path of K2pv); ``encode --model vmfnb`` and
+    ``--model mixture`` on hidden-layer checkpoints against the plain
+    unfolded encoders;
+25. full-width generic training of the joint model: the library
+    trainer (K2pv's main path) at the default architecture, two epochs
+    over the first 20,000 of phase 5's counts (phase 13's model and data:
+    the two phases price the packed joint step against the generic one),
+    with a profile of 20 batches.
 
-Each main path (phases 4, 8, 12, 16 and the runs of 20) is driven with
-every launch counter set to 0 just before it and read just after.  The last two lines are the
-kernels' JSON record (with each kernel's bound at the main path's shape)
-and ``{"ok": true, "device": {...}}``.
+Each main path (phases 4, 8, 12, 16 and the runs of 20 and 24) is driven
+with every launch counter set to 0 just before it and read just after.
+The last two lines are the kernels' JSON record (with each kernel's
+bound at the main path's shape) and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -950,7 +976,8 @@ def model_and_step(kind: str):
 PHASE = {"nb": {"step": 7, "cli": 8, "full": 9},
          "joint": {"step": 11, "cli": 12, "full": 13},
          "mixture": {"step": 15, "cli": 16, "full": 17},
-         "generic": {"step": 19, "cli": 20, "full": 21}}
+         "generic": {"step": 19, "cli": 20, "full": 21},
+         "library": {"step": 23, "cli": 24, "full": 25}}
 
 
 def first_boot_grad(fast, q, x, c, rand, dtype=torch.float32):
@@ -1291,97 +1318,184 @@ def generic_trainer(model, topt, plain=False, readme=False):
             p, x, c, e, b, need_value=True, plain=plain))
 
 
-def phase_generic_step(card):
-    """Phase 19: one generic batch step per route, kernel route against
-    plain route on the same draws: the first boot loss and its gradient
-    per leaf and row (tol 1e-4 of the row's largest gradient), the Adam
-    moments after the step (1e-3 of the row's scale), the parameters
-    (2e-5, elements with a gradient below 1e-4 of their row's scale held
-    by the moment check only) and the report (rel 1e-5)."""
-    from mmvae_tpu_torch.models.nb import NBVAE
-    from mmvae_tpu_torch.ops.nb_fast import (batch_rand, tree_leaves,
-                                             tree_unflatten)
-    from mmvae_tpu_torch.train.config import TrainingOptions
+def _route_step(tr, params, x, c, rand):
+    """(first boot loss, its gradient per leaf, and one batch step's
+    params, Adam state and report) of the generic trainer ``tr``."""
+    from mmvae_tpu_torch.ops.nb_fast import tree_leaves, tree_unflatten
 
-    g = torch.Generator(device=DEV).manual_seed(SEED + 19)
-    x = make_counts(g, B_TRAIN, D_GENES, torch.int8)
-    c = torch.ones((B_TRAIN, 1), device=DEV)
+    leaves = [v.detach().requires_grad_() for v in tree_leaves(params)]
+    r = rand["ridx"][0]
+    loss = tr._boot(tree_unflatten(params, leaves), x.index_select(0, r),
+                    c.index_select(0, r),
+                    tuple(e[0] for e in rand["boot_eps"]),
+                    tr._beta_for(0.0, x.device))
+    grads = torch.autograd.grad(loss, leaves)
+    p2, o2, rep = tr.batch_step(params, tr.optimizer.init(params), x, c,
+                                0.0, rand)
+    return loss.detach(), grads, p2, o2, rep
+
+
+def _cpu64(tree):
+    """A tree (or tuple) of tensors on the CPU, floats in float64."""
+    if isinstance(tree, dict):
+        return {k: _cpu64(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_cpu64(v) for v in tree)
+    t = tree.detach().cpu()
+    return t.double() if t.is_floating_point() else t
+
+
+def check_generic_route(card, tag, label, make, params, x, c,
+                        value_boot=False, joint=False):
+    """One generic batch step, kernel route (``make(False)``) against
+    plain route (``make(True)``) on the same draws: the first boot loss
+    and its gradient per leaf and row (tol 1e-4 of the row's largest
+    gradient), the Adam moments after the step (1e-3 of the row's scale),
+    the parameters (2e-5, elements with a gradient below 1e-4 of their
+    row's scale held by the moment check only) and the report (rel 1e-5);
+    ``value_boot``: the boot loss is a value, held at rel 1e-5.
+
+    ``joint`` (the vMF+NB models): the leaves without a D axis (the
+    packed steps' small vector ``sv``) are one row, as phases 11 and 15
+    hold ``sv``; the ``ln_kappa`` leaves' gradients are a float32
+    cancellation (``df / kappa`` against the Baricz midpoint) in either
+    route, so both are held to the float64 step (the kernel route's plain
+    versions in float64 on the CPU), the kernel's worst error to twice
+    the plain route's plus the usual bound, as phase 15 holds the
+    mixture's kappa row; their parameters, and those whose final first
+    moment is below 2% of the row's scale, rest on the gradient and
+    moment checks (phase 11's rule).  The other parameters are held to
+    the float64 step element by element, the kernel route's error to
+    twice the plain route's plus 2e-5: after the first update a
+    parameter whose moment is small against its row's can take another
+    float32 path in either route (measured: in the plain route, 2% of lr
+    from the float64 step where the kernel route was 0.3%)."""
+    from mmvae_tpu_torch.ops.nb_fast import batch_rand, tree_leaves
+
     def rows(t):
         """A leaf as rows over its D-sized axis (weights are stored (in,
         out), so the encoder's (D, H) first layers turn over): the packed
         step's parameter rows, which phase 7 holds row by row."""
         if t.dim() == 1:
             return t.reshape(1, -1)
+        if t.dim() == 3:
+            return t.reshape(-1, t.shape[-1])
         return t.T if t.shape[0] == D_GENES else t
 
+    out = {}
+    for plain in (False, True):
+        tr = make(plain)
+        rand = batch_rand(tr.draw_rand(
+            torch.Generator(device=DEV).manual_seed(SEED + 5), 1, B_TRAIN), 0)
+        out[plain] = _route_step(tr, params, x, c, rand)
+    if joint:
+        rand64 = {k: _cpu64(v) for k, v in rand.items()}
+        ref64 = _route_step(make(False), _cpu64(params), x.cpu(), c.cpu(),
+                            rand64)
+    (lk, gk, pk, ok, rk), (lp, gp, pp, op, rp) = out[False], out[True]
+    rep_err = abs(rk.item() - rp.item()) / abs(rp.item())
+    if not rep_err <= 1e-5:
+        raise AssertionError(f"{label}: report rel err {rep_err:.3g}")
+    lines = [f"report {rk.item():.6f} vs {rp.item():.6f} (rel "
+             f"{rep_err:.2g})"]
+    if value_boot:
+        # the value-bearing boot loss is the value, not 0.0
+        l_err = abs(lk.item() - lp.item()) / abs(lp.item())
+        if not l_err <= 1e-5:
+            raise AssertionError(f"{label}: boot loss rel err {l_err:.3g}")
+        lines.append(f"first boot loss {lk.item():.6f} vs {lp.item():.6f} "
+                     f"(rel {l_err:.2g})")
+    # joint: the leaves without a D axis share one row scale
+    sv = [i for i, t in enumerate(gp) if joint and D_GENES not in t.shape]
+
+    def scale_of(leaves, i):
+        if i in sv:
+            return max(leaves[j].abs().max() for j in sv).reshape(1, 1)
+        return rows(leaves[i]).abs().amax(1, keepdim=True)
+
+    q_g = q_m = q_p = 0.0
+    n_small, worst_leaf, worst_mom, worst_par = 0, None, None, None
+    names = leaf_names(params)
+    for i, (a, b) in enumerate(zip(gk, gp)):
+        a2, b2 = rows(a), rows(b)
+        scale = scale_of(gp, i)
+        anchor = joint and names[i].startswith("ln_kappa.")
+        if anchor:
+            ref = rows(ref64[1][i]).to(DEV)
+            e_k, e_p, q_i = anchored(a2, b2, ref, 1e-4 * scale.max().item())
+            lines.append(f"{names[i]} gradient vs float64: kernel off by "
+                         f"{e_k:.3g}, plain by {e_p:.3g} (err/tol "
+                         f"{q_i:.3g})")
+        else:
+            q_i = ((a2 - b2).abs() / (1e-4 * scale + 1e-12)).max().item()
+        if q_i > q_g:
+            q_g, worst_leaf = q_i, names[i]
+        for m in ("mu", "nu"):
+            ma = rows(tree_leaves(ok[m])[i])
+            mb = rows(tree_leaves(op[m])[i])
+            floor = 1e-3 * scale_of(tree_leaves(op[m]), i)
+            if anchor:
+                ref = rows(tree_leaves(ref64[3][m])[i]).to(DEV)
+                q_i = anchored(ma, mb, ref, floor.max().item())[2]
+            else:
+                q_i = ((ma - mb).abs() / (floor + 1e-30)).max().item()
+            if q_i > q_m:
+                q_m, worst_mom = q_i, f"{m} {names[i]}"
+        small = b2.abs() < 1e-4 * scale
+        if joint:
+            mu_p = rows(tree_leaves(op["mu"])[i])
+            small |= mu_p.abs() < 2e-2 * scale_of(tree_leaves(op["mu"]), i)
+            small |= anchor
+        n_small += int(small.sum())
+        pk_i, pp_i = rows(tree_leaves(pk)[i]), rows(tree_leaves(pp)[i])
+        if joint:
+            p64 = rows(tree_leaves(ref64[2])[i]).to(DEV)
+            dP = (pk_i.double() - p64).abs() / (
+                2.0 * (pp_i.double() - p64).abs() + 2e-5)
+        else:
+            dP = (pk_i - pp_i).abs() / 2e-5
+        if (~small).any() and dP[~small].max().item() > q_p:
+            q_p = dP[~small].max().item()
+            j = int(torch.where(small, 0.0, dP).argmax())
+            at = lambda t: rows(t).reshape(-1)[j].item()  # noqa: E731
+            worst_par = (f"{names[i]} [{j}]: kernel {at(pk_i):.7g}, "
+                         f"plain {at(pp_i):.7g}")
+            if joint:
+                worst_par += f", float64 {at(p64):.7g}"
+    if not (q_g <= 1.0 and q_m <= 1.0 and q_p <= 1.0):
+        raise AssertionError(f"{label}: grad err/tol {q_g:.3g} (worst "
+                             f"leaf {worst_leaf}), moments {q_m:.3g} "
+                             f"({worst_mom}), params {q_p:.3g} "
+                             f"({worst_par})")
+    if int(ok["count"]) != 3 or int(op["count"]) != 3:
+        raise AssertionError(f"{label}: Adam count is not 3")
+    held = "a near-zero gradient" + (" or moment, or on ln_kappa"
+                                     if joint else "")
+    lines.append(f"{len(gk)} leaves: first-step grad err/tol {q_g:.3g} "
+                 f"({worst_leaf}); Adam moments err/tol {q_m:.3g} "
+                 f"({worst_mom}); params err/tol {q_p:.3g} ({worst_par}; "
+                 f"{n_small} elements with {held} held by the gradient "
+                 f"and moment checks only)")
+    log(f"{tag} [{card}] one generic batch step ({label}), kernel route vs "
+        f"plain route, same draws: " + "; ".join(lines))
+
+
+def phase_generic_step(card):
+    """Phase 19: one generic batch step per route of the NB model, kernel
+    route against plain route (:func:`check_generic_route`)."""
+    from mmvae_tpu_torch.models.nb import NBVAE
+    from mmvae_tpu_torch.train.config import TrainingOptions
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 19)
+    x = make_counts(g, B_TRAIN, D_GENES, torch.int8)
+    c = torch.ones((B_TRAIN, 1), device=DEV)
     for label, (arch, flags, readme) in GENERIC_ROUTES.items():
         model = NBVAE(data_dim=D_GENES, **arch)
-        params = random_params(model, DEV)
-        out = {}
-        for plain in (False, True):
-            tr = generic_trainer(model, TrainingOptions(**flags), plain,
-                                 readme)
-            rand = batch_rand(tr.draw_rand(
-                torch.Generator(device=DEV).manual_seed(SEED + 5), 1,
-                B_TRAIN), 0)
-            leaves = [v.detach().requires_grad_() for v in
-                      tree_leaves(params)]
-            r = rand["ridx"][0]
-            loss = tr._boot(tree_unflatten(params, leaves),
-                            x.index_select(0, r), c.index_select(0, r),
-                            tuple(e[0] for e in rand["boot_eps"]),
-                            tr._beta_for(0.0, x.device))
-            grads = torch.autograd.grad(loss, leaves)
-            p2, o2, rep = tr.batch_step(params, tr.optimizer.init(params),
-                                        x, c, 0.0, rand)
-            torch.cuda.synchronize()
-            out[plain] = (loss.detach(), grads, p2, o2, rep)
-        (lk, gk, pk, ok, rk), (lp, gp, pp, op, rp) = out[False], out[True]
-        rep_err = abs(rk.item() - rp.item()) / abs(rp.item())
-        if not rep_err <= 1e-5:
-            raise AssertionError(f"{label}: report rel err {rep_err:.3g}")
-        lines = [f"report {rk.item():.6f} vs {rp.item():.6f} (rel "
-                 f"{rep_err:.2g})"]
-        if readme:
-            # the K2v boot loss is the value, not 0.0
-            l_err = abs(lk.item() - lp.item()) / abs(lp.item())
-            if not l_err <= 1e-5:
-                raise AssertionError(f"{label}: boot loss rel err {l_err:.3g}")
-            lines.append(f"first boot loss {lk.item():.6f} vs "
-                         f"{lp.item():.6f} (rel {l_err:.2g})")
-        q_g = q_m = q_p = 0.0
-        n_small, worst_leaf = 0, None
-        names = leaf_names(params)
-        for i, (a, b) in enumerate(zip(gk, gp)):
-            a2, b2 = rows(a), rows(b)
-            scale = b2.abs().amax(1, keepdim=True)
-            q_i = ((a2 - b2).abs() / (1e-4 * scale + 1e-12)).max().item()
-            if q_i > q_g:
-                q_g, worst_leaf = q_i, names[i]
-            for m in ("mu", "nu"):
-                ma = rows(tree_leaves(ok[m])[i])
-                mb = rows(tree_leaves(op[m])[i])
-                floor = 1e-3 * mb.abs().amax(1, keepdim=True)
-                q_m = max(q_m, ((ma - mb).abs() / (floor + 1e-30))
-                          .max().item())
-            small = b2.abs() < 1e-4 * scale
-            n_small += int(small.sum())
-            dP = (rows(tree_leaves(pk)[i]) - rows(tree_leaves(pp)[i])).abs()
-            if (~small).any():
-                q_p = max(q_p, dP[~small].max().item() / 2e-5)
-        if not (q_g <= 1.0 and q_m <= 1.0 and q_p <= 1.0):
-            raise AssertionError(f"{label}: grad err/tol {q_g:.3g} (worst "
-                                 f"leaf {worst_leaf}), moments {q_m:.3g}, "
-                                 f"params {q_p:.3g}")
-        if int(ok["count"]) != 3 or int(op["count"]) != 3:
-            raise AssertionError(f"{label}: Adam count is not 3")
-        lines.append(f"{len(gk)} leaves: first-step grad err/tol {q_g:.3g} "
-                     f"({worst_leaf}); "
-                     f"Adam moments err/tol {q_m:.3g}; params err/tol "
-                     f"{q_p:.3g} ({n_small} elements with a near-zero "
-                     f"gradient held by the moment check only)")
-        log(f"[phase 19] [{card}] one generic batch step ({label}), kernel "
-            f"route vs plain route, same draws: " + "; ".join(lines))
+        check_generic_route(
+            card, "[phase 19]", label,
+            lambda plain: generic_trainer(model, TrainingOptions(**flags),
+                                          plain, readme),
+            random_params(model, DEV), x, c, value_boot=readme)
 
 
 def leaf_names(tree: dict, prefix: str = "") -> list[str]:
@@ -1407,6 +1521,39 @@ def plain_encode_hidden(params, x, names):
             lin("mu_representation_logvariance").clamp(-4.0, 4.0))
 
 
+def library_epoch(card, tag, label, tmp, mtx, model, trainer, topt, path):
+    """One epoch of a library trainer (the JAX README's entry point, not
+    a CLI) through ``train_vae_model`` on the synthetic matrix, with every
+    launch counter reset just before and read just after; every kernel
+    of ``path`` must launch.  Returns the launches."""
+    from mmvae_tpu_torch.data.block import MtxMemoryBlock, create_ones_like
+    from mmvae_tpu_torch.io.index import build_mmutil_index
+    from mmvae_tpu_torch.train.loop import train_vae_model
+
+    data = MtxMemoryBlock(mtx, mtx + ".index", B_TRAIN, count_dtype="auto")
+    ones = os.path.join(tmp, "ones.mtx.gz")
+    if not os.path.exists(ones):
+        create_ones_like(data, ones)
+        build_mmutil_index(ones, ones + ".index")
+    covar = MtxMemoryBlock(ones, ones + ".index", B_TRAIN)
+    covar.auto_ones = True
+    reset_launches()
+    tee = _Tee(sys.stderr)
+    with contextlib.redirect_stderr(tee):
+        _, scores = train_vae_model(
+            trainer, None, data, covar, topt,
+            model.init(torch.Generator().manual_seed(SEED), device=DEV), DEV)
+    launches = read_launches()
+    if min(launches[k] for k in path) < 1 or not np.isfinite(scores).all():
+        raise AssertionError(f"{label}: scores {scores}, launches "
+                             f"{launches}")
+    log(f"{tag} [{card}] {label}, 1 epoch: score {scores}; launches "
+        f"{ {k: launches[k] for k in path} }; "
+        + [ln.split("] ", 1)[-1] for ln in tee.buf.getvalue().splitlines()
+           if "cells/sec" in ln][-1])
+    return launches
+
+
 def phase_generic_cli(card, tmp, mtx):
     """Phase 20: ``nb_vae`` on the generic step (the main path of K7 and
     K8) with hidden layers, recording, a checkpoint and ``--resume``;
@@ -1415,12 +1562,9 @@ def phase_generic_cli(card, tmp, mtx):
     ``encode --model nb`` on the hidden-layer checkpoint.  Every launch
     counter is reset just before each run and read just after."""
     from mmvae_tpu_torch.cli import encode, nb_vae
-    from mmvae_tpu_torch.data.block import MtxMemoryBlock, create_ones_like
-    from mmvae_tpu_torch.io.index import build_mmutil_index
     from mmvae_tpu_torch.models.nb import NBVAE, params_from_numpy
     from mmvae_tpu_torch.train.checkpoint import load_checkpoint
     from mmvae_tpu_torch.train.config import TrainingOptions
-    from mmvae_tpu_torch.train.loop import train_vae_model
     from mmvae_tpu_torch.train.recorder import flatten_params
 
     tag = "[phase 20]"
@@ -1428,13 +1572,6 @@ def phase_generic_cli(card, tmp, mtx):
     args = ["--mtx", mtx, "--batch_size", str(B_TRAIN), "--device", DEV]
     out = os.path.join(tmp, "gen")
     ck = out + "_ckpt"
-
-    def step_line(err):
-        steps = [ln.split("Step: ", 1)[1] for ln in err.splitlines()
-                 if "Step: " in ln]
-        if len(steps) != 1:
-            raise AssertionError(f"expected one Step line, got {steps}")
-        return steps[0]
 
     reset_launches()
     t0 = time.time()
@@ -1501,32 +1638,12 @@ def phase_generic_cli(card, tmp, mtx):
                if "cells/sec" in ln][-1])
 
     # the README's library trainer: K2v on its main path
-    data = MtxMemoryBlock(mtx, mtx + ".index", B_TRAIN, count_dtype="auto")
-    ones = os.path.join(tmp, "ones.mtx.gz")
-    create_ones_like(data, ones)
-    build_mmutil_index(ones, ones + ".index")
-    covar = MtxMemoryBlock(ones, ones + ".index", B_TRAIN)
-    covar.auto_ones = True
     lib_model = NBVAE(data_dim=D_GENES)
     topt = TrainingOptions(max_epoch=1)
-    trainer = generic_trainer(lib_model, topt, readme=True)
-    reset_launches()
-    tee = _Tee(sys.stderr)
-    with contextlib.redirect_stderr(tee):
-        _, lib_scores = train_vae_model(
-            trainer, None, data, covar, topt,
-            lib_model.init(torch.Generator().manual_seed(SEED), device=DEV),
-            DEV)
-    readme_launches = read_launches()
-    if min(readme_launches[k] for k in README_PATH) < 1 or not np.isfinite(
-            lib_scores).all():
-        raise AssertionError(f"README trainer: scores {lib_scores}, "
-                             f"launches {readme_launches}")
-    log(f"{tag} [{card}] README library trainer (fused_step_report / "
-        f"fused_step_boot, K2v), 1 epoch: score {lib_scores}; launches "
-        f"{ {k: readme_launches[k] for k in README_PATH} }; "
-        + [ln.split("] ", 1)[-1] for ln in tee.buf.getvalue().splitlines()
-           if "cells/sec" in ln][-1])
+    readme_launches = library_epoch(
+        card, tag, "README library trainer (fused_step_report / "
+        "fused_step_boot, K2v)", tmp, mtx, lib_model,
+        generic_trainer(lib_model, topt, readme=True), topt, README_PATH)
 
     # serving the hidden-layer checkpoint
     enc_out = os.path.join(tmp, "genc")
@@ -1561,6 +1678,245 @@ def phase_generic_cli(card, tmp, mtx):
     return launches, readme_launches
 
 
+# ----------------------------------------------------------------------
+# the vMF+NB generic step phases (22-25)
+# ----------------------------------------------------------------------
+
+K2PV_CASES = [(B_TRAIN, D_GENES, torch.int8, "counts<=7"),
+              (B_TRAIN, D_GENES, torch.int8, "integer"),
+              (B_TRAIN, D_GENES, torch.float32, "non-integer"),
+              (B_TRAIN, 1003, torch.int8, "integer")]
+K2PV_MAIN = 1  # int8 integer counts at B = 100, D = 20000: the main path
+# exp(nu_pre) on both sides of the NU_HI clamp edge, far enough from it
+# that float32 rounding cannot move an element across
+EDGE_EXP = (0.9e4, 0.99e4, 1.01e4, 1.1e4)
+
+
+def phase_k2pv(card):
+    """Phase 22: K2pv (``valgrad(joint=True, need_value=True)``) against
+    its plain version: bitwise repeatability, the gradient outputs within
+    the training tolerance and equal to K2p's bitwise, and the value held
+    to the float64 sum as K6p is (kernel error <= 2 x plain's + 2.01e-5 S)
+    and to K6p's ``with_const=False`` value; device times at the main
+    path's case."""
+    from mmvae_tpu_torch.ops import nb_step as ns
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 22)
+    name = "nb_valgrad[pb,nu_exp,value]"
+    worst, times = 0.0, None
+    log(f"[phase 22] K2pv vs plain (f32, TF32 off); gradients: {TRAIN_TOL};"
+        f" value: |kernel - f64| <= 2 |plain - f64| + 2.01e-5 * S; "
+        f"exp(nu_pre) at {EDGE_EXP} and far beyond NU_HI")
+    for case, (B, D, dt, regime) in enumerate(K2PV_CASES):
+        x, zc, zn, depth, W, (R, C, Rn) = joint_step_inputs(g, B, D, dt,
+                                                            regime)
+        if regime == "integer":
+            x[0, :50] = 127 if dt == torch.int8 else 32767
+        base = R + C + 1
+        W[base:base + Rn, :4] = 0.0
+        W[base + Rn, :4] = torch.log(torch.tensor(EDGE_EXP, device=DEV))
+        lr = ns.lse_ref(zc, W, R, C)
+        _, dls_m, dnp_m = grad_magnitudes(x, zc, zn, depth, lr, W, R, C, Rn,
+                                          joint=True)
+        npre = zn @ W[base:base + Rn] + W[base + Rn]
+        clamped = int((torch.exp(npre) >= 1e4).sum())
+        with torch.no_grad():
+            Wd = W.double()
+            terms = ns._terms(x.double(), ns._h(zc.double(), Wd, R + C)
+                              - lr.double(), ns._nupre(zn.double(), Wd, base,
+                                                       Rn),
+                              depth.double(), False, Wd[base + Rn + 1], True)
+        azc, azn, aW = zc.double().abs(), zn.double().abs(), W.double().abs()
+        bounds = (torch.cat([azc.T @ dls_m, dls_m.sum(0, True), azn.T @ dnp_m,
+                             dnp_m.sum(0, True), dls_m.sum(0, True)]),
+                  dls_m.sum(1, True), dls_m @ aW[:R].T,
+                  dnp_m @ aW[base:base + Rn].T)
+        kern = lambda: ns.valgrad(x, zc, zn, depth, lr, W, R, C, Rn,  # noqa
+                                  True, True)
+        plain = lambda: ns.valgrad_ref(x, zc, zn, depth, lr, W, R, C,  # noqa
+                                       Rn, True, True)
+        got, want, again = kern(), plain(), kern()
+        k2p = ns.valgrad(x, zc, zn, depth, lr, W, R, C, Rn, True)
+        k6p = ns.value(x, zc, zn, depth, lr, W, R, C, Rn, False, True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name} not bitwise repeatable")
+        if not all(torch.equal(a, b) for a, b in zip(got[:4], k2p)):
+            raise AssertionError("K2pv's gradient outputs differ from K2p's")
+        e, q = 0.0, 0.0
+        for gt, wt, S in zip(got[:4], want[:4], bounds):
+            ei, qi = ratio(gt, wt, S)
+            e, q = max(e, ei), max(q, qi)
+        ref, S = terms.sum(), terms.abs().sum().item()
+        e_k = (got[4].double() - ref).abs().item()
+        e_p = (want[4].double() - ref).abs().item()
+        e_6 = (k6p.double() - ref).abs().item()
+        q_v = e_k / (2.0 * e_p + 2.01e-5 * S)
+        q_6 = (got[4].double() - k6p.double()).abs().item() / (2.01e-5 * S)
+        if not (q <= 1.0 and q_v <= 1.0 and q_6 <= 1.0):
+            raise AssertionError(
+                f"{name} disagrees at {(B, D, dt, regime)}: gradients "
+                f"err/tol {q:.3g}, value vs float64 {q_v:.3g} (kernel off "
+                f"by {e_k:.4g}, plain by {e_p:.4g}), vs K6p {q_6:.3g}")
+        worst = max(worst, e, (got[4] - want[4]).abs().item())
+        line = (f"gradients err {e:.3g} (err/tol {q:.3g}), == K2p bitwise; "
+                f"value {got[4].item():.8g} [float64 sum {ref.item():.8g}: "
+                f"kernel off by {e_k:.4g}, plain by {e_p:.4g}, K6p by "
+                f"{e_6:.4g}; err/tol {q_v:.3g}, vs K6p {q_6:.3g}]")
+        if case == K2PV_MAIN:
+            k_dev, _ = device_profile(kern, 20)
+            p_dev, _ = device_profile(plain, 20)
+            k2p_dev, _ = device_profile(
+                lambda: ns.valgrad(x, zc, zn, depth, lr, W, R, C, Rn, True),
+                20)
+            times = (k_dev, p_dev)
+            line += (f"; device time kernel {k_dev:.4f} / plain {p_dev:.4f} "
+                     f"ms (K2p {k2p_dev:.4f})")
+        log(f"[phase 22] [{card}] B={B} D={D} {str(dt).replace('torch.', '')}"
+            f" {regime} ({clamped} elements at the NU_HI clamp): {line}")
+    return {name: worst}, {name: times}
+
+
+# label -> (model, architecture, step options, the library trainer)
+VMFNB_GENERIC_ROUTES = {
+    "joint --mean_encoding 16, v2 step kernels": (
+        "joint", dict(mean_encoding=(16,)), {}, False),
+    "joint --vmf_decoding 16, v2 step kernels": (
+        "joint", dict(vmf_decoding=(16,)), {}, False),
+    "joint --mean_decoding 16, forward + composite loss": (
+        "joint", dict(mean_decoding=(16,)), {}, False),
+    "joint --no_fused_step, forward + composite loss": (
+        "joint", {}, dict(fused_step=False), False),
+    "joint library trainer (fused_step_boot, K2pv)": ("joint", {}, {}, True),
+    "mixture --mean_encoding 16, v2 step kernels": (
+        "mixture", dict(mean_encoding=(16,)), {}, False),
+    "mixture --no_fused_step, forward + composite loss": (
+        "mixture", {}, dict(fused_step=False), False),
+    "mixture library trainer (fused_step_boot, K2pv)": (
+        "mixture", {}, {}, True),
+}
+
+
+def vmfnb_model(kind: str, **arch):
+    """The joint model or the mixture (with :func:`marker_label`) at
+    D = 20,000 and the given architecture."""
+    if kind == "mixture":
+        from mmvae_tpu_torch.models.vmfnb_mixture import VMFNBMixtureVAE
+
+        return VMFNBMixtureVAE(label=marker_label(), **arch)
+    from mmvae_tpu_torch.models.vmfnb import VMFNBVAE
+
+    return VMFNBVAE(data_dim=D_GENES, **arch)
+
+
+def vmfnb_trainer(model, topt, plain=False, library=False):
+    """The step ``vmfnb_vae`` builds for ``model`` and ``topt``
+    (``make_step``), or with ``library`` the JAX README's library trainer
+    on either model: the generic ``Trainer`` with ``fused_step_report``
+    and the value-bearing ``fused_step_boot`` (K2pv)."""
+    import dataclasses
+
+    from mmvae_tpu_torch.cli.vmfnb_vae import make_step
+    from mmvae_tpu_torch.train.loop import Trainer
+
+    if not library:
+        return make_step(model, topt, plain=plain)[0]
+    # forward, the composite loss and the draws of the generic step
+    step = make_step(model, dataclasses.replace(topt, fused=False),
+                     plain=plain)[0]
+    return Trainer(
+        step.forward, step.loss_fn, topt, eps_widths=step.eps_widths,
+        report_loss_override=lambda p, x, c, e, b: model.fused_step_report(
+            p, x, c, e, b, plain=plain),
+        boot_loss_override=lambda p, x, c, e, b: model.fused_step_boot(
+            p, x, c, e, b, need_value=True, plain=plain))
+
+
+def phase_vmfnb_generic_step(card):
+    """Phase 23: one generic batch step per route of the joint model and
+    the mixture, kernel route against plain route
+    (:func:`check_generic_route`, the ``ln_kappa`` leaves held to the
+    float64 step)."""
+    from mmvae_tpu_torch.train.config import TrainingOptions
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 23)
+    x = make_counts(g, B_TRAIN, D_GENES, torch.int8)
+    c = torch.ones((B_TRAIN, 1), device=DEV)
+    for label, (kind, arch, flags, library) in VMFNB_GENERIC_ROUTES.items():
+        model = vmfnb_model(kind, **arch)
+        check_generic_route(
+            card, "[phase 23]", label,
+            lambda plain: vmfnb_trainer(model, TrainingOptions(**flags),
+                                        plain, library),
+            random_params(model, DEV), x, c, value_boot=library, joint=True)
+
+
+def phase_vmfnb_generic_cli(card, tmp, mtx):
+    """Phase 24: ``vmfnb_vae`` on the generic step end to end, every
+    launch counter reset just before each run and read just after: the
+    joint model with ``--mean_encoding 16 --vmf_decoding 16`` and the
+    mixture with ``--mean_encoding 16`` (the v2 step kernels' grad-only
+    joint variant) for 2 epochs with recording and a checkpoint, then
+    ``--resume``; ``--mean_encoding 16 --mean_decoding 16``,
+    ``--no_fused_step`` and ``--no_fused`` (``forward`` + the composite
+    loss: only the count encoder's kernels) for one epoch each; the JAX
+    README's library trainer of each model (the main path of K2pv) for
+    one epoch; ``encode --model vmfnb|mixture`` of hidden-layer
+    checkpoints against the plain unfolded encoders.  Width 16 is a test
+    width: the reference publishes no hidden-layer default."""
+    from mmvae_tpu_torch.cli import vmfnb_vae
+    from mmvae_tpu_torch.train.config import TrainingOptions
+
+    tag = "[phase 24]"
+    j_launches, _ = phase_train_cli(
+        card, tmp, mtx, "joint", dict(mean_encoding=(16,),
+                                      vmf_decoding=(16,)),
+        tag, "v2 step kernels")
+    m_launches, mck = phase_train_cli(
+        card, tmp, mtx, "mixture", dict(mean_encoding=(16,)), tag,
+        "v2 step kernels")
+    for n in (j_launches, m_launches):
+        if n["nb_valgrad[pb,nu_exp,value]"]:
+            raise AssertionError("the grad-only route launched K2pv")
+    args = ["--mtx", mtx, "--batch_size", str(B_TRAIN), "--device", DEV,
+            "--max_epoch", "1"]
+    hidden = dict(mean_encoding=(16,), mean_decoding=(16,))
+    hck = os.path.join(tmp, "jdec_ckpt")
+    step_kernels = [k for k in JOINT_PATH if k.startswith("nb_")]
+    for flags in (arch_flags(hidden) + ["--checkpoint_dir", hck],
+                  ["--no_fused_step"], ["--no_fused"]):
+        reset_launches()
+        err = run_cli(vmfnb_vae, args + flags + [
+            "--out", os.path.join(tmp, "jgen")])
+        n = read_launches()
+        route = step_line(err)
+        label = " ".join(flags[:4])
+        if ("forward + composite loss" not in route
+                or min(n["count_encode[stats]"], n["count_encode_bwd"]) < 1
+                or any(n[k] for k in step_kernels)):
+            raise AssertionError(f"vmfnb_vae {label}: route {route!r}, "
+                                 f"launches {n}")
+        log(f"{tag} [{card}] vmfnb_vae {label}, 1 epoch: step {route!r}; "
+            f"launches { {k: n[k] for k in JOINT_PATH[:2]} }; "
+            + [ln.split("] ", 1)[-1] for ln in err.splitlines()
+               if "cells/sec" in ln][-1])
+    lib = {}
+    topt = TrainingOptions(max_epoch=1)
+    for kind, path in (("joint", JOINT_VALUE_PATH),
+                       ("mixture", MIXTURE_VALUE_PATH)):
+        model = vmfnb_model(kind)
+        lib[kind] = library_epoch(
+            card, tag, f"{kind} library trainer (fused_step_report / "
+            f"fused_step_boot, K2pv)", tmp, mtx, model,
+            vmfnb_trainer(model, topt, library=True), topt, path)
+        if lib[kind]["nb_valgrad[pb,nu_exp]"]:
+            raise AssertionError("the library trainer launched K2p")
+    phase_joint_encode(card, tmp, mtx, hck, hidden, tag)
+    phase_mixture_encode(card, tmp, mtx, mck, dict(mean_encoding=(16,)),
+                         tag)
+    return j_launches, m_launches, lib
+
+
 # every kernel instance of the port: (name, wrapper, launch counter,
 # source, the TPU kernel it replaces)
 KERNELS = [
@@ -1589,6 +1945,8 @@ KERNELS = [
      "nb_elbo.py:301"),
     ("nb_valgrad[value]", "ns.valgrad", "value_launches", "nb_valgrad.cu",
      "nb_step.py:621"),
+    ("nb_valgrad[pb,nu_exp,value]", "ns.valgrad", "joint_value_launches",
+     "nb_valgrad.cu", "nb_step.py:621"),
 ]
 NB_PATH = ["count_encode", "count_encode_bwd", "nb_lse", "nb_value",
            "nb_valgrad", "nb_finish"]
@@ -1596,6 +1954,11 @@ JOINT_PATH = ["count_encode[stats]", "count_encode_bwd", "nb_lse",
               "nb_value[pb,nu_exp]", "nb_valgrad[pb,nu_exp]", "nb_finish"]
 MIXTURE_PATH = ["count_encode[filt]"] + JOINT_PATH[1:]
 PATHS = {"nb": NB_PATH, "joint": JOINT_PATH, "mixture": MIXTURE_PATH}
+# the library trainer of the joint model and of the mixture (K2pv)
+JOINT_VALUE_PATH = ["count_encode[stats]", "count_encode_bwd", "nb_lse",
+                    "nb_value[pb,nu_exp]", "nb_valgrad[pb,nu_exp,value]",
+                    "nb_finish"]
+MIXTURE_VALUE_PATH = ["count_encode[filt]"] + JOINT_VALUE_PATH[1:]
 # nb_vae on the generic step with the v1 ELBO kernels (a hidden decoder
 # or --no_fused_step), and the README's library trainer (K2v)
 GENERIC_PATH = ["count_encode", "count_encode_bwd", "nb_elbo_fwd",
@@ -1628,23 +1991,44 @@ def read_launches() -> dict:
     return {name: getattr(w, attr) for name, (w, attr) in _counters().items()}
 
 
-def phase_train_cli(card, tmp, mtx, kind="nb"):
+def arch_flags(arch: dict) -> list[str]:
+    """The CLI flags of a hidden-layer architecture."""
+    return [a for k, v in arch.items()
+            for a in (f"--{k}", ",".join(map(str, v)))]
+
+
+def step_line(err: str) -> str:
+    """The route a trainer CLI logged in its one ``Step:`` line."""
+    steps = [ln.split("Step: ", 1)[1] for ln in err.splitlines()
+             if "Step: " in ln]
+    if len(steps) != 1:
+        raise AssertionError(f"expected one Step line, got {steps}")
+    return steps[0]
+
+
+def phase_train_cli(card, tmp, mtx, kind="nb", arch=None, tag=None,
+                    route=None):
     """Phase 8 (``nb_vae``) / 12 (``vmfnb_vae``) / 16 (``vmfnb_vae
     --annot --row``): the trainer CLI on the synthetic matrix, 2 epochs
     with recording and a checkpoint, then ``--resume`` for epoch 3;
-    returns the first run's launches and the checkpoint."""
+    returns the first run's launches and the checkpoint.  ``arch`` (the
+    vMF+NB models' hidden layers, phase 24) adds its flags and ``route``
+    is then the step the run must log."""
     from mmvae_tpu_torch.cli import nb_vae, vmfnb_vae
     from mmvae_tpu_torch.train.recorder import flatten_params
 
-    tag = f"[phase {PHASE[kind]['cli']}]"
+    arch = arch or {}
+    tag = tag or f"[phase {PHASE[kind]['cli']}]"
     cli = nb_vae if kind == "nb" else vmfnb_vae
     path = PATHS[kind]
-    name = {"nb": "nb_vae", "joint": "vmfnb_vae",
-            "mixture": "vmfnb_vae --annot --row"}[kind]
-    out = os.path.join(tmp, {"nb": "train"}.get(kind, kind))
+    name = " ".join([{"nb": "nb_vae", "joint": "vmfnb_vae",
+                      "mixture": "vmfnb_vae --annot --row"}[kind],
+                     *arch_flags(arch)])
+    out = os.path.join(tmp, {"nb": "train"}.get(kind, kind)
+                       + ("_hidden" if arch else ""))
     ck = out + "_ckpt"
     args = ["--mtx", mtx, "--batch_size", str(B_TRAIN), "--device", DEV,
-            "--recording", "2"]
+            "--recording", "2", *arch_flags(arch)]
     if kind == "mixture":
         annot, row = write_annotation(tmp, marker_label())
         args += ["--annot", annot, "--row", row]
@@ -1659,12 +2043,14 @@ def phase_train_cli(card, tmp, mtx, kind="nb"):
                              f"{launches}")
     if "dense-resident" not in err:
         raise AssertionError(f"{name} did not run dense-resident")
+    if route is not None and route not in step_line(err):
+        raise AssertionError(f"{name}: route {step_line(err)!r}")
     scores = np.loadtxt(out + ".scores.gz", ndmin=1)
     if scores.shape != (2,) or not np.isfinite(scores).all():
         raise AssertionError(f"scores.gz: {scores}")
     # recording artifacts: the JAX CLI's names and shapes
-    names = flatten_params(model_and_step(kind)[0].init(
-        torch.Generator().manual_seed(0)))
+    model = vmfnb_model(kind, **arch) if arch else model_and_step(kind)[0]
+    names = flatten_params(model.init(torch.Generator().manual_seed(0)))
     want = {f"{out}_1.mu_mean.gz": (N_CLI, 2), f"{out}_1.mu_lnvar.gz":
             (N_CLI, 2)}
     if kind == "mixture":
@@ -1693,17 +2079,18 @@ def phase_train_cli(card, tmp, mtx, kind="nb"):
     return launches, ck
 
 
-def phase_joint_encode(card, tmp, mtx, ck):
+def phase_joint_encode(card, tmp, mtx, ck, arch=None, tag="[phase 12]"):
     """Phase 12, serving: ``encode --model vmfnb`` on the trained joint
     checkpoint, resident and streaming (bitwise equal), against the plain
-    unfolded encoder on the card."""
+    unfolded encoder on the card; ``arch``: a hidden-layer checkpoint's
+    architecture (phase 24)."""
     from mmvae_tpu_torch.cli import encode
     from mmvae_tpu_torch.models.nb import params_from_numpy
-    from mmvae_tpu_torch.models.vmfnb import VMFNBVAE
     from mmvae_tpu_torch.train.checkpoint import load_checkpoint
 
+    arch = arch or {}
     args = ["--model", "vmfnb", "--mtx", mtx, "--checkpoint", ck,
-            "--batch_size", "100", "--device", DEV]
+            "--batch_size", "100", "--device", DEV, *arch_flags(arch)]
     reset_launches()
     err = run_cli(encode, args + ["--out", os.path.join(tmp, "jres")])
     launches = read_launches()["count_encode[stats]"]
@@ -1711,7 +2098,7 @@ def phase_joint_encode(card, tmp, mtx, ck):
         raise AssertionError(f"joint resident sweep: {launches} launches")
     res = [np.loadtxt(os.path.join(tmp, f"jres.mu_{k}.gz"), ndmin=2)
            for k in ("mean", "lnvar")]
-    model = VMFNBVAE(data_dim=D_GENES)
+    model = vmfnb_model("joint", **arch)
     params = params_from_numpy(load_checkpoint(ck, model)[0], DEV)
     with torch.inference_mode():
         x = torch.from_numpy(read_mtx_dense(mtx)).to(DEV)
@@ -1738,26 +2125,29 @@ def phase_joint_encode(card, tmp, mtx, ck):
         b = np.loadtxt(os.path.join(tmp, f"jstr.mu_{k}.gz"), ndmin=2)
         if not np.array_equal(a, b):
             raise AssertionError(f"joint streaming mu_{k} != resident")
-    log(f"[phase 12] [{card}] encode --model vmfnb: {launches} "
+    log(f"{tag} [{card}] encode --model vmfnb {' '.join(arch_flags(arch))}"
+        f": {launches} "
         f"count_encode[stats] launches; outputs ({N_CLI}, 2) match the "
         f"plain unfolded encoder (err/tol {worst:.3g}; tol 1e-4 * max|ref| "
         f"+ 1e-5 * |ref|); streaming equals resident bitwise")
     return launches
 
 
-def phase_mixture_encode(card, tmp, mtx, ck):
+def phase_mixture_encode(card, tmp, mtx, ck, arch=None, tag="[phase 16]"):
     """Phase 16, serving: ``encode --model mixture`` on the trained
     mixture checkpoint, resident and streaming (bitwise equal), against
     the plain unfolded encoder (``vmf_forward(training=False)`` +
-    ``nb_encode_mu``) on the card with the CLI's Gumbel noise (seed 0)."""
+    ``nb_encode_mu``) on the card with the CLI's Gumbel noise (seed 0);
+    ``arch``: a hidden-layer checkpoint's architecture (phase 24)."""
     from mmvae_tpu_torch.cli import encode
     from mmvae_tpu_torch.models.nb import params_from_numpy
     from mmvae_tpu_torch.train.checkpoint import load_checkpoint
 
+    arch = arch or {}
     annot, row = write_annotation(tmp, marker_label())
     args = ["--model", "mixture", "--mtx", mtx, "--checkpoint", ck,
             "--batch_size", str(B_TRAIN), "--annot", annot, "--row", row,
-            "--device", DEV]
+            "--device", DEV, *arch_flags(arch)]
     names = ("mu_mean", "mu_lnvar", "clust")
     reset_launches()
     t0 = time.time()
@@ -1768,7 +2158,7 @@ def phase_mixture_encode(card, tmp, mtx, ck):
         raise AssertionError(f"mixture resident sweep: {launches} launches")
     res = [np.loadtxt(os.path.join(tmp, f"mres.{k}.gz"), ndmin=2)
            for k in names]
-    model = model_and_step("mixture")[0]
+    model = vmfnb_model("mixture", **arch)
     params = params_from_numpy(load_checkpoint(ck, model)[0], DEV)
     u = model.gumbel_uniforms(B_TRAIN, SEED)
     with torch.inference_mode():
@@ -1813,7 +2203,8 @@ def phase_mixture_encode(card, tmp, mtx, ck):
         if not np.array_equal(a, b):
             raise AssertionError(f"mixture streaming {k} != resident")
     counts = np.bincount(res[2].argmax(1), minlength=K_MIX).tolist()
-    log(f"[phase 16] [{card}] encode --model mixture: {launches} "
+    log(f"{tag} [{card}] encode --model mixture "
+        f"{' '.join(arch_flags(arch))}: {launches} "
         f"count_encode[filt] launches; outputs ({N_CLI}, 2), ({N_CLI}, 2), "
         f"({N_CLI}, {K_MIX}) match the plain unfolded encoder with the same "
         f"noise (assignments equal on {int(same.sum())} of {N_CLI} rows, "
@@ -1825,19 +2216,24 @@ def phase_mixture_encode(card, tmp, mtx, ck):
 
 def phase_train_full(card, data, kind="nb"):
     """Phase 9 (NB) / 13 (joint) / 17 (mixture) / 21 (NB on the generic
-    step, ``nb_vae --no_fused_step``): two epochs of the dense-resident
-    epoch runner at full width over the first N_EARLIER cells (N_SHORT for
-    the joint and mixture models), and a profile of 100 batches for the
-    generic step, 20 for the others (processing a trace takes about a
-    second a batch, the largest cost of these phases)."""
+    step, ``nb_vae --no_fused_step``) / 25 (the joint model's library
+    trainer, K2pv's main path): two epochs of the dense-resident epoch
+    runner at full width over the first N_EARLIER cells (N_SHORT for the
+    joint and mixture models), with the kernels' launches per batch, and
+    a profile of 100 batches for the NB generic step, 20 for the others
+    (processing a trace takes about a second a batch, the largest cost of
+    these phases)."""
     from mmvae_tpu_torch.train.config import TrainingOptions
     from mmvae_tpu_torch.train.loop import DenseEpochRunner
 
     tag = f"[phase {PHASE[kind]['full']}]"
-    data = data[:N_SHORT if kind in ("joint", "mixture") else N_EARLIER]
+    data = data[:N_EARLIER if kind in ("nb", "generic") else N_SHORT]
     if kind == "generic":
         model = model_and_step("nb")[0]
         fast = generic_trainer(model, TrainingOptions(fused_step=False))
+    elif kind == "library":
+        model = vmfnb_model("joint")
+        fast = vmfnb_trainer(model, TrainingOptions(), library=True)
     else:
         model, step_cls = model_and_step(kind)
         fast = step_cls(model, TrainingOptions())
@@ -1846,19 +2242,23 @@ def phase_train_full(card, data, kind="nb"):
     q = fast.pack(params)
     po = fast.optimizer.init(q)
     losses, times = [], []
+    reset_launches()
     for epoch in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         q, po, reps, _ = runner(q, po, epoch)
         losses.append(reps.mean().item())
         times.append(time.perf_counter() - t0)
+    per = {k: n / (2 * runner.nbatch) for k, n in read_launches().items()
+           if n}
     if not (np.isfinite(losses).all() and losses[1] < losses[0]):
         raise AssertionError(f"full-size training loss {losses}")
     N = data.shape[0]
     log(f"{tag} [{card}] {kind} training {N} x "
         f"{D_GENES} int8, B={B_TRAIN}, nboot 3: epoch losses "
         f"{losses[0]:.4f} -> {losses[1]:.4f}; epoch times {times[0]:.2f}s, "
-        f"{times[1]:.2f}s; second epoch {N / times[1]:,.1f} cells/sec")
+        f"{times[1]:.2f}s; second epoch {N / times[1]:,.1f} cells/sec; "
+        f"kernel launches a batch {per}")
     nprof = 100 if kind == "generic" else 20
     sub = DenseEpochRunner(fast, data[:nprof * B_TRAIN], B_TRAIN, seed=SEED)
     rand = sub.draw(2)
@@ -1898,6 +2298,8 @@ OPS_PER_ELEMENT = {
     "nb_finish": 22,     # logits 7, p 3, fout 8, u2 4
     "nb_valgrad[value]": 164,  # nb_valgrad's 110, the mixed-regime
                          # lgamma ~47 and the value terms 7
+    "nb_valgrad[pb,nu_exp,value]": 155,  # nb_valgrad[pb,nu_exp]'s 101,
+                         # the mixed-regime lgamma ~47 and the value terms 7
     "nb_elbo_fwd": 95,   # online max / sum of exp 5; p, mu 4; nu 8;
                          # the reciprocals and dmu 7; lgamma_pos of nu
                          # and nu + x ~55; the logs and terms 11; the
@@ -1992,14 +2394,15 @@ def main() -> int:
     worst["count_encode[filt]"], times["count_encode[filt]"] = (
         phase_filt_kernels(card))
     mark("6, 10, 14")
-    w, t = phase_generic_kernels(card)
-    worst.update(w)
-    times.update(t)
-    mark("18")
+    for w, t in (phase_generic_kernels(card), phase_k2pv(card)):
+        worst.update(w)
+        times.update(t)
+    mark("18, 22")
     for kind in ("nb", "joint", "mixture"):
         phase_batch_step(card, kind)
     phase_generic_step(card)
-    mark("7, 11, 15, 19")
+    phase_vmfnb_generic_step(card)
+    mark("7, 11, 15, 19, 23")
     with tempfile.TemporaryDirectory() as tmp:
         serve_launches, mtx = phase_cli(card, tmp)
         mark("4")
@@ -2009,11 +2412,13 @@ def main() -> int:
         m_launches, mck = phase_train_cli(card, tmp, mtx, "mixture")
         menc_launches = phase_mixture_encode(card, tmp, mtx, mck)
         g_launches, r_launches = phase_generic_cli(card, tmp, mtx)
-        mark("8, 12, 16, 20")
+        vj_launches, vm_launches, v_lib = phase_vmfnb_generic_cli(card, tmp,
+                                                                  mtx)
+        mark("8, 12, 16, 20, 24")
         data = full_size_counts()
         phase_full(card, data)
         mark("5")
-        for kind in ("nb", "joint", "mixture", "generic"):
+        for kind in ("nb", "joint", "mixture", "generic", "library"):
             phase_train_full(card, data, kind)
             mark(str(PHASE[kind]["full"]))
         del data
@@ -2027,6 +2432,8 @@ def main() -> int:
     launches.update({k: g_launches[k] for k in GENERIC_PATH
                      if k.startswith("nb_elbo")})
     launches["nb_valgrad[value]"] = r_launches["nb_valgrad[value]"]
+    launches["nb_valgrad[pb,nu_exp,value]"] = v_lib["joint"][
+        "nb_valgrad[pb,nu_exp,value]"]
 
     log(f"[summary] serving CLI (nb): {serve_launches} count_encode "
         f"launches; training CLIs: nb_vae "
@@ -2037,7 +2444,13 @@ def main() -> int:
         f"--model mixture: {menc_launches} count_encode[filt] launches; "
         f"nb_vae --mean_encoding 16 --mean_decoding 16 "
         f"{ {k: g_launches[k] for k in GENERIC_PATH} }; README library "
-        f"trainer { {k: r_launches[k] for k in README_PATH} }")
+        f"trainer { {k: r_launches[k] for k in README_PATH} }; vmfnb_vae "
+        f"--mean_encoding 16 --vmf_decoding 16 "
+        f"{ {k: vj_launches[k] for k in JOINT_PATH} }, vmfnb_vae --annot "
+        f"--mean_encoding 16 { {k: vm_launches[k] for k in MIXTURE_PATH} }"
+        f"; library trainers: joint "
+        f"{ {k: v_lib['joint'][k] for k in JOINT_VALUE_PATH} }, mixture "
+        f"{ {k: v_lib['mixture'][k] for k in MIXTURE_VALUE_PATH} }")
     log(card)
     int8 = dict(B=B_TRAIN, D=D_GENES, x_bytes=1)
     shapes = {"count_encode": dict(int8, B=1600, r1=2, r2=0),

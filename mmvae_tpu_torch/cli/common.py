@@ -110,27 +110,19 @@ def add_device_flag(g) -> None:
                         "(never falls back to the CPU)")
 
 
-def refuse_unported(hidden: str | None, topt: TrainingOptions,
-                    generic_step: bool = False) -> None:
+def refuse_unported(topt: TrainingOptions) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP.md item for what
-    the port's trainers do not do yet; ``hidden`` names the hidden-layer
-    flags that were given, if any (a trainer with the generic step path
-    passes none).  ``generic_step``: the trainer has that path (``nb_vae``)
-    and takes ``--no_fused_step`` / ``--no_fused``."""
+    the port's trainers do not do yet (multi-GPU and multi-host runs)."""
     item = None
-    if hidden:
-        item = f"hidden layers ({hidden})", 11
-    elif not (topt.fused and topt.fused_step or generic_step):
-        item = "--no_fused_step / --no_fused (the generic step path)", 11
-    elif topt.data_parallel or topt.dp_shard:
-        item = "--data_parallel / --dp_shard", 13
+    if topt.data_parallel or topt.dp_shard:
+        item = "--data_parallel / --dp_shard"
     elif topt.tensor_parallel > 1:
-        item = "--tensor_parallel > 1", 13
+        item = "--tensor_parallel > 1"
     elif topt.num_hosts > 1:
-        item = "multi-host training (--num_hosts > 1)", 13
+        item = "multi-host training (--num_hosts > 1)"
     if item is not None:
         raise NotImplementedError(
-            f"{item[0]}: not ported yet (ROADMAP.md Queue 1 item {item[1]})")
+            f"{item}: not ported yet (ROADMAP.md Queue 1 item 13)")
 
 
 def resolve_device(name: str) -> torch.device | None:
@@ -149,8 +141,8 @@ def resolve_device(name: str) -> torch.device | None:
 def run_training(opts: MMVaeOptions, topt: TrainingOptions, model, fast,
                  data_block, covar_block, device) -> int:
     """Initialise (or ``--resume``) the parameters and the Adam state,
-    train on the dense-resident packed step with recording and
-    checkpoints, and write ``${out}.scores.gz``.  The recorder's encode
+    train on the dense-resident step (packed or generic) with recording
+    and checkpoints, and write ``${out}.scores.gz``.  The recorder's encode
     and its extra artifact come from ``model.record_encoder``."""
     params = model.init(torch.Generator().manual_seed(topt.seed),
                         device=device)

@@ -120,7 +120,7 @@ def main(argv=None) -> int:
     warn_unknown_args(unknown)
     opts = MMVaeOptions.from_args(ns)
     topt = TrainingOptions.from_args(ns)
-    refuse_unported(None, topt, generic_step=True)
+    refuse_unported(topt)
     device = resolve_device(ns.device)
     if device is None:
         return 2

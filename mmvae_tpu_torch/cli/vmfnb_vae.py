@@ -3,27 +3,34 @@
 Port of ``mmvae_tpu/cli/vmfnb_vae.py``: without ``--annot`` the
 shared-encoder joint model (reference include/models/vmfnb.hh), with
 ``--annot`` + ``--row`` the labeled mixture
-(include/models/vmfnb_mixture.hh), each at its default architecture,
-trained with KL annealing on the dense-resident packed fast step,
-writing ``${out}.scores.gz`` and the per-epoch latent and parameter
-artifacts (the mixture also ``${out}_<epoch>.clust.gz``).
+(include/models/vmfnb_mixture.hh), trained with KL annealing on
+dense-resident counts, writing ``${out}.scores.gz`` and the per-epoch
+latent and parameter artifacts (the mixture also
+``${out}_<epoch>.clust.gz``).
 
     python -m mmvae_tpu_torch.cli.vmfnb_vae --mtx data.mtx.gz --out run \\
         [--annot annot.txt --row features.txt] \\
+        [--mean_encoding 16 --mean_decoding 16 --vmf_decoding 16] \\
+        [--no_fused_step] [--no_fused] \\
         [--max_epoch 101 --recording 10 --checkpoint_dir ckpt] \\
         [--resume ckpt] [--device cuda]
 
 Same flags and defaults as the JAX CLI (kappa in [0.1, 10] for the joint
 model, [0.1, 100] for the mixture, unless given), plus ``--device``
 (default ``cuda``; without a GPU it exits 2 and never falls back to the
-CPU).  Checkpoints (with the Adam state) load in either package.  What
-the port does not do yet raises ``NotImplementedError`` naming its
-ROADMAP.md item: hidden layers, ``--vmf_decoding`` and
-``--no_fused_step`` / ``--no_fused`` (item 11), data beyond the dense
-device budget (item 12), ``--data_parallel``, ``--dp_shard``,
-``--tensor_parallel`` > 1 and multi-host runs (item 13).  Feature
-clustering is not applied (item 8).  The covariate file is read and
-ignored: neither model has a covariate pathway.
+CPU).  The step is chosen as the JAX CLI chooses it (:func:`make_step`,
+logged in one line): the packed fast step for the direct architecture;
+otherwise the generic ``Trainer`` with the step kernels' joint variant
+for the NB half (a hidden encoder or ``--vmf_decoding``, direct mu
+decoder), or ``forward`` + the composite loss (a hidden mu decoder,
+``--no_fused_step``, ``--no_fused``).  The mixture has no vMF decoder:
+``--vmf_decoding`` with ``--annot`` is ignored, as in the JAX CLI.
+Checkpoints (with the Adam state) load in either package.  What the port
+does not do yet raises ``NotImplementedError`` naming its ROADMAP.md
+item: data beyond the dense device budget (item 12), ``--data_parallel``,
+``--dp_shard``, ``--tensor_parallel`` > 1 and multi-host runs (item 13).
+Feature clustering is not applied (item 8).  The covariate file is read
+and ignored: neither model has a covariate pathway.
 """
 
 from __future__ import annotations
@@ -31,11 +38,12 @@ from __future__ import annotations
 import sys
 
 from ..data.annotation import Annotation
-from ..models.vmfnb import VMFNBVAE
-from ..models.vmfnb_mixture import VMFNBMixtureVAE
+from ..models.vmfnb import VMFNBVAE, vmfnb_composite_loss
+from ..models.vmfnb_mixture import VMFNBMixtureVAE, mixture_composite_loss
 from ..ops.vmfnb_fast import VMFNBFastStep, VMFNBMixtureFastStep
 from ..train.config import MMVaeOptions, TrainingOptions, _csv_ints
-from ..utils.logging import TLOG
+from ..train.loop import Trainer
+from ..utils.logging import TLOG, WLOG
 from .common import (add_device_flag, add_relu_flags, compose_parsers,
                      prepare_blocks, refuse_unported, resolve_device,
                      run_training, warn_unknown_args)
@@ -85,6 +93,50 @@ def _model_args(g) -> None:
     add_device_flag(g)
 
 
+def make_step(model, topt: TrainingOptions, kl=(1.0, 1e-2, 0.1),
+              plain: bool = False):
+    """(step, route): the step the JAX CLI runs for the joint or mixture
+    ``model`` and the options (``mmvae_tpu/cli/vmfnb_vae.py:252-290``),
+    ``plain`` selecting the plain versions of its kernels.
+
+    - ``--fused --fused_step`` and the direct architecture: the packed
+      ``VMFNBFastStep`` / ``VMFNBMixtureFastStep``;
+    - ``--fused --fused_step`` with a direct mu decoder (a hidden encoder,
+      or ``--vmf_decoding``): the generic ``Trainer`` with
+      ``fused_step_report`` / ``fused_step_boot(need_value=False)``;
+    - otherwise: the generic ``Trainer`` with ``forward`` + the composite
+      loss, the boot losses too (the JAX CLI passes no boot loss, so they
+      keep ``lgamma(x + 1)``)."""
+    mixture = isinstance(model, VMFNBMixtureVAE)
+    fused_step = topt.fused and topt.fused_step
+    packed = VMFNBMixtureFastStep if mixture else VMFNBFastStep
+    if fused_step and packed.supports(model):
+        return (packed(model, topt, kl=kl, plain=plain),
+                f"packed step ({packed.__name__})")
+    kw = {}
+    if fused_step and model._can_fuse_step():
+        route = ("generic step, v2 step kernels (fused_step_report / "
+                 "fused_step_boot, grad-only)")
+        kw = dict(
+            report_loss_override=lambda p, x, c, e, b: model.fused_step_report(
+                p, x, c, e, b, include_data_const=True, plain=plain),
+            boot_loss_override=lambda p, x, c, e, b: model.fused_step_boot(
+                p, x, c, e, b, need_value=False, plain=plain))
+    else:
+        route = "generic step, forward + composite loss"
+    R, Rn = model.mean_latent, model.overdisp_latent
+    if mixture:
+        dd = model.dd
+        loss, widths = (lambda x, out, b: mixture_composite_loss(
+            x, out, b, dd)), (R, Rn)
+    else:
+        loss, widths = vmfnb_composite_loss, (R, Rn, R)
+    step = Trainer(
+        lambda p, x, c, e, t: model.forward(p, x, e, t, plain=plain), loss,
+        topt, kl=kl, eps_widths=widths, **kw)
+    return step, route
+
+
 def main(argv=None) -> int:
     parser = compose_parsers(_MODEL_DESC, _model_args)
     ns, unknown = parser.parse_known_args(argv)
@@ -94,11 +146,7 @@ def main(argv=None) -> int:
     mixture = bool(opts.annot)
     if mixture and not opts.row:
         raise ValueError("--annot requires --row (the feature list)")
-    hidden = ", ".join(f for f, v in (
-        ("--mean_encoding", ns.mean_encoding),
-        ("--mean_decoding", ns.mean_decoding),
-        ("--vmf_decoding", ns.vmf_decoding)) if v) or None
-    refuse_unported(hidden, topt)
+    refuse_unported(topt)
     device = resolve_device(ns.device)
     if device is None:
         return 2
@@ -107,20 +155,24 @@ def main(argv=None) -> int:
 
     TLOG("Constructing a model" + (" (labeled mixture)" if mixture else ""))
     kmin, kmax = resolve_kappa_defaults(ns.kappa_min, ns.kappa_max, mixture)
-    shape = dict(mean_latent=ns.mean_latent,
+    shape = dict(mean_encoding=ns.mean_encoding,
+                 mean_decoding=ns.mean_decoding, mean_latent=ns.mean_latent,
                  overdisp_encoding=ns.overdisp_encoding,
                  overdisp_latent=ns.overdisp_latent, kappa_min=kmin,
                  kappa_max=kmax, do_relu=ns.do_relu)
     if mixture:
+        if ns.vmf_decoding:
+            WLOG("--vmf_decoding is ignored with --annot: the mixture has "
+                 "no vMF decoder")
         model = VMFNBMixtureVAE(
             label=load_label(opts.annot, opts.row, data_block.nfeature()),
             **shape)
-        step_cls = VMFNBMixtureFastStep
     else:
-        model = VMFNBVAE(data_dim=data_block.nfeature(), **shape)
-        step_cls = VMFNBFastStep
-    fast = step_cls(model, topt,
-                    kl=(opts.kl_max, opts.kl_min, opts.kl_discount))
+        model = VMFNBVAE(data_dim=data_block.nfeature(),
+                         vmf_decoding=ns.vmf_decoding, **shape)
+    fast, route = make_step(model, topt,
+                            kl=(opts.kl_max, opts.kl_min, opts.kl_discount))
+    TLOG(f"Step: {route}")
     return run_training(opts, topt, model, fast, data_block, covar_block,
                         device)
 

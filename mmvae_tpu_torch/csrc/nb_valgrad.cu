@@ -9,12 +9,11 @@
 // the finisher K3 supplies) and dnupre = d nll / d (zn @ wn + bias_n).
 //
 // Replaces the Pallas TPU kernel mmvae_tpu/ops/nb_step.py:
-// _make_valgrad_kernel / _valgrad_call in three instances: need_value=False
+// _make_valgrad_kernel / _valgrad_call in four instances: need_value=False
 // (the form every packed boot step runs) for the NB model and for the joint
-// vMF+NB model (JOINT = has_pb and nu_exp), and need_value=True for the NB
-// model (VALUE: the value-bearing boot step, nb_step_boot).  The joint
-// model's need_value=True is not ported.  The math follows the TPU kernel
-// line by line:
+// vMF+NB model (JOINT = has_pb and nu_exp), and need_value=True (VALUE: the
+// value-bearing boot step) for each of them, nb_step_boot and
+// nb_step_boot_joint.  The math follows the TPU kernel line by line:
 //   * softplus and the sigmoid the backward needs share one exp(-|z|);
 //   * ONE divide gives 1/(mu+nu), 1/mu and the sigmoid's 1/(1+e):
 //     rec = 1/((1+e) mu (mu+nu)).  dP/P of the select-product is a divide
@@ -57,13 +56,22 @@ namespace {
 
 using namespace nbk;
 
-// JOINT asks for three blocks per SM (at most 80 registers a thread):
-// left to itself, ptxas gives its NT = 8 instances 94 registers for int8
-// and float32 counts, two blocks per SM, and they ran 1.5x their int16
-// twin.  The NB instances ask for one block per SM: a bound of three made
-// them ~10% slower on the H100.
+// The grad-only JOINT instances ask for three blocks per SM (at most 80
+// registers a thread): left to themselves, ptxas gives their NT = 8
+// instances 94 registers for int8 and float32 counts, two blocks per SM,
+// and they ran 1.5x their int16 twin.  The NB instances ask for one block
+// per SM: a bound of three made them ~10% slower on the H100.  The JOINT
+// VALUE instances keep the lgamma terms live as well and ask for two:
+// under a bound of three their NT = 16 instances spilled (80 registers,
+// 72 bytes), under two they take 105-109 without a spill; the NT = 8
+// ones take 64-71 either way.
+template <bool JOINT, bool VALUE>
+constexpr int min_blocks() {
+  return JOINT ? (VALUE ? 2 : 3) : 1;
+}
+
 template <typename T, int NT, bool JOINT, bool VALUE>
-__global__ void __launch_bounds__(kThreads, JOINT ? 3 : 1)
+__global__ void __launch_bounds__(kThreads, (min_blocks<JOINT, VALUE>()))
 valgrad_kernel(const T* __restrict__ x, const float* __restrict__ zc,
                const float* __restrict__ zn, const float* __restrict__ depth,
                const float* __restrict__ lse, const float* __restrict__ W,
@@ -203,14 +211,16 @@ void launch(const void* x, const float* zc, const float* zn,
         xp, zc, zn, depth, lse, W, B, D, R, C, Rn, gout, parts, vparts);
 }
 
-// joint and need_value never come together (the C entry refuses them)
 template <typename T>
 void launch_variant(const void* x, const float* zc, const float* zn,
                     const float* depth, const float* lse, const float* W,
                     int64_t B, int64_t D, int R, int C, int Rn, bool joint,
                     bool value, float* gout, float* parts, float* vparts,
                     cudaStream_t s) {
-  if (joint)
+  if (joint && value)
+    launch<T, true, true>(x, zc, zn, depth, lse, W, B, D, R, C, Rn, gout,
+                          parts, vparts, s);
+  else if (joint)
     launch<T, true, false>(x, zc, zn, depth, lse, W, B, D, R, C, Rn, gout,
                            parts, vparts, s);
   else if (value)
@@ -231,8 +241,8 @@ extern "C" int64_t mmvae_nb_valgrad_ws(int64_t B, int64_t D, int R, int Rn) {
 
 // dtype: 0 = float32, 1 = int16, 2 = int8.  joint = 1 selects the pb /
 // exp-nu variant, whose W and gout have the pb row last; need_value = 1
-// (NB only) also writes the NLL without lgamma(x + 1) to value (one
-// float; unused otherwise).  Writes gout (R+C+Rn+2+joint, D) and rowout
+// also writes the NLL without lgamma(x + 1) to value (one float; unused
+// otherwise).  Writes gout (R+C+Rn+2+joint, D) and rowout
 // (B, 1 + R + Rn) = [rsum | u1 | dzn].  Returns cudaGetLastError() after
 // the launches (0 = launched).
 extern "C" int mmvae_nb_valgrad(const void* x, int dtype, const void* zc,
@@ -242,7 +252,7 @@ extern "C" int mmvae_nb_valgrad(const void* x, int dtype, const void* zc,
                                 int need_value, void* gout, void* ws,
                                 void* rowout, void* value, void* stream) {
   if (!dims_ok(B, D, R, C, Rn, joint != 0) || (joint != 0 && joint != 1) ||
-      (need_value != 0 && need_value != 1) || (joint && need_value))
+      (need_value != 0 && need_value != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const bool jt = joint != 0;
   const bool nv = need_value != 0;

@@ -1,14 +1,13 @@
 """Labeled-mixture vMF + NB VAE.
 
 Port of ``mmvae_tpu/models/vmfnb_mixture.py`` (reference
-include/models/vmfnb_mixture.hh:268-848) for what the packed step and
-serving need: the parameter tree (``init``), ``_filter`` / ``dd`` /
-``masks``, ``_can_fuse_step``, the plain unfolded specification
-(``normalize_nb_x``, ``normalize_vmf_x``, ``vmf_forward``,
-``nb_encode_mu``) and a folded encoder for recording and serving.
-``forward``, ``nb_decode_*``, ``fused_step_*`` and
-``mixture_composite_loss`` belong to the generic step path (ROADMAP.md
-Queue 1 item 11) and are not ported.
+include/models/vmfnb_mixture.hh:268-848): the parameter tree (``init``),
+``_filter`` / ``dd`` / ``masks``, ``_can_fuse_step``, the plain unfolded
+specification (``normalize_nb_x``, ``normalize_vmf_x``, ``vmf_forward``,
+``nb_encode_mu``), the NB decoders, ``forward`` and the generic step's
+losses (``fused_step_report`` / ``fused_step_boot`` and the module-level
+``mixture_composite_loss``), and a folded encoder for recording and
+serving.
 
 The vMF half is a K-component mixture: the (D, K) parameter
 ``ln_vmf_mu`` masked by the fixed (D, K) 0/1 annotation ``label``; the
@@ -34,7 +33,14 @@ row stats, with the identities of the packed step
     |(L + eps) f|^2      = sum(f L^2) + 2 eps sum(f L) + eps^2 dd
     (L + eps) f . vmu    = L . vmu + eps sum(vmu)      (vmu f = vmu)
 
-for a 0/1 filter f (which ``Annotation.matrix`` gives).
+for a 0/1 filter f (which ``Annotation.matrix`` gives).  In training
+(:meth:`VMFNBMixtureVAE.forward` and the fused losses) the same K4f call
+also contracts the raw counts against the ``nb_nu_encoding`` and
+``depth`` rows, and its backward is K5.  Noise is passed in: ``eps =
+(eps_mu, eps_nu)`` where JAX takes a key (its Gumbel third draws nothing
+in training, whose E-step is soft); eval mode takes the (B, K) Gumbel
+uniforms.  ``plain=True`` takes the JAX package's unfolded specification
+and plain step NLL on any device.
 """
 
 from __future__ import annotations
@@ -47,11 +53,30 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.enc_kernel import count_encode
-from ..ops.fastmath import fasterlog
 from ..ops.initializers import linear_apply, torch_linear_init
-from ..ops.losses import l2_normalize
-from ..ops.nb_elbo import NU_HI
-from .modules import apply_stack, init_linear_stack
+from ..ops.losses import gaussian_kl, l2_normalize, nb_nllik, uniform_kl
+from ..ops.nb_elbo import NU_HI, _softplus
+from ..ops.nb_step import (nb_step_boot_joint, nb_step_boot_joint_gradonly,
+                           nb_step_report, step_nll_ref)
+from .modules import apply_stack, init_linear_stack, reparameterize
+from .vmfnb import VMFNBVAE, vmf_nllik_parts
+
+
+class VMFNBMixtureOutput(NamedTuple):
+    """Forward output (reference vmfnb_vae_out_t of the mixture header,
+    vmfnb_mixture.hh:594-605)."""
+
+    nb_recon_mu: torch.Tensor
+    nb_recon_nu: torch.Tensor
+    nb_recon_depth: torch.Tensor
+    nb_mu_mean: torch.Tensor
+    nb_mu_lnvar: torch.Tensor
+    nb_nu_mean: torch.Tensor
+    nb_nu_lnvar: torch.Tensor
+    vmf_recon: torch.Tensor
+    vmf_logits: torch.Tensor
+    vmf_kappa: torch.Tensor
+    vmf_latent: torch.Tensor  # responsibilities, or the hard assignment
 
 
 class VMFOut(NamedTuple):
@@ -201,23 +226,29 @@ class VMFNBMixtureVAE(nn.Module):
         filt = self.masks(x.device)[1]
         return l2_normalize((torch.log1p(x.float()) + eps) * filt, dim=1)
 
-    def _kappa(self, ln_kappa: torch.Tensor) -> torch.Tensor:
-        return torch.exp(torch.clamp(ln_kappa, fasterlog(self.kappa_min),
-                                     fasterlog(self.kappa_max)))
-
     def vmf_forward(self, params: dict, x: torch.Tensor, training: bool,
                     gumbel_u: torch.Tensor | None = None) -> VMFOut:
         """The vMF mixture: E-step responsibilities (soft in training,
         the hard Gumbel draw with the (B, K) uniforms ``gumbel_u`` at
         eval) and the masked reconstruction."""
-        label, filt = self.masks(x.device)
-        eps = 1e-2 / float(x.shape[1])
-        # columns of (exp(ln_mu) + eps) * label, L2-normalized over features
-        vmf_mu = l2_normalize((torch.exp(params["ln_vmf_mu"]) + eps)
-                              * label.T, dim=0)
+        vmf_mu = self._vmf_mu(params, x.shape[1])
         kappa = self._kappa(linear_apply(params["ln_kappa"], x.float()))
-        logits = torch.log_softmax((self.normalize_vmf_x(x) @ vmf_mu)
-                                   * kappa, dim=1)
+        return self._estep(self.normalize_vmf_x(x) @ vmf_mu, kappa, vmf_mu,
+                           training, gumbel_u)
+
+    def _vmf_mu(self, params: dict, D: int) -> torch.Tensor:
+        """(D, K) columns of ``(exp(ln_mu) + eps) * label``, L2-normalized
+        over features (vmfnb_mixture.hh:538-560)."""
+        label = self.masks(params["ln_vmf_mu"].device)[0]
+        eps = 1e-2 / float(D)
+        return l2_normalize((torch.exp(params["ln_vmf_mu"]) + eps) * label.T,
+                            dim=0)
+
+    def _estep(self, dots, kappa, vmf_mu, training: bool,
+               gumbel_u: torch.Tensor | None) -> VMFOut:
+        """The E-step from the (n, K) cosines ``<xn, mu_k>``
+        (vmfnb_mixture.hh:680-696) and the masked reconstruction."""
+        logits = torch.log_softmax(dots * kappa, dim=1)
         if training:
             latent = torch.exp(logits)
         else:
@@ -225,7 +256,8 @@ class VMFNBMixtureVAE(nn.Module):
                 raise ValueError("vmf_forward(training=False) needs the "
                                  "Gumbel uniforms gumbel_u")
             latent = hard_assignment(
-                logits, _tile_rows(gumbel_u.to(x.device), x.shape[0]))
+                logits, _tile_rows(gumbel_u.to(dots.device), dots.shape[0]))
+        filt = self.masks(dots.device)[1]
         recon = (latent @ vmf_mu.T) * filt
         return VMFOut(vmf_mu, logits, latent, recon, kappa)
 
@@ -248,6 +280,154 @@ class VMFNBMixtureVAE(nn.Module):
                         self.normalize_nb_x(params, x), self.do_relu,
                         relu_last=True)
         return self._heads(params, h, z)
+
+    # the NB decoders and the nu encoder are the joint model's formulas
+    # (vmfnb_mixture.hh:502-507 and the nu pathway of vmfnb.hh:477-493)
+    _dec_names = VMFNBVAE._dec_names
+    nb_decode_mu = VMFNBVAE.nb_decode_mu
+    nb_encode_nu = VMFNBVAE.nb_encode_nu
+    _nu_heads = VMFNBVAE._nu_heads
+    nb_decode_nu = VMFNBVAE.nb_decode_nu
+    _kappa = VMFNBVAE._kappa
+
+    # ------------------------------------------------------------------
+    # training: forward and the generic step's losses
+    # ------------------------------------------------------------------
+    def _encode(self, params: dict, x: torch.Tensor, training: bool,
+                gumbel_u=None, plain: bool = False):
+        """(vmf, mu_mean, mu_lnvar, nu_mean, nu_lnvar, depth): the vMF
+        E-step, the responsibility-weighted mean heads, the nu encoder
+        and the depth head.  The kernel route is ONE filtered
+        count-encoder call (K4f, backward K5): ``log1p(x)`` against the
+        folded first layer and the masked directions ``[Wt; vmu]``, ``x``
+        against the ``nb_nu_encoding``, ``depth`` and ``ln_kappa`` rows;
+        ``plain`` is the JAX package's unfolded specification."""
+        if plain:
+            vmf = self.vmf_forward(params, x, training, gumbel_u)
+            return (vmf, *self.nb_encode_mu(params, x, vmf.latent),
+                    *self.nb_encode_nu(params, x),
+                    _softplus(linear_apply(params["depth"], x.float())))
+        first = params[self._enc_names()[0]]
+        D = self.data_dim
+        filt = self.masks(x.device)[1]
+        sd = _softplus(params["ln_x_sd"]) + 1e-2                  # (1, D)
+        Wt = (first["weight"] / sd.T).T                           # (H1, D)
+        vmf_mu = self._vmf_mu(params, D)                          # (D, K)
+        ndk = torch.cat([params["nb_nu_encoding"]["weight"],
+                         params["depth"]["weight"],
+                         params["ln_kappa"]["weight"]], dim=1).T.contiguous()
+        hL, hX, st = count_encode(x, torch.cat([Wt, vmf_mu.T]).contiguous(),
+                                  ndk, want_stats=True, filt=filt)
+        H1 = Wt.shape[0]
+        _, ssq, s_f, ssq_f = st.unbind(1)
+        eps = 1e-2 / float(D)
+        # (L + eps) f . vmu = L . vmu + eps sum(vmu), |(L + eps) f|^2 from
+        # the filtered stats (the module docstring's identities)
+        nv = torch.sqrt(ssq_f + 2.0 * eps * s_f + eps * eps * self.dd)
+        dots = ((hL[:, H1:] + eps * vmf_mu.sum(0))
+                / torch.clamp_min(nv, 1e-12)[:, None])
+        H = self.overdisp_encoding
+        kappa = self._kappa(hX[:, H + 1:H + 2] + params["ln_kappa"]["bias"])
+        vmf = self._estep(dots, kappa, vmf_mu, training, gumbel_u)
+        inv_nL = 1.0 / torch.clamp_min(torch.sqrt(ssq), 1e-12)
+        h = hL[:, :H1] * inv_nL[:, None] - params["x_mean"] @ Wt.T \
+            + first["bias"]
+        if self.do_relu:
+            h = torch.relu(h)
+        h = apply_stack(params, self._enc_names()[1:], h, self.do_relu,
+                        relu_last=True)
+        nu_h = torch.relu(hX[:, :H] + params["nb_nu_encoding"]["bias"])
+        depth = _softplus(hX[:, H:H + 1] + params["depth"]["bias"])
+        return (vmf, *self._heads(params, h, vmf.latent),
+                *self._nu_heads(params, nu_h), depth)
+
+    def forward(self, params: dict, x: torch.Tensor, eps,
+                training: bool = True, gumbel_u=None, plain: bool = False
+                ) -> VMFNBMixtureOutput:
+        """Full forward pass (reference vmfnb_mixture.hh:562-605); ``eps =
+        (eps_mu, eps_nu)`` in training; eval mode takes the hard
+        assignment's (B, K) uniforms ``gumbel_u`` and no noise."""
+        vmf, mu_mean, mu_lnvar, nu_mean, nu_lnvar, depth = self._encode(
+            params, x, training, gumbel_u, plain)
+        e_mu, e_nu = eps if training else (None, None)
+        nb_mu = self.nb_decode_mu(params,
+                                  reparameterize(mu_mean, mu_lnvar, e_mu))
+        nb_nu = self.nb_decode_nu(params,
+                                  reparameterize(nu_mean, nu_lnvar, e_nu))
+        return VMFNBMixtureOutput(nb_mu, nb_nu, depth, mu_mean, mu_lnvar,
+                                  nu_mean, nu_lnvar, vmf.recon, vmf.logits,
+                                  vmf.kappa, vmf.latent)
+
+    def _step_prelude(self, params: dict, x, eps, plain: bool = False):
+        """Latents, the stacked decoder rows of the step kernels and the
+        vMF half (vmfnb_mixture.py:315-339); the encoder math is
+        :meth:`forward`'s in training mode."""
+        vmf, mu_mean, mu_lnvar, nu_mean, nu_lnvar, depth = self._encode(
+            params, x, True, plain=plain)
+        dec, nud = params["nb_mu_decoding"], params["nb_nu_decoding"]
+        return dict(
+            z_mu=reparameterize(mu_mean, mu_lnvar, eps[0]),
+            z_nu=reparameterize(nu_mean, nu_lnvar, eps[1]),
+            depth=depth, wd=dec["weight"], bias2=dec["bias"],
+            wn=nud["weight"], bias_n=nud["bias"] - params["nu_bias"][0],
+            pb=params["mu_bias"][0], vmf=vmf,
+            kl=(gaussian_kl(mu_mean, mu_lnvar)
+                + gaussian_kl(nu_mean, nu_lnvar) + uniform_kl(vmf.logits)))
+
+    def _step_args(self, pre: dict, x) -> tuple:
+        B, D = x.shape
+        cz = torch.zeros((B, 1), device=x.device)
+        wcz = torch.zeros((1, D), device=x.device)
+        return (x, pre["z_mu"], cz, pre["z_nu"], pre["depth"], pre["wd"],
+                wcz, pre["bias2"], pre["wn"], pre["bias_n"])
+
+    def fused_step_report(self, params: dict, x, c, eps, beta,
+                          include_data_const: bool = True,
+                          plain: bool = False):
+        """Reporting loss with the NB half through the step kernels' joint
+        variant (K1, K6; vmfnb_mixture.py:308-327); without a fusable
+        decoder, :meth:`forward` and the composite loss, as in JAX.
+        ``c`` is unused (no covariate pathway)."""
+        del c
+        if not self._can_fuse_step():
+            return mixture_composite_loss(
+                x, self.forward(params, x, eps, True, plain=plain), beta,
+                self.dd)
+        pre = self._step_prelude(params, x, eps, plain)
+        args = self._step_args(pre, x)
+        if plain:
+            nll = step_nll_ref(*args, pb=pre["pb"],
+                               include_const=include_data_const, nu_exp=True)
+        else:
+            nll = nb_step_report(*args, include_const=include_data_const,
+                                 pb=pre["pb"])
+        vmf_nll = _mixture_vmf_nllik_parts(x, pre["vmf"].recon,
+                                           pre["vmf"].kappa, self.dd)
+        return (nll + vmf_nll + beta * pre["kl"]) / x.shape[0]
+
+    def fused_step_boot(self, params: dict, x, c, eps, beta,
+                        need_value: bool = True, plain: bool = False):
+        """Boot-step loss with the NB half through the step kernels' joint
+        variant (vmfnb_mixture.py:329-350): ``need_value`` runs K2pv and
+        returns the loss, otherwise the grad-only K2p whose NB NLL reads
+        0.0 (same gradient); without a fusable decoder, :meth:`forward`
+        and the composite loss."""
+        del c
+        if not self._can_fuse_step():
+            return mixture_composite_loss(
+                x, self.forward(params, x, eps, True, plain=plain), beta,
+                self.dd)
+        pre = self._step_prelude(params, x, eps, plain)
+        args = self._step_args(pre, x)
+        if plain:
+            nll = step_nll_ref(*args, pb=pre["pb"], include_const=False,
+                               nu_exp=True)
+        else:
+            nll = (nb_step_boot_joint if need_value
+                   else nb_step_boot_joint_gradonly)(*args, pre["pb"])
+        vmf_nll = _mixture_vmf_nllik_parts(x, pre["vmf"].recon,
+                                           pre["vmf"].kappa, self.dd)
+        return (nll + vmf_nll + beta * pre["kl"]) / x.shape[0]
 
     # ------------------------------------------------------------------
     # recording and serving: the folded encoder
@@ -325,3 +505,32 @@ class VMFNBMixtureVAE(nn.Module):
             return self.encode_mu(params, x, on_device[key])
 
         return encode, "clust"
+
+
+# ----------------------------------------------------------------------
+# losses (reference vmfnb_mixture.hh:607-654, 812-848)
+# ----------------------------------------------------------------------
+
+def _mixture_vmf_nllik_parts(x: torch.Tensor, recon: torch.Tensor,
+                             kappa2d: torch.Tensor, dd: float
+                             ) -> torch.Tensor:
+    """vMF NLL over the masked feature set (vmfnb_mixture.hh:610-629): the
+    joint model's formula restricted to ``dd`` effective features."""
+    return vmf_nllik_parts(x, recon, kappa2d, dd=dd)
+
+
+def mixture_vmf_nllik(x: torch.Tensor, out: VMFNBMixtureOutput, dd: float
+                      ) -> torch.Tensor:
+    return _mixture_vmf_nllik_parts(x, out.vmf_recon, out.vmf_kappa, dd)
+
+
+def mixture_composite_loss(x: torch.Tensor, out: VMFNBMixtureOutput, rate,
+                           dd: float) -> torch.Tensor:
+    """(NB NLL + vMF NLL + rate * (KL_gauss + KL_uniform)) / n (reference
+    composite_loss_t, vmfnb_mixture.hh:812-848; the mixture does NOT
+    floor the rate at min_rate)."""
+    kl = (gaussian_kl(out.nb_mu_mean, out.nb_mu_lnvar)
+          + gaussian_kl(out.nb_nu_mean, out.nb_nu_lnvar))
+    nb = nb_nllik(x, out.nb_recon_mu, out.nb_recon_nu, out.nb_recon_depth)
+    return (nb + mixture_vmf_nllik(x, out, dd)
+            + rate * (kl + uniform_kl(out.vmf_logits))) / x.shape[0]

@@ -70,8 +70,9 @@ def count_encode_bwd_ref(x: torch.Tensor, g1: torch.Tensor,
                          g2: torch.Tensor | None
                          ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Plain version of the backward: the VJP of :func:`count_encode_ref`
-    in (WL, WX), ``(g1^T log1p(x), g2^T x)``."""
-    xf = x.float()
+    in (WL, WX), ``(g1^T log1p(x), g2^T x)``, in g1's dtype (as the
+    forward computes in WL's)."""
+    xf = x.to(g1.dtype)
     return g1.T @ torch.log1p(xf), (None if g2 is None else g2.T @ xf)
 
 

@@ -23,7 +23,8 @@ Four kernels, each a wrapper with a plain PyTorch version beside it:
 - :func:`value` (K6): the NB NLL given that normaliser (reporting pass);
 - :func:`valgrad` (K2): one pass over ``x`` giving the stacked per-column
   gradient rows ``gout`` and the per-row ``rsum``, ``u1``, ``dzn``, and
-  with ``need_value`` (K2v, NB only) the NLL without ``lgamma(x + 1)``;
+  with ``need_value`` the NLL without ``lgamma(x + 1)`` (K2v for the NB
+  model, K2pv for the joint one);
 - :func:`finish` (K3): the softmax-coupling terms ``fout``, ``u2``.
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
@@ -31,15 +32,18 @@ launches its kernel (``mmvae_tpu_torch/csrc/nb_*.cu``) or raises — there
 is no fallback on the card.  ``<wrapper>.launches`` counts the launches
 of the NB instance, ``value.joint_launches`` and
 ``valgrad.joint_launches`` those of the joint one,
-``valgrad.value_launches`` those of K2v.
+``valgrad.value_launches`` those of K2v and
+``valgrad.joint_value_launches`` those of K2pv.
 
 :func:`nb_step_report` runs K1 then K6.  :func:`nb_step_boot`,
-:func:`nb_step_boot_gradonly` and :func:`nb_step_boot_joint_gradonly`
-are ``torch.autograd.Function``s whose forward runs K1, K2 (K2v for
-``nb_step_boot``), K3 and assembles the gradients (``_boot_fwd_impl``,
-nb_step.py:801-868), and whose backward scales them by the incoming
-cotangent (``_boot_bwd``); the grad-only forms' primal is 0.0, as on the
-JAX kernel path, ``nb_step_boot``'s the NLL without ``lgamma(x + 1)``.
+:func:`nb_step_boot_gradonly`, :func:`nb_step_boot_joint` and
+:func:`nb_step_boot_joint_gradonly` are ``torch.autograd.Function``s
+whose forward runs K1, K2 (K2v / K2pv for the value-bearing forms), K3
+and assembles the gradients (``_boot_fwd_impl``, nb_step.py:801-868),
+and whose backward scales them by the incoming cotangent
+(``_boot_bwd``); the grad-only forms' primal is 0.0, as on the JAX
+kernel path, the value-bearing forms' the NLL without
+``lgamma(x + 1)``.
 :func:`step_nll_ref` is the differentiable plain specification
 (``xla_step_nll``); tensor-parallel ``model_axis`` is not ported.
 """
@@ -299,11 +303,8 @@ def valgrad(x, zc, zn, depth, norm, W, R: int, C: int, Rn: int,
     """K2: (gout (T, D), rsum (B, 1), u1 (B, R), dzn (B, Rn)) of the NLL
     without ``lgamma(x + 1)``, normaliser ``norm`` held fixed; ``joint``
     the joint model's variant (gout's last row is the ``pb`` gradient);
-    ``need_value`` (K2v, NB only) appends that NLL as a 0-d tensor."""
-    if joint and need_value:
-        raise NotImplementedError(
-            "the joint model's value-bearing valgrad is not ported yet "
-            "(ROADMAP.md Queue 2, K2pv)")
+    ``need_value`` (K2v, with ``joint`` K2pv) appends that NLL as a 0-d
+    tensor."""
     if x.device.type == "cpu":
         return valgrad_ref(x, zc, zn, depth, norm, W, R, C, Rn, joint,
                            need_value)
@@ -325,7 +326,9 @@ def _valgrad_kernel(x, zc, zn, depth, norm, W, R, C, Rn, joint=False,
           depth.data_ptr(), norm.data_ptr(), W.data_ptr(), B, D, R, C, Rn,
           int(joint), int(bool(need_value)), gout.data_ptr(), ws.data_ptr(),
           rows.data_ptr(), nll.data_ptr())
-    if joint:
+    if joint and need_value:
+        valgrad.joint_value_launches += 1
+    elif joint:
         valgrad.joint_launches += 1
     elif need_value:
         valgrad.value_launches += 1
@@ -338,6 +341,7 @@ def _valgrad_kernel(x, zc, zn, depth, norm, W, R, C, Rn, joint=False,
 valgrad.launches = 0
 valgrad.joint_launches = 0
 valgrad.value_launches = 0
+valgrad.joint_value_launches = 0
 
 
 def finish(zc, norm, rsum, W, R: int, C: int):
@@ -426,7 +430,7 @@ def _boot_fwd_impl(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb,
 class _Boot(torch.autograd.Function):
     """Boot-step NLL: the forward computes every gradient in one pass
     (K1 -> K2 -> K3) and saves it; the backward scales.  The primal is
-    the NLL with ``need_value`` (K2v), else 0.0."""
+    the NLL with ``need_value`` (K2v, K2pv), else 0.0."""
 
     @staticmethod
     def forward(ctx, x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb,
@@ -462,6 +466,16 @@ def nb_step_boot_gradonly(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n
     x and c are data.  Never use it where the loss value is read."""
     return _Boot.apply(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, None,
                        False)
+
+
+def nb_step_boot_joint(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb
+                       ) -> torch.Tensor:
+    """:func:`nb_step_boot` for the joint model's NB half (nb_step.py:901):
+    ``pb`` (D,) is the post-softmax log-bias and nu decodes as
+    ``clamp(exp(.), 0, NU_HI)``; the value comes from K2pv in the same
+    pass as the gradient, which also reaches ``pb``."""
+    return _Boot.apply(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb,
+                       True)
 
 
 def nb_step_boot_joint_gradonly(x, zm, c, zn, depth, wd, wc, bias2, wn,

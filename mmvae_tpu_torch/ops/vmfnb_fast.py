@@ -136,9 +136,9 @@ class VMFNBFastStep(PackedFastStep):
 
     UNSUPPORTED = ("the packed joint step needs the direct architecture "
                    "(no --mean_encoding / --mean_decoding / --vmf_decoding) "
-                   "with the default nu clamp; the JAX package falls back "
-                   "to its generic step path there, which is not ported "
-                   "yet (ROADMAP.md Queue 1 item 11)")
+                   "with the default nu clamp; other architectures train on "
+                   "the generic step (train.loop.Trainer with the model's "
+                   "losses, cli.vmfnb_vae.make_step)")
 
     @staticmethod
     def supports(model) -> bool:
@@ -435,9 +435,9 @@ class VMFNBMixtureFastStep(VMFNBFastStep):
 
     UNSUPPORTED = ("the packed mixture step needs the direct architecture "
                    "(no --mean_encoding / --mean_decoding) with the default "
-                   "nu clamp; the JAX package falls back to its generic "
-                   "step path there, which is not ported yet (ROADMAP.md "
-                   "Queue 1 item 11)")
+                   "nu clamp; other architectures train on the generic step "
+                   "(train.loop.Trainer with the model's losses, "
+                   "cli.vmfnb_vae.make_step)")
 
     @staticmethod
     def supports(model) -> bool:

@@ -320,7 +320,7 @@ def test_dense_runner_two_epochs_matches_jax(N, Bt):
 @pytest.mark.parametrize("kw", [{"mean_encoding": (8,)},
                                 {"mean_decoding": (8,)}, {"nu_max": 100.0}])
 def test_unsupported_architectures_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+    with pytest.raises(NotImplementedError, match="generic step"):
         VMFNBMixtureFastStep(VMFNBMixtureVAE(label=_mk_label(), **kw),
                              TrainingOptions())
 

@@ -204,7 +204,9 @@ def test_nb_step_boot_matches_jax(monkeypatch, dtype, interpret):
 
 def test_valgrad_value_equals_value_ref():
     """K2v's plain value is the reporting value without lgamma(x + 1),
-    and its gradient outputs are the grad-only ones, exactly."""
+    and its gradient outputs are the grad-only ones, exactly; so are
+    K2pv's (``joint``: a pb row last, exp-nu) against the joint
+    variants."""
     args = _step_inputs(np.int16, B=6, D=300, seed=4)
     x, zm, c, zn, depth, *w = [torch.from_numpy(np.ascontiguousarray(a))
                                for a in args]
@@ -217,6 +219,13 @@ def test_valgrad_value_equals_value_ref():
                                           1, with_const=False))
     for a, b in zip(grads, tns.valgrad(x, zc, zn, depth, norm, W, 2, 1, 1)):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="K2pv"):
-        tns.valgrad(x, zc, zn, depth, norm, W, 2, 1, 1, joint=True,
-                    need_value=True)
+    pb = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(1, x.shape[1])).astype(np.float32) * 0.3)
+    Wj = torch.cat([W, pb])
+    *grads, nll = tns.valgrad(x, zc, zn, depth, norm, Wj, 2, 1, 1,
+                              joint=True, need_value=True)
+    assert torch.equal(nll, tns.value_ref(x, zc, zn, depth, norm, Wj, 2, 1,
+                                          1, with_const=False, joint=True))
+    for a, b in zip(grads, tns.valgrad(x, zc, zn, depth, norm, Wj, 2, 1, 1,
+                                       joint=True)):
+        assert torch.equal(a, b)

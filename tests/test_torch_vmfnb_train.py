@@ -160,18 +160,32 @@ def test_device_cuda_without_gpu_fails(runs, tmp_path):
     assert not os.listdir(tmp_path)
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--no_fused"], "item 11"),
-    (["--mean_encoding", "8"], "item 11"),
-    (["--vmf_decoding", "8"], "item 11"),
-    (["--no_fused_step"], "item 11"),
+@pytest.mark.parametrize("flags,expect", [
+    (["--no_fused"], "forward + composite loss"),
+    (["--mean_encoding", "8"], "v2 step kernels"),
+    (["--vmf_decoding", "8"], "v2 step kernels"),
+    (["--no_fused_step"], "forward + composite loss"),
     (["--dp_shard"], "item 13"),
     (["--tensor_parallel", "2"], "item 13")])
-def test_unported_options_raise(runs, tmp_path, flags, item):
+def test_unported_options_raise(runs, tmp_path, capsys, flags, expect):
+    """Multi-GPU flags raise naming their ROADMAP.md item; the generic
+    step's flags (once refused) train one epoch on the route the JAX CLI
+    takes, logged in one ``Step:`` line."""
     _, common = runs
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md Queue 1 {item}"):
-        vmfnb_vae.main(common + ["--out", str(tmp_path / "x"), "--device",
-                                 "cpu", *flags])
+    args = common + ["--out", str(tmp_path / "x"), "--device", "cpu",
+                     "--max_epoch", "1", *flags]
+    if expect == "item 13":
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md Queue 1 {expect}"):
+            vmfnb_vae.main(args)
+    else:
+        assert vmfnb_vae.main(args) == 0
+        steps = [ln for ln in capsys.readouterr().err.splitlines()
+                 if "Step: " in ln]
+        assert len(steps) == 1 and expect in steps[0]
+        scores = [float(v) for v in read_vector_file(
+            str(tmp_path / "x.scores.gz"))]
+        assert len(scores) == 1 and np.isfinite(scores[0])
     with pytest.raises(NotImplementedError, match="item 9, vMF-VAE"):
         port_encode.main(["--model", "vmf", "--mtx", common[1],
                           "--checkpoint", "none", "--out", "x"])
