@@ -86,7 +86,7 @@ exits non-zero without the final line):
 21. full-width generic training: ``nb_vae --no_fused_step``'s step at
     the default architecture, two epochs over the first 40,000 of phase
     5's counts (phase 9's model and data: the two phases price the packed
-    step against the generic one), with a profile of 100 batches;
+    step against the generic one), with a profile of 20 batches;
 22. K2pv (``valgrad(joint=True, need_value=True)``, the value-bearing
     joint boot step) against its plain version in phase 18's regimes and
     at D = 1,003, with exp(nu_pre) on both sides of the NU_HI clamp:
@@ -112,10 +112,24 @@ exits non-zero without the final line):
     trainer (K2pv's main path) at the default architecture, two epochs
     over the first 20,000 of phase 5's counts (phase 13's model and data:
     the two phases price the packed joint step against the generic one),
-    with a profile of 20 batches.
+    with a profile of 20 batches;
+26. the roofline probe P1 (``csrc/roofline_probe.cu``) against its plain
+    version in all five op classes (fma, exp, log, div, select) x ILP 1
+    and 4 x nrep 8 and 40 at K2's shape (100 x 20,000 float32), bitwise
+    repeatable, with device times of the fma class at ILP 4, nrep 40;
+    then the probe itself (``python -m
+    mmvae_tpu_torch.benchmarks.valgrad_roofline``'s ``main``): per-op
+    costs at ILP 1 and 4, K2's op-mix bracket, K2's time alone;
+27. the tooling end to end: ``trace_step joint`` at D = 20,000, B = 100,
+    8 batches an epoch, whose table must name the port's kernels with
+    device time; ``nb_vae`` on phase 4's matrix with ``MMVAE_TRACE_DIR``
+    set, whose trace must hold the ``ondevice_epoch`` annotation and the
+    kernels and whose ``.metrics.jsonl`` rows the JAX trainer's
+    ``time_*`` keys.
 
-Each main path (phases 4, 8, 12, 16 and the runs of 20 and 24) is driven
-with every launch counter set to 0 just before it and read just after.
+Each main path (phases 4, 8, 12, 16, the runs of 20 and 24, and the
+probe's run in 26) is driven with every launch counter set to 0 just
+before it and read just after.
 The last two lines are the kernels' JSON record (with each kernel's
 bound at the main path's shape) and ``{"ok": true, "device": {...}}``.
 """
@@ -129,7 +143,6 @@ import json
 import os
 import re
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -156,13 +169,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True,
-                       text=True, timeout=60, check=True)
-    return r.stdout.strip().splitlines()[0]
-
-
 def cuda_ms(fn, warmup: int = 3, reps: int = 200) -> float:
     """Milliseconds per call: CUDA events around ``reps`` back-to-back
     calls after warm-ups (what a loop of such calls pays; equals the
@@ -181,9 +187,14 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 200) -> float:
 
 def device_profile(fn, reps: int = 1):
     """(device ms per call, {kernel name: device ms per call}) of the
-    kernels ``fn`` runs on the card, from torch.profiler (CUPTI).
-    ``device_profile.kernels`` holds the number of kernels per call."""
+    kernels ``fn`` runs on the card, from torch.profiler (CUPTI) through
+    the port's one reader of kernel time
+    (``mmvae_tpu_torch.utils.profiling.kernel_times``: the CUDA device
+    events summed by name).  ``device_profile.kernels`` holds the number
+    of kernels per call."""
     from torch.profiler import ProfilerActivity, profile
+
+    from mmvae_tpu_torch.utils.profiling import kernel_times
 
     # every call launches the same kernels, so a trace whose device event
     # count is not a positive multiple of reps lost events: it is retried
@@ -193,12 +204,9 @@ def device_profile(fn, reps: int = 1):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        per, n = {}, 0
-        for ev in prof.events():
-            if (ev.device_type == torch.autograd.DeviceType.CUDA
-                    and ev.name != "Activity Buffer Request"):
-                per[ev.name] = per.get(ev.name, 0.0) + ev.device_time_total
-                n += 1
+        kt = kernel_times(prof)
+        per = {k: us for k, (us, _) in kt.items()}
+        n = sum(c for _, c in kt.values())
         if n and n % reps == 0:
             break
     else:
@@ -1917,36 +1925,169 @@ def phase_vmfnb_generic_cli(card, tmp, mtx):
     return j_launches, m_launches, lib
 
 
+# ----------------------------------------------------------------------
+# the roofline probe and the tooling (26-27)
+# ----------------------------------------------------------------------
+
+P1_TOL = ("|kernel - plain| <= 1e-5 * |plain| elementwise (every op is a "
+          "contraction, so FFMA's one rounding against the plain version's "
+          "two stays a few ulp)")
+P1_CASES = [(op, chains, nrep) for op in ("fma", "exp", "log", "div",
+                                          "select")
+            for chains in (1, 4) for nrep in (8, 40)]
+
+
+def phase_roofline(card):
+    """Phase 26: P1 (``csrc/roofline_probe.cu``) against its plain
+    version in all five op classes x ILP {1, 4} x nrep {8, 40} at K2's
+    shape, bitwise repeatable; device times of the fma class at ILP 4,
+    nrep 40; then the probe's ``main()`` (per-op costs, K2's op-mix
+    bracket, K2 alone), its launches counted from 0."""
+    from mmvae_tpu_torch.benchmarks import valgrad_roofline as vr
+
+    tag = "[phase 26]"
+    x = vr.probe_input(DEV)
+    worst, worst_q = 0.0, 0.0
+    for op, chains, nrep in P1_CASES:
+        k = vr.elementwise(x, op, nrep, chains)
+        k2 = vr.elementwise(x, op, nrep, chains)
+        p = vr.elementwise_ref(x, op, nrep, chains)
+        torch.cuda.synchronize()
+        if not torch.equal(k, k2):
+            raise AssertionError(f"P1 {op} x{chains} nrep {nrep}: two "
+                                 f"launches differ")
+        err = (k - p).abs()
+        q = (err / (1e-5 * p.abs())).max().item()
+        if not (torch.isfinite(k).all() and q <= 1.0):
+            raise AssertionError(f"P1 {op} x{chains} nrep {nrep}: err/tol "
+                                 f"{q:.3g} ({P1_TOL})")
+        worst, worst_q = max(worst, err.max().item()), max(worst_q, q)
+    k_ms, _ = device_profile(lambda: vr.elementwise(x, "fma", 40, 4), 20)
+    p_ms, _ = device_profile(lambda: vr.elementwise_ref(x, "fma", 40, 4), 5)
+    log(f"{tag} [{card}] P1 vs plain in {len(P1_CASES)} cases (5 op classes "
+        f"x ILP 1, 4 x nrep 8, 40) at {tuple(x.shape)} float32: max |err| "
+        f"{worst:.3g}, worst err/tol {worst_q:.3g} ({P1_TOL}); bitwise "
+        f"repeatable; fma ILP 4 nrep 40: kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms device")
+    reset_launches()
+    res = vr.main()
+    launches = read_launches()
+    lo, hi = res["bracket_us"]
+    k2 = res["k2"]
+    rates = [v for r in res["rates_ps"].values() for v in r.values()]
+    if not (np.isfinite(rates).all() and min(lo, hi) > 0
+            and np.isfinite([lo, hi]).all()
+            and k2["kernel_ms"] > 0 and launches["roofline_probe"] > 0
+            and launches["nb_valgrad"] > 0):
+        raise AssertionError(f"the probe's run: {res}, launches {launches}")
+    log(f"{tag} [{card}] probe run: K2's op mix at the ILP 4 / ILP 1 "
+        f"costs {lo:.2f} / {hi:.2f} us vs valgrad_kernel "
+        f"{k2['kernel_ms'] * 1e3:.2f} us; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    return worst, (k_ms, p_ms), launches["roofline_probe"]
+
+
+def phase_tooling(card, tmp, mtx):
+    """Phase 27: ``trace_step joint`` at D = 20,000, B = 100, S = 8 (its
+    table must name the port's kernels with device time), then ``nb_vae``
+    on phase 4's matrix with ``MMVAE_TRACE_DIR`` set: a trace holding the
+    ``ondevice_epoch`` annotation and the kernels, and ``.metrics.jsonl``
+    rows with the JAX trainer's ``time_*`` keys (B = 1,000 keeps the
+    trace to 8 batches: processing a trace costs about a second a
+    batch)."""
+    from mmvae_tpu_torch.benchmarks import trace_step
+    from mmvae_tpu_torch.cli import nb_vae
+
+    tag = "[phase 27]"
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rows = trace_step.main(["joint", str(D_GENES), "8", str(B_TRAIN),
+                                "--out", os.path.join(tmp, "trace_joint")])
+    wall = time.time() - t0
+    by_kernel = {}
+    for name, (us, _) in rows.items():
+        k = trace_step.port_kernel(name)
+        by_kernel[k] = by_kernel.get(k, 0.0) + us / 16
+    need = ("count_encode", "count_encode_bwd", "nb_lse", "nb_value",
+            "nb_valgrad", "nb_finish")
+    if min(by_kernel.get(k, 0.0) for k in need) <= 0:
+        raise AssertionError(f"trace_step's table lacks a port kernel: "
+                             f"{by_kernel}")
+    rate = next(ln for ln in buf.getvalue().splitlines() if "cells/sec" in ln)
+    log(f"{tag} [{card}] trace_step joint {D_GENES} 8 {B_TRAIN} ({wall:.1f}s"
+        f"): {rate}; device us a batch by kernel: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in
+                    sorted(by_kernel.items(), key=lambda kv: -kv[1])))
+
+    out, tdir = os.path.join(tmp, "traced"), os.path.join(tmp, "cli_trace")
+    os.environ["MMVAE_TRACE_DIR"] = tdir
+    try:
+        t0 = time.time()
+        run_cli(nb_vae, ["--mtx", mtx, "--batch_size", "1000", "--device",
+                         DEV, "--recording", "2", "--max_epoch", "2",
+                         "--out", out])
+        wall = time.time() - t0
+    finally:
+        del os.environ["MMVAE_TRACE_DIR"]
+    traces = [os.path.join(tdir, f) for f in os.listdir(tdir)
+              if f.endswith(".trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"{tdir}: {traces}")
+    with open(traces[0]) as f:
+        text = f.read()
+    if '"ondevice_epoch"' not in text or "valgrad_kernel" not in text:
+        raise AssertionError("the trainer's trace lacks ondevice_epoch or "
+                             "the kernels")
+    with open(out + ".metrics.jsonl") as f:
+        recs = [json.loads(ln) for ln in f]
+    base = {"epoch", "wall_time", "loss", "kl_weight", "cells_per_sec",
+            "ondevice", "time_step"}
+    want = [base, base | {"time_record_submit"}]
+    if [set(r) for r in recs] != want:
+        raise AssertionError(f"metrics rows {recs}")
+    log(f"{tag} [{card}] nb_vae with MMVAE_TRACE_DIR ({wall:.1f}s, "
+        f"{os.path.getsize(traces[0]) / 1e6:.1f} MB trace with "
+        f"ondevice_epoch and the kernels): metrics rows "
+        + " | ".join(", ".join(f"{k} {r[k]}" for k in sorted(r)
+                               if k.startswith("time_")) for r in recs))
+
+
 # every kernel instance of the port: (name, wrapper, launch counter,
 # source, the TPU kernel it replaces)
 KERNELS = [
     ("count_encode", "enc.count_encode", "launches", "count_encode.cu",
-     "enc_kernel.py:183"),
+     "mmvae_tpu/ops/enc_kernel.py:183"),
     ("count_encode[stats]", "enc.count_encode", "stats_launches",
-     "count_encode.cu", "enc_kernel.py:183"),
+     "count_encode.cu", "mmvae_tpu/ops/enc_kernel.py:183"),
     ("count_encode[filt]", "enc.count_encode", "filt_launches",
-     "count_encode.cu", "enc_kernel.py:183"),
+     "count_encode.cu", "mmvae_tpu/ops/enc_kernel.py:183"),
     ("count_encode_bwd", "enc.count_encode_bwd", "launches",
-     "count_encode_bwd.cu", "enc_kernel.py:216"),
-    ("nb_lse", "ns.lse", "launches", "nb_lse.cu", "nb_step.py:320"),
-    ("nb_value", "ns.value", "launches", "nb_value.cu", "nb_step.py:424"),
+     "count_encode_bwd.cu", "mmvae_tpu/ops/enc_kernel.py:216"),
+    ("nb_lse", "ns.lse", "launches", "nb_lse.cu",
+     "mmvae_tpu/ops/nb_step.py:320"),
+    ("nb_value", "ns.value", "launches", "nb_value.cu",
+     "mmvae_tpu/ops/nb_step.py:424"),
     ("nb_value[pb,nu_exp]", "ns.value", "joint_launches", "nb_value.cu",
-     "nb_step.py:424"),
+     "mmvae_tpu/ops/nb_step.py:424"),
     ("nb_valgrad", "ns.valgrad", "launches", "nb_valgrad.cu",
-     "nb_step.py:621"),
+     "mmvae_tpu/ops/nb_step.py:621"),
     ("nb_valgrad[pb,nu_exp]", "ns.valgrad", "joint_launches",
-     "nb_valgrad.cu", "nb_step.py:621"),
-    ("nb_finish", "ns.finish", "launches", "nb_finish.cu", "nb_step.py:704"),
+     "nb_valgrad.cu", "mmvae_tpu/ops/nb_step.py:621"),
+    ("nb_finish", "ns.finish", "launches", "nb_finish.cu",
+     "mmvae_tpu/ops/nb_step.py:704"),
     ("nb_elbo_fwd", "ne.elbo_fwd", "launches", "nb_elbo.cu",
-     "nb_elbo.py:234"),
+     "mmvae_tpu/ops/nb_elbo.py:234"),
     ("nb_elbo_fwd[const]", "ne.elbo_fwd", "const_launches", "nb_elbo.cu",
-     "nb_elbo.py:234"),
+     "mmvae_tpu/ops/nb_elbo.py:234"),
     ("nb_elbo_bwd", "ne.elbo_bwd", "launches", "nb_elbo.cu",
-     "nb_elbo.py:301"),
+     "mmvae_tpu/ops/nb_elbo.py:301"),
     ("nb_valgrad[value]", "ns.valgrad", "value_launches", "nb_valgrad.cu",
-     "nb_step.py:621"),
+     "mmvae_tpu/ops/nb_step.py:621"),
     ("nb_valgrad[pb,nu_exp,value]", "ns.valgrad", "joint_value_launches",
-     "nb_valgrad.cu", "nb_step.py:621"),
+     "nb_valgrad.cu", "mmvae_tpu/ops/nb_step.py:621"),
+    ("roofline_probe", "vr.elementwise", "launches", "roofline_probe.cu",
+     "benchmarks/valgrad_roofline.py:69"),
 ]
 NB_PATH = ["count_encode", "count_encode_bwd", "nb_lse", "nb_value",
            "nb_valgrad", "nb_finish"]
@@ -1968,11 +2109,12 @@ README_PATH = ["count_encode", "count_encode_bwd", "nb_lse", "nb_value",
 
 
 def _counters():
+    from mmvae_tpu_torch.benchmarks import valgrad_roofline as vr
     from mmvae_tpu_torch.ops import enc_kernel as enc
     from mmvae_tpu_torch.ops import nb_elbo as ne
     from mmvae_tpu_torch.ops import nb_step as ns
 
-    objs = {"enc": enc, "ne": ne, "ns": ns}
+    objs = {"enc": enc, "ne": ne, "ns": ns, "vr": vr}
     out = {}
     for name, wrapper, attr, _, _ in KERNELS:
         mod, fn = wrapper.split(".")
@@ -2220,9 +2362,8 @@ def phase_train_full(card, data, kind="nb"):
     trainer, K2pv's main path): two epochs of the dense-resident epoch
     runner at full width over the first N_EARLIER cells (N_SHORT for the
     joint and mixture models), with the kernels' launches per batch, and
-    a profile of 100 batches for the NB generic step, 20 for the others
-    (processing a trace takes about a second a batch, the largest cost of
-    these phases)."""
+    a profile of 20 batches (processing a trace takes about a second a
+    batch, the largest cost of these phases)."""
     from mmvae_tpu_torch.train.config import TrainingOptions
     from mmvae_tpu_torch.train.loop import DenseEpochRunner
 
@@ -2259,7 +2400,7 @@ def phase_train_full(card, data, kind="nb"):
         f"{losses[0]:.4f} -> {losses[1]:.4f}; epoch times {times[0]:.2f}s, "
         f"{times[1]:.2f}s; second epoch {N / times[1]:,.1f} cells/sec; "
         f"kernel launches a batch {per}")
-    nprof = 100 if kind == "generic" else 20
+    nprof = 20
     sub = DenseEpochRunner(fast, data[:nprof * B_TRAIN], B_TRAIN, seed=SEED)
     rand = sub.draw(2)
     busy, per = device_profile(lambda: sub(q, po, 2, rand=rand))
@@ -2316,7 +2457,11 @@ def bound_ms(name: str, shape: dict) -> tuple[float, str]:
     main path's shape: the larger of (each input read once, each output
     written once) / HBM rate and operations / float32 rate."""
     B, D, xb = shape["B"], shape["D"], shape["x_bytes"]
-    if name.startswith("count_encode"):
+    if name == "roofline_probe":
+        # the fma class at ILP 4, nrep 40: 4 x 40 FFMAs (2 operations each)
+        # an element; x read and the output written once
+        ops, nbytes = B * D * 40 * 4 * 2, 2 * B * D * 4
+    elif name.startswith("count_encode"):
         r = shape["r1"] + shape["r2"]
         # the row stats: an add and an FMA (3); the filtered pair: a
         # multiply by the mask, an add and an FMA (4 more), and the mask
@@ -2364,6 +2509,8 @@ def main() -> int:
     from mmvae_tpu_torch.ops import _cuda
     from mmvae_tpu_torch.ops import enc_kernel as enc
 
+    from mmvae_tpu_torch.utils.profiling import card_line
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -2398,6 +2545,9 @@ def main() -> int:
         worst.update(w)
         times.update(t)
     mark("18, 22")
+    worst["roofline_probe"], times["roofline_probe"], p1_launches = (
+        phase_roofline(card))
+    mark("26")
     for kind in ("nb", "joint", "mixture"):
         phase_batch_step(card, kind)
     phase_generic_step(card)
@@ -2415,6 +2565,8 @@ def main() -> int:
         vj_launches, vm_launches, v_lib = phase_vmfnb_generic_cli(card, tmp,
                                                                   mtx)
         mark("8, 12, 16, 20, 24")
+        phase_tooling(card, tmp, mtx)
+        mark("27")
         data = full_size_counts()
         phase_full(card, data)
         mark("5")
@@ -2434,6 +2586,7 @@ def main() -> int:
     launches["nb_valgrad[value]"] = r_launches["nb_valgrad[value]"]
     launches["nb_valgrad[pb,nu_exp,value]"] = v_lib["joint"][
         "nb_valgrad[pb,nu_exp,value]"]
+    launches["roofline_probe"] = p1_launches
 
     log(f"[summary] serving CLI (nb): {serve_launches} count_encode "
         f"launches; training CLIs: nb_vae "
@@ -2463,7 +2616,7 @@ def main() -> int:
         records.append({
             "name": name, "route": "cuda",
             "source": f"mmvae_tpu_torch/csrc/{src}",
-            "replaces": f"mmvae_tpu/ops/{rep}",
+            "replaces": rep,
             "launches": launches[name], "max_abs_err": worst[name],
             "ms": times[name][0], "plain_ms": times[name][1],
             "bound_ms": b_ms, "bound_by": b_by,

@@ -26,6 +26,7 @@ from ..train.config import MMVaeOptions, TrainingOptions
 from ..train.loop import train_vae_model
 from ..train.recorder import LatentRecorder
 from ..utils.logging import ELOG, TLOG, WLOG
+from ..utils.summary import pretty_print
 
 # auto data mode: hold the CSC arrays in host RAM below this estimate
 _INMEM_BYTES = int(os.environ.get("MMVAE_INMEM_BYTES", 4 << 30))
@@ -141,9 +142,10 @@ def resolve_device(name: str) -> torch.device | None:
 def run_training(opts: MMVaeOptions, topt: TrainingOptions, model, fast,
                  data_block, covar_block, device) -> int:
     """Initialise (or ``--resume``) the parameters and the Adam state,
-    train on the dense-resident step (packed or generic) with recording
-    and checkpoints, and write ``${out}.scores.gz``.  The recorder's encode
-    and its extra artifact come from ``model.record_encoder``."""
+    print the model summary to stderr, train on the dense-resident step
+    (packed or generic) with recording and checkpoints, and write
+    ``${out}.scores.gz``.  The recorder's encode and its extra artifact
+    come from ``model.record_encoder``."""
     params = model.init(torch.Generator().manual_seed(topt.seed),
                         device=device)
     encode_fn, extra_name = model.record_encoder(topt.seed,
@@ -164,6 +166,9 @@ def run_training(opts: MMVaeOptions, topt: TrainingOptions, model, fast,
                         prev_losses + losses, opt_state=o)
 
     TLOG("Training the model...")
+    # reference parity: model->pretty_print(std::cerr) at train start
+    # (mmvae_alg.hh:238), where both JAX trainer CLIs print it
+    pretty_print(model, params)
     params, scores = train_vae_model(
         fast, recorder, data_block, covar_block, topt, params, device,
         start_epoch=start_epoch, init_opt_state=init_opt_state,

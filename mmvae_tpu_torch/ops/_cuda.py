@@ -147,8 +147,12 @@ def _bind(lib) -> None:
                                       _i32, _vp, _vp, _vp]
     lib.mmvae_nb_elbo_bwd.argtypes = [_vp, _vp, _i32, _vp, _vp, _vp, _vp,
                                       _vp, _i64, _i64, _vp, _vp, _vp]
+    # roofline probe: x, B, D, op, nrep, chains, reps, out, stream
+    lib.mmvae_roofline_elementwise.argtypes = [_vp, _i64, _i64, _i32, _i32,
+                                               _i32, _i32, _vp, _vp]
     for name in ("mmvae_nb_lse", "mmvae_nb_value", "mmvae_nb_valgrad",
-                 "mmvae_nb_finish", "mmvae_nb_elbo_fwd", "mmvae_nb_elbo_bwd"):
+                 "mmvae_nb_finish", "mmvae_nb_elbo_fwd", "mmvae_nb_elbo_bwd",
+                 "mmvae_roofline_elementwise"):
         getattr(lib, name).restype = _i32
 
 

@@ -38,6 +38,7 @@ from ..ops.nb_fast import (PackedAdam, batch_rand, draw_rand, tree_leaves,
                            tree_unflatten)
 from ..utils.logging import TLOG
 from ..utils.metrics import MetricsLogger
+from ..utils.profiling import StepTimer, annotate, trace
 
 
 def as_memory_block(block):
@@ -285,8 +286,12 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
 
     ``init_opt_state`` is the named Adam state ``{count, mu, nu}``;
     ``on_epoch_end(epoch, params, opt_state, loss_vec)`` gets the named
-    trees after every epoch (checkpointing).  Returns (trained params,
-    per-epoch mean reported loss)."""
+    trees after every epoch (checkpointing).  Every ``.metrics.jsonl``
+    row carries the JAX trainer's ``time_*`` host phase seconds
+    (``time_step``, and ``time_record_submit`` on recording epochs);
+    ``MMVAE_TRACE_DIR`` traces the training phase, each epoch under an
+    ``ondevice_epoch`` annotation.  Returns (trained params, per-epoch
+    mean reported loss)."""
     ntot = data_block.ntot()
     B = data_block.size()
     if ntot != covar_block.ntot() or B != covar_block.size():
@@ -327,25 +332,41 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
           else fast.optimizer.init(q))
     kl = (fast.kl_max, fast.kl_min, fast.kl_discount)
     metrics = MetricsLogger(metrics_path)
+    timer = StepTimer()
     loss_vec: list[float] = []
-    for epoch in range(start_epoch, opt.max_epoch):
-        t0 = time.time()
-        record_now = recorder is not None and (epoch + 1) % opt.recording == 0
-        q, po, reps, enc = runner(q, po, epoch, record=record_now)
-        epoch_loss = float(reps.cpu().numpy().mean())
-        dt = time.time() - t0
-        loss_vec.append(epoch_loss)
-        TLOG(f"[{epoch + 1:>20}] {epoch_loss:>20.6f}"
-             f"  ({runner.nbatch * B / dt:,.0f} cells/sec, on-device)")
-        metrics.log_epoch(
-            epoch, loss=epoch_loss,
-            kl_weight=float(kl_weight_schedule(epoch, *kl)),
-            cells_per_sec=round(runner.nbatch * B / dt, 1), ondevice=True)
-        params = fast.unpack(q)
-        if record_now:
-            recorder.ingest(batches, enc)
-            recorder.update_on_epoch(params, epoch)
-        if on_epoch_end is not None:
-            on_epoch_end(epoch, params, fast.unpack_opt_state(po), loss_vec)
+    # a trace of the whole training phase when MMVAE_TRACE_DIR is set
+    # (no-op otherwise)
+    with trace():
+        for epoch in range(start_epoch, opt.max_epoch):
+            t0 = time.time()
+            timer.reset()
+            record_now = (recorder is not None
+                          and (epoch + 1) % opt.recording == 0)
+            # host time of the epoch's launches: the device runs on until
+            # the loss fetch below, the one point where the JAX loop blocks
+            with timer.phase("step"), annotate("ondevice_epoch"):
+                q, po, reps, enc = runner(q, po, epoch, record=record_now)
+            epoch_loss = float(reps.cpu().numpy().mean())
+            dt = time.time() - t0
+            loss_vec.append(epoch_loss)
+            TLOG(f"[{epoch + 1:>20}] {epoch_loss:>20.6f}"
+                 f"  ({runner.nbatch * B / dt:,.0f} cells/sec, on-device)")
+            params = fast.unpack(q)
+            if record_now:
+                # after the epoch's clock: the port's recorder writes its
+                # artifacts synchronously
+                with timer.phase("record_submit"):
+                    recorder.ingest(batches, enc)
+                    recorder.update_on_epoch(params, epoch)
+            metrics.log_epoch(
+                epoch, loss=epoch_loss,
+                kl_weight=float(kl_weight_schedule(epoch, *kl)),
+                cells_per_sec=round(runner.nbatch * B / dt, 1),
+                ondevice=True,
+                **{f"time_{k}": round(v, 4)
+                   for k, v in timer.summary().items()})
+            if on_epoch_end is not None:
+                on_epoch_end(epoch, params, fast.unpack_opt_state(po),
+                             loss_vec)
     TLOG("Done training")
     return fast.unpack(q), loss_vec

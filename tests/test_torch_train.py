@@ -11,6 +11,7 @@ name and shape (their values come from differently seeded inits);
 significant digits of text).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -130,6 +131,21 @@ def test_cli_artifacts_match_jax_cli(runs):
         scores = [float(v) for v in read_vector_file(
             str(tmp / f"{name}.scores.gz"))]
         assert len(scores) == 2 and np.all(np.isfinite(scores))
+
+
+def test_cli_metrics_keys_match_jax_cli(runs):
+    """Every ``.metrics.jsonl`` row of the port has the keys the JAX CLI
+    writes for the same flags: ``time_step`` each epoch, and
+    ``time_record_submit`` on the recording epoch."""
+    tmp, _ = runs
+    rows = {}
+    for name in ("port", "jax"):
+        with open(tmp / f"{name}.metrics.jsonl") as f:
+            rows[name] = [json.loads(ln) for ln in f]
+    assert [set(r) for r in rows["port"]] == [set(r) for r in rows["jax"]]
+    assert [r["epoch"] for r in rows["port"]] == [0, 1]
+    assert "time_record_submit" in rows["port"][1]
+    assert all(r["time_step"] >= 0 for r in rows["port"])
 
 
 def test_port_checkpoint_loads_in_jax(runs):
