@@ -9,11 +9,16 @@ exits non-zero without the final line):
 0. device: require CUDA; print the card's name and power limit
    (``nvidia-smi``), which tag every number printed after it;
 1. build: compile every kernel of the port from ``mmvae_tpu_torch/csrc``
-   with nvcc for sm_90a;
+   with nvcc for sm_90a; the registers and spills of every
+   ``count_encode`` instance, failing if one spills;
 2. kernel against plain: ``count_encode`` on the card against its plain
-   PyTorch version at the serving shapes, with times;
-3. chunk invariance: one launch over 1600 rows equals 16 launches of 100
-   rows, bitwise;
+   PyTorch version at the NB trainer's launch (M = 100, 2 + 2 rows), the
+   serving launch (M = 1600, 2 + 0) and ragged and wide cases, with
+   times;
+3. grouping and storage invariance of the three forward instances (K4,
+   K4s, K4f with the marker filter of phase 14), bitwise: one launch over
+   1600 rows == 16 of 100 == a ragged split (1 + 37 + 62 + 15 x 100);
+   int8 == int16 == float32 storage of the same counts; two runs;
 4. the serving CLI end to end (the main path) on a synthetic
    4000 x 20000 matrix and a random D=20000 NB-VAE checkpoint, resident
    and streaming;
@@ -35,8 +40,9 @@ exits non-zero without the final line):
    profile of 20 batches;
 10. the joint vMF+NB model's kernel variants against their plain
     versions: ``count_encode`` with row stats (a training batch, 5 + 3
-    rows, and the serving launch, 2 + 0 rows), its backward (K5) at the
-    5 + 3 rows, ``value`` and ``valgrad``
+    rows, the serving launch, 2 + 0 rows, and 37 rows at D = 1,003 and
+    at the forward tile's edges D = 255, 256, 257), its backward (K5) at
+    the 5 + 3 rows, ``value`` and ``valgrad``
     with ``pb`` and exp-nu in phase 6's regimes, with elements at the
     NU_HI clamp;
 11. one joint batch step, kernel route against plain route;
@@ -52,7 +58,8 @@ exits non-zero without the final line):
     marker-gene mask (10 components of 200 genes from seed 0, ~90% of the
     genes outside it): the training launch (B = 100, 12 + 3 rows) in
     int8, int16 and float32 counts, the serving launch (M = 1600,
-    12 + 1 rows) and a two-launch case (22 + 3 rows); bitwise
+    12 + 1 rows), a two-launch case (22 + 3 rows) and 37 rows at
+    D = 1,003, 255, 256 and 257 (the mask's first D genes); bitwise
     repeatability, 1 launch == 16 launches, and K5 at 12 + 3 rows;
 15. one mixture batch step, kernel route against plain route;
 16. the mixture CLIs end to end (their main path): ``vmfnb_vae --annot
@@ -234,6 +241,41 @@ def ptxas_summary(build_log: str) -> str:
     return "; ".join(out)
 
 
+def encode_instances(build_log: str) -> list[tuple[str, int, int]]:
+    """(label, registers, bytes of spill stores) of every
+    ``count_encode.cu`` kernel instance (its stage-1 template arguments
+    read from the mangled name: count dtype, log1p and raw row bounds
+    NL + NX, STATS, FILT)."""
+    body = re.search(r"^== count_encode\.cu\n(.*?)(?=^== |\Z)", build_log,
+                     re.M | re.S)
+    out = []
+    for name, spill, regs in re.findall(
+            r"Compiling entry function '(\w+)'.*?(\d+) bytes spill "
+            r"stores.*?Used (\d+) registers", body.group(1) if body else "",
+            re.S):
+        m = re.search(r"count_encode_tilesI(\w)Li(\d+)ELi(\d+)ELb(\d)ELb"
+                      r"(\d)E", name)
+        label = ("sum" if m is None else
+                 f"{dict(a='int8', s='int16', f='f32')[m[1]]} {m[2]}+{m[3]}"
+                 + ("+filt" if m[5] == "1" else "+stats" if m[4] == "1"
+                    else ""))
+        out.append((label, int(regs), int(spill)))
+    return out
+
+
+def check_encode_instances(build_log: str) -> list[tuple[str, int, int]]:
+    """``encode_instances``, raising when the log holds none or any of
+    them spills: the design holds every instance in registers (launch
+    bounds of 2 blocks an SM, float32 counts in four parts)."""
+    instances = encode_instances(build_log)
+    if not instances:
+        raise AssertionError("count_encode.cu: no instance in the build log")
+    spilled = [n for n, _, b in instances if b]
+    if spilled:
+        raise AssertionError(f"count_encode.cu instances spill: {spilled}")
+    return instances
+
+
 def make_counts(g: torch.Generator, M: int, D: int, dtype) -> torch.Tensor:
     """Seeded counts on the card: Poisson around a log-normal gene
     profile (~1.5 mean), clipped to the dtype; float32 gets non-integer
@@ -257,6 +299,8 @@ def scaled_err(got, want, S):
 def phase_kernels(enc, card):
     cases = [(100, 20000, 2, 2, torch.int8), (100, 20000, 2, 2, torch.int16),
              (100, 20000, 2, 2, torch.float32), (37, 1003, 5, 0, torch.int8),
+             (37, 255, 3, 1, torch.float32), (37, 256, 2, 2, torch.int8),
+             (37, 257, 2, 0, torch.int16),  # D at the tile edges
              (1600, 20000, 2, 0, torch.int8),
              (100, 20000, 24, 2, torch.int16)]
     g = torch.Generator(device=DEV).manual_seed(SEED)
@@ -290,26 +334,48 @@ def phase_kernels(enc, card):
             f"hX {e2:.3g} (err/tol {max(q1, q2):.3g}); per call "
             f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms; device time "
             f"kernel {k_dev:.4f} ms, plain {p_dev:.4f} ms")
-    main_shape = (1600, 20000, 2, 0, torch.int8)  # the serving sweep's launch
-    return worst, times[main_shape]
+    # the serving sweep's launch and the NB trainer's (its 360 launches)
+    return worst, (times[(1600, 20000, 2, 0, torch.int8)],
+                   times[(100, 20000, 2, 2, torch.int8)])
 
 
 def phase_chunks(enc):
+    """Phase 3: each forward instance's result depends only on D and the
+    row's data: launch grouping, storage dtype and the run change no
+    bit."""
     g = torch.Generator(device=DEV).manual_seed(SEED + 1)
     x = make_counts(g, 1600, D_GENES, torch.int8)
-    W = torch.randn((2, D_GENES), generator=g, device=DEV) * 0.1
-    one, _ = enc.count_encode(x, W)
-    parts = torch.cat([enc.count_encode(x[i:i + 100], W)[0]
-                       for i in range(0, 1600, 100)])
-    f32, _ = enc.count_encode(x.float(), W)
-    torch.cuda.synchronize()
-    if not torch.equal(one, parts):
-        raise AssertionError("1 launch x 1600 rows != 16 launches x 100 rows")
-    if not torch.equal(one, f32):
-        raise AssertionError("int8 and float32 storage of the same counts "
-                             "differ")
-    log("[phase 3] 1 launch x 1600 rows == 16 launches x 100 rows, bitwise; "
-        "int8 == float32 storage, bitwise")
+    filt = torch.from_numpy(marker_label().any(axis=1).astype(
+        np.float32)).to(DEV)
+    ragged = [0, 1, 38, 100] + list(range(200, 1601, 100))
+    for name, r1, r2, kw in (
+            ("count_encode", 2, 0, {}),
+            ("count_encode[stats]", 5, 3, dict(want_stats=True)),
+            ("count_encode[filt]", 12, 3, dict(want_stats=True,
+                                               filt=filt))):
+        WL = torch.randn((r1, D_GENES), generator=g, device=DEV) * 0.1
+        WX = (torch.randn((r2, D_GENES), generator=g, device=DEV) * 0.01
+              if r2 else None)
+
+        def run(xx, cuts=(0, 1600)):
+            parts = [enc.count_encode(xx[a:b], WL, WX, **kw)
+                     for a, b in zip(cuts, cuts[1:])]
+            return [torch.cat(t) for t in zip(*parts)]
+
+        one = run(x)
+        for what, got in (
+                ("16 launches x 100 rows", run(x, range(0, 1601, 100))),
+                ("a ragged split 1 + 37 + 62 + 15 x 100", run(x, ragged)),
+                ("int16 storage", run(x.to(torch.int16))),
+                ("float32 storage", run(x.float())),
+                ("a second run", run(x))):
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(one, got)):
+                raise AssertionError(f"{name}: 1 launch x 1600 rows (int8) "
+                                     f"!= {what}")
+        log(f"[phase 3] {name} ({r1} + {r2} rows): 1 launch x 1600 rows == "
+            f"16 x 100 == 1 + 37 + 62 + 15 x 100; int8 == int16 == float32 "
+            f"storage; two runs equal; bitwise")
 
 
 def plain_encode(params, x):
@@ -694,7 +760,11 @@ def phase_train_kernels(card):
 
 
 STATS_CASES = [(100, D_GENES, 5, 3, torch.int8),    # a training batch
-               (1600, D_GENES, 2, 0, torch.int8)]   # the serving launch
+               (1600, D_GENES, 2, 0, torch.int8),   # the serving launch
+               (37, 1003, 5, 3, torch.int8),        # D off the tile width
+               (37, 255, 5, 3, torch.int16),        # D at the tile edges
+               (37, 256, 5, 3, torch.float32),
+               (37, 257, 5, 0, torch.int8)]
 
 
 def joint_step_inputs(g, B, D, dtype, regime):
@@ -870,7 +940,11 @@ FILT_CASES = [(100, D_GENES, 12, 3, torch.int8),    # a training batch
               (100, D_GENES, 12, 3, torch.int16),
               (100, D_GENES, 12, 3, torch.float32),
               (1600, D_GENES, 12, 1, torch.int8),   # the serving launch
-              (100, D_GENES, 22, 3, torch.int8)]    # K = 20: two launches
+              (100, D_GENES, 22, 3, torch.int8),    # K = 20: two launches
+              (37, 1003, 12, 3, torch.int8),        # D off the tile width
+              (37, 255, 12, 3, torch.int16),        # D at the tile edges
+              (37, 256, 12, 1, torch.float32),
+              (37, 257, 12, 3, torch.int8)]
 
 
 def phase_filt_kernels(card):
@@ -880,14 +954,15 @@ def phase_filt_kernels(card):
     from mmvae_tpu_torch.ops import enc_kernel as enc
 
     g = torch.Generator(device=DEV).manual_seed(SEED + 14)
-    filt = torch.from_numpy(marker_label().any(axis=1).astype(
+    marker = torch.from_numpy(marker_label().any(axis=1).astype(
         np.float32)).to(DEV)
-    covered = int(filt.sum().item())
+    covered = int(marker.sum().item())
     worst, times = 0.0, {}
     log(f"[phase 14] K4f count_encode[filt] vs plain (f32, TF32 off), "
         f"marker mask of {K_MIX} x 200 genes covering {covered} of "
         f"{D_GENES}; {TOL}, stats tol 1e-5 * stat + 1e-6")
     for M, D, r1, r2, dt in FILT_CASES:
+        filt = marker[:D].contiguous()
         x = make_counts(g, M, D, dt)
         WL = torch.randn((r1, D), generator=g, device=DEV) * 0.1
         WX = torch.randn((r2, D), generator=g, device=DEV) * 0.01
@@ -916,11 +991,12 @@ def phase_filt_kernels(card):
         times[(M, r1, dt)] = (k_dev, p_dev)
         log(f"[phase 14] [{card}] count_encode[filt] M={M} D={D} r1={r1} "
             f"r2={r2} {str(dt).replace('torch.', '')} "
-            f"({-(-(r1 + r2) // enc.MAX_ROWS_PER_LAUNCH)} launch(es)): "
+            f"({len(enc.fwd_plan(D, r1, r2, True, True))} launch(es)): "
             f"max_abs_err hL {e1:.3g} hX {e2:.3g} stats {e3:.3g} (err/tol "
             f"{q:.3g}); device time kernel {k_dev:.4f} ms, plain "
             f"{p_dev:.4f} ms")
     # the serving launch: one launch over 1600 rows == 16 of 100, bitwise
+    filt = marker
     x = make_counts(g, 1600, D_GENES, torch.int8)
     WL = torch.randn((12, D_GENES), generator=g, device=DEV) * 0.1
     WX = torch.randn((1, D_GENES), generator=g, device=DEV) * 0.01
@@ -2523,8 +2599,12 @@ def main() -> int:
     log(f"[phase 1] built {', '.join(os.path.relpath(s) for s in _cuda.sources())}"
         f" -> {os.path.relpath(_cuda.LIB_PATH)} in {time.time() - t0:.1f}s")
     with open(_cuda.BUILD_LOG) as f:
-        log(f"[phase 1] ptxas ({os.path.relpath(_cuda.BUILD_LOG)} has the "
-            f"full report): {ptxas_summary(f.read())}")
+        build_log = f.read()
+    log(f"[phase 1] ptxas ({os.path.relpath(_cuda.BUILD_LOG)} has the "
+        f"full report): {ptxas_summary(build_log)}")
+    log("[phase 1] count_encode.cu instances (registers / spilled bytes): "
+        + ", ".join(f"{n} {r}r/{b}B"
+                    for n, r, b in check_encode_instances(build_log)))
 
     marks = [("build", time.time())]
 
@@ -2532,7 +2612,8 @@ def main() -> int:
         marks.append((name, time.time()))
 
     worst, times = {}, {}
-    worst["count_encode"], times["count_encode"] = phase_kernels(enc, card)
+    worst["count_encode"], (times["count_encode"], train_k4) = (
+        phase_kernels(enc, card))
     phase_chunks(enc)
     mark("2-3")
     for w, t in (phase_variant_kernels(card), phase_train_kernels(card)):
@@ -2605,14 +2686,26 @@ def main() -> int:
         f"{ {k: v_lib['joint'][k] for k in JOINT_VALUE_PATH} }, mixture "
         f"{ {k: v_lib['mixture'][k] for k in MIXTURE_VALUE_PATH} }")
     log(card)
-    int8 = dict(B=B_TRAIN, D=D_GENES, x_bytes=1)
+    int8 = dict(B=B_TRAIN, D=D_GENES, x_bytes=1, dtype="int8")
     shapes = {"count_encode": dict(int8, B=1600, r1=2, r2=0),
               "count_encode[stats]": dict(int8, r1=5, r2=3),
               "count_encode[filt]": dict(int8, r1=12, r2=3),
-              "count_encode_bwd": dict(int8, r1=2, r2=2)}
+              "count_encode_bwd": dict(int8, r1=2, r2=2),
+              "roofline_probe": dict(int8, x_bytes=4, dtype="float32"),
+              # these two take no counts
+              "nb_lse": dict(int8, dtype=""),
+              "nb_finish": dict(int8, dtype="")}
+
+    def label(shape):
+        return (f"M={shape['B']} D={shape['D']}"
+                + (f" {shape['dtype']}" if shape["dtype"] else "")
+                + (f" rows {shape['r1']} + {shape['r2']}" if "r1" in shape
+                   else ""))
+
     records = []
     for name, _, _, src, rep in KERNELS:
-        b_ms, b_by = bound_ms(name, shapes.get(name, int8))
+        shape = shapes.get(name, int8)
+        b_ms, b_by = bound_ms(name, shape)
         records.append({
             "name": name, "route": "cuda",
             "source": f"mmvae_tpu_torch/csrc/{src}",
@@ -2621,7 +2714,12 @@ def main() -> int:
             "ms": times[name][0], "plain_ms": times[name][1],
             "bound_ms": b_ms, "bound_by": b_by,
             # no single PyTorch call computes any of these functions
-            "library_ms": None})
+            "library_ms": None, "shape": label(shape)})
+    # K4 at the NB trainer's launch, beside the serving launch above
+    train = dict(int8, r1=2, r2=2)
+    records[0]["trainer"] = {
+        "shape": label(train), "ms": train_k4[0], "plain_ms": train_k4[1],
+        "bound_ms": bound_ms("count_encode", train)[0]}
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

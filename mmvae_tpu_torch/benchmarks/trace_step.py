@@ -33,9 +33,11 @@ from ..utils.profiling import host_times, kernel_times, trace
 
 KINDS = ("nb", "vmf", "joint", "mixture")
 # the port's kernel each CUDA function belongs to (csrc/*.cu); the row
-# sums' second stage (reduce_parts) is shared by K6, K2 and K3
+# sums' second stage (reduce_parts) is shared by K6, K2 and K3; the
+# encoder forward's two stages are one kernel, K4
 PORT_KERNELS = (
-    ("count_encode_fwd_kernel", "count_encode"),
+    ("count_encode_tiles", "count_encode"),
+    ("count_encode_sum", "count_encode"),
     ("count_encode_bwd_kernel", "count_encode_bwd"),
     ("lse_partials", "nb_lse"), ("lse_merge", "nb_lse"),
     ("value_partials", "nb_value"), ("valgrad_kernel", "nb_valgrad"),

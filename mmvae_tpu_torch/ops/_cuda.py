@@ -112,7 +112,8 @@ def _bind(lib) -> None:
         _vp, _i32, _i64, _i64,   # x, dtype code, M, D
         _vp, _i32, _vp, _i32,    # WL, nl, WX, nx
         _vp, _i64, _vp, _i64,    # hL, ldl, hX, ldx
-        _vp, _vp, _vp,           # row stats, filter (or null), stream
+        _vp, _vp,                # row stats, filter (or null)
+        _vp, _i64, _vp,          # workspace, its floats, stream
     ]
     lib.mmvae_count_encode_fwd.restype = _i32
     lib.mmvae_count_encode_bwd.argtypes = [

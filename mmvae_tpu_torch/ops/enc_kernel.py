@@ -11,7 +11,9 @@ PyTorch version beside it:
 - forward (K4; K4s with ``want_stats``; K4f with ``want_stats`` and
   ``filt``): :func:`count_encode_ref`, or the CUDA kernel
   ``csrc/count_encode.cu``, which reads the integer counts once and forms
-  ``log1p(x)`` in registers; the stats take no gradient;
+  ``log1p(x)`` in registers, one block per (D tile, 32 rows), and adds
+  the tiles' partials in a fixed order in a second stage (launch plan:
+  :func:`fwd_plan`); the stats take no gradient;
 - backward (K5): :func:`count_encode_bwd` — ``dWL = g1^T log1p(x)``,
   ``dWX = g2^T x`` — :func:`count_encode_bwd_ref`, or the CUDA kernel
   ``csrc/count_encode_bwd.cu``.
@@ -27,10 +29,58 @@ instance) and ``count_encode_bwd.launches`` count kernel launches.
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 
 _DTYPE_CODE = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
-MAX_ROWS_PER_LAUNCH = 16  # weight rows the kernel keeps in registers
+# weight rows a launch keeps in registers: the backward (K5) <= 16
+# stacked rows, the forward <= 16 log1p (WL) rows and <= 4 raw (WX) rows
+MAX_ROWS_PER_LAUNCH = 16
+MAX_X_ROWS_PER_LAUNCH = 4
+FWD_TILE = 256  # D columns of a forward block's tile: kTile of count_encode.cu
+
+
+class FwdLaunch(NamedTuple):
+    """One forward launch: WL rows [l0, l1) and WX rows [x0, x1), whether
+    it writes the stats (and reads the filter), and its workspace
+    ``(tiles, M, width)`` of per-tile row partials."""
+    l0: int
+    l1: int
+    x0: int
+    x1: int
+    stats: bool
+    filt: bool
+    tiles: int
+    width: int
+
+    def workspace(self, M: int) -> tuple[int, int, int]:
+        return (self.tiles, M, self.width)
+
+
+def fwd_plan(D: int, r1: int, r2: int, want_stats: bool = False,
+             filt: bool = False) -> list[FwdLaunch]:
+    """The forward kernel's launches for x (M, D) against r1 log1p rows
+    WL and r2 raw rows WX: launch i takes WL rows [16 i, 16 i + 16) and WX
+    rows [4 i, 4 i + 4); the first alone writes the stats and reads the
+    filter.  A launch tiles D in ``FWD_TILE`` columns, so its tiles and
+    partials depend on D and the instance only, never on M or the dtype:
+    the fixed tiling is what keeps a row's result invariant to how rows
+    are grouped into launches."""
+    tiles = -(-D // FWD_TILE)
+    n = max(-(-r1 // MAX_ROWS_PER_LAUNCH), -(-r2 // MAX_X_ROWS_PER_LAUNCH))
+    out = []
+    for i in range(n):
+        l0 = min(i * MAX_ROWS_PER_LAUNCH, r1)
+        l1 = min(l0 + MAX_ROWS_PER_LAUNCH, r1)
+        x0 = min(i * MAX_X_ROWS_PER_LAUNCH, r2)
+        x1 = min(x0 + MAX_X_ROWS_PER_LAUNCH, r2)
+        stats, fl = bool(want_stats) and i == 0, bool(filt) and i == 0
+        out.append(FwdLaunch(l0, l1, x0, x1, stats, fl, tiles,
+                             l1 - l0 + x1 - x0
+                             + (4 if fl else 2 if stats else 0)))
+    return out
 
 
 def _check_filt(filt, want_stats: bool):
@@ -200,28 +250,27 @@ def _kernel_route(x, WL, WX, want_stats=False, filt=None):
     out = (hL, hX, st) if want_stats else (hL, hX)
     if M == 0:
         return out
+    plan = fwd_plan(D, r1, r2, want_stats, filt is not None)
+    # one workspace, sized for the largest launch, serves them all in turn
+    ws = torch.empty((max(math.prod(p.workspace(M)) for p in plan),),
+                     dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        # one launch per group of <= 16 stacked rows [WL; WX]; the first
-        # launch alone writes the stats, and alone reads the filter
-        for g0 in range(0, r1 + r2, MAX_ROWS_PER_LAUNCH):
-            g1 = min(g0 + MAX_ROWS_PER_LAUNCH, r1 + r2)
-            l0, l1 = min(g0, r1), min(g1, r1)
-            x0, x1 = max(g0 - r1, 0), max(g1 - r1, 0)
+        for p in plan:
             rc = lib.mmvae_count_encode_fwd(
                 x.data_ptr(), _DTYPE_CODE[x.dtype], M, D,
-                WL.data_ptr() + 4 * l0 * D, l1 - l0,
-                WX.data_ptr() + 4 * x0 * D, x1 - x0,
-                hL.data_ptr() + 4 * l0, r1,
-                hX.data_ptr() + 4 * x0, r2,
-                st.data_ptr() if st is not None and g0 == 0 else None,
-                filt.data_ptr() if filt is not None and g0 == 0 else None,
-                stream,
+                WL.data_ptr() + 4 * p.l0 * D, p.l1 - p.l0,
+                WX.data_ptr() + 4 * p.x0 * D, p.x1 - p.x0,
+                hL.data_ptr() + 4 * p.l0, r1,
+                hX.data_ptr() + 4 * p.x0, r2,
+                st.data_ptr() if p.stats else None,
+                filt.data_ptr() if p.filt else None,
+                ws.data_ptr(), ws.numel(), stream,
             )
             _cuda.check(rc, "count_encode")
-            if filt is not None and g0 == 0:
+            if p.filt:
                 count_encode.filt_launches += 1
-            elif st is not None and g0 == 0:
+            elif p.stats:
                 count_encode.stats_launches += 1
             else:
                 count_encode.launches += 1

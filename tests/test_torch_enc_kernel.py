@@ -126,6 +126,85 @@ def test_kernel_route_validates_arguments(bad):
 
 
 # ----------------------------------------------------------------------
+# the forward kernel's launch plan (count_encode.cu: D tiles of FWD_TILE
+# columns, a (tiles, M, width) workspace of per-tile row partials)
+# ----------------------------------------------------------------------
+
+INSTANCES = pytest.mark.parametrize("stats,filt", [(False, False),
+                                                   (True, False),
+                                                   (True, True)],
+                                    ids=["K4", "K4s", "K4f"])
+
+
+@INSTANCES
+@pytest.mark.parametrize("D", [1, 255, 256, 257, 1003, 20000])
+def test_fwd_plan_depends_on_d_and_instance_only(D, stats, filt):
+    """The tiles and partials of every launch follow from D and the
+    instance alone: no M (and no dtype: the plan takes neither) moves
+    them, so a row's sums are grouped the same in every launch."""
+    plans = {}
+    for M in (0, 1, 37, 100, 1600):
+        for r1, r2 in ((2, 2), (5, 3), (12, 3), (22, 3), (2, 0), (5, 10)):
+            plan = tek.fwd_plan(D, r1, r2, stats, filt)
+            plans.setdefault((r1, r2), plan)
+            assert plan == plans[(r1, r2)]
+            for p in plan:
+                assert p.tiles == -(-D // tek.FWD_TILE)
+                assert (p.tiles - 1) * tek.FWD_TILE < D <= (
+                    p.tiles * tek.FWD_TILE)
+                assert p.workspace(M) == (p.tiles, M, p.width)
+
+
+@INSTANCES
+@pytest.mark.parametrize("r1,r2", [(1, 0), (2, 2), (5, 3), (12, 1),
+                                   (12, 3), (16, 4), (22, 3), (24, 2),
+                                   (0, 3), (5, 10), (40, 0)])
+def test_fwd_plan_covers_every_row_once(r1, r2, stats, filt):
+    """Launch i takes WL rows [16 i, 16 i + 16) and WX rows [4 i, 4 i + 4),
+    so every row lands in one launch, within the kernel's register
+    bounds; the stats (and the filter) ride the first launch only, and a
+    launch's width is its rows plus its stats."""
+    plan = tek.fwd_plan(20000, r1, r2, stats, filt)
+    assert [(p.l0, p.l1) for p in plan if p.l1 > p.l0] == [
+        (a, min(a + 16, r1)) for a in range(0, r1, 16)]
+    assert [(p.x0, p.x1) for p in plan if p.x1 > p.x0] == [
+        (a, min(a + 4, r2)) for a in range(0, r2, 4)]
+    assert len(plan) == max(-(-r1 // 16), -(-r2 // 4))
+    for i, p in enumerate(plan):
+        assert p.l1 - p.l0 <= tek.MAX_ROWS_PER_LAUNCH
+        assert p.x1 - p.x0 <= tek.MAX_X_ROWS_PER_LAUNCH
+        assert 0 < p.l1 - p.l0 + p.x1 - p.x0
+        assert (p.stats, p.filt) == ((stats, filt) if i == 0
+                                     else (False, False))
+        ns = 4 if p.filt else 2 if p.stats else 0
+        assert p.width == p.l1 - p.l0 + p.x1 - p.x0 + ns
+
+
+@INSTANCES
+@pytest.mark.parametrize("M", [1, 37])
+@pytest.mark.parametrize("D", [255, 256, 257])
+def test_count_encode_tile_edges_match_xla_spec(D, M, stats, filt):
+    """All three forward instances at D on either side of the kernel's
+    tile width and at row counts off its 32-row groups, against the XLA
+    spec (the stats' tolerance: 1e-5 * stat + 1e-6)."""
+    x, WL, WX = _inputs(M, D, 12 if filt else 5, 3, "int16", seed=D + M)
+    f = ((np.random.default_rng(D).random((1, D)) < 0.25).astype(np.float32)
+         if filt else None)
+    want = jek._xla_encode(jnp.asarray(x), jnp.asarray(WL), jnp.asarray(WX),
+                           None if f is None else jnp.asarray(f), stats)
+    got = tek.count_encode(torch.from_numpy(x), torch.from_numpy(WL),
+                           torch.from_numpy(WX), want_stats=stats,
+                           filt=None if f is None else torch.from_numpy(f))
+    SL, SX = _bounds(x, WL, WX)
+    assert_close_scaled(got[0].numpy(), want[0], SL)
+    assert_close_scaled(got[1].numpy(), want[1], SX)
+    if stats:
+        st = np.asarray(want[2], np.float64)
+        assert got[2].shape == (M, 4)
+        assert_close_scaled(got[2].numpy(), st, np.abs(st))
+
+
+# ----------------------------------------------------------------------
 # backward (K5): the weight VJP, same scaled tolerance with
 # S = |g1|^T |log1p x| (|g2|^T |x| for dWX)
 # ----------------------------------------------------------------------
@@ -170,3 +249,46 @@ def test_bwd_plain_version_is_autograd_of_forward():
     before = tek.count_encode_bwd.launches
     tek.count_encode_bwd(torch.from_numpy(x), g1, None)
     assert tek.count_encode_bwd.launches == before  # CPU: plain version
+
+
+# ----------------------------------------------------------------------
+# chip_smoke.py phase 1: every count_encode.cu instance's registers and
+# spills read from ptxas' report, and a spill fails the build phase
+# ----------------------------------------------------------------------
+
+_ENTRY = ("ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__11bf2b74"
+          "_15_count_encode_cu_4cdaf3a9{name}' for 'sm_90a'\n"
+          "ptxas info    : Function properties for _ZN{name}\n"
+          "    0 bytes stack frame, {spill} bytes spill stores, {spill} bytes "
+          "spill loads\n"
+          "ptxas info    : Used {regs} registers, used 1 barriers\n")
+
+
+def _build_log(spill=0):
+    body = "".join(_ENTRY.format(name=n, spill=b, regs=r) for n, b, r in (
+        ("18count_encode_tilesIaLi16ELi4ELb0ELb0EEEvPKT_llPKfiS5_iS5_Pf",
+         0, 128),
+        ("18count_encode_tilesIsLi2ELi0ELb1ELb0EEEvPKT_llPKfiS5_iS5_Pf",
+         0, 51),
+        ("18count_encode_tilesIfLi16ELi0ELb1ELb1EEEvPKT_llPKfiS5_iS5_Pf",
+         spill, 128),
+        ("16count_encode_sumEPKflliiibPflS2_lS2_", 0, 30)))
+    other = _ENTRY.format(name="8nb_lse", spill=16, regs=40)
+    return f"== count_encode.cu\n{body}== nb_lse.cu\n{other}"
+
+
+def test_encode_instances_reads_every_instance():
+    import chip_smoke
+
+    assert chip_smoke.check_encode_instances(_build_log()) == [
+        ("int8 16+4", 128, 0), ("int16 2+0+stats", 51, 0),
+        ("f32 16+0+filt", 128, 0), ("sum", 30, 0)]
+
+
+@pytest.mark.parametrize("log", [_build_log(spill=8), "== nb_lse.cu\n"],
+                         ids=["spill", "no_instance"])
+def test_encode_instances_spill_fails_phase_1(log):
+    import chip_smoke
+
+    with pytest.raises(AssertionError, match="count_encode.cu"):
+        chip_smoke.check_encode_instances(log)

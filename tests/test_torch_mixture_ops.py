@@ -114,8 +114,10 @@ def _check(got, want, x, WL, WX):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
+# D = 255, 256, 257: either side of the forward kernel's 256-column tile
 @pytest.mark.parametrize("D,r1,r2", [(640, 7, 3), (1003, 7, 3),
-                                     (1003, 6, 1)])
+                                     (1003, 6, 1), (255, 7, 3), (256, 6, 1),
+                                     (257, 7, 3)])
 @pytest.mark.parametrize("interpret", [False, True])
 def test_count_encode_filt_matches_jax(monkeypatch, dtype, D, r1, r2,
                                        interpret):

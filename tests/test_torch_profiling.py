@@ -158,6 +158,19 @@ def test_port_kernel_names():
         "const*)") == "roofline_probe"
 
 
+def test_port_kernel_names_encoder_forward_stages():
+    """Both stages of the encoder forward (``csrc/count_encode.cu``) are
+    K4's time in the table; its backward stays apart."""
+    for stage in ("void (anonymous namespace)::count_encode_tiles<signed "
+                  "char, 16, 4, true, true>(signed char const*, long)",
+                  "(anonymous namespace)::count_encode_sum(float const*, "
+                  "long, long, int, int, int, bool, float*)"):
+        assert trace_step.port_kernel(stage) == "count_encode"
+    assert trace_step.port_kernel(
+        "void (anonymous namespace)::count_encode_bwd_kernel<signed char, "
+        "4>(signed char const*)") == "count_encode_bwd"
+
+
 def test_import_guard_walks_the_benchmarks():
     """``tests/test_torch_serve.py::test_port_serving_imports_no_jax``
     imports every module ``walk_packages`` finds: the port's benchmark

@@ -110,13 +110,16 @@ def _check_stats_outputs(got, want, x, WL, WX):
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("D,r2", [(640, 3), (1003, 3), (1003, 0)])
+# D = 255, 256, 257: either side of the forward kernel's 256-column tile
+@pytest.mark.parametrize("D,r2", [(640, 3), (1003, 3), (1003, 0), (255, 3),
+                                  (256, 3), (257, 0)])
 @pytest.mark.parametrize("interpret", [False, True])
 def test_count_encode_stats_matches_jax(monkeypatch, dtype, D, r2,
                                         interpret):
     """``count_encode(want_stats=True)`` at the joint step's widths
     (r1 = 2R + 1 = 5 log1p rows, r2 = H + 2 = 3 raw rows, and the
-    serving case r2 = 0) against ``_xla_encode`` and interpret-mode K4."""
+    serving case r2 = 0) against ``_xla_encode`` and interpret-mode K4,
+    at ragged D and at the kernel's tile edges."""
     monkeypatch.setattr(jek, "_INTERPRET", interpret)
     x, WL, WX = _enc_inputs(8, D, 5, r2, dtype, seed=D + r2)
     want = jek.count_encode(jnp.asarray(x), jnp.asarray(WL), jnp.asarray(WX),
