@@ -10,7 +10,7 @@ exits non-zero without the final line):
    (``nvidia-smi``), which tag every number printed after it;
 1. build: compile every kernel of the port from ``mmvae_tpu_torch/csrc``
    with nvcc for sm_90a; the registers and spills of every
-   ``count_encode`` instance, failing if one spills;
+   ``count_encode`` and ``nb_valgrad`` instance, failing if one spills;
 2. kernel against plain: ``count_encode`` on the card against its plain
    PyTorch version at the NB trainer's launch (M = 100, 2 + 2 rows), the
    serving launch (M = 1600, 2 + 0) and ragged and wide cases, with
@@ -126,13 +126,20 @@ exits non-zero without the final line):
     repeatable, with device times of the fma class at ILP 4, nrep 40;
     then the probe itself (``python -m
     mmvae_tpu_torch.benchmarks.valgrad_roofline``'s ``main``): per-op
-    costs at ILP 1 and 4, K2's op-mix bracket, K2's time alone;
+    costs at ILP 1 and 4, the op-mix bracket of each K2 instance, each
+    instance's two stages alone;
 27. the tooling end to end: ``trace_step joint`` at D = 20,000, B = 100,
     8 batches an epoch, whose table must name the port's kernels with
     device time; ``nb_vae`` on phase 4's matrix with ``MMVAE_TRACE_DIR``
     set, whose trace must hold the ``ondevice_epoch`` annotation and the
     kernels and whose ``.metrics.jsonl`` rows the JAX trainer's
-    ``time_*`` keys.
+    ``time_*`` keys;
+28. K2's cases: the four ``nb_valgrad`` instances against their plain
+    version at B in {1, 37, 100, 1600} x D in {255, 256, 257, 1003,
+    20,000}, with the compile-time widths (2, 1, 1) and the general
+    instance at (4, 2, 3), counts stored as int8, int16 and float32
+    (bitwise equal) and non-integer float32: each bitwise repeatable,
+    the value-bearing gradients equal to the grad-only ones bitwise.
 
 Each main path (phases 4, 8, 12, 16, the runs of 20 and 24, and the
 probe's run in 26) is driven with every launch counter set to 0 just
@@ -241,38 +248,60 @@ def ptxas_summary(build_log: str) -> str:
     return "; ".join(out)
 
 
-def encode_instances(build_log: str) -> list[tuple[str, int, int]]:
-    """(label, registers, bytes of spill stores) of every
-    ``count_encode.cu`` kernel instance (its stage-1 template arguments
+def encode_label(name: str) -> str:
+    """A ``count_encode.cu`` instance by its stage-1 template arguments,
     read from the mangled name: count dtype, log1p and raw row bounds
-    NL + NX, STATS, FILT)."""
-    body = re.search(r"^== count_encode\.cu\n(.*?)(?=^== |\Z)", build_log,
+    NL + NX, STATS, FILT."""
+    m = re.search(r"count_encode_tilesI(\w)Li(\d+)ELi(\d+)ELb(\d)ELb(\d)E",
+                  name)
+    if m is None:
+        return "sum"
+    return (f"{DTYPE_CODES[m[1]]} {m[2]}+{m[3]}"
+            + ("+filt" if m[5] == "1" else "+stats" if m[4] == "1" else ""))
+
+
+def valgrad_label(name: str) -> str:
+    """A ``nb_valgrad.cu`` instance by its stage-1 template arguments:
+    count dtype, the compile-time widths R+C+Rn (0+0+0: the general
+    instance), JOINT, VALUE."""
+    m = re.search(r"valgrad_tilesI(\w)Li(\d+)ELi(\d+)ELi(\d+)ELb(\d)ELb"
+                  r"(\d)E", name)
+    if m is None:
+        return "sum"
+    return (f"{DTYPE_CODES[m[1]]} "
+            + (f"{m[2]}+{m[3]}+{m[4]}" if m[2] != "0" else "general")
+            + ("+joint" if m[5] == "1" else "")
+            + ("+value" if m[6] == "1" else ""))
+
+
+DTYPE_CODES = {"a": "int8", "s": "int16", "f": "f32"}
+
+
+def kernel_instances(build_log: str, source: str,
+                     label) -> list[tuple[str, int, int]]:
+    """(label, registers, bytes of spill stores) of every kernel instance
+    compiled from ``source`` (its ``== <source>`` section of the build
+    log), each named by ``label`` from its mangled name."""
+    body = re.search(rf"^== {re.escape(source)}\n(.*?)(?=^== |\Z)", build_log,
                      re.M | re.S)
-    out = []
-    for name, spill, regs in re.findall(
-            r"Compiling entry function '(\w+)'.*?(\d+) bytes spill "
-            r"stores.*?Used (\d+) registers", body.group(1) if body else "",
-            re.S):
-        m = re.search(r"count_encode_tilesI(\w)Li(\d+)ELi(\d+)ELb(\d)ELb"
-                      r"(\d)E", name)
-        label = ("sum" if m is None else
-                 f"{dict(a='int8', s='int16', f='f32')[m[1]]} {m[2]}+{m[3]}"
-                 + ("+filt" if m[5] == "1" else "+stats" if m[4] == "1"
-                    else ""))
-        out.append((label, int(regs), int(spill)))
-    return out
+    return [(label(name), int(regs), int(spill))
+            for name, spill, regs in re.findall(
+                r"Compiling entry function '(\w+)'.*?(\d+) bytes spill "
+                r"stores.*?Used (\d+) registers",
+                body.group(1) if body else "", re.S)]
 
 
-def check_encode_instances(build_log: str) -> list[tuple[str, int, int]]:
-    """``encode_instances``, raising when the log holds none or any of
-    them spills: the design holds every instance in registers (launch
-    bounds of 2 blocks an SM, float32 counts in four parts)."""
-    instances = encode_instances(build_log)
+def check_instances(build_log: str, source: str,
+                    label) -> list[tuple[str, int, int]]:
+    """``kernel_instances``, raising when the log holds none or any of
+    them spills: the designs hold every instance in registers (launch
+    bounds chosen per instance)."""
+    instances = kernel_instances(build_log, source, label)
     if not instances:
-        raise AssertionError("count_encode.cu: no instance in the build log")
+        raise AssertionError(f"{source}: no instance in the build log")
     spilled = [n for n, _, b in instances if b]
     if spilled:
-        raise AssertionError(f"count_encode.cu instances spill: {spilled}")
+        raise AssertionError(f"{source} instances spill: {spilled}")
     return instances
 
 
@@ -625,14 +654,14 @@ REGIMES = [(B_TRAIN, D_GENES, torch.int8, "counts<=7"),
 MAIN_CASE = 1  # int8 integer counts at B = 100, D = 20000: the main path
 
 
-def step_inputs(g, B, D, dtype, regime):
+def step_inputs(g, B, D, dtype, regime, widths=(2, 1, 1)):
     """Counts in the named lgamma regime and the step kernels' other
     operands, at the scales the trainer gives them (library-size depth,
-    unit latents, decoder rows of a few tenths)."""
+    unit latents, decoder rows of a few tenths); ``widths`` (R, C, Rn)."""
     x = make_counts(g, B, D, dtype)
     if regime == "counts<=7":
         x = x.clamp(max=7)
-    R, C, Rn = 2, 1, 1
+    R, C, Rn = widths
     zc = torch.randn((B, R + C), generator=g, device=DEV)
     zc[:, R:] = 1.0  # the all-ones covariate
     zn = torch.randn((B, Rn), generator=g, device=DEV)
@@ -678,6 +707,32 @@ def ratio(got, want, S):
     return err.max().item(), (err / lim).max().item()
 
 
+def valgrad_bounds(x, zc, zn, depth, l, W, R, C, Rn, joint=False):
+    """S of each of K2's gradient outputs (gout, rsum, u1, dzn): the
+    same sums over the float64 magnitudes of their terms."""
+    _, dls_m, dnp_m = grad_magnitudes(x, zc, zn, depth, l, W, R, C, Rn,
+                                      joint)
+    azc, azn, aW = zc.double().abs(), zn.double().abs(), W.double().abs()
+    base = R + C + 1
+    rows = [azc.T @ dls_m, dls_m.sum(0, True), azn.T @ dnp_m,
+            dnp_m.sum(0, True)] + ([dls_m.sum(0, True)] if joint else [])
+    return (torch.cat(rows), dls_m.sum(1, True), dls_m @ aW[:R].T,
+            dnp_m @ aW[base:base + Rn].T)
+
+
+def value_terms(x, zc, zn, depth, l, W, R, C, Rn, joint=False):
+    """float64 NLL terms without lgamma(x + 1), at ``norm = l``: their sum
+    is what a value-bearing K2 instance computes."""
+    from mmvae_tpu_torch.ops import nb_step as ns
+
+    with torch.no_grad():
+        Wd, base = W.double(), R + C + 1
+        return ns._terms(x.double(), ns._h(zc.double(), Wd, R + C)
+                         - l.double(), ns._nupre(zn.double(), Wd, base, Rn),
+                         depth.double(), False,
+                         Wd[base + Rn + 1] if joint else None, joint)
+
+
 def phase_train_kernels(card):
     from mmvae_tpu_torch.ops import enc_kernel as enc
     from mmvae_tpu_torch.ops import nb_step as ns
@@ -690,7 +745,7 @@ def phase_train_kernels(card):
     for case, (B, D, dt, regime) in enumerate(REGIMES):
         x, zc, zn, depth, W, (R, C, Rn) = step_inputs(g, B, D, dt, regime)
         lr = ns.lse_ref(zc, W, R, C)
-        p, dls_m, dnp_m = grad_magnitudes(x, zc, zn, depth, lr, W, R, C, Rn)
+        p, _, _ = grad_magnitudes(x, zc, zn, depth, lr, W, R, C, Rn)
         g1 = torch.randn((B, R), generator=g, device=DEV)
         g2 = torch.randn((B, 2), generator=g, device=DEV)
         rs_ref = ns.valgrad_ref(x, zc, zn, depth, lr, W, R, C, Rn)[1]
@@ -710,7 +765,7 @@ def phase_train_kernels(card):
                           lambda: ns.finish_ref(zc, lr, rs_ref, W, R, C)),
         }
         xd = x.double()
-        azc, azn, aW = zc.double().abs(), zn.double().abs(), W.double().abs()
+        azc, aW = zc.double().abs(), W.double().abs()
         base = R + C + 1
         with torch.no_grad():
             terms = ns._terms(xd, ns._h(zc.double(), W.double(), R + C)
@@ -721,10 +776,7 @@ def phase_train_kernels(card):
                                  g2.double().abs().T @ xd.abs()),
             "nb_lse": (1.0 + lr.double().abs(),),
             "nb_value": (terms.abs().sum(),),
-            "nb_valgrad": (torch.cat([azc.T @ dls_m, dls_m.sum(0, True),
-                                      azn.T @ dnp_m, dnp_m.sum(0, True)]),
-                           dls_m.sum(1, True), dls_m @ aW[:R].T,
-                           dnp_m @ aW[base:base + Rn].T),
+            "nb_valgrad": valgrad_bounds(x, zc, zn, depth, lr, W, R, C, Rn),
             "nb_finish": (torch.cat([azc.T @ (p * rs_ref.double().abs()),
                                      (p * rs_ref.double().abs()).sum(0,
                                                                      True)]),
@@ -767,12 +819,13 @@ STATS_CASES = [(100, D_GENES, 5, 3, torch.int8),    # a training batch
                (37, 257, 5, 0, torch.int8)]
 
 
-def joint_step_inputs(g, B, D, dtype, regime):
+def joint_step_inputs(g, B, D, dtype, regime, widths=(2, 1, 1)):
     """``step_inputs`` for the joint model's variant: a zero covariate
     and covariate row (as the joint step hands the kernels), the pb row
     last, and a nu bias that puts exp(nu_pre) far above NU_HI in 0.5% of
     the columns (the clamp's mask)."""
-    x, zc, zn, depth, W, (R, C, Rn) = step_inputs(g, B, D, dtype, regime)
+    x, zc, zn, depth, W, (R, C, Rn) = step_inputs(g, B, D, dtype, regime,
+                                                  widths)
     zc[:, R:] = 0.0
     W[R:R + C] = 0.0
     hot = torch.rand((D,), generator=g, device=DEV) < 0.005
@@ -853,8 +906,6 @@ def phase_variant_kernels(card):
         x, zc, zn, depth, W, (R, C, Rn) = joint_step_inputs(g, B, D, dt,
                                                             regime)
         lr = ns.lse_ref(zc, W, R, C)
-        _, dls_m, dnp_m = grad_magnitudes(x, zc, zn, depth, lr, W, R, C, Rn,
-                                          joint=True)
         base = R + C + 1
         npre = zn @ W[base:base + Rn] + W[base + Rn]
         clamped = int((torch.exp(npre) >= 1e4).sum())
@@ -877,15 +928,8 @@ def phase_variant_kernels(card):
             terms = ns._terms(xd, ns._h(zc.double(), Wd, R + C)
                               - lr.double(), npd, depth.double(), True,
                               Wd[base + Rn + 1], True)
-        azc, azn = zc.double().abs(), zn.double().abs()
-        aW = W.double().abs()
-        bounds = {
-            "nb_valgrad[pb,nu_exp]": (
-                torch.cat([azc.T @ dls_m, dls_m.sum(0, True), azn.T @ dnp_m,
-                           dnp_m.sum(0, True), dls_m.sum(0, True)]),
-                dls_m.sum(1, True), dls_m @ aW[:R].T,
-                dnp_m @ aW[base:base + Rn].T),
-        }
+        bounds = {"nb_valgrad[pb,nu_exp]": valgrad_bounds(
+            x, zc, zn, depth, lr, W, R, C, Rn, joint=True)}
         parts = []
         for name, (kern, plain) in calls.items():
             got, want = kern(), plain()
@@ -1333,24 +1377,14 @@ def phase_generic_kernels(card):
         if regime != "counts<=7" and dt != torch.float32:
             xs[0, :50] = 127
         lr = ns.lse_ref(zc, W, R, C)
-        _, dls_m, dnp_m = grad_magnitudes(xs, zc, zn, sdep, lr, W, R, C, Rn)
-        base = R + C + 1
-        with torch.no_grad():
-            vterms = ns._terms(xs.double(), ns._h(zc.double(), W.double(),
-                                                   R + C) - lr.double(),
-                               ns._nupre(zn.double(), W.double(), base, Rn),
-                               sdep.double(), False)
-        azc, azn, aW = zc.double().abs(), zn.double().abs(), W.double().abs()
-        vS = vterms.abs().sum()
+        vS = value_terms(xs, zc, zn, sdep, lr, W, R, C, Rn).abs().sum()
         kv, line, t_case["nb_valgrad[value]"] = check(
             "nb_valgrad[value]",
             lambda: ns.valgrad(xs, zc, zn, sdep, lr, W, R, C, Rn,
                                need_value=True),
             lambda: ns.valgrad_ref(xs, zc, zn, sdep, lr, W, R, C, Rn,
                                    need_value=True),
-            (torch.cat([azc.T @ dls_m, dls_m.sum(0, True), azn.T @ dnp_m,
-                        dnp_m.sum(0, True)]), dls_m.sum(1, True),
-             dls_m @ aW[:R].T, dnp_m @ aW[base:base + Rn].T, vS), tag,
+            (*valgrad_bounds(xs, zc, zn, sdep, lr, W, R, C, Rn), vS), tag,
             case == ELBO_MAIN)
         k2 = ns.valgrad(xs, zc, zn, sdep, lr, W, R, C, Rn)
         k6 = ns.value(xs, zc, zn, sdep, lr, W, R, C, Rn, with_const=False)
@@ -1800,21 +1834,10 @@ def phase_k2pv(card):
         W[base:base + Rn, :4] = 0.0
         W[base + Rn, :4] = torch.log(torch.tensor(EDGE_EXP, device=DEV))
         lr = ns.lse_ref(zc, W, R, C)
-        _, dls_m, dnp_m = grad_magnitudes(x, zc, zn, depth, lr, W, R, C, Rn,
-                                          joint=True)
         npre = zn @ W[base:base + Rn] + W[base + Rn]
         clamped = int((torch.exp(npre) >= 1e4).sum())
-        with torch.no_grad():
-            Wd = W.double()
-            terms = ns._terms(x.double(), ns._h(zc.double(), Wd, R + C)
-                              - lr.double(), ns._nupre(zn.double(), Wd, base,
-                                                       Rn),
-                              depth.double(), False, Wd[base + Rn + 1], True)
-        azc, azn, aW = zc.double().abs(), zn.double().abs(), W.double().abs()
-        bounds = (torch.cat([azc.T @ dls_m, dls_m.sum(0, True), azn.T @ dnp_m,
-                             dnp_m.sum(0, True), dls_m.sum(0, True)]),
-                  dls_m.sum(1, True), dls_m @ aW[:R].T,
-                  dnp_m @ aW[base:base + Rn].T)
+        terms = value_terms(x, zc, zn, depth, lr, W, R, C, Rn, joint=True)
+        bounds = valgrad_bounds(x, zc, zn, depth, lr, W, R, C, Rn, joint=True)
         kern = lambda: ns.valgrad(x, zc, zn, depth, lr, W, R, C, Rn,  # noqa
                                   True, True)
         plain = lambda: ns.valgrad_ref(x, zc, zn, depth, lr, W, R, C,  # noqa
@@ -1859,6 +1882,109 @@ def phase_k2pv(card):
         log(f"[phase 22] [{card}] B={B} D={D} {str(dt).replace('torch.', '')}"
             f" {regime} ({clamped} elements at the NU_HI clamp): {line}")
     return {name: worst}, {name: times}
+
+
+VALGRAD_BS = (1, 37, 100, 1600)
+VALGRAD_DS = (255, 256, 257, 1003, D_GENES)
+VALGRAD_WIDTHS = ((2, 1, 1), (4, 2, 3))  # the compile-time instance, a general one
+# name, joint, need_value
+VALGRAD_VARIANTS = (("nb_valgrad", False, False),
+                    ("nb_valgrad[pb,nu_exp]", True, False),
+                    ("nb_valgrad[value]", False, True),
+                    ("nb_valgrad[pb,nu_exp,value]", True, True))
+
+
+def phase_valgrad_cases(card):
+    """Phase 28: the four K2 instances (NB, joint; grad-only, value)
+    against ``valgrad_ref`` at every B of VALGRAD_BS x D of VALGRAD_DS
+    (D off and on the 64-column tile, ragged row chunks), with the
+    compile-time widths (2, 1, 1) and a general instance (4, 2, 3): integer
+    counts stored as int8, int16 and float32 (the three bitwise equal),
+    and non-integer float32 counts.  Each call bitwise repeatable, the
+    value-bearing gradients equal to the grad-only ones bitwise, every
+    gradient within TRAIN_TOL, the value held to the float64 sum as phase
+    22 holds it; each case launches the instance its plan names."""
+    from mmvae_tpu_torch.ops import nb_step as ns
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 28)
+    worst = {name: 0.0 for name, _, _ in VALGRAD_VARIANTS}
+    worst_q, n_cases, t0 = 0.0, 0, time.time()
+    log(f"[phase 28] K2, K2p, K2v, K2pv vs plain at B {VALGRAD_BS} x D "
+        f"{VALGRAD_DS} x widths {VALGRAD_WIDTHS}, counts int8 == int16 == "
+        f"float32 and non-integer float32; gradients {TRAIN_TOL}; value "
+        f"|kernel - f64| <= 2 |plain - f64| + 2.01e-5 * S")
+    for B in VALGRAD_BS:
+        for D in VALGRAD_DS:
+            for widths in VALGRAD_WIDTHS:
+                R, C, Rn = widths
+                x8, zc, zn, depth, Wj, _ = joint_step_inputs(
+                    g, B, D, torch.int8, "integer", widths)
+                Wn = Wj[:-1].contiguous()
+                counts = {"int8": x8, "int16": x8.to(torch.int16),
+                          "float32": x8.float(),
+                          "non-integer": make_counts(g, B, D, torch.float32)}
+                for name, joint, value in VALGRAD_VARIANTS:
+                    W = Wj if joint else Wn
+                    plan = ns.valgrad_plan(B, D, R, C, Rn, joint, value)
+                    if plan.instance != ("fixed" if widths == (2, 1, 1)
+                                         else "general"):
+                        raise AssertionError(f"plan {plan} for {widths}")
+                    lr = ns.lse_ref(zc, W, R, C)
+                    ref_bits = None
+                    for kind, x in counts.items():
+                        kern = lambda: ns.valgrad(  # noqa: E731
+                            x, zc, zn, depth, lr, W, R, C, Rn, joint, value)
+                        got, again = kern(), kern()
+                        torch.cuda.synchronize()
+                        if not all(torch.equal(a, b)
+                                   for a, b in zip(got, again)):
+                            raise AssertionError(f"{name} not bitwise "
+                                                 f"repeatable")
+                        if value:
+                            grad = ns.valgrad(x, zc, zn, depth, lr, W, R, C,
+                                              Rn, joint)
+                            if not all(torch.equal(a, b)
+                                       for a, b in zip(got[:4], grad)):
+                                raise AssertionError(
+                                    f"{name}'s gradients differ from the "
+                                    f"grad-only instance's at {(B, D)}")
+                        if kind in ("int16", "float32"):
+                            if not all(torch.equal(a, b)
+                                       for a, b in zip(got, ref_bits)):
+                                raise AssertionError(
+                                    f"{name}: {kind} storage != int8 at "
+                                    f"{(B, D, widths)}")
+                            continue
+                        ref_bits = got
+                        want = ns.valgrad_ref(x, zc, zn, depth, lr, W, R, C,
+                                              Rn, joint, value)
+                        e, q = 0.0, 0.0
+                        for gt, wt, S in zip(got, want, valgrad_bounds(
+                                x, zc, zn, depth, lr, W, R, C, Rn, joint)):
+                            ei, qi = ratio(gt, wt, S)
+                            e, q = max(e, ei), max(q, qi)
+                        if value:
+                            terms = value_terms(x, zc, zn, depth, lr, W, R,
+                                                C, Rn, joint)
+                            ref = terms.sum()
+                            e_k = (got[4].double() - ref).abs().item()
+                            e_p = (want[4].double() - ref).abs().item()
+                            q = max(q, e_k / (2.0 * e_p + 2.01e-5
+                                              * terms.abs().sum().item()))
+                        if not q <= 1.0:
+                            raise AssertionError(
+                                f"{name} disagrees with plain at B={B} "
+                                f"D={D} widths {widths} {kind}: err/tol "
+                                f"{q:.3g}")
+                        worst[name] = max(worst[name], e)
+                        worst_q = max(worst_q, q)
+                        n_cases += 1
+    log(f"[phase 28] [{card}] {n_cases} cases held to plain "
+        f"({time.time() - t0:.1f}s), worst err/tol {worst_q:.3g}; max |err| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + "; every call bitwise repeatable, int8 == int16 == float32 "
+        "storage, value-bearing gradients == grad-only bitwise")
+    return worst
 
 
 # label -> (model, architecture, step options, the library trainer)
@@ -2056,10 +2182,13 @@ def phase_roofline(card):
             and k2["kernel_ms"] > 0 and launches["roofline_probe"] > 0
             and launches["nb_valgrad"] > 0):
         raise AssertionError(f"the probe's run: {res}, launches {launches}")
-    log(f"{tag} [{card}] probe run: K2's op mix at the ILP 4 / ILP 1 "
-        f"costs {lo:.2f} / {hi:.2f} us vs valgrad_kernel "
-        f"{k2['kernel_ms'] * 1e3:.2f} us; launches "
-        f"{ {k: n for k, n in launches.items() if n} }")
+    log(f"{tag} [{card}] probe run: op mix at ILP 4 / ILP 1 against "
+        f"stage 1 (valgrad_tiles) + stage 2 (valgrad_sum) alone, us: "
+        + "; ".join(
+            f"{k} {res['brackets_us'][k][0]:.2f} / {res['brackets_us'][k][1]:.2f}"
+            f" vs {m['kernel_ms'] * 1e3:.2f} + {m['sum_ms'] * 1e3:.2f}"
+            for k, m in res["k2_all"].items())
+        + f"; launches { {k: n for k, n in launches.items() if n} }")
     return worst, (k_ms, p_ms), launches["roofline_probe"]
 
 
@@ -2112,7 +2241,7 @@ def phase_tooling(card, tmp, mtx):
         raise AssertionError(f"{tdir}: {traces}")
     with open(traces[0]) as f:
         text = f.read()
-    if '"ondevice_epoch"' not in text or "valgrad_kernel" not in text:
+    if '"ondevice_epoch"' not in text or "valgrad_tiles" not in text:
         raise AssertionError("the trainer's trace lacks ondevice_epoch or "
                              "the kernels")
     with open(out + ".metrics.jsonl") as f:
@@ -2602,9 +2731,11 @@ def main() -> int:
         build_log = f.read()
     log(f"[phase 1] ptxas ({os.path.relpath(_cuda.BUILD_LOG)} has the "
         f"full report): {ptxas_summary(build_log)}")
-    log("[phase 1] count_encode.cu instances (registers / spilled bytes): "
-        + ", ".join(f"{n} {r}r/{b}B"
-                    for n, r, b in check_encode_instances(build_log)))
+    for source, label in (("count_encode.cu", encode_label),
+                          ("nb_valgrad.cu", valgrad_label)):
+        log(f"[phase 1] {source} instances (registers / spilled bytes): "
+            + ", ".join(f"{n} {r}r/{b}B" for n, r, b in
+                        check_instances(build_log, source, label)))
 
     marks = [("build", time.time())]
 
@@ -2625,7 +2756,9 @@ def main() -> int:
     for w, t in (phase_generic_kernels(card), phase_k2pv(card)):
         worst.update(w)
         times.update(t)
-    mark("18, 22")
+    for name, e in phase_valgrad_cases(card).items():
+        worst[name] = max(worst[name], e)
+    mark("18, 22, 28")
     worst["roofline_probe"], times["roofline_probe"], p1_launches = (
         phase_roofline(card))
     mark("26")

@@ -33,14 +33,16 @@ from ..utils.profiling import host_times, kernel_times, trace
 
 KINDS = ("nb", "vmf", "joint", "mixture")
 # the port's kernel each CUDA function belongs to (csrc/*.cu); the row
-# sums' second stage (reduce_parts) is shared by K6, K2 and K3; the
-# encoder forward's two stages are one kernel, K4
+# sums' second stage (reduce_parts) is shared by K6, K3 and K7; the
+# encoder forward's two stages are one kernel, K4, and K2's two stages
+# (valgrad_tiles, valgrad_sum) one kernel, K2
 PORT_KERNELS = (
     ("count_encode_tiles", "count_encode"),
     ("count_encode_sum", "count_encode"),
     ("count_encode_bwd_kernel", "count_encode_bwd"),
     ("lse_partials", "nb_lse"), ("lse_merge", "nb_lse"),
-    ("value_partials", "nb_value"), ("valgrad_kernel", "nb_valgrad"),
+    ("value_partials", "nb_value"),
+    ("valgrad_tiles", "nb_valgrad"), ("valgrad_sum", "nb_valgrad"),
     ("finish_kernel", "nb_finish"), ("reduce_parts", "nb_step rows"),
     ("elbo_fwd_kernel", "nb_elbo_fwd"), ("elbo_bwd_kernel", "nb_elbo_bwd"),
     ("elementwise_kernel", "roofline_probe"),

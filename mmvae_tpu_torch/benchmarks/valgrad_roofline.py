@@ -2,20 +2,22 @@
 ``benchmarks/valgrad_roofline.py``.
 
 K2 (``csrc/nb_valgrad.cu``, the grad-only NB instance every packed boot
-step runs) is measured against "f32 operations / 67 TFLOP/s", which
+step runs, and its JOINT, VALUE and JOINT VALUE instances) is measured
+against "f32 operations / 67 TFLOP/s", which
 counts an ``expf``, a ``logf`` or a divide like one FMA; each is a
 multi-instruction sequence around one special-function op.  This script
 turns the bound into arithmetic:
 
 1. measures the achieved per-element cost of each op class K2 uses
    (fma, exp, log, div, select) with the probe kernel P1
-   (``csrc/roofline_probe.cu``) at K2's own geometry, by the slope of
+   (``csrc/roofline_probe.cu``) at the earlier K2's geometry, by the slope of
    its time between two repetition counts (fixed cost cancels), for one
    dependency chain (latency-bound) and four independent ones
    (issue-bound);
-2. multiplies those costs by K2's op mix, counted per source line below;
+2. multiplies those costs by each K2 instance's op mix, counted per
+   source line below;
 3. compares the bracket with K2's measured time, alone (one K1 gives its
-   normaliser).
+   normaliser), its two stages apart.
 
     python -m mmvae_tpu_torch.benchmarks.valgrad_roofline
 
@@ -140,56 +142,73 @@ def measure_op(x: torch.Tensor, op: str,
     return per_op, t_lo, t_hi
 
 
-# Op mix of K2's NB grad-only instance (csrc/nb_valgrad.cu valgrad_kernel
-# with JOINT = VALUE = false: int8 counts, softplus nu, R = 2, C = 1,
-# Rn = 1, so NT = 8) in the counts <= 7 regime, per (row, column)
-# element.  An arithmetic operator, comparison, select, fminf / fmaxf /
-# fabsf or conversion is 1; a * b + c, which nvcc contracts into one
-# FFMA, is 1; a negation is an operand modifier, 0; loads are not priced.
-# Lines of nb_valgrad.cu unless named (cuh = nb_step_common.cuh):
-#   cvt x -> f32 (106): 1;  compute_h (108, cuh 70): 3 FFMA + bias add 4;
-#   h - lse (109): 1;  mu FFMA (111): 1;  compute_nupre (112, cuh 83): 2;
-#   fabsf (115): 1;  fmaxf + add (116): 2;  nu clip + EPS (117-118): 3;
-#   dg_term (119, cuh 187) -> fast_products<true, false> (cuh 144):
-#     7 x (compare, nu + k, FFMA + select of dP, multiply + select of P) 42;
-#   the shared divide (121-132): mn, v, u, u * v 4, r 1, sig compare +
-#     multiply + select 3, rec * u 1 = 9;  inv_mn, inv_mu (133-134): 2;
-#   nu * inv_mn (135): 1;  t (136): 2;  dmu FFMA (137): 1;  dls (138): 2;
-#   dnu (139): 3;  dnp compares + and + multiply + select (145-146): 5;
-#   the per-column accumulators (150-157): 3 FFMA + add + FFMA + add 6;
-#   the per-row sums over the warp (161-173, cuh 218 warp_sum): rsum,
-#     u1 (R = 2) and dzn (Rn = 1), each 5 shuffles + 5 adds, and 3
-#     multiplies by w: 43 (20 of them SHFL, priced here as ALU ops);
-#   block_regime (cuh 201), once per element: cvt, 2 compares, the two
-#     flag updates 6;  the row loop's counter, test and branch and the
-#     per-row addresses (x, depth, lse, zc, zn, the partials): ~10, an
-#     estimate
-ALU_OPS = (1 + 4 + 1 + 1 + 2 + 1 + 2 + 3 + 42 + 9 + 2 + 1 + 2 + 1 + 2 + 3
-           + 5 + 6 + 43 + 6 + 10)           # = 147
-EXP_OPS = 2      # expf(h - lse) (109), expf(-|nupre|) (115)
-LOG_OPS = 2      # log1pf (116); logf (135), priced at the log1p rate
-DIV_OPS = 2      # 1 / (u * v) (128), dP / P (cuh 191)
+# Op mix of K2's compile-time instances (csrc/nb_valgrad.cu valgrad_tiles
+# with (R, C, Rn) = (2, 1, 1), int8 counts) in the counts <= 7 regime, per
+# (row, column) element.  An arithmetic operator, comparison, select,
+# fminf / fmaxf / fabsf or conversion is 1; a * b + c, which nvcc contracts
+# into one FFMA, is 1; a negation is an operand modifier, 0; loads are not
+# priced.  Lines of nb_valgrad.cu unless named (cuh = nb_step_common.cuh).
+# NB grad-only (JOINT = VALUE = false):
+#   the count's conversion (392): 1;  h (396-402): 3 FFMA + the bias add 4;
+#   h - lse (241): 1;  mu FFMA (243): 1;  nu_pre (403-408): FFMA + add 2;
+#   fabsf (246): 1;  fmaxf + add (247): 2;  nu clip + EPS (248): 3;
+#   dg_term (249, cuh 187) -> fast_products<true, false> (cuh 144): 7 x
+#   (compare, nu + k, FFMA + select of dP, multiply + select of P) 42;
+#   the shared divide (251-261): mn, v, u, u * v 4, r 1, sig compare +
+#   multiply + select 3, rec * u 1 = 9;  inv_mn, inv_mu (263-264): 2;
+#   nu * inv_mn (265): 1;  t (266): 2;  dmu FFMA (267): 1;  dls (268): 2;
+#   dnu (269): 3;  dnp compares + and + multiply + select (275): 5;  the
+#   D-edge selects of dls and dnp (412-413): 2;  the column sums
+#   (415-422): 3 FFMA + add + FFMA + add 6;  the lane's row sums
+#   (423-428): add + 3 FFMA 4;  the row's four sums over the warp
+#   (431-445): 6 SHFL + 6 adds + 6 selects + the store's test ~20 a row
+#   and lane, for its 2 counts, 10 (SHFL priced here as ALU ops);  the
+#   row's loads, addresses and loop (359-389): ~20 a row and lane, 10;
+#   the regime scan (338, tile_regime): 16-byte loads and ORs over all B
+#   rows in each of the 5 row chunks of B = 100, ~2
+#   = 116, with 2 exp (h - lse 241, -|nu_pre| 246), 2 log (log1pf 247;
+#   logf 265 at the log1p rate) and 2 divides (258; dP / P, cuh 191).
+# JOINT (pb, exp-nu): no fabsf / softplus / sigmoid: pe 1 (242), nu min +
+#   EPS 2 (248, cuh exp_nu), the divide mn, v 2 (251-255), dnp compare +
+#   multiply + select 3 (273): 104, with 2 exp (241; exp(nu_pre) 247), 1
+#   log (265) and 2 divides (255; dP / P).
+# VALUE adds lg_terms<false> (271, cuh 163) -> fast_products<false, false>:
+#   7 x (compare, multiply + select of P; nu + k shared with dg_term) 21,
+#   mu * inv_mn 1, the FFMAs with x and nu 2, the edge select and the add
+#   into the thread's value (414) 2: +26 ALU and +2 log (-log P,
+#   log(mu * inv_mn)).
+OP_MIX = {                          # (ALU, exp, log, div) an element
+    "nb_valgrad": (116, 2, 2, 2),
+    "nb_valgrad[pb,nu_exp]": (104, 2, 1, 2),
+    "nb_valgrad[value]": (142, 2, 4, 2),
+    "nb_valgrad[pb,nu_exp,value]": (130, 2, 3, 2),
+}
+ALU_OPS, EXP_OPS, LOG_OPS, DIV_OPS = OP_MIX["nb_valgrad"]
 
 
-def op_mix_prediction(rates: dict, n_elem: int) -> tuple[float, dict]:
-    """(seconds, {class: seconds}) of K2's op mix at the per-element
-    costs ``rates``: the exp / log / div probes carry one FMA each (the
+def op_mix_prediction(rates: dict, n_elem: int,
+                      kernel: str = "nb_valgrad") -> tuple[float, dict]:
+    """(seconds, {class: seconds}) of the op mix of K2's instance
+    ``kernel`` (a key of :data:`OP_MIX`) at the per-element costs
+    ``rates``: the exp / log / div probes carry one FMA each (the
     bounded-value FMA or add), which is subtracted; the ALU rate is the
     better of the fma probe and half the select probe (a select op is a
     compare and a select)."""
+    alu, n_exp, n_log, n_div = OP_MIX[kernel]
     r = dict(rates)
     for k in ("exp", "log", "div"):
         r[k] = max(r[k] - r["fma"], 0.0)
     alu_eff = min(r["fma"], r["select"] / 2)
-    parts = {"ALU": ALU_OPS * alu_eff, "exp": EXP_OPS * r["exp"],
-             "log": LOG_OPS * r["log"], "div": DIV_OPS * r["div"]}
+    parts = {"ALU": alu * alu_eff, "exp": n_exp * r["exp"],
+             "log": n_log * r["log"], "div": n_div * r["div"]}
     parts = {k: v * n_elem for k, v in parts.items()}
     return sum(parts.values()), parts
 
 
-def valgrad_inputs(device):
+def valgrad_inputs(device, joint: bool = False):
     """K2's isolated inputs at the main-path shape (numpy seed 0): int8
-    Poisson(1.0) counts, latents, covariate ones, depth, weight rows."""
+    Poisson(1.0) counts, latents, covariate ones, depth, weight rows;
+    ``joint`` appends a pb row (the JOINT instances' W)."""
     from ..ops import nb_step as ns
 
     rng = np.random.default_rng(0)
@@ -205,35 +224,39 @@ def valgrad_inputs(device):
     t = {k: torch.from_numpy(v).to(device) for k, v in dict(
         x=x, zn=zn, depth=depth,
         zc=np.concatenate([zm, np.ones((B, C), f32)], axis=1)).items()}
+    pb = (rng.normal(size=D) * 0.01).astype(f32) if joint else None
     W = ns.stack_rows(*(torch.from_numpy(v).to(device) for v in (
-        wd, wc, np.zeros(D, f32), wn, np.zeros(D, f32))))
+        wd, wc, np.zeros(D, f32), wn, np.zeros(D, f32))),
+        None if pb is None else torch.from_numpy(pb).to(device))
     t["W"], t["R"], t["C"], t["Rn"] = W, R, C, Rn
     return t, x
 
 
 def block_regimes(x: np.ndarray) -> dict:
-    """Share of K2's blocks (64 columns x all rows of integer counts) in
-    each lgamma regime: every count <= 7, all integer, or general."""
+    """Share of K2's regime tiles (64 columns x all rows of integer
+    counts) in each lgamma regime: every count <= 7, all integer, or
+    general."""
     n = -(-x.shape[1] // 64)
     fast = sum(int(x[:, j * 64:(j + 1) * 64].max() <= 7) for j in range(n))
     return {"counts <= 7": fast / n, "integer": (n - fast) / n,
             "general": 0.0, "blocks": n}
 
 
-def measure_valgrad() -> dict:
-    """K2 alone, grad-only, through ``ops.nb_step.valgrad`` with ``lse``
-    from one K1: profiler device ms of ``valgrad_kernel`` and of the
-    whole call (with the row-sum second stage), CUDA-event ms per call
-    over LAUNCHES back-to-back calls, and the block regime shares."""
+def measure_valgrad(joint: bool = False, need_value: bool = False) -> dict:
+    """K2 alone through ``ops.nb_step.valgrad`` (grad-only NB by default;
+    ``joint`` / ``need_value`` pick the other instances) with ``lse`` from
+    one K1: profiler device ms of stage 1 (``valgrad_tiles``), stage 2
+    (``valgrad_sum``) and the whole call, CUDA-event ms per call over
+    LAUNCHES back-to-back calls, and the regime shares."""
     from ..ops import nb_step as ns
 
-    t, x_np = valgrad_inputs("cuda")
+    t, x_np = valgrad_inputs("cuda", joint)
     R, C, Rn = t["R"], t["C"], t["Rn"]
     lse = ns.lse(t["zc"], t["W"], R, C)
 
     def call():
         return ns.valgrad(t["x"], t["zc"], t["zn"], t["depth"], lse,
-                          t["W"], R, C, Rn)
+                          t["W"], R, C, Rn, joint, need_value)
 
     for _ in range(5):
         call()
@@ -248,8 +271,12 @@ def measure_valgrad() -> dict:
             call()
         torch.cuda.synchronize()
     kt = kernel_times(prof)
-    main = sum(us for k, (us, _) in kt.items() if "valgrad_kernel" in k)
-    return {"kernel_ms": main / n / 1e3,
+
+    def stage(name):
+        return sum(us for k, (us, _) in kt.items() if name in k) / n / 1e3
+
+    return {"kernel_ms": stage("valgrad_tiles"),
+            "sum_ms": stage("valgrad_sum"),
             "call_ms": sum(us for us, _ in kt.values()) / n / 1e3,
             "events_ms": events_ms / LAUNCHES,
             "regimes": block_regimes(x_np)}
@@ -264,8 +291,9 @@ def _cuobjdump() -> str | None:
 
 def sass_counts() -> str:
     """A cross-check of the op mix: SASS instruction, MUFU and SHFL counts
-    of the built K2 instance the probe prices (int8, NT = 8, NB,
-    grad-only), whole function, from ``cuobjdump -sass``."""
+    of the built K2 instance the probe prices (stage 1, int8, (R, C, Rn)
+    = (2, 1, 1) at compile time, NB, grad-only), whole function, from
+    ``cuobjdump -sass``."""
     from ..ops import _cuda
 
     tool = _cuobjdump()
@@ -277,14 +305,14 @@ def sass_counts() -> str:
         return f"cuobjdump failed ({r.returncode}): {r.stderr[-200:]}"
     sections = re.split(r"\n\s*Function : ", r.stdout)
     body = next((s for s in sections
-                 if s.startswith("_ZN") and "valgrad_kernelIaLi8ELb0ELb0E" in
-                 s.split("\n", 1)[0]), None)
+                 if s.startswith("_ZN") and "valgrad_tilesIaLi2ELi1ELi1ELb0ELb0E"
+                 in s.split("\n", 1)[0]), None)
     if body is None:
-        return "cuobjdump: valgrad_kernel<int8, 8, NB, grad-only> not found"
+        return "cuobjdump: valgrad_tiles<int8, 2, 1, 1, NB, grad-only> not found"
     ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
                      r"([A-Z][A-Z0-9_.]*)", body)
     mufu = sorted(m for m in re.findall(r"MUFU\.(\w+)", body))
-    return (f"SASS of valgrad_kernel<int8, 8, NB, grad-only> (whole "
+    return (f"SASS of valgrad_tiles<int8, 2, 1, 1, NB, grad-only> (whole "
             f"function, cuobjdump): {len(ins)} instructions, "
             f"{sum(i.startswith('FFMA') for i in ins)} FFMA, "
             f"{sum(i.startswith('SHFL') for i in ins)} SHFL, "
@@ -300,8 +328,9 @@ def main() -> dict:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__} cuda "
           f"{torch.version.cuda}")
-    print(f"geometry: K2's blocks of 64 columns x 4 row groups over "
-          f"({B}, {D}) float32, {-(-D // 64)} blocks")
+    print(f"geometry: P1's blocks of 64 columns x 4 row groups over "
+          f"({B}, {D}) float32, {-(-D // 64)} blocks (the earlier K2's "
+          f"layout)")
     x = probe_input("cuda")
     rates, res = {}, {"card": card}
     for ilp in (1, 4):
@@ -317,34 +346,45 @@ def main() -> dict:
                        for ilp, r in rates.items()}
 
     n_elem = B * D
-    print(f"\nK2's op mix per element: ALU {ALU_OPS}, exp {EXP_OPS}, log "
-          f"{LOG_OPS} (logf at the log1p rate), div {DIV_OPS}; over "
-          f"{B}x{D} elements (latency-bound ILP=1 / issue-bound ILP=4):")
-    preds = {}
-    for ilp in (1, 4):
-        preds[ilp], parts = op_mix_prediction(rates[ilp], n_elem)
-        detail = ", ".join(f"{k} {v * 1e6:.2f} us" for k, v in parts.items())
-        print(f"  ILP={ilp}: total {preds[ilp] * 1e6:8.2f} us ({detail})")
-    res["bracket_us"] = (preds[4] * 1e6, preds[1] * 1e6)
+    print(f"\nK2's op mix per element (ALU, exp, log with logf at the log1p "
+          f"rate, div) over {B}x{D} elements, issue-bound ILP=4 / "
+          f"latency-bound ILP=1:")
+    res["brackets_us"] = {}
+    for kernel, mix in OP_MIX.items():
+        preds = {}
+        for ilp in (4, 1):
+            preds[ilp], parts = op_mix_prediction(rates[ilp], n_elem, kernel)
+        res["brackets_us"][kernel] = (preds[4] * 1e6, preds[1] * 1e6)
+        print(f"  {kernel}: {mix}: {preds[4] * 1e6:.2f} / "
+              f"{preds[1] * 1e6:.2f} us ("
+              + ", ".join(f"{k} {v * 1e6:.2f}" for k, v in parts.items())
+              + " us at ILP 1)")
+    res["bracket_us"] = res["brackets_us"]["nb_valgrad"]
 
     print(sass_counts())
-    k2 = measure_valgrad()
-    res["k2"] = k2
-    reg = k2["regimes"]
-    print(f"\nK2 alone (grad-only, int8 Poisson(1.0), numpy seed 0) "
-          f"[{card}]: valgrad_kernel {k2['kernel_ms'] * 1e3:.2f} us device "
-          f"(profiler), the call with its row-sum stage "
-          f"{k2['call_ms'] * 1e3:.2f} us, {k2['events_ms'] * 1e3:.2f} us of "
-          f"wall a call over {LAUNCHES} back-to-back calls (CUDA events: "
-          f"the wrapper's host time where above the device's); blocks "
-          f"by regime: counts <= 7 {reg['counts <= 7']:.1%}, integer "
-          f"{reg['integer']:.1%}, general {reg['general']:.1%} of "
+    res["k2_all"] = {}
+    for kernel, joint, value in (
+            ("nb_valgrad", False, False),
+            ("nb_valgrad[pb,nu_exp]", True, False),
+            ("nb_valgrad[value]", False, True),
+            ("nb_valgrad[pb,nu_exp,value]", True, True)):
+        k2 = measure_valgrad(joint, value)
+        res["k2_all"][kernel] = k2
+        lo, hi = res["brackets_us"][kernel]
+        print(f"{kernel} alone (int8 Poisson(1.0), numpy seed 0) [{card}]: "
+              f"valgrad_tiles {k2['kernel_ms'] * 1e3:.2f} us + valgrad_sum "
+              f"{k2['sum_ms'] * 1e3:.2f} us device (profiler), the call "
+              f"{k2['call_ms'] * 1e3:.2f} us, {k2['events_ms'] * 1e3:.2f} "
+              f"us of wall a call over {LAUNCHES} back-to-back calls (CUDA "
+              f"events: the wrapper's host time where above the device's); "
+              f"op mix [ILP 4, ILP 1] [{lo:.2f}, {hi:.2f}] us, "
+              f"{lo / k2['kernel_ms'] / 1e3:.1%} / "
+              f"{hi / k2['kernel_ms'] / 1e3:.1%} of stage 1")
+    res["k2"] = res["k2_all"]["nb_valgrad"]
+    reg = res["k2"]["regimes"]
+    print(f"regime tiles of the counts: <= 7 {reg['counts <= 7']:.1%}, "
+          f"integer {reg['integer']:.1%}, general {reg['general']:.1%} of "
           f"{reg['blocks']}")
-    print(f"op-mix prediction [ILP 4, ILP 1]: [{preds[4] * 1e6:.2f}, "
-          f"{preds[1] * 1e6:.2f}] us vs valgrad_kernel "
-          f"{k2['kernel_ms'] * 1e3:.2f} us measured "
-          f"({preds[4] / k2['kernel_ms'] / 1e-3:.1%}, "
-          f"{preds[1] / k2['kernel_ms'] / 1e-3:.1%} of it) [{card}]")
     return res
 
 

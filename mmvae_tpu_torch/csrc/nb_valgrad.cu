@@ -20,35 +20,83 @@
 //     of its own and is NOT folded into it: P grows like nu^7 and the
 //     product would overflow float32 at large depth;
 //   * grad-only: log(mu+nu) - log(nu) = -log(nu / (mu+nu)), one log;
-//   * the digamma difference takes the block's regime (all counts <= 7,
-//     all integer, or general), chosen from every valid count of the tile.
+//   * the digamma difference takes its column tile's regime (all counts
+//     <= 7, all integer, or general), chosen from every valid count of the
+//     tile's 64 columns over ALL B rows, as nb_value.cu's block and the
+//     TPU's per-tile flags choose it.
 // JOINT: mu = pe * depth + EPS with pe = p * exp(pb), exp(pb) once per
 // column; dls uses pe, while K3's coupling term keeps the plain p, so
 // gw = gout - fout stays right.  nu = clamp(exp(npre), 0, NU_HI) + EPS:
 // no sigmoid, so rec = 1/(mu (mu+nu)) without the (1+e) factor, and
 // dnupre = dnu * exp(npre) where exp(npre) < NU_HI (the lower clamp never
-// binds).  The pb gradient row, colsum(dls), is one more per-column row.
+// binds).  The pb gradient row, colsum(dls), is the same sum as the
+// colsum(dls) row and is written twice.
 //
 // VALUE adds the NLL without lgamma(x + 1): the lgamma difference in the
-// block's regime (lg_terms, as K6 computes it) plus
+// tile's regime (lg_terms, as K6 computes it) plus
 // x (log(mu + nu) - log mu) + nu (log(mu + nu) - log nu), where both log
 // differences are taken as one log of a ratio from the shared reciprocal
 // (the grad-only dln, and -log(mu / (mu + nu))).  Every gradient
-// expression is the grad-only instance's, so the two write the same bits;
-// each warp's value partial is one float per tile, added in a fixed order
-// by a second reduce_parts launch.
+// expression is the grad-only instance's (count_grad below), so the two
+// write the same bits.
 //
-// Two kinds of reduction (layout in nb_step_common.cuh): the per-column
-// rows of gout sum over the B rows inside the block (row groups combine
-// through shared memory in a fixed order), the per-row outputs sum over D
-// as per-warp partials that reduce_parts adds in a fixed order.  No
-// atomics; bitwise repeatable.
+// What bounds it on the H100: operations, not bytes.  It reads 1 byte of
+// int8 counts per element and does ~130 ALU operations, 2 exp, 2 log and
+// 2 divides a count (more with VALUE; valgrad_roofline.OP_MIX counts them
+// per line); the roofline probe P1 (mmvae_tpu_torch/benchmarks/
+// valgrad_roofline.py) prices that op mix at ~15-20 us for the main
+// path's 100 x 20,000 counts, against ~2 us for its bytes.
 //
-// What bounds it on the H100: one read of x and ~8 transcendentals plus
-// ~60 FMAs per element; ALU / special-function bound at the default
-// widths, with 4 + 2 * 5 warp shuffles per (row, warp) for the row sums.
+// Layout.  Stage 1 (valgrad_tiles): a block of kWarps = 4 warps owns one
+// kTile = 64-column tile of D and one chunk of rows; the grid is (tiles,
+// chunks).  Lane l owns the kLaneCols = 2 adjacent columns 2l, 2l + 1 of
+// the tile (one 2-, 4- or 8-byte load of a row's counts where x and D
+// allow it, element loads otherwise, the same values either way); warp w
+// takes the chunk's rows w, w + 4, ...  A thread keeps its columns'
+// stacked W rows and their column sums in registers (the general instance
+// keeps both in shared memory) and computes its 2 counts of a row as 2
+// independent chains.  Per row a lane adds its columns' row terms; a warp
+// then sums the row's four outputs over its 64 columns at once (6
+// shuffles).  The tile's regime is scanned first, over all B rows, in
+// 16-byte loads.  Stage 2 (valgrad_sum, one launch) adds, in fixed
+// orders: the row partials, laid out (output, tile, row) so that
+// neighbouring threads read neighbouring rows; the chunks' column
+// partials, in chunk order; and the value partials.
+//
+// What the layout does about the earlier design (a block of 64 columns x
+// 4 row groups over ALL B rows, one column a thread, reduce_parts as its
+// second stage):
+//   * too little work in flight: 313 blocks of 256 threads at 1-3 blocks
+//     an SM, one dependent chain a thread, a 1.19-wave tail.  Now (tiles x
+//     chunks) blocks of 128 threads at 7 an SM, 2 chains a thread: the
+//     chunking (ops/nb_step.valgrad_plan, ceil(B / 20) <= 8 chunks) gives
+//     313 x 5 = 1,565 blocks at the main path's B = 100, D = 20,000;
+//   * runtime widths in unrolled loops: the instance the CLI defaults
+//     launch, (R, C, Rn) = (2, 1, 1), has its widths at compile time, so
+//     its loops carry no slot tests and it reads each row's zc and zn into
+//     registers once.  The general instance keeps runtime widths up to
+//     kMaxT = 16 stacked rows; the C entry picks the instance by shape;
+//   * row sums by shuffles row by row: 4 trees of 5 shuffles per row and
+//     32 columns before, 6 shuffles per row and 64 columns now;
+//   * a slow, shared second stage: reduce_parts (one 128-thread block a
+//     row, uncoalesced, K serial tree passes) stays for K6, K3 and K7;
+//     K2's own valgrad_sum reads coalesced and spreads its work.
+// Variants measured on the H100 and dropped (PERF.md): 4 columns a
+// thread (128-column tiles, 101-112 registers at 4 blocks an SM; stage 1
+// took 1.6x this design's time), 4 or 8 blocks an SM, 8 warps a block.
+//
+// Bits.  Each count's terms are the earlier design's (the same
+// expressions; the regime's tile is the same 64 columns over all B rows);
+// only the order of the sums changed.  It depends on (B, D) alone: column
+// sums add a thread's rows in order, the block's 4 warps in order, then
+// the chunks in order (the chunking is a function of B); row sums add a
+// lane's 2 columns in order, the warp's lanes by a fixed butterfly, then
+// the tiles in a fixed order.  No atomics; bitwise repeatable; the same
+// bits for int8, int16 and float32 storage of the same counts.
 //
 // Build: see mmvae_tpu_torch/ops/_cuda.py.
+
+#include <cstdint>
 
 #include "nb_step_common.cuh"
 
@@ -56,238 +104,573 @@ namespace {
 
 using namespace nbk;
 
-// The grad-only JOINT instances ask for three blocks per SM (at most 80
-// registers a thread): left to themselves, ptxas gives their NT = 8
-// instances 94 registers for int8 and float32 counts, two blocks per SM,
-// and they ran 1.5x their int16 twin.  The NB instances ask for one block
-// per SM: a bound of three made them ~10% slower on the H100.  The JOINT
-// VALUE instances keep the lgamma terms live as well and ask for two:
-// under a bound of three their NT = 16 instances spilled (80 registers,
-// 72 bytes), under two they take 105-109 without a spill; the NT = 8
-// ones take 64-71 either way.
-template <bool JOINT, bool VALUE>
+constexpr int kLaneCols = 2;                  // adjacent columns a thread owns
+constexpr int kWarps = 4;                     // row groups of a block
+constexpr int kBlockThreads = 32 * kWarps;
+constexpr int kTile = 32 * kLaneCols;         // columns of D a block owns
+constexpr int kScanBytes = 16;                // a regime-scan load
+constexpr int kSumThreads = 256;
+constexpr int kSumWarps = kSumThreads / 32;
+constexpr int kMaxChunks = 65535;             // gridDim.y
+// the compile-time instance: the widths every CLI default launches
+constexpr int kFixR = 2, kFixC = 1, kFixRn = 1;
+static_assert(kTile == kTileCols,
+              "a block's tile is the regime's 64-column tile");
+
+// Blocks an SM each instance asks for.  The compile-time instances ask
+// for 7 (<= 72 registers, 28 warps an SM): left at 4 they take 104-110
+// registers and stage 1 ran 1.13x slower on the H100 at the main path's
+// 5 row chunks (up to 1.36x at others); at 8 (64 registers) the
+// grad-only ones spill.  The general instances (16 stacked rows, column
+// sums in shared memory) take 131-139 registers and ask for 3.
+template <bool FIXED>
 constexpr int min_blocks() {
-  return JOINT ? (VALUE ? 2 : 3) : 1;
+  return FIXED ? 7 : 3;
 }
 
-template <typename T, int NT, bool JOINT, bool VALUE>
-__global__ void __launch_bounds__(kThreads, (min_blocks<JOINT, VALUE>()))
-valgrad_kernel(const T* __restrict__ x, const float* __restrict__ zc,
-               const float* __restrict__ zn, const float* __restrict__ depth,
-               const float* __restrict__ lse, const float* __restrict__ W,
-               int64_t B, int64_t D, int R, int C, int Rn,
-               float* __restrict__ gout, float* __restrict__ parts,
-               float* __restrict__ vparts) {
-  __shared__ float sacc[kRowGroups][NT][kTileCols];
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int64_t tile = blockIdx.x;
-  const int64_t c = tile * kTileCols + tx;
-  const bool valid = c < D;
+inline bool fixed_widths(int R, int C, int Rn) {
+  return R == kFixR && C == kFixC && Rn == kFixRn;
+}
+
+inline int64_t vg_tiles(int64_t D) { return (D + kTile - 1) / kTile; }
+
+// A thread's kLaneCols adjacent counts of one row, one vector load wide
+template <typename T>
+struct alignas(kLaneCols * sizeof(T)) Counts {
+  T v[kLaneCols];
+};
+
+// Counts c0 .. c0 + kLaneCols - 1 of the row at xr (0 past D): one vector
+// load when vec (D a multiple of kLaneCols and x aligned to it), element
+// loads otherwise; the same values either way.
+template <typename T>
+__device__ __forceinline__ Counts<T> load_counts(const T* __restrict__ xr,
+                                                 int64_t c0, int64_t D,
+                                                 bool vec) {
+  Counts<T> c;
+  if (vec) {
+    if (c0 < D) return *reinterpret_cast<const Counts<T>*>(xr + c0);
+#pragma unroll
+    for (int j = 0; j < kLaneCols; ++j) c.v[j] = T(0);
+    return c;
+  }
+#pragma unroll
+  for (int j = 0; j < kLaneCols; ++j) c.v[j] = c0 + j < D ? xr[c0 + j] : T(0);
+  return c;
+}
+
+// The regime of the counts a thread scanned, as block_regime tests them:
+// fast = every count an integer in [0, 7], allint = every count a
+// non-negative integer.  Integer storage ORs the counts' bits (a byte or
+// half-word passes iff the OR of every such one at its place does),
+// float32 tests each count.
+template <typename T>
+struct RegimeScan {
+  uint32_t bits = 0u;
+  bool fast = true, allint = true;
+
+  __device__ __forceinline__ void add(T v) {
+    if constexpr (sizeof(T) == 1) {
+      bits |= static_cast<uint8_t>(v);
+    } else if constexpr (sizeof(T) == 2) {
+      bits |= static_cast<uint16_t>(v);
+    } else {
+      const bool integral = v == floorf(v);
+      fast &= v >= 0.f && v <= kXMaxFast && integral;
+      allint &= v >= 0.f && integral;
+    }
+  }
+  __device__ __forceinline__ void add(uint4 w) {  // 16 bytes of counts
+    if constexpr (sizeof(T) < 4) {
+      bits |= w.x | w.y | w.z | w.w;
+    } else {
+      add(__uint_as_float(w.x));
+      add(__uint_as_float(w.y));
+      add(__uint_as_float(w.z));
+      add(__uint_as_float(w.w));
+    }
+  }
+  __device__ __forceinline__ bool all_fast() const {
+    if constexpr (sizeof(T) == 1) return (bits & 0xF8F8F8F8u) == 0u;
+    if constexpr (sizeof(T) == 2) return (bits & 0xFFF8FFF8u) == 0u;
+    return fast;
+  }
+  __device__ __forceinline__ bool all_int() const {
+    if constexpr (sizeof(T) == 1) return (bits & 0x80808080u) == 0u;
+    if constexpr (sizeof(T) == 2) return (bits & 0x80008000u) == 0u;
+    return allint;
+  }
+};
+
+// The regime of a block's tile: every count of its kTile columns over all
+// B rows (not only the block's chunk), as block_regime decides it for a
+// block of nb_value.cu.  16-byte loads where scan16 (D a multiple of
+// 16 / sizeof(T) and x 16-byte aligned), element loads otherwise.  Called
+// by every thread of the block (it synchronises).
+template <typename T>
+__device__ __forceinline__ int tile_regime(const T* __restrict__ x, int64_t B,
+                                           int64_t D, int64_t tile,
+                                           bool scan16) {
+  RegimeScan<T> scan;
+  const int t = threadIdx.x;
+  if (scan16) {
+    constexpr int kGroups = kTile * static_cast<int>(sizeof(T)) / kScanBytes;
+    constexpr int kPer = kScanBytes / static_cast<int>(sizeof(T));
+    const int64_t c = tile * kTile + (t % kGroups) * kPer;
+    if (c < D)
+      for (int64_t b = t / kGroups; b < B; b += kBlockThreads / kGroups)
+        scan.add(__ldg(reinterpret_cast<const uint4*>(x + b * D + c)));
+  } else {
+    const int64_t c = tile * kTile + t % kTile;
+    if (c < D)
+      for (int64_t b = t / kTile; b < B; b += kBlockThreads / kTile)
+        scan.add(x[b * D + c]);
+  }
+  const int fast = __syncthreads_and(scan.all_fast());
+  const int allint = __syncthreads_and(scan.all_int());
+  return fast ? kFast : (allint ? kMixed : kGeneral);
+}
+
+// One count's gradient terms (and with VALUE its NLL terms): the
+// expressions of the earlier design, unchanged, shared by every instance.
+template <bool JOINT, bool VALUE>
+__device__ __forceinline__ void count_grad(float xv, float h, float lb,
+                                           float dep, float epb, float npre,
+                                           int regime, float& dls, float& dnp,
+                                           float& vterm) {
+  const float p = expf(h - lb);
+  const float pe = JOINT ? p * epb : p;
+  const float mu = pe * dep + kEps;
+  // JOINT: sp = exp(npre); otherwise softplus and the sigmoid share one
+  // exp(-|npre|)
+  const float e = JOINT ? 0.f : expf(-fabsf(npre));
+  const float sp = JOINT ? expf(npre) : fmaxf(npre, 0.f) + log1pf(e);
+  const float nu = JOINT ? exp_nu(sp) : fminf(fmaxf(sp, kNuLo), kNuHi) + kEps;
+  const float dg = dg_term(regime, xv, nu);
+  // the one shared divide
+  const float mn = mu + nu;
+  const float v = mu * mn;
+  float rec, sig = 0.f;
+  if (JOINT) {
+    rec = 1.f / v;
+  } else {
+    const float u = 1.f + e;
+    rec = 1.f / (u * v);
+    const float r = rec * v;
+    sig = npre >= 0.f ? r : e * r;
+    rec = rec * u;
+  }
+  const float inv_mn = rec * mu;
+  const float inv_mu = rec * mn;
+  const float dln = -logf(nu * inv_mn);
+  const float t = (xv + nu) * inv_mn;
+  const float dmu = t - xv * inv_mu;
+  dls = dmu * pe * dep;
+  const float dnu = dg + t + dln - 1.f;
+  if (VALUE)
+    vterm = lg_terms<false>(regime, xv, nu) - xv * logf(mu * inv_mn) + nu * dln;
+  if (JOINT)
+    dnp = sp < kNuHi ? dnu * sp : 0.f;
+  else
+    dnp = (sp > kNuLo && sp < kNuHi) ? dnu * sig : 0.f;
+}
+
+// Stage 1.  FR, FC, FRn > 0: the widths at compile time (the instance the
+// CLI defaults launch); FR = 0: the general instance, R, C, Rn at run time
+// with up to kMaxT stacked rows.  Writes the row partials parts (K, tiles,
+// B), the column sums (straight to gout with one chunk, else to cparts
+// (chunks, Tc, D)) and with VALUE one value partial a warp.
+template <typename T, int FR, int FC, int FRn, bool JOINT, bool VALUE>
+__global__ void __launch_bounds__(kBlockThreads, min_blocks<(FR > 0)>())
+valgrad_tiles(const T* __restrict__ x, const float* __restrict__ zc,
+              const float* __restrict__ zn, const float* __restrict__ depth,
+              const float* __restrict__ lse, const float* __restrict__ W,
+              int64_t B, int64_t D, int R_, int C_, int Rn_, int vec,
+              int scan16,
+              float* __restrict__ gout, float* __restrict__ parts,
+              float* __restrict__ cparts, float* __restrict__ vparts) {
+  constexpr bool kFixed = FR > 0;
+  constexpr int NT = kFixed ? FR + FC + FRn + 2 : kMaxT;  // stacked row slots
+  const int R = kFixed ? FR : R_;
+  const int C = kFixed ? FC : C_;
+  const int Rn = kFixed ? FRn : Rn_;
   const int RC = R + C;
   const int base = RC + 1;
-  const int pbi = RC + Rn + 2;  // the pb row (JOINT)
-  const int Tn = RC + Rn + 2 + (JOINT ? 1 : 0);
-  const int K = 1 + R + Rn;
-  float w[NT];
-  load_wcol<NT>(W, D, c, valid, Tn, w);
-  const float epb = JOINT ? exp_pb<NT>(w, pbi) : 1.f;
-  const int regime = block_regime<T>(x, B, D, c, valid, ty);
-  float acc[NT];
+  const int Tc = RC + Rn + 2;  // gradient rows summed (pb's is a copy)
+  const int K = 1 + R + Rn;    // per-row outputs [rsum | u1 | dzn]
+  __shared__ __align__(16) float sacc[kWarps][NT][kTile];
+  __shared__ __align__(16) float sw[kFixed ? 1 : NT][kFixed ? 1 : kTile];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t tile = blockIdx.x;
+  const int64_t tiles = gridDim.x;
+  const int chunk = blockIdx.y;
+  const int chunks = gridDim.y;
+  const int64_t c0 = tile * kTile + lane * kLaneCols;
+
+  // the tile's W columns: registers (compile-time widths) or shared memory
+  float w[kFixed ? NT : 1][kLaneCols];
+  if constexpr (kFixed) {
 #pragma unroll
-  for (int k = 0; k < NT; ++k) acc[k] = 0.f;
-  const int lane = tx & 31;
-  const int64_t part = tile * kWarpCols + (tx >> 5);
+    for (int k = 0; k < NT; ++k)
+#pragma unroll
+      for (int j = 0; j < kLaneCols; ++j)
+        w[k][j] = c0 + j < D ? __ldg(W + k * D + c0 + j) : 0.f;
+  } else {
+    for (int i = threadIdx.x; i < Tc * kTile; i += kBlockThreads) {
+      const int k = i / kTile;
+      const int64_t c = tile * kTile + (i % kTile);
+      sw[k][i % kTile] = c < D ? __ldg(W + k * D + c) : 0.f;
+    }
+  }
+  auto wv = [&](int k, int j) -> float {
+    if constexpr (kFixed)
+      return w[k][j];
+    else
+      return sw[k][lane * kLaneCols + j];
+  };
+  float epb[kLaneCols];
+#pragma unroll
+  for (int j = 0; j < kLaneCols; ++j)
+    epb[j] = JOINT ? expf(c0 + j < D ? __ldg(W + Tc * D + c0 + j) : 0.f) : 1.f;
+
+  const int regime = tile_regime<T>(x, B, D, tile, scan16 != 0);
+
+  // the column sums over this warp's rows: registers with compile-time
+  // widths, else this thread's own slots of sacc (16 rows of them in
+  // registers spilled)
+  float acc[kFixed ? NT : 1][kLaneCols];
+  auto accv = [&](int k, int j) -> float& {
+    if constexpr (kFixed)
+      return acc[k][j];
+    else
+      return sacc[warp][k][lane * kLaneCols + j];
+  };
+#pragma unroll
+  for (int k = 0; k < NT; ++k)
+#pragma unroll
+    for (int j = 0; j < kLaneCols; ++j)
+      if (k < Tc) accv(k, j) = 0.f;
   float val = 0.f;  // VALUE: this thread's NLL terms
 
-  for (int64_t b = ty; b < B; b += kRowGroups) {
-    float dls = 0.f, dnp = 0.f;
-    if (valid) {
-      const float xv = load_count(x + b * D + c);
-      const float dep = __ldg(depth + b);
-      const float h = compute_h<NT>(zc + b * RC, w, RC);
-      const float p = expf(h - __ldg(lse + b));
-      const float pe = JOINT ? p * epb : p;
-      const float mu = pe * dep + kEps;
-      const float npre = compute_nupre<NT>(zn + b * Rn, w, base, Rn);
-      // JOINT: sp = exp(npre); otherwise softplus and the sigmoid share
-      // one exp(-|npre|)
-      const float e = JOINT ? 0.f : expf(-fabsf(npre));
-      const float sp = JOINT ? expf(npre) : fmaxf(npre, 0.f) + log1pf(e);
-      const float nu =
-          JOINT ? exp_nu(sp) : fminf(fmaxf(sp, kNuLo), kNuHi) + kEps;
-      const float dg = dg_term(regime, xv, nu);
-      // the one shared divide
-      const float mn = mu + nu;
-      const float v = mu * mn;
-      float rec, sig = 0.f;
-      if (JOINT) {
-        rec = 1.f / v;
-      } else {
-        const float u = 1.f + e;
-        rec = 1.f / (u * v);
-        const float r = rec * v;
-        sig = npre >= 0.f ? r : e * r;
-        rec = rec * u;
-      }
-      const float inv_mn = rec * mu;
-      const float inv_mu = rec * mn;
-      const float dln = -logf(nu * inv_mn);
-      const float t = (xv + nu) * inv_mn;
-      const float dmu = t - xv * inv_mu;
-      dls = dmu * pe * dep;
-      const float dnu = dg + t + dln - 1.f;
-      if (VALUE)
-        val += lg_terms<false>(regime, xv, nu) - xv * logf(mu * inv_mn) +
-               nu * dln;
-      if (JOINT)
-        dnp = sp < kNuHi ? dnu * sp : 0.f;
-      else
-        dnp = (sp > kNuLo && sp < kNuHi) ? dnu * sig : 0.f;
-      const float* zcr = zc + b * RC;
-      const float* znr = zn + b * Rn;
+  const int64_t r0 = chunk * B / chunks;
+  const int64_t r1 = (chunk + 1) * B / chunks;
+  for (int64_t b = r0 + warp; b < r1; b += kWarps) {
+    const Counts<T> xc = load_counts<T>(x + b * D, c0, D, vec != 0);
+    const float dep = __ldg(depth + b);
+    const float lb = __ldg(lse + b);
+    const float* zcr = zc + b * RC;
+    const float* znr = zn + b * Rn;
+    // this row's latents: registers with compile-time widths
+    float zr[kFixed ? NT : 1], znv[kFixed ? NT : 1];
+    if constexpr (kFixed) {
 #pragma unroll
       for (int k = 0; k < NT; ++k) {
-        if (k < RC) acc[k] = fmaf(__ldg(zcr + k), dls, acc[k]);
-        if (k == RC) acc[k] += dls;
-        if (k >= base && k < base + Rn)
-          acc[k] = fmaf(__ldg(znr + (k - base)), dnp, acc[k]);
-        if (k == base + Rn) acc[k] += dnp;
-        if (JOINT && k == pbi) acc[k] += dls;
+        zr[k] = k < RC ? __ldg(zcr + k) : 0.f;
+        znv[k] = k < Rn ? __ldg(znr + k) : 0.f;
       }
     }
-    // per-row sums over this warp's 32 columns: [rsum | u1 | dzn]
-    float* o = parts + (part * B + b) * K;
-    const float rs = warp_sum(dls);
-    if (lane == 0) o[0] = rs;
+    auto zcv = [&](int k) -> float {
+      if constexpr (kFixed)
+        return zr[k];
+      else
+        return __ldg(zcr + k);
+    };
+    auto znk = [&](int k) -> float {
+      if constexpr (kFixed)
+        return znv[k];
+      else
+        return __ldg(znr + k);
+    };
+    float rs[NT];  // [rsum | u1 | dzn] over this lane's columns
 #pragma unroll
-    for (int k = 0; k < NT; ++k) {
-      if (k < R) {
-        const float s = warp_sum(dls * w[k]);
-        if (lane == 0) o[1 + k] = s;
+    for (int s = 0; s < NT; ++s) rs[s] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kLaneCols; ++j) {
+      const bool ok = c0 + j < D;
+      const float xv = static_cast<float>(xc.v[j]);
+      // h = bias2 + sum_k zc[k] W[k] and nu_pre = bias_n + sum_r zn[r]
+      // wn[r], in compute_h's and compute_nupre's order (K1's normaliser
+      // sees the same h bits)
+      float h = 0.f, bias = 0.f;
+#pragma unroll
+      for (int k = 0; k < NT; ++k) {
+        if (k < RC) h = fmaf(zcv(k), wv(k, j), h);
+        if (k == RC) bias = wv(k, j);
       }
-      if (k >= base && k < base + Rn) {
-        const float s = warp_sum(dnp * w[k]);
-        if (lane == 0) o[1 + R + (k - base)] = s;
+      h = h + bias;
+      float npre = 0.f;
+#pragma unroll
+      for (int k = 0; k < NT; ++k)
+        if (k >= base && k < base + Rn)
+          npre = fmaf(znk(k - base), wv(k, j), npre);
+      npre += wv(base + Rn, j);
+      float dls, dnp, vt = 0.f;
+      count_grad<JOINT, VALUE>(xv, h, lb, dep, epb[j], npre, regime, dls, dnp,
+                               vt);
+      dls = ok ? dls : 0.f;
+      dnp = ok ? dnp : 0.f;
+      if (VALUE) val += ok ? vt : 0.f;
+#pragma unroll
+      for (int k = 0; k < NT; ++k) {
+        if (k < RC) accv(k, j) = fmaf(zcv(k), dls, accv(k, j));
+        if (k == RC) accv(k, j) += dls;
+        if (k >= base && k < base + Rn)
+          accv(k, j) = fmaf(znk(k - base), dnp, accv(k, j));
+        if (k == base + Rn) accv(k, j) += dnp;
       }
+      rs[0] += dls;
+#pragma unroll
+      for (int s = 1; s < NT; ++s) {
+        if (s <= R) rs[s] = fmaf(dls, wv(s - 1, j), rs[s]);
+        if (s > R && s < K) rs[s] = fmaf(dnp, wv(base + s - 1 - R, j), rs[s]);
+      }
+    }
+    // the row's partials over the tile's kTile columns
+    if constexpr (kFixed && 1 + FR + FRn == 4) {
+      // four sums at once: the lanes trade halves of their four values
+      // (lane ^ 16) and then halves of the two left (lane ^ 8), and add
+      // the one left over the lanes of their group of 8; lane 8v holds
+      // output v.  A fixed order, 6 shuffles in place of 20.
+      const bool h16 = lane & 16, h8 = lane & 8;
+      float k0 = h16 ? rs[2] : rs[0], k1 = h16 ? rs[3] : rs[1];
+      k0 += __shfl_xor_sync(0xffffffffu, h16 ? rs[0] : rs[2], 16);
+      k1 += __shfl_xor_sync(0xffffffffu, h16 ? rs[1] : rs[3], 16);
+      float m = h8 ? k1 : k0;
+      m += __shfl_xor_sync(0xffffffffu, h8 ? k0 : k1, 8);
+#pragma unroll
+      for (int off = 4; off > 0; off >>= 1)
+        m += __shfl_xor_sync(0xffffffffu, m, off);
+      if ((lane & 7) == 0) parts[((lane >> 3) * tiles + tile) * B + b] = m;
+    } else {
+      // lane s writes output s
+      float mine = 0.f;
+#pragma unroll
+      for (int s = 0; s < NT; ++s) {
+        if (s < K) {
+          const float t = warp_sum(rs[s]);
+          if (lane == s) mine = t;
+        }
+      }
+      if (lane < K) parts[(lane * tiles + tile) * B + b] = mine;
     }
   }
 
   if (VALUE) {
     val = warp_sum(val);
-    if (lane == 0) vparts[tile * (kThreads / 32) + ((ty * kTileCols + tx) >> 5)] = val;
+    if (lane == 0) vparts[(chunk * tiles + tile) * kWarps + warp] = val;
   }
 
-  // per-column sums: add the row groups in order
+  // column sums: each warp's, then the block's warps added in order
+  if constexpr (kFixed) {
 #pragma unroll
-  for (int k = 0; k < NT; ++k) sacc[ty][k][tx] = acc[k];
+    for (int k = 0; k < NT; ++k)
+#pragma unroll
+      for (int j = 0; j < kLaneCols; ++j)
+        sacc[warp][k][lane * kLaneCols + j] = acc[k][j];
+  }
   __syncthreads();
-  if (ty == 0 && valid) {
+  for (int i = threadIdx.x; i < Tc * kTile; i += kBlockThreads) {
+    const int k = i / kTile;
+    const int col = i % kTile;
+    const int64_t c = tile * kTile + col;
+    if (c >= D) continue;
+    float s = sacc[0][k][col];
 #pragma unroll
-    for (int k = 0; k < NT; ++k) {
-      if (k < Tn) {
-        float s = sacc[0][k][tx];
-#pragma unroll
-        for (int g = 1; g < kRowGroups; ++g) s += sacc[g][k][tx];
-        gout[k * D + c] = s;
-      }
+    for (int g = 1; g < kWarps; ++g) s += sacc[g][k][col];
+    if (chunks == 1) {
+      gout[k * D + c] = s;
+      if (JOINT && k == RC) gout[Tc * D + c] = s;  // the pb row
+    } else {
+      cparts[(static_cast<int64_t>(chunk) * Tc + k) * D + c] = s;
     }
   }
 }
 
-template <typename T, bool JOINT, bool VALUE>
-void launch(const void* x, const float* zc, const float* zn,
-            const float* depth, const float* lse, const float* W, int64_t B,
-            int64_t D, int R, int C, int Rn, float* gout, float* parts,
-            float* vparts, cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>(num_tiles(D)));
-  const dim3 block(kTileCols, kRowGroups);
-  const T* xp = static_cast<const T*>(x);
-  if (R + C + Rn + 2 + (JOINT ? 1 : 0) <= 8)
-    valgrad_kernel<T, 8, JOINT, VALUE><<<grid, block, 0, s>>>(
-        xp, zc, zn, depth, lse, W, B, D, R, C, Rn, gout, parts, vparts);
-  else
-    valgrad_kernel<T, kMaxT, JOINT, VALUE><<<grid, block, 0, s>>>(
-        xp, zc, zn, depth, lse, W, B, D, R, C, Rn, gout, parts, vparts);
+// Stage 2, one launch of three kinds of block:
+//   row blocks: 32 (row, output) sums each, lane = output o = k * B + b;
+//     warp w adds tiles w, w + 8, ... in order, then the 8 warps in order;
+//   column blocks (chunks > 1): one (row k, column) sum a thread, the
+//     chunks in order; the pb row (pb_src = R + C) a copy;
+//   one value block (VALUE): thread t adds partials t, t + 256, ..., then
+//     a fixed tree.
+__global__ void __launch_bounds__(kSumThreads)
+valgrad_sum(const float* __restrict__ parts, const float* __restrict__ cparts,
+            const float* __restrict__ vparts, int64_t B, int64_t D, int K,
+            int64_t tiles, int Tc, int chunks, int pb_src, int64_t nvparts,
+            int64_t row_blocks, int64_t col_blocks, float* __restrict__ rowout,
+            float* __restrict__ gout, float* __restrict__ value) {
+  __shared__ float red[kSumThreads];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  int64_t blk = blockIdx.x;
+  if (blk < row_blocks) {
+    const int64_t o = blk * 32 + lane;
+    const bool ok = o < K * B;
+    const int64_t k = ok ? o / B : 0;
+    const int64_t b = ok ? o - k * B : 0;
+    float s = 0.f;
+    if (ok)
+      for (int64_t p = warp; p < tiles; p += kSumWarps)
+        s += parts[(k * tiles + p) * B + b];
+    red[t] = s;
+    __syncthreads();
+    if (warp == 0 && ok) {
+      float r = red[lane];
+#pragma unroll
+      for (int g = 1; g < kSumWarps; ++g) r += red[g * 32 + lane];
+      rowout[b * K + k] = r;
+    }
+    return;
+  }
+  blk -= row_blocks;
+  if (blk < col_blocks) {
+    const int64_t i = blk * kSumThreads + t;
+    if (i < Tc * D) {
+      float s = cparts[i];
+      for (int ch = 1; ch < chunks; ++ch) s += cparts[ch * Tc * D + i];
+      gout[i] = s;
+      if (i / D == pb_src) gout[Tc * D + (i - pb_src * D)] = s;
+    }
+    return;
+  }
+  float s = 0.f;
+  for (int64_t j = t; j < nvparts; j += kSumThreads) s += vparts[j];
+  red[t] = s;
+  __syncthreads();
+  for (int g = kSumThreads / 2; g > 0; g >>= 1) {
+    if (t < g) red[t] += red[t + g];
+    __syncthreads();
+  }
+  if (t == 0) *value = red[0];
 }
 
-template <typename T>
-void launch_variant(const void* x, const float* zc, const float* zn,
-                    const float* depth, const float* lse, const float* W,
-                    int64_t B, int64_t D, int R, int C, int Rn, bool joint,
-                    bool value, float* gout, float* parts, float* vparts,
-                    cudaStream_t s) {
+// The launch plan's workspace, in floats: row partials (K, tiles, B),
+// column partials (chunks, Tc, D) when chunks > 1, value partials
+// (chunks, tiles, kWarps) with VALUE.  ops/nb_step.valgrad_plan computes
+// the same.
+struct Workspace {
+  int64_t rows, cols, vals;
+  int64_t total() const { return rows + cols + vals; }
+};
+
+inline Workspace workspace(int64_t B, int64_t D, int R, int C, int Rn,
+                           bool value, int chunks) {
+  const int64_t tiles = vg_tiles(D);
+  return {(1 + R + Rn) * tiles * B,
+          chunks > 1 ? static_cast<int64_t>(chunks) * (R + C + Rn + 2) * D : 0,
+          value ? static_cast<int64_t>(chunks) * tiles * kWarps : 0};
+}
+
+// One call's stage-1 operands, on the host
+struct Launch {
+  const void* x;
+  const float *zc, *zn, *depth, *lse, *W;
+  int64_t B, D;
+  int R, C, Rn, chunks, vec, scan16;
+  float *gout, *parts, *cparts, *vparts;
+};
+
+template <typename T, bool FIXED, bool JOINT, bool VALUE>
+void launch_tiles(const Launch& L, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>(vg_tiles(L.D)),
+                  static_cast<unsigned>(L.chunks));
+  valgrad_tiles<T, FIXED ? kFixR : 0, FIXED ? kFixC : 0, FIXED ? kFixRn : 0,
+                JOINT, VALUE><<<grid, kBlockThreads, 0, s>>>(
+      static_cast<const T*>(L.x), L.zc, L.zn, L.depth, L.lse, L.W, L.B, L.D,
+      L.R, L.C, L.Rn, L.vec, L.scan16, L.gout, L.parts, L.cparts, L.vparts);
+}
+
+template <typename T, bool FIXED>
+void launch_variant(const Launch& L, bool joint, bool value, cudaStream_t s) {
   if (joint && value)
-    launch<T, true, true>(x, zc, zn, depth, lse, W, B, D, R, C, Rn, gout,
-                          parts, vparts, s);
+    launch_tiles<T, FIXED, true, true>(L, s);
   else if (joint)
-    launch<T, true, false>(x, zc, zn, depth, lse, W, B, D, R, C, Rn, gout,
-                           parts, vparts, s);
+    launch_tiles<T, FIXED, true, false>(L, s);
   else if (value)
-    launch<T, false, true>(x, zc, zn, depth, lse, W, B, D, R, C, Rn, gout,
-                           parts, vparts, s);
+    launch_tiles<T, FIXED, false, true>(L, s);
   else
-    launch<T, false, false>(x, zc, zn, depth, lse, W, B, D, R, C, Rn, gout,
-                            parts, vparts, s);
+    launch_tiles<T, FIXED, false, false>(L, s);
+}
+
+// vec: a row's kLaneCols counts of a thread in one load (D a multiple of
+// kLaneCols, x aligned to it); scan16: the regime scan in 16-byte loads
+template <typename T>
+void launch_dtype(Launch L, bool joint, bool value, bool fixed,
+                  cudaStream_t s) {
+  const auto addr = reinterpret_cast<uintptr_t>(L.x);
+  L.vec = L.D % kLaneCols == 0 && addr % (kLaneCols * sizeof(T)) == 0;
+  L.scan16 = L.D % (kScanBytes / sizeof(T)) == 0 && addr % kScanBytes == 0;
+  if (fixed)
+    launch_variant<T, true>(L, joint, value, s);
+  else
+    launch_variant<T, false>(L, joint, value, s);
 }
 
 }  // namespace
 
-// Workspace floats for mmvae_nb_valgrad: (num_parts(D), B, 1 + R + Rn)
-// row partials, then one value partial per warp of each tile.
-extern "C" int64_t mmvae_nb_valgrad_ws(int64_t B, int64_t D, int R, int Rn) {
-  return num_parts(D) * B * (1 + R + Rn) + num_tiles(D) * (kThreads / 32);
-}
-
 // dtype: 0 = float32, 1 = int16, 2 = int8.  joint = 1 selects the pb /
 // exp-nu variant, whose W and gout have the pb row last; need_value = 1
 // also writes the NLL without lgamma(x + 1) to value (one float; unused
-// otherwise).  Writes gout (R+C+Rn+2+joint, D) and rowout
-// (B, 1 + R + Rn) = [rsum | u1 | dzn].  Returns cudaGetLastError() after
-// the launches (0 = launched).
+// otherwise).  The launch plan (ops/nb_step.valgrad_plan): fixed = 1 for
+// the compile-time instance, which the entry picks by shape, (R, C, Rn) =
+// (2, 1, 1), and refuses otherwise; tile = kTile; chunks row chunks,
+// 1 <= chunks <= B; ws holds ws_floats >= the plan's workspace.  Writes
+// gout (R+C+Rn+2+joint, D) and rowout (B, 1 + R + Rn) = [rsum | u1 | dzn].
+// Returns cudaGetLastError() after the two launches (0 = launched).
 extern "C" int mmvae_nb_valgrad(const void* x, int dtype, const void* zc,
                                 const void* zn, const void* depth,
                                 const void* lse, const void* W, int64_t B,
                                 int64_t D, int R, int C, int Rn, int joint,
-                                int need_value, void* gout, void* ws,
-                                void* rowout, void* value, void* stream) {
+                                int need_value, int fixed, int tile,
+                                int chunks, void* gout, void* ws,
+                                int64_t ws_floats, void* rowout, void* value,
+                                void* stream) {
   if (!dims_ok(B, D, R, C, Rn, joint != 0) || (joint != 0 && joint != 1) ||
-      (need_value != 0 && need_value != 1))
+      (need_value != 0 && need_value != 1) ||
+      fixed != (fixed_widths(R, C, Rn) ? 1 : 0) || tile != kTile ||
+      chunks < 1 || chunks > B || chunks > kMaxChunks || ws == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool jt = joint != 0;
   const bool nv = need_value != 0;
+  const Workspace plan = workspace(B, D, R, C, Rn, nv, chunks);
+  if (ws_floats < plan.total()) return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto* zcp = static_cast<const float*>(zc);
-  const auto* znp = static_cast<const float*>(zn);
-  const auto* dp = static_cast<const float*>(depth);
-  const auto* lp = static_cast<const float*>(lse);
-  const auto* Wp = static_cast<const float*>(W);
   auto* gp = static_cast<float*>(gout);
-  const int K = 1 + R + Rn;
   auto* parts = static_cast<float*>(ws);
-  auto* vparts = parts + num_parts(D) * B * K;
+  auto* cparts = parts + plan.rows;
+  auto* vparts = cparts + plan.cols;
+  const Launch L{x, static_cast<const float*>(zc),
+                 static_cast<const float*>(zn),
+                 static_cast<const float*>(depth),
+                 static_cast<const float*>(lse), static_cast<const float*>(W),
+                 B, D, R, C, Rn, chunks, 0, 0, gp, parts, cparts, vparts};
   switch (dtype) {
     case 0:
-      launch_variant<float>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, jt, nv,
-                            gp, parts, vparts, s);
+      launch_dtype<float>(L, jt, nv, fixed != 0, s);
       break;
     case 1:
-      launch_variant<int16_t>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, jt, nv,
-                              gp, parts, vparts, s);
+      launch_dtype<int16_t>(L, jt, nv, fixed != 0, s);
       break;
     case 2:
-      launch_variant<int8_t>(x, zcp, znp, dp, lp, Wp, B, D, R, C, Rn, jt, nv,
-                             gp, parts, vparts, s);
+      launch_dtype<int8_t>(L, jt, nv, fixed != 0, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = launch_reduce(parts, num_parts(D), B, K, static_cast<float*>(rowout), K,
-                    s);
-  if (e != cudaSuccess || !nv) return static_cast<int>(e);
-  return static_cast<int>(launch_reduce(vparts, num_tiles(D) * (kThreads / 32),
-                                        1, 1, static_cast<float*>(value), 1,
-                                        s));
+  const int K = 1 + R + Rn;
+  const int Tc = R + C + Rn + 2;
+  const int64_t row_blocks = (K * B + 31) / 32;
+  const int64_t col_blocks =
+      chunks > 1 ? (Tc * D + kSumThreads - 1) / kSumThreads : 0;
+  const int64_t blocks = row_blocks + col_blocks + (nv ? 1 : 0);
+  valgrad_sum<<<static_cast<unsigned>(blocks), kSumThreads, 0, s>>>(
+      parts, cparts, vparts, B, D, K, vg_tiles(D), Tc, chunks,
+      jt ? R + C : -1, plan.vals, row_blocks, col_blocks,
+      static_cast<float*>(rowout), gp, static_cast<float*>(value));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -125,7 +125,6 @@ def _bind(lib) -> None:
     lib.mmvae_count_encode_bwd.restype = _i32
     for name, args in (("mmvae_nb_lse_ws", [_i64, _i64]),
                        ("mmvae_nb_value_ws", [_i64]),
-                       ("mmvae_nb_valgrad_ws", [_i64, _i64, _i32, _i32]),
                        ("mmvae_nb_finish_ws", [_i64, _i64, _i32])):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = _i64
@@ -136,9 +135,11 @@ def _bind(lib) -> None:
     # value: ..., with_const, joint, ws, out, stream
     lib.mmvae_nb_value.argtypes = [_vp, _i32, *rows, _vp, *dims, _i32, _i32,
                                    _vp, _vp, _vp]
-    # valgrad: ..., joint, need_value, gout, ws, rowout, value, stream
+    # valgrad: ..., joint, need_value, the plan (fixed instance, tile,
+    # chunks), gout, ws, ws floats, rowout, value, stream
     lib.mmvae_nb_valgrad.argtypes = [_vp, _i32, *rows, _vp, *dims, _i32,
-                                     _i32, _vp, _vp, _vp, _vp, _vp]
+                                     _i32, _i32, _i32, _i32, _vp, _vp, _i64,
+                                     _vp, _vp, _vp]
     lib.mmvae_nb_finish.argtypes = [_vp, _vp, _vp, _vp, _i64, _i64, _i32,
                                     _i32, _vp, _vp, _vp, _vp]
     # elbo fwd: x, dtype, h, nu_pre, depth, B, D, with_const, rows, out,

@@ -24,7 +24,8 @@ Four kernels, each a wrapper with a plain PyTorch version beside it:
 - :func:`valgrad` (K2): one pass over ``x`` giving the stacked per-column
   gradient rows ``gout`` and the per-row ``rsum``, ``u1``, ``dzn``, and
   with ``need_value`` the NLL without ``lgamma(x + 1)`` (K2v for the NB
-  model, K2pv for the joint one);
+  model, K2pv for the joint one); :func:`valgrad_plan` is its launch
+  plan and workspace;
 - :func:`finish` (K3): the softmax-coupling terms ``fout``, ``u2``.
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
@@ -50,12 +51,62 @@ kernel path, the value-bearing forms' the NLL without
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .enc_kernel import _DTYPE_CODE
 from .nb_elbo import EPS, NU_HI, NU_LO, _softplus
 
 MAX_STACKED_ROWS = 16  # T = R + C + Rn + 2 (+ 1 with pb) the kernels take
+# K2's launch plan (csrc/nb_valgrad.cu): a block's D tile (kTile), its
+# warps (kWarps, one value partial each), the widths of the compile-time
+# instance, and the row chunking: ceil(B / 20) chunks, at most 8
+VALGRAD_TILE = 64
+VALGRAD_WARPS = 4
+VALGRAD_FIXED = (2, 1, 1)
+VALGRAD_CHUNK_ROWS = 20
+VALGRAD_MAX_CHUNKS = 8
+
+
+class ValgradPlan(NamedTuple):
+    """One K2 call: its stage-1 instance ("fixed", the compile-time
+    (R, C, Rn) = (2, 1, 1), or "general"), the D tile width and count,
+    the row chunks, the stage-1 grid (tiles, chunks), and the workspace
+    in floats: row partials (1 + R + Rn, tiles, B), column partials
+    (chunks, R + C + Rn + 2, D) when chunks > 1, value partials
+    (chunks, tiles, warps) with ``need_value``."""
+    instance: str
+    tile: int
+    tiles: int
+    chunks: int
+    grid: tuple[int, int]
+    row_parts: int
+    col_parts: int
+    value_parts: int
+
+    @property
+    def workspace(self) -> int:
+        return self.row_parts + self.col_parts + self.value_parts
+
+
+def valgrad_plan(B: int, D: int, R: int, C: int, Rn: int,
+                 joint: bool = False, need_value: bool = False
+                 ) -> ValgradPlan:
+    """K2's launch plan for x (B, D).  The tile width and the chunking
+    depend on (B, D) alone, never on the widths, the dtype or the card,
+    so the order of every sum is fixed by (B, D); the instance by the
+    widths; the workspace by the shape and ``need_value`` (the pb row of
+    ``joint`` is a copy of the colsum(dls) row and needs none)."""
+    _check_widths(B, D, R, C, Rn, int(joint))
+    tiles = -(-D // VALGRAD_TILE)
+    chunks = min(-(-B // VALGRAD_CHUNK_ROWS), VALGRAD_MAX_CHUNKS)
+    return ValgradPlan(
+        "fixed" if (R, C, Rn) == VALGRAD_FIXED else "general",
+        VALGRAD_TILE, tiles, chunks, (tiles, chunks),
+        (1 + R + Rn) * tiles * B,
+        chunks * (R + C + Rn + 2) * D if chunks > 1 else 0,
+        chunks * tiles * VALGRAD_WARPS if need_value else 0)
 
 
 def _terms(x, ls, nu_pre, depth, include_const: bool, pb=None,
@@ -194,11 +245,7 @@ def _check(what: str, x, named: dict) -> torch.device:
     return dev
 
 
-def _dims(zc, W, R, C, Rn=1, extra=0):
-    B, D = zc.shape[0], W.shape[1]
-    if zc.dim() != 2 or W.dim() != 2 or zc.shape[1] != R + C:
-        raise ValueError(f"zc {tuple(zc.shape)} / W {tuple(W.shape)} do not "
-                         f"match R={R}, C={C}")
+def _check_widths(B, D, R, C, Rn, extra):
     if (R < 1 or C < 0 or Rn < 1
             or R + C + Rn + 2 + extra > MAX_STACKED_ROWS):
         raise ValueError(f"the step kernels take R >= 1, Rn >= 1 and "
@@ -206,6 +253,14 @@ def _dims(zc, W, R, C, Rn=1, extra=0):
                          f" stacked rows (R={R}, C={C}, Rn={Rn})")
     if B < 1 or D < 1:
         raise ValueError(f"empty operands (B={B}, D={D})")
+
+
+def _dims(zc, W, R, C, Rn=1, extra=0):
+    B, D = zc.shape[0], W.shape[1]
+    if zc.dim() != 2 or W.dim() != 2 or zc.shape[1] != R + C:
+        raise ValueError(f"zc {tuple(zc.shape)} / W {tuple(W.shape)} do not "
+                         f"match R={R}, C={C}")
+    _check_widths(B, D, R, C, Rn, extra)
     return B, D
 
 
@@ -317,15 +372,17 @@ def _valgrad_kernel(x, zc, zn, depth, norm, W, R, C, Rn, joint=False,
     joint = bool(joint)
     B, D, dev = _row_inputs("nb_step.valgrad", x, zc, zn, depth, norm, W,
                             R, C, Rn, joint)
-    ws = _f32((_lib().mmvae_nb_valgrad_ws(B, D, R, Rn),), dev)
+    plan = valgrad_plan(B, D, R, C, Rn, joint, need_value)
+    ws = _f32((plan.workspace,), dev)
     gout = _f32((R + C + Rn + 2 + joint, D), dev)
     rows = _f32((B, 1 + R + Rn), dev)
     nll = _f32((), dev)
     _call(dev, "nb_step.valgrad", "mmvae_nb_valgrad", x.data_ptr(),
           _DTYPE_CODE[x.dtype], zc.data_ptr(), zn.data_ptr(),
           depth.data_ptr(), norm.data_ptr(), W.data_ptr(), B, D, R, C, Rn,
-          int(joint), int(bool(need_value)), gout.data_ptr(), ws.data_ptr(),
-          rows.data_ptr(), nll.data_ptr())
+          int(joint), int(bool(need_value)), int(plan.instance == "fixed"),
+          plan.tile, plan.chunks, gout.data_ptr(), ws.data_ptr(),
+          plan.workspace, rows.data_ptr(), nll.data_ptr())
     if joint and need_value:
         valgrad.joint_value_launches += 1
     elif joint:

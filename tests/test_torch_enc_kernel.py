@@ -280,7 +280,8 @@ def _build_log(spill=0):
 def test_encode_instances_reads_every_instance():
     import chip_smoke
 
-    assert chip_smoke.check_encode_instances(_build_log()) == [
+    assert chip_smoke.check_instances(
+        _build_log(), "count_encode.cu", chip_smoke.encode_label) == [
         ("int8 16+4", 128, 0), ("int16 2+0+stats", 51, 0),
         ("f32 16+0+filt", 128, 0), ("sum", 30, 0)]
 
@@ -291,4 +292,5 @@ def test_encode_instances_spill_fails_phase_1(log):
     import chip_smoke
 
     with pytest.raises(AssertionError, match="count_encode.cu"):
-        chip_smoke.check_encode_instances(log)
+        chip_smoke.check_instances(log, "count_encode.cu",
+                                   chip_smoke.encode_label)

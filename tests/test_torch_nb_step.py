@@ -195,3 +195,174 @@ def test_kernel_routes_refuse_unsupported_widths():
         tns._dims(zc, W, 2, 1, Rn=13)
     with pytest.raises(ValueError, match="do not match"):
         tns._dims(zm, W, 2, 1)
+
+
+# ----------------------------------------------------------------------
+# K2's launch plan (valgrad_plan): the instance by the widths, the tile
+# and the chunking by (B, D) alone; the C entry checks the plan on the
+# card (chip_smoke.py phase 28 launches every case below)
+# ----------------------------------------------------------------------
+
+PLAN_BS = (1, 37, 100, 1600)
+PLAN_DS = (255, 256, 257, 1003, 20000)
+
+
+def _cli_valgrad_calls(monkeypatch, tmp_path):
+    """(B, D, R, C, Rn, joint, need_value) of every K2 call the trainer
+    CLIs make at their defaults (NB, joint, labeled mixture) and on the
+    NB generic route with a hidden encoder, one epoch each on the CPU."""
+    from mmvae_tpu.io.writers import write_matrix_market_file
+    from mmvae_tpu_torch.cli import nb_vae, vmfnb_vae
+
+    calls, plain = [], tns.valgrad_ref
+
+    def spy(x, zc, zn, depth, lse, W, R, C, Rn, joint=False,
+            need_value=False):
+        calls.append((*x.shape, R, C, Rn, bool(joint), bool(need_value)))
+        return plain(x, zc, zn, depth, lse, W, R, C, Rn, joint, need_value)
+
+    monkeypatch.setattr(tns, "valgrad_ref", spy)
+    D, N = 30, 40
+    rng = np.random.default_rng(9)
+    dens = rng.poisson(1.5, size=(D, N)).astype(np.float32)
+    dens[0, ~(dens > 0).any(axis=0)] = 1.0
+    rr, cc = np.nonzero(dens)
+    mtx = str(tmp_path / "m.mtx.gz")
+    write_matrix_market_file(mtx, rr, cc, dens[rr, cc], (D, N))
+    (tmp_path / "rows.txt").write_text("".join(f"g{i}\n" for i in range(D)))
+    (tmp_path / "annot.txt").write_text(
+        "".join(f"g{i} T{i % 3}\n" for i in range(12)))
+    common = ["--mtx", mtx, "--batch_size", "20", "--max_epoch", "1",
+              "--device", "cpu"]
+    runs = [(nb_vae, []), (nb_vae, ["--mean_encoding", "4"]),
+            (vmfnb_vae, []),
+            (vmfnb_vae, ["--annot", str(tmp_path / "annot.txt"), "--row",
+                         str(tmp_path / "rows.txt")])]
+    for i, (cli, extra) in enumerate(runs):
+        assert cli.main(common + extra + ["--out",
+                                          str(tmp_path / f"o{i}")]) == 0
+    return calls
+
+
+def test_valgrad_plan_cli_shapes_take_the_compile_time_instance(
+        monkeypatch, tmp_path):
+    calls = _cli_valgrad_calls(monkeypatch, tmp_path)
+    assert {c[-2] for c in calls} == {False, True}  # NB and joint K2
+    for B, D, R, C, Rn, joint, nv in calls:
+        assert (R, C, Rn) == tns.VALGRAD_FIXED
+        assert tns.valgrad_plan(B, D, R, C, Rn, joint, nv).instance == "fixed"
+
+
+@pytest.mark.parametrize("widths", [(4, 2, 3), (1, 0, 1), (2, 0, 1),
+                                    (2, 1, 2), (3, 1, 1), (8, 2, 3)])
+def test_valgrad_plan_other_widths_take_the_general_instance(widths):
+    for B in PLAN_BS:
+        for D in PLAN_DS:
+            for joint in (False, True):
+                plan = tns.valgrad_plan(B, D, *widths, joint)
+                assert plan.instance == "general"
+                assert plan.tiles == -(-D // tns.VALGRAD_TILE)
+
+
+@pytest.mark.parametrize("B", PLAN_BS)
+def test_valgrad_plan_tiles_and_chunks_depend_on_B_and_D_alone(B):
+    """One tiling and chunking for every width, variant and (no dtype
+    argument) storage; the workspace is the row partials, the chunks'
+    column partials and the value partials of that plan."""
+    for D in PLAN_DS:
+        layouts = set()
+        for R, C, Rn in ((2, 1, 1), (4, 2, 3), (1, 0, 1)):
+            for joint in (False, True):
+                for nv in (False, True):
+                    p = tns.valgrad_plan(B, D, R, C, Rn, joint, nv)
+                    layouts.add((p.tile, p.tiles, p.chunks, p.grid))
+                    assert p.row_parts == (1 + R + Rn) * p.tiles * B
+                    assert p.col_parts == (
+                        p.chunks * (R + C + Rn + 2) * D if p.chunks > 1
+                        else 0)
+                    assert p.value_parts == (
+                        p.chunks * p.tiles * tns.VALGRAD_WARPS if nv else 0)
+                    assert p.workspace == (p.row_parts + p.col_parts
+                                           + p.value_parts)
+        (layout,) = layouts
+        tile, tiles = layout[0], layout[1]
+        assert tile == tns.VALGRAD_TILE and tiles * tile >= D > (
+            tiles - 1) * tile
+        assert 1 <= layout[2] <= min(B, tns.VALGRAD_MAX_CHUNKS)
+        assert layout[3] == (layout[1], layout[2])
+
+
+def test_valgrad_plan_chunks():
+    """ceil(B / 20) row chunks, at most 8: the main path's B = 100 takes
+    5 (1,565 blocks at D = 20,000)."""
+    assert [tns.valgrad_plan(B, 20000, 2, 1, 1).chunks
+            for B in (1, 20, 21, 37, 100, 140, 141, 1600)] == [
+        1, 1, 2, 2, 5, 7, 8, 8]
+    p = tns.valgrad_plan(100, 20000, 2, 1, 1)
+    assert (p.tiles, p.chunks) == (313, 5)
+
+
+@pytest.mark.parametrize("bad", [(2, 1, 13), (0, 1, 1), (2, 1, 0),
+                                 (2, -1, 1)])
+def test_valgrad_plan_refuses_unsupported_widths(bad):
+    with pytest.raises(ValueError, match="stacked rows"):
+        tns.valgrad_plan(10, 100, *bad)
+    with pytest.raises(ValueError, match="stacked rows"):
+        tns.valgrad_plan(10, 100, 2, 1, 11, joint=True)  # T = 17
+    with pytest.raises(ValueError, match="empty"):
+        tns.valgrad_plan(0, 100, 2, 1, 1)
+
+
+def test_valgrad_kernel_route_refuses_cpu_tensors_at_every_instance():
+    """A CPU tensor at the kernel route raises whatever the plan's
+    instance; the public wrapper takes the plain version instead."""
+    for widths in ((2, 1, 1), (3, 1, 2)):
+        R, C, Rn = widths
+        rng = np.random.default_rng(1)
+        x = torch.from_numpy(rng.poisson(1.0, (5, 70)).astype(np.int8))
+        zc = torch.from_numpy(rng.normal(size=(5, R + C)).astype(np.float32))
+        zn = torch.from_numpy(rng.normal(size=(5, Rn)).astype(np.float32))
+        depth = torch.ones((5, 1))
+        W = torch.from_numpy(
+            rng.normal(size=(R + C + Rn + 2, 70)).astype(np.float32))
+        lse = tns.lse_ref(zc, W, R, C)
+        with pytest.raises(ValueError, match="no kernel"):
+            tns._valgrad_kernel(x, zc, zn, depth, lse, W, R, C, Rn)
+        before = tns.valgrad.launches
+        tns.valgrad(x, zc, zn, depth, lse, W, R, C, Rn)
+        assert tns.valgrad.launches == before
+
+
+# chip_smoke.py phase 1 reads every nb_valgrad.cu instance's registers and
+# spills from ptxas' report (the same reader as count_encode.cu's)
+_VG_ENTRY = ("ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__"
+             "11bf2b74_13_nb_valgrad_cu_4cdaf3a9{name}' for 'sm_90a'\n"
+             "ptxas info    : Function properties for _ZN{name}\n"
+             "    0 bytes stack frame, {spill} bytes spill stores, {spill} "
+             "bytes spill loads\n"
+             "ptxas info    : Used {regs} registers, used 1 barriers\n")
+
+
+def _vg_log(spill=0):
+    body = "".join(_VG_ENTRY.format(name=n, spill=b, regs=r) for n, b, r in (
+        ("13valgrad_tilesIaLi2ELi1ELi1ELb0ELb0EEEvPKT_PKfS5_S5_S5_S5_llii",
+         0, 120),
+        ("13valgrad_tilesIsLi0ELi0ELi0ELb1ELb1EEEvPKT_PKfS5_S5_S5_S5_llii",
+         spill, 200),
+        ("13valgrad_tilesIfLi2ELi1ELi1ELb1ELb0EEEvPKT_PKfS5_S5_S5_S5_llii",
+         0, 110),
+        ("11valgrad_sumEPKfS1_S1_llilii", 0, 24)))
+    other = _VG_ENTRY.format(name="8nb_lse", spill=16, regs=40)
+    return f"== nb_lse.cu\n{other}== nb_valgrad.cu\n{body}"
+
+
+def test_valgrad_instances_read_by_phase_1():
+    import chip_smoke
+
+    assert chip_smoke.check_instances(
+        _vg_log(), "nb_valgrad.cu", chip_smoke.valgrad_label) == [
+        ("int8 2+1+1", 120, 0), ("int16 general+joint+value", 200, 0),
+        ("f32 2+1+1+joint", 110, 0), ("sum", 24, 0)]
+    with pytest.raises(AssertionError, match="nb_valgrad.cu instances spill"):
+        chip_smoke.check_instances(_vg_log(spill=8), "nb_valgrad.cu",
+                                   chip_smoke.valgrad_label)

@@ -144,8 +144,8 @@ def test_trace_step_vmf_not_ported():
 
 def test_port_kernel_names():
     assert trace_step.port_kernel(
-        "void (anonymous namespace)::valgrad_kernel<signed char, 8, false, "
-        "false>(signed char const*)") == "nb_valgrad"
+        "void (anonymous namespace)::valgrad_tiles<signed char, 2, 1, 1, "
+        "false, false>(signed char const*)") == "nb_valgrad"
     assert trace_step.port_kernel("nbk::reduce_parts(float const*, long)"
                                   ) == "nb_step rows"
     assert trace_step.port_kernel(
@@ -156,6 +156,23 @@ def test_port_kernel_names():
     assert trace_step.port_kernel(
         "void (anonymous namespace)::elementwise_kernel<0, 40, 4>(float "
         "const*)") == "roofline_probe"
+
+
+def test_port_kernel_names_valgrad_stages():
+    """Both stages of K2 (``csrc/nb_valgrad.cu``) are K2's time in the
+    table, in every instance; the second stage of K6, K3 and K7
+    (``reduce_parts``) stays apart."""
+    for stage in ("void (anonymous namespace)::valgrad_tiles<short, 0, 0, "
+                  "0, true, true>(short const*, float const*)",
+                  "void (anonymous namespace)::valgrad_tiles<float, 2, 1, 1, "
+                  "true, false>(float const*, float const*)",
+                  "(anonymous namespace)::valgrad_sum(float const*, float "
+                  "const*, float const*, long, long, int, long, int, int, "
+                  "int, long, long, long, float*, float*, float*)"):
+        assert trace_step.port_kernel(stage) == "nb_valgrad"
+    assert trace_step.port_kernel(
+        "nbk::reduce_parts(float const*, long, long, int, float*, long)"
+    ) == "nb_step rows"
 
 
 def test_port_kernel_names_encoder_forward_stages():

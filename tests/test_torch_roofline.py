@@ -103,7 +103,31 @@ def test_op_mix_prediction_keeps_the_jax_arithmetic():
     assert parts == {"ALU": vr.ALU_OPS * 1.5 * 10, "exp": vr.EXP_OPS * 5.0
                      * 10, "log": 0.0, "div": vr.DIV_OPS * 3.0 * 10}
     assert total == pytest.approx(sum(parts.values()))
-    assert (vr.ALU_OPS, vr.EXP_OPS, vr.LOG_OPS, vr.DIV_OPS) == (147, 2, 2, 2)
+    assert (vr.ALU_OPS, vr.EXP_OPS, vr.LOG_OPS, vr.DIV_OPS) == (116, 2, 2, 2)
+
+
+@pytest.mark.parametrize("kernel", list(vr.OP_MIX))
+def test_op_mix_prediction_of_each_instance(kernel):
+    """Every K2 instance prices its own op mix."""
+    rates = {"fma": 2.0, "exp": 7.0, "log": 4.0, "div": 5.0, "select": 3.0}
+    alu, n_exp, n_log, n_div = vr.OP_MIX[kernel]
+    total, parts = vr.op_mix_prediction(rates, 10, kernel)
+    assert parts == {"ALU": alu * 1.5 * 10, "exp": n_exp * 5.0 * 10,
+                     "log": n_log * 2.0 * 10, "div": n_div * 3.0 * 10}
+    assert total == pytest.approx(sum(parts.values()))
+
+
+def test_op_mix_of_the_variants():
+    """The value-bearing instances add the lgamma terms (26 ALU, 2 log)
+    to their grad-only twins; the JOINT ones drop the softplus and the
+    sigmoid (fewer ALU operations, one log)."""
+    mix = vr.OP_MIX
+    for grad, value in (("nb_valgrad", "nb_valgrad[value]"),
+                        ("nb_valgrad[pb,nu_exp]",
+                         "nb_valgrad[pb,nu_exp,value]")):
+        assert [v - g for g, v in zip(mix[grad], mix[value])] == [26, 0, 2, 0]
+    assert mix["nb_valgrad[pb,nu_exp]"][0] < mix["nb_valgrad"][0]
+    assert mix["nb_valgrad[pb,nu_exp]"][2] == 1
 
 
 def test_block_regimes():
@@ -113,6 +137,18 @@ def test_block_regimes():
     assert r["blocks"] == 3
     assert r["counts <= 7"] == pytest.approx(2 / 3)
     assert r["integer"] == pytest.approx(1 / 3) and r["general"] == 0.0
+
+
+def test_valgrad_inputs_joint_run_the_plain_k2p():
+    """The JOINT instances' isolated inputs append the pb row."""
+    t, _ = vr.valgrad_inputs("cpu", joint=True)
+    assert t["W"].shape == (7, vr.D)
+    lse = ns.lse(t["zc"], t["W"], t["R"], t["C"])
+    gout, rsum, u1, dzn, nll = ns.valgrad(
+        t["x"], t["zc"], t["zn"], t["depth"], lse, t["W"], t["R"], t["C"],
+        t["Rn"], True, True)
+    assert gout.shape == (7, vr.D) and torch.isfinite(nll)
+    assert torch.equal(gout[-1], gout[3])  # d/d pb = colsum(dls)
 
 
 def test_valgrad_inputs_run_the_plain_k2():
