@@ -10,7 +10,8 @@ exits non-zero without the final line):
    (``nvidia-smi``), which tag every number printed after it;
 1. build: compile every kernel of the port from ``mmvae_tpu_torch/csrc``
    with nvcc for sm_90a; the registers and spills of every
-   ``count_encode`` and ``nb_valgrad`` instance, failing if one spills;
+   ``count_encode``, ``nb_valgrad``, ``count_encode_bwd`` and ``nb_lse``
+   instance, failing if one spills;
 2. kernel against plain: ``count_encode`` on the card against its plain
    PyTorch version at the NB trainer's launch (M = 100, 2 + 2 rows), the
    serving launch (M = 1600, 2 + 0) and ragged and wide cases, with
@@ -139,7 +140,16 @@ exits non-zero without the final line):
     20,000}, with the compile-time widths (2, 1, 1) and the general
     instance at (4, 2, 3), counts stored as int8, int16 and float32
     (bitwise equal) and non-integer float32: each bitwise repeatable,
-    the value-bearing gradients equal to the grad-only ones bitwise.
+    the value-bearing gradients equal to the grad-only ones bitwise;
+29. K5's and K1's cases: every ``count_encode_bwd`` instance against its
+    plain version at M in {1, 37, 100, 1600} x D in {255, 256, 257,
+    1003, 20,000} x (r1, r2) in {(2, 2), (5, 3), (12, 3), (16, 0),
+    (7, 9)}, counts stored as int8, int16 and float32 (bitwise equal)
+    and non-integer float32; both ``nb_lse`` instances at the same B x D
+    x (R, C) in {(2, 1), (4, 2), (15, 0)}; each call bitwise repeatable,
+    each case on the instance its plan names; then K5 at the trainers'
+    widths and K1 at (2, 1) on the main path's shape, stage 1 and stage
+    2 apart, beside the plain versions and K5's library products.
 
 Each main path (phases 4, 8, 12, 16, the runs of 20 and 24, and the
 probe's run in 26) is driven with every launch counter set to 0 just
@@ -272,6 +282,26 @@ def valgrad_label(name: str) -> str:
             + (f"{m[2]}+{m[3]}+{m[4]}" if m[2] != "0" else "general")
             + ("+joint" if m[5] == "1" else "")
             + ("+value" if m[6] == "1" else ""))
+
+
+def bwd_label(name: str) -> str:
+    """A ``count_encode_bwd.cu`` instance by its stage-1 template
+    arguments: count dtype and the compile-time widths NL+NX (0+0: the
+    general instance)."""
+    m = re.search(r"count_encode_bwd_tilesI(\w)Li(\d+)ELi(\d+)E", name)
+    if m is None:
+        return "sum"
+    return (f"{DTYPE_CODES[m[1]]} "
+            + (f"{m[2]}+{m[3]}" if m[2] + m[3] != "00" else "general"))
+
+
+def lse_label(name: str) -> str:
+    """A ``nb_lse.cu`` instance by its stage-1 template argument: the
+    compile-time R + C (0: the general instance)."""
+    m = re.search(r"lse_tilesILi(\d+)E", name)
+    if m is None:
+        return "sum"
+    return f"R+C={m[1]}" if m[1] != "0" else "general"
 
 
 DTYPE_CODES = {"a": "int8", "s": "int16", "f": "f32"}
@@ -899,6 +929,7 @@ def phase_variant_kernels(card):
                                  f"err/tol {q:.3g}")
         k_dev, _ = device_profile(kern, 20)
         p_dev, _ = device_profile(plain, 20)
+        times[("count_encode_bwd", M)] = (k_dev, p_dev)
         log(f"[phase 10] [{card}] count_encode_bwd M={M} D={D} r1={r1} "
             f"r2={r2}: err {e:.3g} (err/tol {q:.3g}; {TRAIN_TOL}); device "
             f"time kernel {k_dev:.4f} ms, plain {p_dev:.4f} ms")
@@ -977,7 +1008,9 @@ def phase_variant_kernels(card):
         "nb_value[pb,nu_exp]": times[("nb_value[pb,nu_exp]", B_TRAIN)],
         "nb_valgrad[pb,nu_exp]": times[("nb_valgrad[pb,nu_exp]", B_TRAIN)],
         "count_encode[stats] serving": times[("count_encode[stats]",
-                                              STATS_CASES[1][0])]}
+                                              STATS_CASES[1][0])],
+        "count_encode_bwd joint": times[("count_encode_bwd",
+                                         STATS_CASES[0][0])]}
 
 
 FILT_CASES = [(100, D_GENES, 12, 3, torch.int8),    # a training batch
@@ -1078,7 +1111,7 @@ def phase_filt_kernels(card):
         f"D={D_GENES} r1=12 r2=3: err {e:.3g} (err/tol {q:.3g}; "
         f"{TRAIN_TOL}); device time kernel {k_dev:.4f} ms, plain "
         f"{p_dev:.4f} ms")
-    return worst, times[(B_TRAIN, 12, torch.int8)]
+    return worst, times[(B_TRAIN, 12, torch.int8)], (k_dev, p_dev)
 
 
 def model_and_step(kind: str):
@@ -1987,6 +2020,157 @@ def phase_valgrad_cases(card):
     return worst
 
 
+BWD_MS = (1, 37, 100, 1600)
+BWD_DS = (255, 256, 257, 1003, D_GENES)
+# K5's compile-time widths (the trainers'), a general one at the launch's
+# 16 rows with no raw side, a general one with both
+BWD_WIDTHS = ((2, 2), (5, 3), (12, 3), (16, 0), (7, 9))
+LSE_WIDTHS = ((2, 1), (4, 2), (15, 0))  # K1's compile-time (R, C), general
+
+
+def stage_ms(per: dict, stage1: str) -> tuple[float, float]:
+    """(stage 1, stage 2) device ms of one call from ``device_profile``'s
+    kernel table: the kernels named ``stage1``, then the rest."""
+    s1 = sum(v for k, v in per.items() if stage1 in k)
+    return s1, sum(per.values()) - s1
+
+
+def plan_line(plan) -> str:
+    """A launch plan's instance and grid, for a log line."""
+    return f"{plan.instance} instance, grid {plan.grid}"
+
+
+def phase_bwd_lse_cases(card):
+    """Phase 29: K5 (every ``count_encode_bwd.cu`` instance) at M of
+    BWD_MS x D of BWD_DS x widths BWD_WIDTHS, and K1 (both ``nb_lse.cu``
+    instances) at B of BWD_MS x the same D x LSE_WIDTHS, against their
+    plain versions within TRAIN_TOL (phase 6's bounds): K5 with integer
+    counts stored as int8, int16 and float32 (the three bitwise equal)
+    and non-integer float32 counts; every call bitwise repeatable; each
+    case launches the instance its plan names.  Then the main path's
+    shapes (M = 100, D = 20,000, int8): K5 at 2 + 2, 5 + 3 and 12 + 3
+    and K1 at (2, 1), stage 1 and stage 2 apart, beside the plain
+    version and, for K5, the library's two products on operands widened
+    beforehand."""
+    from mmvae_tpu_torch.ops import enc_kernel as enc
+    from mmvae_tpu_torch.ops import nb_step as ns
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 29)
+    worst = {"count_encode_bwd": 0.0, "nb_lse": 0.0}
+    worst_q, n_cases, t0 = 0.0, 0, time.time()
+    log(f"[phase 29] K5 vs plain at M {BWD_MS} x D {BWD_DS} x (r1, r2) "
+        f"{BWD_WIDTHS}, counts int8 == int16 == float32 and non-integer "
+        f"float32; K1 vs plain at B {BWD_MS} x the same D x (R, C) "
+        f"{LSE_WIDTHS}; {TRAIN_TOL}")
+    for M in BWD_MS:
+        for D in BWD_DS:
+            x8 = make_counts(g, M, D, torch.int8)
+            counts = {"int8": x8, "int16": x8.to(torch.int16),
+                      "float32": x8.float(),
+                      "non-integer": make_counts(g, M, D, torch.float32)}
+            for r1, r2 in BWD_WIDTHS:
+                plan = enc.bwd_plan(M, D, r1, r2)
+                if plan.instance != ("fixed" if (r1, r2) in enc.BWD_FIXED
+                                     else "general"):
+                    raise AssertionError(f"plan {plan} for {(r1, r2)}")
+                g1 = torch.randn((M, r1), generator=g, device=DEV)
+                g2 = (torch.randn((M, r2), generator=g, device=DEV)
+                      if r2 else None)
+                ref_bits = None
+                for kind, x in counts.items():
+                    got = enc.count_encode_bwd(x, g1, g2)
+                    again = enc.count_encode_bwd(x, g1, g2)
+                    torch.cuda.synchronize()
+                    if not all(a is b or torch.equal(a, b)
+                               for a, b in zip(got, again)):
+                        raise AssertionError("count_encode_bwd not bitwise "
+                                             "repeatable")
+                    if kind in ("int16", "float32"):
+                        if not all(a is b or torch.equal(a, b)
+                                   for a, b in zip(got, ref_bits)):
+                            raise AssertionError(
+                                f"count_encode_bwd: {kind} storage != int8 "
+                                f"at {(M, D, r1, r2)}")
+                        continue
+                    ref_bits = got
+                    want = enc.count_encode_bwd_ref(x, g1, g2)
+                    xd = x.double()
+                    S = (g1.double().abs().T @ xd.log1p(),
+                         None if g2 is None else g2.double().abs().T
+                         @ xd.abs())
+                    for gt, wt, b in zip(got, want, S):
+                        if gt is None:
+                            continue
+                        e, q = ratio(gt, wt, b)
+                        worst["count_encode_bwd"] = max(
+                            worst["count_encode_bwd"], e)
+                        worst_q = max(worst_q, q)
+                        if not q <= 1.0:
+                            raise AssertionError(
+                                f"count_encode_bwd disagrees with plain at "
+                                f"M={M} D={D} {(r1, r2)} {kind}: err/tol "
+                                f"{q:.3g}")
+                    n_cases += 1
+            for R, C in LSE_WIDTHS:
+                plan = ns.lse_plan(M, D, R, C)
+                if plan.instance != ("fixed" if (R, C) == ns.LSE_FIXED
+                                     else "general"):
+                    raise AssertionError(f"plan {plan} for {(R, C)}")
+                zc = torch.randn((M, R + C), generator=g, device=DEV)
+                W = torch.randn((R + C + 1, D), generator=g,
+                                device=DEV) * 0.3
+                got, again = ns.lse(zc, W, R, C), ns.lse(zc, W, R, C)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError("nb_lse not bitwise repeatable")
+                want = ns.lse_ref(zc, W, R, C)
+                e, q = ratio(got, want, 1.0 + want.double().abs())
+                worst["nb_lse"] = max(worst["nb_lse"], e)
+                worst_q = max(worst_q, q)
+                if not q <= 1.0:
+                    raise AssertionError(f"nb_lse disagrees with plain at "
+                                         f"B={M} D={D} {(R, C)}: err/tol "
+                                         f"{q:.3g}")
+                n_cases += 1
+    log(f"[phase 29] [{card}] {n_cases} cases held to plain "
+        f"({time.time() - t0:.1f}s), worst err/tol {worst_q:.3g}; max |err| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + "; every call bitwise repeatable, K5's int8 == int16 == float32 "
+        "storage")
+
+    # the main path's shapes, stages apart
+    times = {}
+    x = make_counts(g, B_TRAIN, D_GENES, torch.int8)
+    xf = x.float()
+    L = torch.log1p(xf)
+    for r1, r2 in BWD_WIDTHS[:3]:
+        g1 = torch.randn((B_TRAIN, r1), generator=g, device=DEV)
+        g2 = torch.randn((B_TRAIN, r2), generator=g, device=DEV)
+        ms, per = device_profile(lambda: enc.count_encode_bwd(x, g1, g2),
+                                 20)
+        s1, s2 = stage_ms(per, "count_encode_bwd_tiles")
+        p_ms, _ = device_profile(lambda: enc.count_encode_bwd_ref(x, g1, g2),
+                                 20)
+        lib_ms, _ = device_profile(lambda: (g1.T @ L, g2.T @ xf), 20)
+        times[(r1, r2)] = dict(ms=ms, plain_ms=p_ms, library_ms=lib_ms)
+        plan = enc.bwd_plan(B_TRAIN, D_GENES, r1, r2)
+        log(f"[phase 29] [{card}] count_encode_bwd M={B_TRAIN} D={D_GENES} "
+            f"int8 {r1} + {r2} ({plan_line(plan)}): "
+            f"kernel {ms:.4f} ms = stage 1 {s1:.4f} + stage 2 {s2:.4f}; "
+            f"plain {p_ms:.4f} ms; library (two torch.mm on widened "
+            f"operands) {lib_ms:.4f} ms")
+    zc = torch.randn((B_TRAIN, 3), generator=g, device=DEV)
+    W = torch.randn((4, D_GENES), generator=g, device=DEV) * 0.3
+    ms, per = device_profile(lambda: ns.lse(zc, W, 2, 1), 20)
+    s1, s2 = stage_ms(per, "lse_tiles")
+    p_ms, _ = device_profile(lambda: ns.lse_ref(zc, W, 2, 1), 20)
+    log(f"[phase 29] [{card}] nb_lse B={B_TRAIN} D={D_GENES} (2, 1) "
+        f"({plan_line(ns.lse_plan(B_TRAIN, D_GENES, 2, 1))}): kernel "
+        f"{ms:.4f} ms = "
+        f"stage 1 {s1:.4f} + stage 2 {s2:.4f}; plain {p_ms:.4f} ms")
+    return worst, times
+
+
 # label -> (model, architecture, step options, the library trainer)
 VMFNB_GENERIC_ROUTES = {
     "joint --mean_encoding 16, v2 step kernels": (
@@ -2241,9 +2425,11 @@ def phase_tooling(card, tmp, mtx):
         raise AssertionError(f"{tdir}: {traces}")
     with open(traces[0]) as f:
         text = f.read()
-    if '"ondevice_epoch"' not in text or "valgrad_tiles" not in text:
-        raise AssertionError("the trainer's trace lacks ondevice_epoch or "
-                             "the kernels")
+    stages = ("valgrad_tiles", "count_encode_bwd_tiles",
+              "count_encode_bwd_sum", "lse_tiles", "lse_sum")
+    if '"ondevice_epoch"' not in text or not all(k in text for k in stages):
+        raise AssertionError(f"the trainer's trace lacks ondevice_epoch or "
+                             f"one of the kernels {stages}")
     with open(out + ".metrics.jsonl") as f:
         recs = [json.loads(ln) for ln in f]
     base = {"epoch", "wall_time", "loss", "kl_weight", "cells_per_sec",
@@ -2732,7 +2918,9 @@ def main() -> int:
     log(f"[phase 1] ptxas ({os.path.relpath(_cuda.BUILD_LOG)} has the "
         f"full report): {ptxas_summary(build_log)}")
     for source, label in (("count_encode.cu", encode_label),
-                          ("nb_valgrad.cu", valgrad_label)):
+                          ("nb_valgrad.cu", valgrad_label),
+                          ("count_encode_bwd.cu", bwd_label),
+                          ("nb_lse.cu", lse_label)):
         log(f"[phase 1] {source} instances (registers / spilled bytes): "
             + ", ".join(f"{n} {r}r/{b}B" for n, r, b in
                         check_instances(build_log, source, label)))
@@ -2750,8 +2938,8 @@ def main() -> int:
     for w, t in (phase_variant_kernels(card), phase_train_kernels(card)):
         worst.update(w)
         times.update(t)
-    worst["count_encode[filt]"], times["count_encode[filt]"] = (
-        phase_filt_kernels(card))
+    (worst["count_encode[filt]"], times["count_encode[filt]"],
+     times["count_encode_bwd mixture"]) = phase_filt_kernels(card)
     mark("6, 10, 14")
     for w, t in (phase_generic_kernels(card), phase_k2pv(card)):
         worst.update(w)
@@ -2759,6 +2947,10 @@ def main() -> int:
     for name, e in phase_valgrad_cases(card).items():
         worst[name] = max(worst[name], e)
     mark("18, 22, 28")
+    w29, bwd_times = phase_bwd_lse_cases(card)
+    for name, e in w29.items():
+        worst[name] = max(worst[name], e)
+    mark("29")
     worst["roofline_probe"], times["roofline_probe"], p1_launches = (
         phase_roofline(card))
     mark("26")
@@ -2846,13 +3038,24 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": worst[name],
             "ms": times[name][0], "plain_ms": times[name][1],
             "bound_ms": b_ms, "bound_by": b_by,
-            # no single PyTorch call computes any of these functions
+            # no single PyTorch call computes any of these functions (K5's
+            # two products are set below)
             "library_ms": None, "shape": label(shape)})
     # K4 at the NB trainer's launch, beside the serving launch above
     train = dict(int8, r1=2, r2=2)
     records[0]["trainer"] = {
         "shape": label(train), "ms": train_k4[0], "plain_ms": train_k4[1],
         "bound_ms": bound_ms("count_encode", train)[0]}
+    # K5: the library's two products beside the NB trainer's launch, and
+    # the joint and mixture trainers' launches
+    k5 = next(r for r in records if r["name"] == "count_encode_bwd")
+    k5["library_ms"] = bwd_times[(2, 2)]["library_ms"]
+    for model, (r1, r2) in (("joint", (5, 3)), ("mixture", (12, 3))):
+        sh = dict(int8, r1=r1, r2=r2)
+        k_ms, p_ms = times[f"count_encode_bwd {model}"]
+        k5[model] = {"shape": label(sh), "ms": k_ms, "plain_ms": p_ms,
+                     "bound_ms": bound_ms("count_encode_bwd", sh)[0],
+                     "library_ms": bwd_times[(r1, r2)]["library_ms"]}
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,8 +39,9 @@ KINDS = ("nb", "vmf", "joint", "mixture")
 PORT_KERNELS = (
     ("count_encode_tiles", "count_encode"),
     ("count_encode_sum", "count_encode"),
-    ("count_encode_bwd_kernel", "count_encode_bwd"),
-    ("lse_partials", "nb_lse"), ("lse_merge", "nb_lse"),
+    ("count_encode_bwd_tiles", "count_encode_bwd"),
+    ("count_encode_bwd_sum", "count_encode_bwd"),
+    ("lse_tiles", "nb_lse"), ("lse_sum", "nb_lse"),
     ("value_partials", "nb_value"),
     ("valgrad_tiles", "nb_valgrad"), ("valgrad_sum", "nb_valgrad"),
     ("finish_kernel", "nb_finish"), ("reduce_parts", "nb_step rows"),

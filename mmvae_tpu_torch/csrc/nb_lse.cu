@@ -4,18 +4,35 @@
 //     lse = logsumexp(h, axis=1)                (B, 1)
 //
 // Replaces the Pallas TPU kernel mmvae_tpu/ops/nb_step.py: _make_lse_kernel
-// / _lse_call, which carries an online (max, sum) pair across a sequential
-// grid of D tiles.  Here the D tiles run as concurrent blocks (layout in
-// nb_step_common.cuh): each warp reduces its 32 columns of a row to one
-// (max, sum-of-exp) pair by shuffles and writes it as a partial; a second
-// kernel merges the partials of each row in a fixed order.  Columns past
-// the ragged D edge count as -inf.
+// / _lse_call, which carries an online (max, sum) pair per row across a
+// sequential grid of D tiles.  Here the D tiles run as concurrent blocks:
 //
-// What bounds it on the H100: per (row, column) R + C FMAs and one expf,
-// reading only the stacked weight rows (6 x D floats at the default
-// model, from L2); the (B, D) logits are never written.  At B = 100,
-// D = 20000 that is 2 M exps: a few microseconds of ALU work, so launch
-// latency and the two shuffle reductions per row and warp dominate.
+//   stage 1 (lse_tiles): a block owns one kTile-column D tile and one
+//     group of kGroup rows; the grid is (row groups) x (tiles).  The
+//     block loads the tile's R + C + 1 weight rows into shared memory
+//     once (one barrier); lane l of warp w takes row l of the group,
+//     keeps its row's latents in registers and the warp's kLaneCols
+//     columns of the tile: it forms their logits in compute_h's order
+//     (nb_step_common.cuh: compute_h4, so K6, K2 and K3 subtract this
+//     normaliser from the same bits of h), keeps them in registers and
+//     reduces them to one (max, sum of exp(h - max)) pair in two passes,
+//     with no shuffle: every weight is a shared-memory broadcast, read
+//     by all 32 rows.  The block merges its 8 warps' pairs in warp order
+//     and writes one pair per (tile, row) to a float32 workspace
+//     (tiles, B, 2).  Columns past D count as empty pairs (sum 0).
+//   stage 2 (lse_sum): a block finishes 32 rows; warp w merges tiles w,
+//     w + 8, ... in that order (16 loads in flight at a time), then warp 0
+//     merges the 8 warps' pairs in warp order and writes max + log(sum):
+//     a fixed order set by D.
+// No atomics, and nothing is allocated here: the wrapper hands in the
+// workspace (nb_step.lse_plan sizes it).
+//
+// What bounds it on the H100: per (row, column) R + C FMAs, an add, a
+// max and one expf, reading only the stacked weight rows (4 x D floats
+// at the default model); the (B, D) logits are never written.  At
+// B = 100, D = 20,000 that is 2 M exps, ~1 us of the card's float32
+// issue; the earlier design spent most of its time on two warp
+// shuffle reductions a row and warp and on 125 K partials a call.
 //
 // Build: see mmvae_tpu_torch/ops/_cuda.py.
 
@@ -23,34 +40,17 @@
 
 namespace {
 
-using namespace nbk;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kLaneCols = 32;               // columns of its row a lane takes
+constexpr int kTile = kWarps * kLaneCols;   // D columns of a block's tile
+constexpr int kGroup = 32;                  // rows of a block: one a lane
+constexpr int kMaxT = nbk::kMaxT;           // R + C + 1 rows the kernel takes
+constexpr int kFixedRC = 3;                 // the compile-time (R, C) = (2, 1)
+constexpr int kAhead = 16;                  // stage 2's pairs in flight
+static_assert(kLaneCols % 4 == 0, "a lane forms 4 logits at a time");
 
-template <int NT>
-__global__ void __launch_bounds__(kThreads)
-lse_partials(const float* __restrict__ zc, const float* __restrict__ W,
-             int64_t B, int64_t D, int RC, float* __restrict__ parts) {
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int64_t tile = blockIdx.x;
-  const int64_t c = tile * kTileCols + tx;
-  const bool valid = c < D;
-  float w[NT];
-  load_wcol<NT>(W, D, c, valid, RC + 1, w);
-  const int lane = tx & 31;
-  const int64_t part = tile * kWarpCols + (tx >> 5);
-  for (int64_t b = ty; b < B; b += kRowGroups) {
-    const float h = valid ? compute_h<NT>(zc + b * RC, w, RC) : -INFINITY;
-    const float m = warp_max(h);
-    const float s = warp_sum(valid ? expf(h - m) : 0.f);
-    if (lane == 0) {
-      float* o = parts + (part * B + b) * 2;
-      o[0] = m;
-      o[1] = s;
-    }
-  }
-}
-
-// (M, S) <- merge with (m, s); an empty part (s == 0) changes nothing
+// (M, S) <- merge with (m, s); an empty pair (s == 0) changes nothing
 __device__ __forceinline__ void merge(float& M, float& S, float m, float s) {
   if (s == 0.f) return;
   if (S == 0.f) {
@@ -64,60 +64,140 @@ __device__ __forceinline__ void merge(float& M, float& S, float m, float s) {
   }
 }
 
-__global__ void __launch_bounds__(kReduceThreads)
-lse_merge(const float* __restrict__ parts, int64_t nparts, int64_t B,
-          float* __restrict__ lse) {
-  __shared__ float sm[kReduceThreads];
-  __shared__ float ss[kReduceThreads];
-  const int64_t b = blockIdx.x;
-  const int t = threadIdx.x;
-  float M = -INFINITY, S = 0.f;
-  for (int64_t j = t; j < nparts; j += kReduceThreads) {
-    const float* p = parts + (j * B + b) * 2;
-    merge(M, S, p[0], p[1]);
+// Stage 1.  RCF: the compile-time R + C (kFixedRC), or 0 for the
+// general instance (runtime RC, R + C + 1 <= kMaxT).
+template <int RCF>
+__global__ void __launch_bounds__(kThreads)
+lse_tiles(const float* __restrict__ zc, const float* __restrict__ W,
+          int64_t B, int64_t D, int RC, float* __restrict__ ws) {
+  constexpr int NT = RCF > 0 ? RCF + 1 : kMaxT;  // weight rows a tile keeps
+  constexpr int NZ = NT - 1;                     // latents a lane keeps
+  __shared__ __align__(16) float w[NT][kTile];
+  __shared__ float pm[kWarps][kGroup];
+  __shared__ float ps[kWarps][kGroup];
+
+  const int rc = RCF > 0 ? RCF : RC;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kGroup + lane;
+  const bool live = row < B;
+  const int64_t tile = blockIdx.y;
+  const int64_t col0 = tile * kTile;
+
+  // the tile's weight rows (zero past D and past the bias row)
+  for (int cc = tid; cc < kTile; cc += kThreads) {
+    const int64_t c = col0 + cc;
+    const bool in = c < D;
+#pragma unroll
+    for (int k = 0; k < NT; ++k)
+      w[k][cc] = (in && k <= rc) ? W[k * D + c] : 0.f;
   }
-  sm[t] = M;
-  ss[t] = S;
+  float z[NZ];
+#pragma unroll
+  for (int k = 0; k < NZ; ++k)
+    z[k] = (live && k < rc) ? zc[row * rc + k] : 0.f;
   __syncthreads();
-  for (int w = kReduceThreads / 2; w > 0; w >>= 1) {
-    if (t < w) {
-      float m0 = sm[t], s0 = ss[t];
-      merge(m0, s0, sm[t + w], ss[t + w]);
-      sm[t] = m0;
-      ss[t] = s0;
-    }
-    __syncthreads();
+
+  // this warp's columns: the first nvalid of them lie inside D
+  const int cw = warp * kLaneCols;
+  const int64_t left = D - (col0 + cw);
+  const int nvalid = left <= 0 ? 0 : (left < kLaneCols ? static_cast<int>(left)
+                                                       : kLaneCols);
+  float h[kLaneCols];
+#pragma unroll
+  for (int j = 0; j < kLaneCols; j += 4) {
+    const float4 v = nbk::compute_h4(z, &w[0][cw + j], kTile, rc);
+    h[j] = v.x;
+    h[j + 1] = v.y;
+    h[j + 2] = v.z;
+    h[j + 3] = v.w;
   }
-  if (t == 0) lse[b] = sm[0] + logf(ss[0]);
+  float m = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kLaneCols; ++j)
+    if (j < nvalid) m = fmaxf(m, h[j]);
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < kLaneCols; ++j)
+    if (j < nvalid) s += expf(h[j] - m);
+  pm[warp][lane] = m;
+  ps[warp][lane] = s;
+  __syncthreads();
+  if (warp != 0 || !live) return;
+  float M = -INFINITY, S = 0.f;
+#pragma unroll
+  for (int v = 0; v < kWarps; ++v) merge(M, S, pm[v][lane], ps[v][lane]);
+  float* o = ws + (tile * B + row) * 2;
+  o[0] = M;
+  o[1] = S;
+}
+
+// Stage 2: a block finishes kGroup rows of the workspace (tiles, B, 2).
+__global__ void __launch_bounds__(kThreads)
+lse_sum(const float* __restrict__ ws, int64_t tiles, int64_t B,
+        float* __restrict__ lse) {
+  __shared__ float pm[kWarps][kGroup];
+  __shared__ float ps[kWarps][kGroup];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kGroup + lane;
+  float M = -INFINITY, S = 0.f;
+  if (row < B) {
+    // kAhead pairs in flight, then merged in order
+    for (int64_t t0 = warp; t0 < tiles; t0 += kWarps * kAhead) {
+      float2 p[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        const int64_t t = t0 + u * kWarps;
+        p[u] = t < tiles
+                   ? *reinterpret_cast<const float2*>(ws + (t * B + row) * 2)
+                   : make_float2(0.f, 0.f);  // empty
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) merge(M, S, p[u].x, p[u].y);
+    }
+  }
+  pm[warp][lane] = M;
+  ps[warp][lane] = S;
+  __syncthreads();
+  if (warp != 0 || row >= B) return;
+  M = -INFINITY;
+  S = 0.f;
+#pragma unroll
+  for (int v = 0; v < kWarps; ++v) merge(M, S, pm[v][lane], ps[v][lane]);
+  lse[row] = M + logf(S);
 }
 
 }  // namespace
 
-// Workspace floats for mmvae_nb_lse: (num_parts(D), B, 2).
-extern "C" int64_t mmvae_nb_lse_ws(int64_t B, int64_t D) {
-  return num_parts(D) * B * 2;
-}
-
-// zc (B, R+C), W (>= R+C+1, D), ws as sized above, lse (B, 1).  Returns
+// zc (B, R+C), W (>= R+C+1, D), lse (B, 1).  The plan (nb_step.lse_plan):
+// fixed (1 exactly when (R, C) = (2, 1)), tile (kTile) and a float32
+// workspace of ws_floats >= ceil(D / kTile) * B * 2 floats.  Returns
 // cudaGetLastError() after the two launches (0 = launched).
 extern "C" int mmvae_nb_lse(const void* zc, const void* W, int64_t B,
-                            int64_t D, int R, int C, void* ws, void* lse,
+                            int64_t D, int R, int C, int fixed, int tile,
+                            void* ws, int64_t ws_floats, void* lse,
                             void* stream) {
-  if (!dims_ok(B, D, R, C, 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t tiles = (D + kTile - 1) / kTile;
+  if (B < 1 || D < 1 || R < 1 || C < 0 || R + C + 1 > kMaxT ||
+      fixed != (R == 2 && C == 1 ? 1 : 0) || tile != kTile || ws == nullptr ||
+      ws_floats < tiles * B * 2 || tiles > 65535 ||
+      (B + kGroup - 1) / kGroup > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
-  const int RC = R + C;
-  const dim3 grid(static_cast<unsigned>(num_tiles(D)));
-  const dim3 block(kTileCols, kRowGroups);
+  const dim3 grid(static_cast<unsigned>((B + kGroup - 1) / kGroup),
+                  static_cast<unsigned>(tiles));
   const auto* zcp = static_cast<const float*>(zc);
   const auto* Wp = static_cast<const float*>(W);
   auto* parts = static_cast<float*>(ws);
-  if (RC + 1 <= 8)
-    lse_partials<8><<<grid, block, 0, s>>>(zcp, Wp, B, D, RC, parts);
+  if (fixed)
+    lse_tiles<kFixedRC><<<grid, kThreads, 0, s>>>(zcp, Wp, B, D, R + C, parts);
   else
-    lse_partials<kMaxT><<<grid, block, 0, s>>>(zcp, Wp, B, D, RC, parts);
+    lse_tiles<0><<<grid, kThreads, 0, s>>>(zcp, Wp, B, D, R + C, parts);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  lse_merge<<<static_cast<unsigned>(B), kReduceThreads, 0, s>>>(
-      parts, num_parts(D), B, static_cast<float*>(lse));
+  lse_sum<<<static_cast<unsigned>((B + kGroup - 1) / kGroup), kThreads, 0,
+            s>>>(parts, tiles, B, static_cast<float*>(lse));
   return static_cast<int>(cudaGetLastError());
 }

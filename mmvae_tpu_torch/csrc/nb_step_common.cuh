@@ -1,6 +1,7 @@
 // Shared device code of the fused NB step kernels (nb_lse.cu, nb_value.cu,
-// nb_valgrad.cu, nb_finish.cu): the launch layout, the in-kernel logits,
-// the lgamma / digamma regimes and the deterministic second stage.
+// nb_valgrad.cu, nb_finish.cu): the launch layout of K6 and K3, the
+// in-kernel logits, the lgamma / digamma regimes and the deterministic
+// second stage.
 //
 // Port of the in-kernel pieces of mmvae_tpu/ops/nb_step.py (_compute_h,
 // _compute_nupre, _fast_flag, _int_flag, _fast_products, _mixed_lgdg) and
@@ -76,6 +77,29 @@ __device__ __forceinline__ float compute_h(const float* __restrict__ zc_row,
     if (k == RC) bias = w[k];
   }
   return h + bias;
+}
+
+// compute_h's arithmetic for 4 adjacent columns whose stacked weight rows
+// sit in shared memory (row k at w + k * ld, 16-byte aligned) and whose
+// row latents z[0..RC) sit in registers (nb_lse.cu): FMAs over k ascending
+// from 0, then + bias, so every column's h has compute_h's bits.  The two
+// must stay in step.
+template <int NZ>
+__device__ __forceinline__ float4 compute_h4(const float (&z)[NZ],
+                                             const float* w, int ld, int RC) {
+  float4 h = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < NZ; ++k) {
+    if (k < RC) {
+      const float4 wk = *reinterpret_cast<const float4*>(w + k * ld);
+      h.x = fmaf(z[k], wk.x, h.x);
+      h.y = fmaf(z[k], wk.y, h.y);
+      h.z = fmaf(z[k], wk.z, h.z);
+      h.w = fmaf(z[k], wk.w, h.w);
+    }
+  }
+  const float4 b = *reinterpret_cast<const float4*>(w + RC * ld);
+  return make_float4(h.x + b.x, h.y + b.y, h.z + b.z, h.w + b.w);
 }
 
 // overdispersion pre-activation: bias_n + sum_r zn[r] * wn[r]
@@ -218,13 +242,6 @@ __device__ __forceinline__ int block_regime(const T* __restrict__ x, int64_t B,
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 

@@ -120,18 +120,21 @@ def _bind(lib) -> None:
         _vp, _i32, _i64, _i64,   # x, dtype code, B, D
         _vp, _i32, _i64,         # g1, r1, ld1
         _vp, _i32, _i64,         # g2, r2, ld2
-        _vp, _vp, _vp,           # dWL, dWX, cudaStream_t
+        _i32, _i32, _i32,        # the plan: fixed instance, tile, chunks
+        _vp, _vp,                # dWL, dWX
+        _vp, _i64, _vp,          # workspace, its floats, stream
     ]
     lib.mmvae_count_encode_bwd.restype = _i32
-    for name, args in (("mmvae_nb_lse_ws", [_i64, _i64]),
-                       ("mmvae_nb_value_ws", [_i64]),
+    for name, args in (("mmvae_nb_value_ws", [_i64]),
                        ("mmvae_nb_finish_ws", [_i64, _i64, _i32])):
         getattr(lib, name).argtypes = args
         getattr(lib, name).restype = _i64
     rows = [_vp, _vp, _vp, _vp]  # zc, zn, depth, lse
     dims = [_i64, _i64, _i32, _i32, _i32]  # B, D, R, C, Rn
-    lib.mmvae_nb_lse.argtypes = [_vp, _vp, _i64, _i64, _i32, _i32,
-                                 _vp, _vp, _vp]
+    # lse: zc, W, B, D, R, C, the plan (fixed instance, tile), ws, ws
+    # floats, lse, stream
+    lib.mmvae_nb_lse.argtypes = [_vp, _vp, _i64, _i64, _i32, _i32, _i32,
+                                 _i32, _vp, _i64, _vp, _vp]
     # value: ..., with_const, joint, ws, out, stream
     lib.mmvae_nb_value.argtypes = [_vp, _i32, *rows, _vp, *dims, _i32, _i32,
                                    _vp, _vp, _vp]

@@ -16,7 +16,10 @@ PyTorch version beside it:
   :func:`fwd_plan`); the stats take no gradient;
 - backward (K5): :func:`count_encode_bwd` — ``dWL = g1^T log1p(x)``,
   ``dWX = g2^T x`` — :func:`count_encode_bwd_ref`, or the CUDA kernel
-  ``csrc/count_encode_bwd.cu``.
+  ``csrc/count_encode_bwd.cu``, one block per (D tile, row chunk) with
+  the chunk's cotangents in shared memory and 2 columns a thread, and a
+  second stage that adds the chunks in a fixed order when there is more
+  than one (launch plan: :func:`bwd_plan`).
 
 Both run in float32 (the JAX package's bf16 operand views emulate the
 TPU's DEFAULT matmul precision and are not ported).  Each picks by where
@@ -40,6 +43,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.int16: 1, torch.int8: 2}
 MAX_ROWS_PER_LAUNCH = 16
 MAX_X_ROWS_PER_LAUNCH = 4
 FWD_TILE = 256  # D columns of a forward block's tile: kTile of count_encode.cu
+# K5's launch plan (csrc/count_encode_bwd.cu): a block's D tile (kTile:
+# 32 lanes x 2 columns), the widths of its compile-time instances (the
+# trainers' (log1p rows, raw rows)), and the row chunking: ceil(M / 128)
+# chunks, at most 8
+BWD_TILE = 64
+BWD_FIXED = ((2, 2), (5, 3), (12, 3))
+BWD_CHUNK_ROWS = 128
+BWD_MAX_CHUNKS = 8
 
 
 class FwdLaunch(NamedTuple):
@@ -80,6 +91,51 @@ def fwd_plan(D: int, r1: int, r2: int, want_stats: bool = False,
         out.append(FwdLaunch(l0, l1, x0, x1, stats, fl, tiles,
                              l1 - l0 + x1 - x0
                              + (4 if fl else 2 if stats else 0)))
+    return out
+
+
+class BwdPlan(NamedTuple):
+    """One K5 launch: its stage-1 instance ("fixed", one of the
+    compile-time widths ``BWD_FIXED``, or "general"), the D tile width
+    and count, the row chunks, the stage-1 grid (tiles, chunks), and the
+    workspace in floats: the chunks' column partials (chunks, r1 + r2, D)
+    when there is more than one chunk (stage 2 adds them), else none."""
+    instance: str
+    tile: int
+    tiles: int
+    chunks: int
+    grid: tuple[int, int]
+    workspace: int
+
+
+def bwd_plan(M: int, D: int, r1: int, r2: int) -> BwdPlan:
+    """K5's launch plan for x (M, D) against r1 log1p and r2 raw
+    cotangent columns (r1 + r2 <= ``MAX_ROWS_PER_LAUNCH``).  The tile and
+    the chunking depend on (M, D) alone, never on the widths or the
+    dtype, so the order of every sum is fixed by the shape; the instance
+    by the widths."""
+    if r1 < 0 or r2 < 0 or not 1 <= r1 + r2 <= MAX_ROWS_PER_LAUNCH:
+        raise ValueError(f"count_encode_bwd: a launch takes 1 to "
+                         f"{MAX_ROWS_PER_LAUNCH} cotangent columns "
+                         f"(r1={r1}, r2={r2})")
+    if M < 1 or D < 1:
+        raise ValueError(f"count_encode_bwd: empty operands (M={M}, D={D})")
+    tiles = -(-D // BWD_TILE)
+    chunks = min(-(-M // BWD_CHUNK_ROWS), BWD_MAX_CHUNKS)
+    return BwdPlan("fixed" if (r1, r2) in BWD_FIXED else "general",
+                   BWD_TILE, tiles, chunks, (tiles, chunks),
+                   chunks * (r1 + r2) * D if chunks > 1 else 0)
+
+
+def bwd_groups(r1: int, r2: int) -> list[tuple[int, int, int, int]]:
+    """K5's launches for r1 log1p and r2 raw cotangent columns: slots
+    [g0, g0 + 16) of the stack [g1 | g2] each, as (l0, l1, x0, x1): g1
+    columns [l0, l1) and g2 columns [x0, x1)."""
+    out = []
+    for g0 in range(0, r1 + r2, MAX_ROWS_PER_LAUNCH):
+        g1e = min(g0 + MAX_ROWS_PER_LAUNCH, r1 + r2)
+        out.append((min(g0, r1), min(g1e, r1), max(g0 - r1, 0),
+                    max(g1e - r1, 0)))
     return out
 
 
@@ -278,8 +334,9 @@ def _kernel_route(x, WL, WX, want_stats=False, filt=None):
 
 
 def _bwd_kernel_route(x, g1, g2):
-    """K5 launches, one per group of <= 16 stacked cotangent columns
-    [g1 | g2]; everything the kernel does not take raises first."""
+    """K5 launches (``bwd_groups``: one per group of <= 16 stacked
+    cotangent columns [g1 | g2], each on its ``bwd_plan``); everything
+    the kernel does not take raises first."""
     g1 = g1.contiguous()
     g2 = None if g2 is None else g2.contiguous()
     if x.dim() != 2 or g1.dim() != 2 or (g2 is not None and g2.dim() != 2):
@@ -289,6 +346,9 @@ def _bwd_kernel_route(x, g1, g2):
     r2 = 0 if g2 is None else g2.shape[1]
     if g1.shape[0] != M or (g2 is not None and g2.shape[0] != M):
         raise ValueError(f"count_encode_bwd: cotangents need {M} rows")
+    if M < 1 or D < 1 or r1 + r2 < 1:
+        raise ValueError(f"count_encode_bwd: empty operands (M={M}, "
+                         f"D={D}, r1={r1}, r2={r2})")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"count_encode_bwd: x must be int8, int16 or "
                         f"float32, got {x.dtype}")
@@ -312,17 +372,23 @@ def _bwd_kernel_route(x, g1, g2):
            else torch.empty((r2, D), dtype=torch.float32, device=x.device))
     g2p = 0 if g2 is None else g2.data_ptr()
     dxp = 0 if dWX is None else dWX.data_ptr()
+    groups = bwd_groups(r1, r2)
+    plans = [bwd_plan(M, D, l1 - l0, x1 - x0) for l0, l1, x0, x1 in groups]
+    # one workspace, sized for the largest launch, serves them all in
+    # turn; a plan with one chunk needs none
+    n_ws = max(p.workspace for p in plans)
+    ws = (torch.empty((n_ws,), dtype=torch.float32, device=x.device)
+          if n_ws else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        for g0 in range(0, r1 + r2, MAX_ROWS_PER_LAUNCH):
-            g1e = min(g0 + MAX_ROWS_PER_LAUNCH, r1 + r2)
-            l0, l1 = min(g0, r1), min(g1e, r1)
-            x0, x1 = max(g0 - r1, 0), max(g1e - r1, 0)
+        for (l0, l1, x0, x1), p in zip(groups, plans):
             rc = lib.mmvae_count_encode_bwd(
                 x.data_ptr(), _DTYPE_CODE[x.dtype], M, D,
                 g1.data_ptr() + 4 * l0, l1 - l0, r1,
                 g2p + 4 * x0, x1 - x0, r2,
-                dWL.data_ptr() + 4 * l0 * D, dxp + 4 * x0 * D, stream)
+                int(p.instance == "fixed"), p.tile, p.chunks,
+                dWL.data_ptr() + 4 * l0 * D, dxp + 4 * x0 * D,
+                None if ws is None else ws.data_ptr(), n_ws, stream)
             _cuda.check(rc, "count_encode_bwd")
             count_encode_bwd.launches += 1
     return dWL, dWX

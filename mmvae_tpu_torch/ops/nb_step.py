@@ -19,7 +19,8 @@ only the first R + C + 1 rows, so they take either W unchanged.
 
 Four kernels, each a wrapper with a plain PyTorch version beside it:
 
-- :func:`lse` (K1): row logsumexp of ``h``;
+- :func:`lse` (K1): row logsumexp of ``h``; :func:`lse_plan` is its
+  launch plan and workspace;
 - :func:`value` (K6): the NB NLL given that normaliser (reporting pass);
 - :func:`valgrad` (K2): one pass over ``x`` giving the stacked per-column
   gradient rows ``gout`` and the per-row ``rsum``, ``u1``, ``dzn``, and
@@ -67,6 +68,12 @@ VALGRAD_WARPS = 4
 VALGRAD_FIXED = (2, 1, 1)
 VALGRAD_CHUNK_ROWS = 20
 VALGRAD_MAX_CHUNKS = 8
+# K1's launch plan (csrc/nb_lse.cu): a block's D tile (kTile: 8 warps x
+# 32 columns) and rows (kGroup: one a lane), and the widths (R, C) of its
+# compile-time instance
+LSE_TILE = 256
+LSE_GROUP = 32
+LSE_FIXED = (2, 1)
 
 
 class ValgradPlan(NamedTuple):
@@ -107,6 +114,35 @@ def valgrad_plan(B: int, D: int, R: int, C: int, Rn: int,
         (1 + R + Rn) * tiles * B,
         chunks * (R + C + Rn + 2) * D if chunks > 1 else 0,
         chunks * tiles * VALGRAD_WARPS if need_value else 0)
+
+
+class LsePlan(NamedTuple):
+    """One K1 call: its stage-1 instance ("fixed", the compile-time
+    (R, C) = (2, 1), or "general"), the D tile width and count, the row
+    groups, the stage-1 grid (row groups, tiles), and the workspace in
+    floats: one (max, sum) pair per (tile, row)."""
+    instance: str
+    tile: int
+    tiles: int
+    groups: int
+    grid: tuple[int, int]
+    workspace: int
+
+
+def lse_plan(B: int, D: int, R: int, C: int) -> LsePlan:
+    """K1's launch plan for B rows of D logits from R + C latents.  The
+    tile and the row groups depend on (B, D) alone, so the order of every
+    merge is fixed by the shape; the instance by the widths."""
+    if R < 1 or C < 0 or R + C + 1 > MAX_STACKED_ROWS:
+        raise ValueError(f"nb_step.lse takes R >= 1, C >= 0 and R + C + 1 "
+                         f"<= {MAX_STACKED_ROWS} stacked rows (R={R}, "
+                         f"C={C})")
+    if B < 1 or D < 1:
+        raise ValueError(f"empty operands (B={B}, D={D})")
+    tiles = -(-D // LSE_TILE)
+    groups = -(-B // LSE_GROUP)
+    return LsePlan("fixed" if (R, C) == LSE_FIXED else "general", LSE_TILE,
+                   tiles, groups, (groups, tiles), tiles * B * 2)
 
 
 def _terms(x, ls, nu_pre, depth, include_const: bool, pb=None,
@@ -292,15 +328,20 @@ def lse(zc, W, R: int, C: int) -> torch.Tensor:
 
 
 def _lse_kernel(zc, W, R, C):
-    B, D = _dims(zc, W, R, C)
-    dev = _check("nb_step.lse", None, {"zc": (zc, (B, R + C)),
-                                       "W": (W, (W.shape[0], D))})
+    if zc.dim() != 2 or W.dim() != 2 or zc.shape[1] != R + C:
+        raise ValueError(f"zc {tuple(zc.shape)} / W {tuple(W.shape)} do not "
+                         f"match R={R}, C={C}")
+    B, D = zc.shape[0], W.shape[1]
+    plan = lse_plan(B, D, R, C)
     if W.shape[0] < R + C + 1:
         raise ValueError("nb_step.lse: W needs R + C + 1 rows")
-    ws = _f32((_lib().mmvae_nb_lse_ws(B, D),), dev)
+    dev = _check("nb_step.lse", None, {"zc": (zc, (B, R + C)),
+                                       "W": (W, (W.shape[0], D))})
+    ws = _f32((plan.workspace,), dev)
     out = _f32((B, 1), dev)
     _call(dev, "nb_step.lse", "mmvae_nb_lse", zc.data_ptr(), W.data_ptr(),
-          B, D, R, C, ws.data_ptr(), out.data_ptr())
+          B, D, R, C, int(plan.instance == "fixed"), plan.tile,
+          ws.data_ptr(), plan.workspace, out.data_ptr())
     lse.launches += 1
     return out
 

@@ -236,6 +236,32 @@ def test_count_encode_vjp_matches_jax(monkeypatch, dtype, interpret):
                         np.abs(g2.T).astype(np.float64) @ np.abs(xf))
 
 
+@pytest.mark.parametrize("r1,r2", [(2, 2), (5, 3), (12, 3)])
+@pytest.mark.parametrize("D", [255, 256, 257])
+def test_count_encode_vjp_tile_edges_match_pallas_interpret(monkeypatch, D,
+                                                            r1, r2):
+    """The plain backward (K5's reference on the card) against the JAX
+    op's Pallas backward kernel (``_bwd_call``, interpret mode) at the D
+    tile edges, at the trainers' widths (NB, joint, mixture)."""
+    monkeypatch.setattr(jek, "_INTERPRET", True)
+    x, WL, WX = _inputs(37, D, r1, r2, "int16", seed=5)
+    rng = np.random.default_rng(D + r1)
+    g1 = rng.normal(size=(37, r1)).astype(np.float32)
+    g2 = rng.normal(size=(37, r2)).astype(np.float32)
+    _, vjp = jax.vjp(lambda wl, wx: jek.count_encode(
+        jnp.asarray(x), wl, wx, None, False)[:2], jnp.asarray(WL),
+        jnp.asarray(WX))
+    eL, eX = vjp((jnp.asarray(g1), jnp.asarray(g2)))
+    dWL, dWX = tek.count_encode_bwd_ref(torch.from_numpy(x),
+                                        torch.from_numpy(g1),
+                                        torch.from_numpy(g2))
+    xf = x.astype(np.float64)
+    assert_close_scaled(dWL.numpy(), eL,
+                        np.abs(g1.T).astype(np.float64) @ np.log1p(xf))
+    assert_close_scaled(dWX.numpy(), eX,
+                        np.abs(g2.T).astype(np.float64) @ np.abs(xf))
+
+
 def test_bwd_plain_version_is_autograd_of_forward():
     x, WL, WX = _inputs(6, 300, 2, 2, "int16", seed=4)
     g1, g2 = torch.randn(6, 2), torch.randn(6, 2)

@@ -154,6 +154,36 @@ def test_raw_kernel_outputs_match_pallas_interpret(monkeypatch):
                                    atol=5e-6 * scale, err_msg=name)
 
 
+@pytest.mark.parametrize("R,C", [(2, 1), (4, 2)])
+@pytest.mark.parametrize("D", [255, 256, 257])
+def test_lse_tile_edges_match_pallas_interpret_and_xla(monkeypatch, D, R, C):
+    """The plain K1 (its reference on the card) against the JAX
+    package's: its Pallas kernel (``_lse_call``, interpret mode) and the
+    XLA spec's normaliser (``xla_step_nll``'s logits), at the D tile
+    edges, at the trainers' widths (2, 1) and a general one."""
+    monkeypatch.setattr(jns, "_INTERPRET", True)
+    rng = np.random.default_rng(D + R)
+    B = 9
+    x = rng.poisson(2.0, size=(B, D)).astype(np.int16)
+    zm = rng.normal(size=(B, R)).astype(np.float32)
+    c = rng.normal(size=(B, C)).astype(np.float32)
+    zn = rng.normal(size=(B, 1)).astype(np.float32)
+    depth = np.ones((B, 1), np.float32)
+    w = [(rng.normal(size=s) * 0.3).astype(np.float32)
+         for s in ((R, D), (C, D), (D,), (1, D), (D,))]
+    xp, zmp, cp, _, _, W, dims = jns._prep(*_jax([x, zm, c, zn, depth, *w]))
+    want = np.asarray(jns._lse_call(
+        zmp, cp, W, dims["bp"], dims["Dp"], jns._tile_for(dims["bp"]), D, R,
+        C))[:B]
+    h = jnp.asarray(zm) @ w[0] + jnp.asarray(c) @ w[1] + w[2]
+    xla = np.asarray(jax.nn.logsumexp(h, axis=1, keepdims=True))
+    t = _torch([zm, c, *w])
+    got = tns.lse_ref(torch.cat([t[0], t[1]], 1), tns.stack_rows(*t[2:]), R,
+                      C).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    np.testing.assert_allclose(got, xla, rtol=1e-6)
+
+
 def test_cpu_wrappers_launch_no_kernel():
     args = _torch(_inputs("le7", np.int8, B=4, D=64))
     before = [f.launches for f in (tns.lse, tns.value, tns.valgrad,

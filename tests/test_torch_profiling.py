@@ -149,7 +149,7 @@ def test_port_kernel_names():
     assert trace_step.port_kernel("nbk::reduce_parts(float const*, long)"
                                   ) == "nb_step rows"
     assert trace_step.port_kernel(
-        "void (anonymous namespace)::lse_merge(float const*)") == "nb_lse"
+        "void (anonymous namespace)::lse_sum(float const*)") == "nb_lse"
     for torch_kernel in ("void at::native::vectorized_elementwise_kernel<4>",
                          "void at::native::elementwise_kernel<128, 2>(int)"):
         assert trace_step.port_kernel(torch_kernel) == "torch"
@@ -184,8 +184,27 @@ def test_port_kernel_names_encoder_forward_stages():
                   "long, long, int, int, int, bool, float*)"):
         assert trace_step.port_kernel(stage) == "count_encode"
     assert trace_step.port_kernel(
-        "void (anonymous namespace)::count_encode_bwd_kernel<signed char, "
-        "4>(signed char const*)") == "count_encode_bwd"
+        "void (anonymous namespace)::count_encode_bwd_tiles<signed char, "
+        "2, 2>(signed char const*)") == "count_encode_bwd"
+
+
+def test_port_kernel_names_bwd_and_lse_stages():
+    """Both stages of K5 (``csrc/count_encode_bwd.cu``) are K5's time in
+    the table and both stages of K1 (``csrc/nb_lse.cu``) K1's, in every
+    instance; neither is taken for the encoder forward's or K2's."""
+    for stage in ("void (anonymous namespace)::count_encode_bwd_tiles<"
+                  "float, 0, 0>(float const*, long)",
+                  "void (anonymous namespace)::count_encode_bwd_tiles<"
+                  "short, 12, 3>(short const*, long)",
+                  "(anonymous namespace)::count_encode_bwd_sum(float "
+                  "const*, long, int, int, long, float*, float*)"):
+        assert trace_step.port_kernel(stage) == "count_encode_bwd"
+    for stage in ("void (anonymous namespace)::lse_tiles<3>(float const*, "
+                  "float const*, long, long, int, float*)",
+                  "void (anonymous namespace)::lse_tiles<0>(float const*)",
+                  "(anonymous namespace)::lse_sum(float const*, long, long, "
+                  "float*)"):
+        assert trace_step.port_kernel(stage) == "nb_lse"
 
 
 def test_import_guard_walks_the_benchmarks():
