@@ -10,8 +10,8 @@ exits non-zero without the final line):
    (``nvidia-smi``), which tag every number printed after it;
 1. build: compile every kernel of the port from ``mmvae_tpu_torch/csrc``
    with nvcc for sm_90a; the registers and spills of every
-   ``count_encode``, ``nb_valgrad``, ``count_encode_bwd`` and ``nb_lse``
-   instance, failing if one spills;
+   ``count_encode``, ``nb_valgrad``, ``count_encode_bwd``, ``nb_lse``,
+   ``nb_value`` and ``nb_finish`` instance, failing if one spills;
 2. kernel against plain: ``count_encode`` on the card against its plain
    PyTorch version at the NB trainer's launch (M = 100, 2 + 2 rows), the
    serving launch (M = 1600, 2 + 0) and ragged and wide cases, with
@@ -138,22 +138,35 @@ exits non-zero without the final line):
 28. K2's cases: the four ``nb_valgrad`` instances against their plain
     version at B in {1, 37, 100, 1600} x D in {255, 256, 257, 1003,
     20,000}, with the compile-time widths (2, 1, 1) and the general
-    instance at (4, 2, 3), counts stored as int8, int16 and float32
-    (bitwise equal) and non-integer float32: each bitwise repeatable,
-    the value-bearing gradients equal to the grad-only ones bitwise;
+    instance at (4, 2, 3), and at B in {37, 100} x D in {257, 20,000}
+    with the widths the reference trains past 16 stacked rows (T = 17,
+    17, 17 with pb, 24, 45, 128), counts stored as int8, int16 and
+    float32 (bitwise equal) and non-integer float32 (and counts <= 7 at
+    the wide widths): each bitwise repeatable, the value-bearing
+    gradients equal to the grad-only ones bitwise;
 29. K5's and K1's cases: every ``count_encode_bwd`` instance against its
     plain version at M in {1, 37, 100, 1600} x D in {255, 256, 257,
     1003, 20,000} x (r1, r2) in {(2, 2), (5, 3), (12, 3), (16, 0),
     (7, 9)}, counts stored as int8, int16 and float32 (bitwise equal)
     and non-integer float32; both ``nb_lse`` instances at the same B x D
-    x (R, C) in {(2, 1), (4, 2), (15, 0)}; each call bitwise repeatable,
+    x (R, C) in {(2, 1), (4, 2), (15, 0)} and at the wide widths' (R, C)
+    and (13, 3) on phase 28's subset; each call bitwise repeatable,
     each case on the instance its plan names; then K5 at the trainers'
     widths and K1 at (2, 1) on the main path's shape, stage 1 and stage
-    2 apart, beside the plain versions and K5's library products.
+    2 apart, beside the plain versions and K5's library products;
+30. K6's, K6p's and K3's cases: ``value`` (with and without
+    lgamma(x + 1)), ``value(joint=True)`` and ``finish`` against their
+    plain versions on phase 28's grid and wide widths and counts: each
+    call bitwise repeatable, K6's int8 == int16 == float32; then the
+    three at the main path's shape, stage 1 and stage 2 apart;
+31. a wide model's trainer: ``nb_vae --mean_latent 13`` (17 stacked
+    rows) on phase 4's matrix for one epoch, every kernel of the NB path
+    launched (its step kernels on their general instances), the score
+    finite.
 
-Each main path (phases 4, 8, 12, 16, the runs of 20 and 24, and the
-probe's run in 26) is driven with every launch counter set to 0 just
-before it and read just after.
+Each main path (phases 4, 8, 12, 16, the runs of 20 and 24, the
+probe's run in 26 and the wide trainer of 31) is driven with every
+launch counter set to 0 just before it and read just after.
 The last two lines are the kernels' JSON record (with each kernel's
 bound at the main path's shape) and ``{"ok": true, "device": {...}}``.
 """
@@ -293,6 +306,29 @@ def bwd_label(name: str) -> str:
         return "sum"
     return (f"{DTYPE_CODES[m[1]]} "
             + (f"{m[2]}+{m[3]}" if m[2] + m[3] != "00" else "general"))
+
+
+def value_label(name: str) -> str:
+    """A ``nb_value.cu`` instance by its stage-1 template arguments: count
+    dtype, the compile-time widths R+C+Rn (0+0+0: the general instance),
+    CONST, JOINT."""
+    m = re.search(r"value_tilesI(\w)Li(\d+)ELi(\d+)ELi(\d+)ELb(\d)ELb"
+                  r"(\d)E", name)
+    if m is None:
+        return "sum"
+    return (f"{DTYPE_CODES[m[1]]} "
+            + (f"{m[2]}+{m[3]}+{m[4]}" if m[2] != "0" else "general")
+            + ("+const" if m[5] == "1" else "")
+            + ("+joint" if m[6] == "1" else ""))
+
+
+def finish_label(name: str) -> str:
+    """A ``nb_finish.cu`` instance by its stage-1 template arguments: the
+    compile-time widths R+C (0+0: the general instance)."""
+    m = re.search(r"finish_tilesILi(\d+)ELi(\d+)E", name)
+    if m is None:
+        return "sum"
+    return f"{m[1]}+{m[2]}" if m[1] != "0" else "general"
 
 
 def lse_label(name: str) -> str:
@@ -775,7 +811,6 @@ def phase_train_kernels(card):
     for case, (B, D, dt, regime) in enumerate(REGIMES):
         x, zc, zn, depth, W, (R, C, Rn) = step_inputs(g, B, D, dt, regime)
         lr = ns.lse_ref(zc, W, R, C)
-        p, _, _ = grad_magnitudes(x, zc, zn, depth, lr, W, R, C, Rn)
         g1 = torch.randn((B, R), generator=g, device=DEV)
         g2 = torch.randn((B, 2), generator=g, device=DEV)
         rs_ref = ns.valgrad_ref(x, zc, zn, depth, lr, W, R, C, Rn)[1]
@@ -795,7 +830,6 @@ def phase_train_kernels(card):
                           lambda: ns.finish_ref(zc, lr, rs_ref, W, R, C)),
         }
         xd = x.double()
-        azc, aW = zc.double().abs(), W.double().abs()
         base = R + C + 1
         with torch.no_grad():
             terms = ns._terms(xd, ns._h(zc.double(), W.double(), R + C)
@@ -807,10 +841,7 @@ def phase_train_kernels(card):
             "nb_lse": (1.0 + lr.double().abs(),),
             "nb_value": (terms.abs().sum(),),
             "nb_valgrad": valgrad_bounds(x, zc, zn, depth, lr, W, R, C, Rn),
-            "nb_finish": (torch.cat([azc.T @ (p * rs_ref.double().abs()),
-                                     (p * rs_ref.double().abs()).sum(0,
-                                                                     True)]),
-                          p @ aW[:R].T),
+            "nb_finish": finish_bounds(zc, lr, rs_ref, W, R, C),
         }
         parts = []
         for name, (kern, plain) in calls.items():
@@ -1920,6 +1951,35 @@ def phase_k2pv(card):
 VALGRAD_BS = (1, 37, 100, 1600)
 VALGRAD_DS = (255, 256, 257, 1003, D_GENES)
 VALGRAD_WIDTHS = ((2, 1, 1), (4, 2, 3))  # the compile-time instance, a general one
+# the widths the reference trains past 16 stacked rows (R, C, Rn):
+# nb_vae --mean_latent 13 with one covariate (T = 17), a covariate file of
+# 12 columns (17), the joint model with 11 overdispersion latents and pb
+# (17), (16, 5, 1) (24), covariate files of 40 (45) and 123 columns
+# (128); held on a subset of the (B, D) grid (a ragged D and the main
+# path's), in the three lgamma regimes
+WIDE_WIDTHS = ((13, 1, 1), (2, 12, 1), (2, 1, 11), (16, 5, 1), (2, 40, 1),
+               (2, 123, 1))
+WIDE_BS = (37, B_TRAIN)
+WIDE_DS = (257, D_GENES)
+
+
+def width_cases(bs, ds, widths):
+    """(B, D, widths) of the grid bs x ds x widths, then the wide widths
+    on the WIDE_BS x WIDE_DS subset."""
+    return ([(B, D, w) for B in bs for D in ds for w in widths]
+            + [(B, D, w) for B in WIDE_BS for D in WIDE_DS
+               for w in WIDE_WIDTHS])
+
+
+def count_kinds(g, x8, B, D, wide):
+    """The storages and regimes a case runs: integer counts as int8,
+    int16 and float32 (bitwise equal), non-integer float32 and, for the
+    wide widths, int8 counts <= 7 (the select-product regime)."""
+    kinds = {"int8": x8, "int16": x8.to(torch.int16), "float32": x8.float(),
+             "non-integer": make_counts(g, B, D, torch.float32)}
+    if wide:
+        kinds["counts<=7"] = x8.clamp(max=7)
+    return kinds
 # name, joint, need_value
 VALGRAD_VARIANTS = (("nb_valgrad", False, False),
                     ("nb_valgrad[pb,nu_exp]", True, False),
@@ -1931,9 +1991,11 @@ def phase_valgrad_cases(card):
     """Phase 28: the four K2 instances (NB, joint; grad-only, value)
     against ``valgrad_ref`` at every B of VALGRAD_BS x D of VALGRAD_DS
     (D off and on the 64-column tile, ragged row chunks), with the
-    compile-time widths (2, 1, 1) and a general instance (4, 2, 3): integer
-    counts stored as int8, int16 and float32 (the three bitwise equal),
-    and non-integer float32 counts.  Each call bitwise repeatable, the
+    compile-time widths (2, 1, 1) and a general instance (4, 2, 3), and
+    the wide widths WIDE_WIDTHS (T = 17 to 128) at WIDE_BS x WIDE_DS:
+    integer counts stored as int8, int16 and float32 (the three bitwise
+    equal), non-integer float32 counts and, at the wide widths, counts
+    <= 7.  Each call bitwise repeatable, the
     value-bearing gradients equal to the grad-only ones bitwise, every
     gradient within TRAIN_TOL, the value held to the float64 sum as phase
     22 holds it; each case launches the instance its plan names."""
@@ -1943,75 +2005,73 @@ def phase_valgrad_cases(card):
     worst = {name: 0.0 for name, _, _ in VALGRAD_VARIANTS}
     worst_q, n_cases, t0 = 0.0, 0, time.time()
     log(f"[phase 28] K2, K2p, K2v, K2pv vs plain at B {VALGRAD_BS} x D "
-        f"{VALGRAD_DS} x widths {VALGRAD_WIDTHS}, counts int8 == int16 == "
-        f"float32 and non-integer float32; gradients {TRAIN_TOL}; value "
-        f"|kernel - f64| <= 2 |plain - f64| + 2.01e-5 * S")
-    for B in VALGRAD_BS:
-        for D in VALGRAD_DS:
-            for widths in VALGRAD_WIDTHS:
-                R, C, Rn = widths
-                x8, zc, zn, depth, Wj, _ = joint_step_inputs(
-                    g, B, D, torch.int8, "integer", widths)
-                Wn = Wj[:-1].contiguous()
-                counts = {"int8": x8, "int16": x8.to(torch.int16),
-                          "float32": x8.float(),
-                          "non-integer": make_counts(g, B, D, torch.float32)}
-                for name, joint, value in VALGRAD_VARIANTS:
-                    W = Wj if joint else Wn
-                    plan = ns.valgrad_plan(B, D, R, C, Rn, joint, value)
-                    if plan.instance != ("fixed" if widths == (2, 1, 1)
-                                         else "general"):
-                        raise AssertionError(f"plan {plan} for {widths}")
-                    lr = ns.lse_ref(zc, W, R, C)
-                    ref_bits = None
-                    for kind, x in counts.items():
-                        kern = lambda: ns.valgrad(  # noqa: E731
-                            x, zc, zn, depth, lr, W, R, C, Rn, joint, value)
-                        got, again = kern(), kern()
-                        torch.cuda.synchronize()
-                        if not all(torch.equal(a, b)
-                                   for a, b in zip(got, again)):
-                            raise AssertionError(f"{name} not bitwise "
-                                                 f"repeatable")
-                        if value:
-                            grad = ns.valgrad(x, zc, zn, depth, lr, W, R, C,
-                                              Rn, joint)
-                            if not all(torch.equal(a, b)
-                                       for a, b in zip(got[:4], grad)):
-                                raise AssertionError(
-                                    f"{name}'s gradients differ from the "
-                                    f"grad-only instance's at {(B, D)}")
-                        if kind in ("int16", "float32"):
-                            if not all(torch.equal(a, b)
-                                       for a, b in zip(got, ref_bits)):
-                                raise AssertionError(
-                                    f"{name}: {kind} storage != int8 at "
-                                    f"{(B, D, widths)}")
-                            continue
-                        ref_bits = got
-                        want = ns.valgrad_ref(x, zc, zn, depth, lr, W, R, C,
-                                              Rn, joint, value)
-                        e, q = 0.0, 0.0
-                        for gt, wt, S in zip(got, want, valgrad_bounds(
-                                x, zc, zn, depth, lr, W, R, C, Rn, joint)):
-                            ei, qi = ratio(gt, wt, S)
-                            e, q = max(e, ei), max(q, qi)
-                        if value:
-                            terms = value_terms(x, zc, zn, depth, lr, W, R,
-                                                C, Rn, joint)
-                            ref = terms.sum()
-                            e_k = (got[4].double() - ref).abs().item()
-                            e_p = (want[4].double() - ref).abs().item()
-                            q = max(q, e_k / (2.0 * e_p + 2.01e-5
-                                              * terms.abs().sum().item()))
-                        if not q <= 1.0:
-                            raise AssertionError(
-                                f"{name} disagrees with plain at B={B} "
-                                f"D={D} widths {widths} {kind}: err/tol "
-                                f"{q:.3g}")
-                        worst[name] = max(worst[name], e)
-                        worst_q = max(worst_q, q)
-                        n_cases += 1
+        f"{VALGRAD_DS} x widths {VALGRAD_WIDTHS} and B {WIDE_BS} x D "
+        f"{WIDE_DS} x widths {WIDE_WIDTHS}, counts int8 == int16 == "
+        f"float32, non-integer float32 (and int8 <= 7 at the wide widths); "
+        f"gradients {TRAIN_TOL}; value |kernel - f64| <= 2 |plain - f64| + "
+        f"2.01e-5 * S")
+    for B, D, widths in width_cases(VALGRAD_BS, VALGRAD_DS, VALGRAD_WIDTHS):
+        R, C, Rn = widths
+        x8, zc, zn, depth, Wj, _ = joint_step_inputs(
+            g, B, D, torch.int8, "integer", widths)
+        Wn = Wj[:-1].contiguous()
+        counts = count_kinds(g, x8, B, D, widths in WIDE_WIDTHS)
+        for name, joint, value in VALGRAD_VARIANTS:
+            W = Wj if joint else Wn
+            plan = ns.valgrad_plan(B, D, R, C, Rn, joint, value)
+            if plan.instance != ("fixed" if widths == (2, 1, 1)
+                                 else "general"):
+                raise AssertionError(f"plan {plan} for {widths}")
+            lr = ns.lse_ref(zc, W, R, C)
+            ref_bits = None
+            for kind, x in counts.items():
+                kern = lambda: ns.valgrad(  # noqa: E731
+                    x, zc, zn, depth, lr, W, R, C, Rn, joint, value)
+                got, again = kern(), kern()
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b)
+                           for a, b in zip(got, again)):
+                    raise AssertionError(f"{name} not bitwise "
+                                         f"repeatable")
+                if value:
+                    grad = ns.valgrad(x, zc, zn, depth, lr, W, R, C,
+                                      Rn, joint)
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(got[:4], grad)):
+                        raise AssertionError(
+                            f"{name}'s gradients differ from the "
+                            f"grad-only instance's at {(B, D)}")
+                if kind in ("int16", "float32"):
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(got, ref_bits)):
+                        raise AssertionError(
+                            f"{name}: {kind} storage != int8 at "
+                            f"{(B, D, widths)}")
+                    continue
+                ref_bits = got
+                want = ns.valgrad_ref(x, zc, zn, depth, lr, W, R, C,
+                                      Rn, joint, value)
+                e, q = 0.0, 0.0
+                for gt, wt, S in zip(got, want, valgrad_bounds(
+                        x, zc, zn, depth, lr, W, R, C, Rn, joint)):
+                    ei, qi = ratio(gt, wt, S)
+                    e, q = max(e, ei), max(q, qi)
+                if value:
+                    terms = value_terms(x, zc, zn, depth, lr, W, R,
+                                        C, Rn, joint)
+                    ref = terms.sum()
+                    e_k = (got[4].double() - ref).abs().item()
+                    e_p = (want[4].double() - ref).abs().item()
+                    q = max(q, e_k / (2.0 * e_p + 2.01e-5
+                                      * terms.abs().sum().item()))
+                if not q <= 1.0:
+                    raise AssertionError(
+                        f"{name} disagrees with plain at B={B} "
+                        f"D={D} widths {widths} {kind}: err/tol "
+                        f"{q:.3g}")
+                worst[name] = max(worst[name], e)
+                worst_q = max(worst_q, q)
+                n_cases += 1
     log(f"[phase 28] [{card}] {n_cases} cases held to plain "
         f"({time.time() - t0:.1f}s), worst err/tol {worst_q:.3g}; max |err| "
         + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
@@ -2026,6 +2086,10 @@ BWD_DS = (255, 256, 257, 1003, D_GENES)
 # 16 rows with no raw side, a general one with both
 BWD_WIDTHS = ((2, 2), (5, 3), (12, 3), (16, 0), (7, 9))
 LSE_WIDTHS = ((2, 1), (4, 2), (15, 0))  # K1's compile-time (R, C), general
+# K1 at the wide widths' (R, C) (WIDE_BS x WIDE_DS) and at (13, 3), a
+# covariate file of 3 columns at latent 13: one slice and a partial one
+LSE_WIDE = tuple(w for w in dict.fromkeys((R, C) for R, C, _ in WIDE_WIDTHS)
+                 if w not in LSE_WIDTHS) + ((13, 3),)
 
 
 def stage_ms(per: dict, stage1: str) -> tuple[float, float]:
@@ -2043,7 +2107,8 @@ def plan_line(plan) -> str:
 def phase_bwd_lse_cases(card):
     """Phase 29: K5 (every ``count_encode_bwd.cu`` instance) at M of
     BWD_MS x D of BWD_DS x widths BWD_WIDTHS, and K1 (both ``nb_lse.cu``
-    instances) at B of BWD_MS x the same D x LSE_WIDTHS, against their
+    instances) at B of BWD_MS x the same D x LSE_WIDTHS (and LSE_WIDE at
+    WIDE_BS x WIDE_DS, the general instance's slices), against their
     plain versions within TRAIN_TOL (phase 6's bounds): K5 with integer
     counts stored as int8, int16 and float32 (the three bitwise equal)
     and non-integer float32 counts; every call bitwise repeatable; each
@@ -2061,7 +2126,8 @@ def phase_bwd_lse_cases(card):
     log(f"[phase 29] K5 vs plain at M {BWD_MS} x D {BWD_DS} x (r1, r2) "
         f"{BWD_WIDTHS}, counts int8 == int16 == float32 and non-integer "
         f"float32; K1 vs plain at B {BWD_MS} x the same D x (R, C) "
-        f"{LSE_WIDTHS}; {TRAIN_TOL}")
+        f"{LSE_WIDTHS} and B {WIDE_BS} x D {WIDE_DS} x {LSE_WIDE}; "
+        f"{TRAIN_TOL}")
     for M in BWD_MS:
         for D in BWD_DS:
             x8 = make_counts(g, M, D, torch.int8)
@@ -2111,7 +2177,8 @@ def phase_bwd_lse_cases(card):
                                 f"M={M} D={D} {(r1, r2)} {kind}: err/tol "
                                 f"{q:.3g}")
                     n_cases += 1
-            for R, C in LSE_WIDTHS:
+            wide = LSE_WIDE if (M in WIDE_BS and D in WIDE_DS) else ()
+            for R, C in LSE_WIDTHS + wide:
                 plan = ns.lse_plan(M, D, R, C)
                 if plan.instance != ("fixed" if (R, C) == ns.LSE_FIXED
                                      else "general"):
@@ -2169,6 +2236,250 @@ def phase_bwd_lse_cases(card):
         f"{ms:.4f} ms = "
         f"stage 1 {s1:.4f} + stage 2 {s2:.4f}; plain {p_ms:.4f} ms")
     return worst, times
+
+
+def value_bound(x, zc, zn, depth, l, W, R, C, Rn, joint, include_const):
+    """S of K6's NLL: the float64 sum over elements of the magnitudes of
+    each term's pieces before they cancel, lgamma(nu), lgamma(nu + x),
+    x log(mu + nu), x log mu, nu log(mu + nu), nu log nu (and
+    lgamma(x + 1)), as grad_magnitudes bounds K2's sums: where nu sits at
+    its NU_HI clamp, lgamma(nu) - lgamma(nu + x) and nu (log(mu + nu) -
+    log nu) cancel to a small term, and float32 rounding lands on the
+    pieces (~8e4 at nu = 1e4), which a sum of the cancelled terms alone
+    leaves out at one row."""
+    d = lambda t: t.double()  # noqa: E731
+    zc, zn, depth, l, W, x = map(d, (zc, zn, depth, l, W, x))
+    RC, base = R + C, R + C + 1
+    ls = zc @ W[:RC] + W[RC] - l
+    if joint:
+        ls = ls + W[base + Rn + 1]
+    mu = torch.exp(ls) * depth + 1e-4
+    npre = zn @ W[base:base + Rn] + W[base + Rn]
+    if joint:
+        nu = torch.exp(npre).clamp(max=1e4) + 1e-4
+    else:
+        nu = torch.nn.functional.softplus(npre).clamp(1e-4, 1e4) + 1e-4
+    lmn = torch.log(mu + nu).abs()
+    S = (torch.lgamma(nu).abs() + torch.lgamma(nu + x).abs()
+         + x.abs() * (lmn + torch.log(mu).abs())
+         + nu * (lmn + torch.log(nu).abs()))
+    if include_const:
+        S = S + torch.lgamma(x + 1.0).abs()
+    return S.sum()
+
+
+def finish_bounds(zc, l, rs, W, R, C):
+    """S of K3's outputs (fout, u2): the same sums over the float64
+    magnitudes of their terms (phase 6's bounds)."""
+    from mmvae_tpu_torch.ops import nb_step as ns
+
+    p = torch.exp(ns._h(zc.double(), W.double(), R + C) - l.double())
+    prs = p * rs.double().abs()
+    return (torch.cat([zc.double().abs().T @ prs, prs.sum(0, True)]),
+            p @ W.double().abs()[:R].T)
+
+
+def phase_value_finish_cases(card):
+    """Phase 30: K6 (``value``, with and without lgamma(x + 1)), K6p
+    (``value(joint=True)``) and K3 (``finish``) against their plain
+    versions within TRAIN_TOL (K3 with phase 6's bounds, K6 with
+    ``value_bound``, which also holds the one-row cases) at every B of
+    VALGRAD_BS
+    x D of VALGRAD_DS x VALGRAD_WIDTHS and at the wide widths on WIDE_BS x
+    WIDE_DS, the counts of phase 28 (integer counts as int8, int16 and
+    float32, bitwise equal; non-integer float32; counts <= 7 at the wide
+    widths): every call bitwise repeatable, each case on the instance its
+    plan names; K2, K6 and K3 at the most stacked rows their plans take
+    (``nb_step.MAX_STACKED_ROWS``, the card's shared memory a block).
+    Then the main path's shapes (B = 100, D = 20,000, int8
+    integer counts): K6, K6p at (2, 1, 1) and K3 at (2, 1), stage 1 and
+    stage 2 apart, beside the plain versions."""
+    from mmvae_tpu_torch.ops import nb_step as ns
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 30)
+    worst = {"nb_value": 0.0, "nb_value[pb,nu_exp]": 0.0, "nb_finish": 0.0}
+    worst_q, n_cases, t0 = 0.0, 0, time.time()
+    log(f"[phase 30] K6, K6p, K3 vs plain at B {VALGRAD_BS} x D "
+        f"{VALGRAD_DS} x widths {VALGRAD_WIDTHS} and B {WIDE_BS} x D "
+        f"{WIDE_DS} x widths {WIDE_WIDTHS}, counts int8 == int16 == "
+        f"float32, non-integer float32 (and int8 <= 7 at the wide widths); "
+        f"{TRAIN_TOL}")
+
+    def held(name, got, want, bounds, what):
+        nonlocal worst_q
+        e, q = 0.0, 0.0
+        for gt, wt, S in zip(got, want, bounds):
+            ei, qi = ratio(gt, wt, S)
+            e, q = max(e, ei), max(q, qi)
+        if not q <= 1.0:
+            raise AssertionError(f"{name} disagrees with plain at {what}: "
+                                 f"err/tol {q:.3g}")
+        worst[name] = max(worst[name], e)
+        worst_q = max(worst_q, q)
+
+    for B, D, widths in width_cases(VALGRAD_BS, VALGRAD_DS, VALGRAD_WIDTHS):
+        R, C, Rn = widths
+        x8, zc, zn, depth, Wj, _ = joint_step_inputs(g, B, D, torch.int8,
+                                                     "integer", widths)
+        Wn = Wj[:-1].contiguous()
+        counts = count_kinds(g, x8, B, D, widths in WIDE_WIDTHS)
+        for joint, W in ((False, Wn), (True, Wj)):
+            name = "nb_value[pb,nu_exp]" if joint else "nb_value"
+            plan = ns.value_plan(B, D, R, C, Rn, joint)
+            if plan.instance != ("fixed" if widths == (2, 1, 1)
+                                 else "general"):
+                raise AssertionError(f"plan {plan} for {widths}")
+            lr = ns.lse_ref(zc, W, R, C)
+            for wc in (True, False):
+                ref_bits = None
+                for kind, x in counts.items():
+                    got = ns.value(x, zc, zn, depth, lr, W, R, C, Rn, wc,
+                                   joint)
+                    again = ns.value(x, zc, zn, depth, lr, W, R, C, Rn, wc,
+                                     joint)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"{name} not bitwise "
+                                             f"repeatable")
+                    if kind in ("int16", "float32"):
+                        if not torch.equal(got, ref_bits):
+                            raise AssertionError(
+                                f"{name}: {kind} storage != int8 at "
+                                f"{(B, D, widths)}")
+                        continue
+                    ref_bits = got
+                    want = ns.value_ref(x, zc, zn, depth, lr, W, R, C, Rn,
+                                        wc, joint)
+                    S = value_bound(x, zc, zn, depth, lr, W, R, C, Rn, joint,
+                                    wc)
+                    held(name, (got,), (want,), (S,),
+                         f"B={B} D={D} widths {widths} {kind} const {wc}")
+                    n_cases += 1
+        plan = ns.finish_plan(B, D, R, C)
+        if plan.instance != ("fixed" if (R, C) == (2, 1) else "general"):
+            raise AssertionError(f"plan {plan} for {(R, C)}")
+        lr = ns.lse_ref(zc, Wn, R, C)
+        rs = ns.valgrad_ref(x8, zc, zn, depth, lr, Wn, R, C, Rn)[1]
+        rs = rs.contiguous()
+        got = ns.finish(zc, lr, rs, Wn, R, C)
+        again = ns.finish(zc, lr, rs, Wn, R, C)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("nb_finish not bitwise repeatable")
+        held("nb_finish", got, ns.finish_ref(zc, lr, rs, Wn, R, C),
+             finish_bounds(zc, lr, rs, Wn, R, C),
+             f"B={B} D={D} (R, C) = {(R, C)}")
+        n_cases += 1
+    # the card's limit: each general instance at the most stacked rows
+    # its plan takes (the shared memory of one block)
+    B, D = 37, 257
+    lim = ns.MAX_STACKED_ROWS
+    for name, (R, C, Rn) in (("nb_valgrad", (2, lim["valgrad"] - 5, 1)),
+                             ("nb_value", (2, lim["value"] - 5, 1)),
+                             ("nb_finish", (2, lim["finish"] - 3, 1))):
+        x, zc, zn, depth, Wj, _ = joint_step_inputs(g, B, D, torch.int8,
+                                                    "integer", (R, C, Rn))
+        W = Wj[:-1].contiguous()
+        lr = ns.lse_ref(zc, W, R, C)
+        what = f"the limit, B={B} D={D} {(R, C, Rn)}"
+        if name == "nb_valgrad":
+            q = max(ratio(gt, wt, S)[1] for gt, wt, S in zip(
+                ns.valgrad(x, zc, zn, depth, lr, W, R, C, Rn),
+                ns.valgrad_ref(x, zc, zn, depth, lr, W, R, C, Rn),
+                valgrad_bounds(x, zc, zn, depth, lr, W, R, C, Rn)))
+            if not q <= 1.0:
+                raise AssertionError(f"nb_valgrad disagrees with plain at "
+                                     f"{what}: err/tol {q:.3g}")
+            worst_q = max(worst_q, q)
+        elif name == "nb_value":
+            held(name, (ns.value(x, zc, zn, depth, lr, W, R, C, Rn),),
+                 (ns.value_ref(x, zc, zn, depth, lr, W, R, C, Rn, True),),
+                 (value_bound(x, zc, zn, depth, lr, W, R, C, Rn, False,
+                              True),), what)
+        else:
+            rs = ns.valgrad_ref(x, zc, zn, depth, lr, W, R, C, Rn)[1]
+            rs = rs.contiguous()
+            held(name, ns.finish(zc, lr, rs, W, R, C),
+                 ns.finish_ref(zc, lr, rs, W, R, C),
+                 finish_bounds(zc, lr, rs, W, R, C), what)
+        n_cases += 1
+    log(f"[phase 30] [{card}] {n_cases} cases held to plain "
+        f"({time.time() - t0:.1f}s), worst err/tol {worst_q:.3g}; max |err| "
+        + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+        + "; every call bitwise repeatable, K6's and K6p's int8 == int16 == "
+        f"float32 storage; K2, K6 and K3 at the card's limit {lim} stacked "
+        "rows")
+
+    # the main path's shapes, stages apart
+    times = {}
+    x, zc, zn, depth, Wj, (R, C, Rn) = joint_step_inputs(
+        g, B_TRAIN, D_GENES, torch.int8, "integer")
+    Wn = Wj[:-1].contiguous()
+    lr = ns.lse(zc, Wn, R, C)
+    rs = ns.valgrad(x, zc, zn, depth, lr, Wn, R, C, Rn)[1].contiguous()
+    for name, kern, plain, stage1, plan in (
+            ("nb_value", lambda: ns.value(x, zc, zn, depth, lr, Wn, R, C, Rn),
+             lambda: ns.value_ref(x, zc, zn, depth, lr, Wn, R, C, Rn, True),
+             "value_tiles", ns.value_plan(B_TRAIN, D_GENES, R, C, Rn)),
+            ("nb_value[pb,nu_exp]",
+             lambda: ns.value(x, zc, zn, depth, lr, Wj, R, C, Rn, True, True),
+             lambda: ns.value_ref(x, zc, zn, depth, lr, Wj, R, C, Rn, True,
+                                  True),
+             "value_tiles", ns.value_plan(B_TRAIN, D_GENES, R, C, Rn, True)),
+            ("nb_finish", lambda: ns.finish(zc, lr, rs, Wn, R, C),
+             lambda: ns.finish_ref(zc, lr, rs, Wn, R, C), "finish_tiles",
+             ns.finish_plan(B_TRAIN, D_GENES, R, C))):
+        ms, per = device_profile(kern, 20)
+        s1, s2 = stage_ms(per, stage1)
+        p_ms, _ = device_profile(plain, 20)
+        times[name] = (ms, p_ms)
+        log(f"[phase 30] [{card}] {name} B={B_TRAIN} D={D_GENES} int8 "
+            f"({plan_line(plan)}): kernel {ms:.4f} ms = stage 1 {s1:.4f} + "
+            f"stage 2 {s2:.4f}; plain {p_ms:.4f} ms")
+    return worst, times
+
+
+def phase_wide_cli(card, tmp, mtx):
+    """Phase 31: ``nb_vae --mean_latent 13`` with the one all-ones
+    covariate column (13 + 1 + 1 + 2 = 17 stacked rows, past the 16 the
+    step kernels once took) on phase 4's matrix for one epoch on the
+    card, its launch counters set to 0 just before and read just after:
+    every kernel of the NB path launched, the step kernels' plans on
+    their general instances, the score finite."""
+    from mmvae_tpu_torch.cli import nb_vae
+    from mmvae_tpu_torch.ops import nb_step as ns
+
+    tag = "[phase 31]"
+    out = os.path.join(tmp, "wide")
+    R, C, Rn = 13, 1, 1
+    plans = {"nb_lse": ns.lse_plan(B_TRAIN, D_GENES, R, C),
+             "nb_value": ns.value_plan(B_TRAIN, D_GENES, R, C, Rn),
+             "nb_valgrad": ns.valgrad_plan(B_TRAIN, D_GENES, R, C, Rn),
+             "nb_finish": ns.finish_plan(B_TRAIN, D_GENES, R, C)}
+    if any(p.instance != "general" for p in plans.values()):
+        raise AssertionError(f"plans at {(R, C, Rn)}: {plans}")
+    reset_launches()
+    t0 = time.time()
+    err = run_cli(nb_vae, ["--mtx", mtx, "--batch_size", str(B_TRAIN),
+                           "--device", DEV, "--mean_latent", str(R),
+                           "--max_epoch", "1", "--out", out])
+    wall = time.time() - t0
+    launches = read_launches()
+    if min(launches[k] for k in NB_PATH) < 1:
+        raise AssertionError(f"nb_vae --mean_latent {R} skipped a kernel: "
+                             f"{launches}")
+    scores = np.loadtxt(out + ".scores.gz", ndmin=1)
+    if scores.shape != (1,) or not np.isfinite(scores).all():
+        raise AssertionError(f"nb_vae --mean_latent {R}: scores {scores}")
+    rate = next((ln.split("] ", 1)[-1] for ln in err.splitlines()
+                 if "cells/sec" in ln), "")
+    log(f"{tag} [{card}] nb_vae --mean_latent {R} (R, C, Rn) = {(R, C, Rn)},"
+        f" {N_CLI} x {D_GENES}, 1 epoch: {step_line(err)}; score "
+        f"{scores.tolist()}; kernel launches "
+        f"{ {k: launches[k] for k in NB_PATH} }, step kernels on "
+        + ", ".join(f"{k} {plan_line(p)}" for k, p in plans.items())
+        + f"; {rate}; CLI wall {wall:.2f}s")
+    return launches
 
 
 # label -> (model, architecture, step options, the library trainer)
@@ -2372,6 +2683,10 @@ def phase_roofline(card):
             f"{k} {res['brackets_us'][k][0]:.2f} / {res['brackets_us'][k][1]:.2f}"
             f" vs {m['kernel_ms'] * 1e3:.2f} + {m['sum_ms'] * 1e3:.2f}"
             for k, m in res["k2_all"].items())
+        + "; K6, K6p and K3 (phase 30 times them): "
+        + "; ".join(f"{k} {lo:.2f} / {hi:.2f}"
+                    for k, (lo, hi) in res["brackets_us"].items()
+                    if k not in res["k2_all"])
         + f"; launches { {k: n for k, n in launches.items() if n} }")
     return worst, (k_ms, p_ms), launches["roofline_probe"]
 
@@ -2426,7 +2741,8 @@ def phase_tooling(card, tmp, mtx):
     with open(traces[0]) as f:
         text = f.read()
     stages = ("valgrad_tiles", "count_encode_bwd_tiles",
-              "count_encode_bwd_sum", "lse_tiles", "lse_sum")
+              "count_encode_bwd_sum", "lse_tiles", "lse_sum", "value_tiles",
+              "value_sum", "finish_tiles", "finish_sum")
     if '"ondevice_epoch"' not in text or not all(k in text for k in stages):
         raise AssertionError(f"the trainer's trace lacks ondevice_epoch or "
                              f"one of the kernels {stages}")
@@ -2920,7 +3236,9 @@ def main() -> int:
     for source, label in (("count_encode.cu", encode_label),
                           ("nb_valgrad.cu", valgrad_label),
                           ("count_encode_bwd.cu", bwd_label),
-                          ("nb_lse.cu", lse_label)):
+                          ("nb_lse.cu", lse_label),
+                          ("nb_value.cu", value_label),
+                          ("nb_finish.cu", finish_label)):
         log(f"[phase 1] {source} instances (registers / spilled bytes): "
             + ", ".join(f"{n} {r}r/{b}B" for n, r, b in
                         check_instances(build_log, source, label)))
@@ -2951,6 +3269,10 @@ def main() -> int:
     for name, e in w29.items():
         worst[name] = max(worst[name], e)
     mark("29")
+    w30, _ = phase_value_finish_cases(card)
+    for name, e in w30.items():
+        worst[name] = max(worst[name], e)
+    mark("30")
     worst["roofline_probe"], times["roofline_probe"], p1_launches = (
         phase_roofline(card))
     mark("26")
@@ -2963,6 +3285,7 @@ def main() -> int:
         serve_launches, mtx = phase_cli(card, tmp)
         mark("4")
         nb_launches, _ = phase_train_cli(card, tmp, mtx)
+        wide_launches = phase_wide_cli(card, tmp, mtx)
         j_launches, ck = phase_train_cli(card, tmp, mtx, "joint")
         enc_launches = phase_joint_encode(card, tmp, mtx, ck)
         m_launches, mck = phase_train_cli(card, tmp, mtx, "mixture")
@@ -2970,7 +3293,7 @@ def main() -> int:
         g_launches, r_launches = phase_generic_cli(card, tmp, mtx)
         vj_launches, vm_launches, v_lib = phase_vmfnb_generic_cli(card, tmp,
                                                                   mtx)
-        mark("8, 12, 16, 20, 24")
+        mark("8, 31, 12, 16, 20, 24")
         phase_tooling(card, tmp, mtx)
         mark("27")
         data = full_size_counts()
@@ -3007,6 +3330,8 @@ def main() -> int:
         f"--mean_encoding 16 --vmf_decoding 16 "
         f"{ {k: vj_launches[k] for k in JOINT_PATH} }, vmfnb_vae --annot "
         f"--mean_encoding 16 { {k: vm_launches[k] for k in MIXTURE_PATH} }"
+        f"; nb_vae --mean_latent 13 "
+        f"{ {k: wide_launches[k] for k in NB_PATH} }"
         f"; library trainers: joint "
         f"{ {k: v_lib['joint'][k] for k in JOINT_VALUE_PATH} }, mixture "
         f"{ {k: v_lib['mixture'][k] for k in MIXTURE_VALUE_PATH} }")

@@ -32,20 +32,21 @@ import torch
 from ..utils.profiling import host_times, kernel_times, trace
 
 KINDS = ("nb", "vmf", "joint", "mixture")
-# the port's kernel each CUDA function belongs to (csrc/*.cu); the row
-# sums' second stage (reduce_parts) is shared by K6, K3 and K7; the
-# encoder forward's two stages are one kernel, K4, and K2's two stages
-# (valgrad_tiles, valgrad_sum) one kernel, K2
+# the port's kernel each CUDA function belongs to (csrc/*.cu): each
+# kernel's two stages are one kernel's time (K4's count_encode_tiles and
+# _sum, K2's valgrad_tiles and _sum, ...); reduce_parts is K7's second
+# stage
 PORT_KERNELS = (
     ("count_encode_tiles", "count_encode"),
     ("count_encode_sum", "count_encode"),
     ("count_encode_bwd_tiles", "count_encode_bwd"),
     ("count_encode_bwd_sum", "count_encode_bwd"),
     ("lse_tiles", "nb_lse"), ("lse_sum", "nb_lse"),
-    ("value_partials", "nb_value"),
+    ("value_tiles", "nb_value"), ("value_sum", "nb_value"),
     ("valgrad_tiles", "nb_valgrad"), ("valgrad_sum", "nb_valgrad"),
-    ("finish_kernel", "nb_finish"), ("reduce_parts", "nb_step rows"),
-    ("elbo_fwd_kernel", "nb_elbo_fwd"), ("elbo_bwd_kernel", "nb_elbo_bwd"),
+    ("finish_tiles", "nb_finish"), ("finish_sum", "nb_finish"),
+    ("elbo_fwd_kernel", "nb_elbo_fwd"), ("reduce_parts", "nb_elbo_fwd"),
+    ("elbo_bwd_kernel", "nb_elbo_bwd"),
     ("elementwise_kernel", "roofline_probe"),
 )
 

@@ -142,7 +142,8 @@ def measure_op(x: torch.Tensor, op: str,
     return per_op, t_lo, t_hi
 
 
-# Op mix of K2's compile-time instances (csrc/nb_valgrad.cu valgrad_tiles
+# Op mix of K2's, K6's and K3's compile-time instances (csrc/nb_valgrad.cu
+# valgrad_tiles, nb_value.cu value_tiles, nb_finish.cu finish_tiles
 # with (R, C, Rn) = (2, 1, 1), int8 counts) in the counts <= 7 regime, per
 # (row, column) element.  An arithmetic operator, comparison, select,
 # fminf / fmaxf / fabsf or conversion is 1; a * b + c, which nvcc contracts
@@ -177,19 +178,46 @@ def measure_op(x: torch.Tensor, op: str,
 #   mu * inv_mn 1, the FFMAs with x and nu 2, the edge select and the add
 #   into the thread's value (414) 2: +26 ALU and +2 log (-log P,
 #   log(mu * inv_mn)).
+#
+# K6's compile-time instances (nb_value.cu value_tiles, (2, 1, 1), int8,
+# with_const, the reporting pass), counted the same way:
+#   the count's conversion (193): 1;  h (180-181): 4;  h - lse (90): 1;
+#   mu FFMA (92): 1;  nu_pre (183-184): 2;  softplus fabsf, fmaxf + add
+#   (97): 3;  the nu clip + EPS (98): 3;  mu + nu (100): 1;
+#   lg_terms<true> (101, cuh 159) -> fast_products<false, true> (cuh
+#   134): 7 x (compare, nu + k, multiply + select of P) 28 and 6 x
+#   (compare, multiply + select of Pc) 18;  the two log differences and
+#   their FFMAs (101-102): 4;  the D-edge test, select and add into the
+#   thread's value (194): 3;  the row's loads, addresses and loop
+#   (158-176), fewer than K2's (no row outputs): ~8;  the regime scan
+#   (155): ~2  = 79, with 2 exp (90; -|nu_pre| 97), 5 log (log1pf 97,
+#   mu + nu 100, mu and nu 101-102, Pc / P cuh 159) and 1 divide (Pc / P).
+# K6p (JOINT): p * exp(pb) 1 (91); nu = min(exp(nu_pre), NU_HI) + EPS
+#   2 (95, cuh exp_nu) in place of the softplus 3 and the clip 3: 76,
+#   with 2 exp (90; exp(nu_pre) 95), 4 log and 1 divide.
+# K3's compile-time instance (nb_finish.cu finish_tiles, (2, 1)): h
+#   (153-154) 4;  h - lse 1;  the D-edge compare + select (155) 2;
+#   p * rsum (156) 1;  the column sums (158-159) 3 FFMA + add 4;  u2's
+#   terms (161) 2;  the row's two sums over the warp (164-172): 5 SHFL +
+#   5 adds + 2 selects + the store's test ~14 a row and lane, for its 2
+#   columns, 7;  the row's loads, addresses and loop (137-145): ~4  = 25,
+#   with 1 exp (155).
 OP_MIX = {                          # (ALU, exp, log, div) an element
     "nb_valgrad": (116, 2, 2, 2),
     "nb_valgrad[pb,nu_exp]": (104, 2, 1, 2),
     "nb_valgrad[value]": (142, 2, 4, 2),
     "nb_valgrad[pb,nu_exp,value]": (130, 2, 3, 2),
+    "nb_value": (79, 2, 5, 1),
+    "nb_value[pb,nu_exp]": (76, 2, 4, 1),
+    "nb_finish": (25, 1, 0, 0),
 }
 ALU_OPS, EXP_OPS, LOG_OPS, DIV_OPS = OP_MIX["nb_valgrad"]
 
 
 def op_mix_prediction(rates: dict, n_elem: int,
                       kernel: str = "nb_valgrad") -> tuple[float, dict]:
-    """(seconds, {class: seconds}) of the op mix of K2's instance
-    ``kernel`` (a key of :data:`OP_MIX`) at the per-element costs
+    """(seconds, {class: seconds}) of the op mix of the step kernel
+    instance ``kernel`` (a key of :data:`OP_MIX`: K2's, K6's or K3's) at the per-element costs
     ``rates``: the exp / log / div probes carry one FMA each (the
     bounded-value FMA or add), which is subtracted; the ALU rate is the
     better of the fma probe and half the select probe (a select op is a
@@ -320,7 +348,8 @@ def sass_counts() -> str:
 
 
 def main() -> dict:
-    """Print the probe's per-op costs, K2's op-mix bracket and K2's
+    """Print the probe's per-op costs, the op-mix bracket of every K2, K6
+    and K3 instance of :data:`OP_MIX` and K2's
     measured time on the card; returns them."""
     if not torch.cuda.is_available():
         raise RuntimeError("valgrad_roofline measures the CUDA card: no "
@@ -346,7 +375,8 @@ def main() -> dict:
                        for ilp, r in rates.items()}
 
     n_elem = B * D
-    print(f"\nK2's op mix per element (ALU, exp, log with logf at the log1p "
+    print(f"\nThe op mix per element of K2, K6 and K3 (ALU, exp, log with "
+          f"logf at the log1p "
           f"rate, div) over {B}x{D} elements, issue-bound ILP=4 / "
           f"latency-bound ILP=1:")
     res["brackets_us"] = {}

@@ -10,11 +10,13 @@
 //   stage 1 (lse_tiles): a block owns one kTile-column D tile and one
 //     group of kGroup rows; the grid is (row groups) x (tiles).  The
 //     block loads the tile's R + C + 1 weight rows into shared memory
-//     once (one barrier); lane l of warp w takes row l of the group,
-//     keeps its row's latents in registers and the warp's kLaneCols
-//     columns of the tile: it forms their logits in compute_h's order
-//     (nb_step_common.cuh: compute_h4, so K6, K2 and K3 subtract this
-//     normaliser from the same bits of h), keeps them in registers and
+//     once (one barrier; the general instance, any R + C, walks them in
+//     slices of 16 rows and latents, one barrier a slice); lane l of warp
+//     w takes row l of the group, keeps its row's latents in registers
+//     and the warp's kLaneCols columns of the tile: it forms their logits
+//     in the one order of h (nb_step_common.cuh: compute_h4, so K6, K2
+//     and K3 subtract this normaliser from the same bits of h at every
+//     width), keeps them in registers and
 //     reduces them to one (max, sum of exp(h - max)) pair in two passes,
 //     with no shuffle: every weight is a shared-memory broadcast, read
 //     by all 32 rows.  The block merges its 8 warps' pairs in warp order
@@ -45,7 +47,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kLaneCols = 32;               // columns of its row a lane takes
 constexpr int kTile = kWarps * kLaneCols;   // D columns of a block's tile
 constexpr int kGroup = 32;                  // rows of a block: one a lane
-constexpr int kMaxT = nbk::kMaxT;           // R + C + 1 rows the kernel takes
+constexpr int kSlice = 16;                  // general: latents a pass takes
 constexpr int kFixedRC = 3;                 // the compile-time (R, C) = (2, 1)
 constexpr int kAhead = 16;                  // stage 2's pairs in flight
 static_assert(kLaneCols % 4 == 0, "a lane forms 4 logits at a time");
@@ -64,19 +66,25 @@ __device__ __forceinline__ void merge(float& M, float& S, float m, float s) {
   }
 }
 
-// Stage 1.  RCF: the compile-time R + C (kFixedRC), or 0 for the
-// general instance (runtime RC, R + C + 1 <= kMaxT).
+// Stage 1.  RCF: the compile-time R + C (kFixedRC): its R + C + 1 weight
+// rows in shared memory and the row's latents in registers at once; or 0
+// for the general instance, any runtime R + C: the logits are accumulated
+// over slices of kSlice latents and weight rows (one barrier a slice, the
+// bias row kept beside them), FMAs over k ascending from 0, then + bias,
+// the order of compute_h4 and of every other kernel's h.
 template <int RCF>
 __global__ void __launch_bounds__(kThreads)
 lse_tiles(const float* __restrict__ zc, const float* __restrict__ W,
           int64_t B, int64_t D, int RC, float* __restrict__ ws) {
-  constexpr int NT = RCF > 0 ? RCF + 1 : kMaxT;  // weight rows a tile keeps
+  constexpr bool kFixed = RCF > 0;
+  // weight rows a tile keeps: R + C + 1, or a slice and the bias row
+  constexpr int NT = kFixed ? RCF + 1 : kSlice + 1;
   constexpr int NZ = NT - 1;                     // latents a lane keeps
   __shared__ __align__(16) float w[NT][kTile];
   __shared__ float pm[kWarps][kGroup];
   __shared__ float ps[kWarps][kGroup];
 
-  const int rc = RCF > 0 ? RCF : RC;
+  const int rc = kFixed ? RCF : RC;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -84,34 +92,76 @@ lse_tiles(const float* __restrict__ zc, const float* __restrict__ W,
   const bool live = row < B;
   const int64_t tile = blockIdx.y;
   const int64_t col0 = tile * kTile;
-
-  // the tile's weight rows (zero past D and past the bias row)
-  for (int cc = tid; cc < kTile; cc += kThreads) {
-    const int64_t c = col0 + cc;
-    const bool in = c < D;
-#pragma unroll
-    for (int k = 0; k < NT; ++k)
-      w[k][cc] = (in && k <= rc) ? W[k * D + c] : 0.f;
-  }
-  float z[NZ];
-#pragma unroll
-  for (int k = 0; k < NZ; ++k)
-    z[k] = (live && k < rc) ? zc[row * rc + k] : 0.f;
-  __syncthreads();
-
   // this warp's columns: the first nvalid of them lie inside D
   const int cw = warp * kLaneCols;
   const int64_t left = D - (col0 + cw);
   const int nvalid = left <= 0 ? 0 : (left < kLaneCols ? static_cast<int>(left)
                                                        : kLaneCols);
   float h[kLaneCols];
+  if constexpr (kFixed) {
+    // the tile's weight rows (zero past D and past the bias row)
+    for (int cc = tid; cc < kTile; cc += kThreads) {
+      const int64_t c = col0 + cc;
+      const bool in = c < D;
 #pragma unroll
-  for (int j = 0; j < kLaneCols; j += 4) {
-    const float4 v = nbk::compute_h4(z, &w[0][cw + j], kTile, rc);
-    h[j] = v.x;
-    h[j + 1] = v.y;
-    h[j + 2] = v.z;
-    h[j + 3] = v.w;
+      for (int k = 0; k < NT; ++k)
+        w[k][cc] = (in && k <= rc) ? W[k * D + c] : 0.f;
+    }
+    float z[NZ];
+#pragma unroll
+    for (int k = 0; k < NZ; ++k)
+      z[k] = (live && k < rc) ? zc[row * rc + k] : 0.f;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < kLaneCols; j += 4) {
+      const float4 v = nbk::compute_h4(z, &w[0][cw + j], kTile, rc);
+      h[j] = v.x;
+      h[j + 1] = v.y;
+      h[j + 2] = v.z;
+      h[j + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kLaneCols; ++j) h[j] = 0.f;
+    for (int k0 = 0; k0 < rc; k0 += kSlice) {
+      const int n = rc - k0 < kSlice ? rc - k0 : kSlice;
+      if (k0 > 0) __syncthreads();  // the last slice is read
+      // the slice's weight rows (w[0..n)), the bias row w[kSlice] once
+      for (int cc = tid; cc < kTile; cc += kThreads) {
+        const int64_t c = col0 + cc;
+        const bool in = c < D;
+#pragma unroll
+        for (int k = 0; k < kSlice; ++k)
+          w[k][cc] = (in && k < n) ? W[(k0 + k) * D + c] : 0.f;
+        if (k0 == 0) w[kSlice][cc] = in ? W[rc * D + c] : 0.f;
+      }
+      float z[NZ];
+#pragma unroll
+      for (int k = 0; k < NZ; ++k)
+        z[k] = (live && k < n) ? zc[row * rc + k0 + k] : 0.f;
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kLaneCols; j += 4) {
+#pragma unroll
+        for (int k = 0; k < NZ; ++k) {
+          if (k < n) {
+            const float4 wk = *reinterpret_cast<const float4*>(&w[k][cw + j]);
+            h[j] = fmaf(z[k], wk.x, h[j]);
+            h[j + 1] = fmaf(z[k], wk.y, h[j + 1]);
+            h[j + 2] = fmaf(z[k], wk.z, h[j + 2]);
+            h[j + 3] = fmaf(z[k], wk.w, h[j + 3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kLaneCols; j += 4) {
+      const float4 b = *reinterpret_cast<const float4*>(&w[kSlice][cw + j]);
+      h[j] = h[j] + b.x;
+      h[j + 1] = h[j + 1] + b.y;
+      h[j + 2] = h[j + 2] + b.z;
+      h[j + 3] = h[j + 3] + b.w;
+    }
   }
   float m = -INFINITY;
 #pragma unroll
@@ -171,8 +221,9 @@ lse_sum(const float* __restrict__ ws, int64_t tiles, int64_t B,
 
 }  // namespace
 
-// zc (B, R+C), W (>= R+C+1, D), lse (B, 1).  The plan (nb_step.lse_plan):
-// fixed (1 exactly when (R, C) = (2, 1)), tile (kTile) and a float32
+// zc (B, R+C), W (>= R+C+1, D), lse (B, 1), any R >= 1, C >= 0.  The plan
+// (nb_step.lse_plan): fixed (1 exactly when (R, C) = (2, 1)), tile (kTile)
+// and a float32
 // workspace of ws_floats >= ceil(D / kTile) * B * 2 floats.  Returns
 // cudaGetLastError() after the two launches (0 = launched).
 extern "C" int mmvae_nb_lse(const void* zc, const void* W, int64_t B,
@@ -180,7 +231,7 @@ extern "C" int mmvae_nb_lse(const void* zc, const void* W, int64_t B,
                             void* ws, int64_t ws_floats, void* lse,
                             void* stream) {
   const int64_t tiles = (D + kTile - 1) / kTile;
-  if (B < 1 || D < 1 || R < 1 || C < 0 || R + C + 1 > kMaxT ||
+  if (B < 1 || D < 1 || R < 1 || C < 0 ||
       fixed != (R == 2 && C == 1 ? 1 : 0) || tile != kTile || ws == nullptr ||
       ws_floats < tiles * B * 2 || tiles > 65535 ||
       (B + kGroup - 1) / kGroup > 0x7fffffff)

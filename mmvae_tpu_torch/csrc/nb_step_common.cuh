@@ -1,7 +1,7 @@
 // Shared device code of the fused NB step kernels (nb_lse.cu, nb_value.cu,
-// nb_valgrad.cu, nb_finish.cu): the launch layout of K6 and K3, the
-// in-kernel logits, the lgamma / digamma regimes and the deterministic
-// second stage.
+// nb_valgrad.cu, nb_finish.cu) and of K7 (nb_elbo.cu): the in-kernel
+// logits' order, the lgamma / digamma regimes, the tile layout and
+// second stage of K2, K6 and K3, and reduce_parts.
 //
 // Port of the in-kernel pieces of mmvae_tpu/ops/nb_step.py (_compute_h,
 // _compute_nupre, _fast_flag, _int_flag, _fast_products, _mixed_lgdg) and
@@ -19,16 +19,21 @@
 //                     model's variant (JOINT) appends the post-softmax
 //                     log-bias row pb, T = R + C + Rn + 3
 //
-// Layout shared by the column-tile kernels.  The TPU kernels walk D tiles
-// in grid order and carry per-row sums in VMEM scratch; here a block owns
-// kTileCols columns of D and ALL B rows, so every per-column sum (the
-// weight-gradient rows) is finished inside the block.  The block's
-// threads are kTileCols columns x kRowGroups row groups: row group g
-// takes rows g, g + kRowGroups, ...  A warp is 32 columns of one row
-// group; per-row sums over D are reduced across the warp by shuffles and
-// written as one partial per (warp column, tile), and a second kernel
-// (reduce_parts) adds the partials of each row in a fixed order.  No
-// atomics, so every output is bitwise repeatable.
+// The logits.  Every kernel forms h = bias2 + sum_k zc[k] W[k] in ONE
+// order: FMAs over k ascending from 0, starting at 0.f, then + bias2
+// (compute_h4 below for K1's compile-time instance, the same loop written
+// out in K1's wide instance and in K6, K2 and K3), so K1's normaliser and
+// K6 / K2 / K3's softmax see the same bits of h at every width.  The
+// overdispersion pre-activation nu_pre = bias_n + sum_r zn[r] wn[r] is
+// formed the same way (FMAs over r ascending, then + bias_n).
+//
+// Widths.  The compile-time instances ((R, C, Rn) = (2, 1, 1), every CLI
+// default) keep their stacked rows in registers; the general ones take
+// any width.  K2's and K3's keep the tile's weights and column sums in
+// dynamic shared memory, a slot a row, so the card's 232,448 bytes a
+// block (kMaxSmem) are their only limit; K6's keeps the weights alone
+// there, and K1's walks its rows in slices (ops/nb_step.py's plans state
+// each limit).
 #pragma once
 
 #include <cmath>
@@ -45,45 +50,30 @@ constexpr float kNuHi = 1e4f;
 constexpr float kXMaxFast = 7.0f;  // select-product regime: counts 0..7
 constexpr float kHalfLog2Pi = 0.9189385332046727f;
 
-constexpr int kTileCols = 64;                  // columns of D per block
-constexpr int kRowGroups = 4;                  // row groups per block
+// the roofline probe's block (roofline_probe.cu): K2's earlier layout,
+// kTileCols columns x kRowGroups row groups
+constexpr int kTileCols = 64;
+constexpr int kRowGroups = 4;
 constexpr int kThreads = kTileCols * kRowGroups;
-constexpr int kWarpCols = kTileCols / 32;      // warps across a row group
-constexpr int kMaxT = 16;                      // stacked rows the kernels take
 constexpr int kReduceThreads = 128;
+// shared memory an H100 block can have (opt-in past 48 KB)
+constexpr int kMaxSmem = 232448;
 
 // lgamma / digamma regime of a block's tile (all its valid counts)
 enum Regime : int { kFast = 0, kMixed = 1, kGeneral = 2 };
 
 inline int64_t num_tiles(int64_t D) { return (D + kTileCols - 1) / kTileCols; }
-// partials per row: one per warp column of each tile
-inline int64_t num_parts(int64_t D) { return num_tiles(D) * kWarpCols; }
 
 template <typename T>
 __device__ __forceinline__ float load_count(const T* p) {
   return static_cast<float>(*p);
 }
 
-// h = bias2 + sum_k zc[k] * W[k]: the logits of one (row, column), in one
-// fixed order in every kernel, so K1's normaliser and K6 / K2 / K3's
-// softmax see the same bits.
-template <int NT>
-__device__ __forceinline__ float compute_h(const float* __restrict__ zc_row,
-                                           const float (&w)[NT], int RC) {
-  float h = 0.f, bias = 0.f;
-#pragma unroll
-  for (int k = 0; k < NT; ++k) {
-    if (k < RC) h = fmaf(__ldg(zc_row + k), w[k], h);
-    if (k == RC) bias = w[k];
-  }
-  return h + bias;
-}
-
-// compute_h's arithmetic for 4 adjacent columns whose stacked weight rows
-// sit in shared memory (row k at w + k * ld, 16-byte aligned) and whose
-// row latents z[0..RC) sit in registers (nb_lse.cu): FMAs over k ascending
-// from 0, then + bias, so every column's h has compute_h's bits.  The two
-// must stay in step.
+// The logits of 4 adjacent columns whose stacked weight rows sit in
+// shared memory (row k at w + k * ld, 16-byte aligned) and whose row
+// latents z[0..RC) sit in registers (nb_lse.cu's compile-time instance):
+// FMAs over k ascending from 0, then + bias, the one order of h (top of
+// this file), which every other kernel's loop over k must keep.
 template <int NZ>
 __device__ __forceinline__ float4 compute_h4(const float (&z)[NZ],
                                              const float* w, int ld, int RC) {
@@ -100,30 +90,6 @@ __device__ __forceinline__ float4 compute_h4(const float (&z)[NZ],
   }
   const float4 b = *reinterpret_cast<const float4*>(w + RC * ld);
   return make_float4(h.x + b.x, h.y + b.y, h.z + b.z, h.w + b.w);
-}
-
-// overdispersion pre-activation: bias_n + sum_r zn[r] * wn[r]
-template <int NT>
-__device__ __forceinline__ float compute_nupre(const float* __restrict__ zn_row,
-                                               const float (&w)[NT], int base,
-                                               int Rn) {
-  float v = 0.f;
-#pragma unroll
-  for (int k = 0; k < NT; ++k)
-    if (k >= base && k < base + Rn) v = fmaf(__ldg(zn_row + (k - base)), w[k], v);
-#pragma unroll
-  for (int k = 0; k < NT; ++k)
-    if (k == base + Rn) v += w[k];
-  return v;
-}
-
-// the block's W column in registers (zeros past the ragged D edge)
-template <int NT>
-__device__ __forceinline__ void load_wcol(const float* __restrict__ W, int64_t D,
-                                          int64_t c, bool valid, int T,
-                                          float (&w)[NT]) {
-#pragma unroll
-  for (int k = 0; k < NT; ++k) w[k] = (valid && k < T) ? W[k * D + c] : 0.f;
 }
 
 __device__ __forceinline__ float stirling_lgamma(float w) {
@@ -218,35 +184,14 @@ __device__ __forceinline__ float dg_term(int regime, float x, float nu) {
   return dg;
 }
 
-// The block's regime: every valid count of its tile (all B rows x its
-// kTileCols columns) decides, as _fast_flag / _int_flag decide for a TPU
-// tile.  Called by every thread of the block (it synchronises).
-template <typename T>
-__device__ __forceinline__ int block_regime(const T* __restrict__ x, int64_t B,
-                                            int64_t D, int64_t c, bool valid,
-                                            int row0) {
-  int fast = 1, allint = 1;
-  if (valid) {
-    for (int64_t b = row0; b < B; b += kRowGroups) {
-      const float v = load_count(x + b * D + c);
-      const bool integral = std::is_integral<T>::value || v == floorf(v);
-      fast &= (v >= 0.f && v <= kXMaxFast && integral) ? 1 : 0;
-      allint &= (v >= 0.f && integral) ? 1 : 0;
-    }
-  }
-  fast = __syncthreads_and(fast);
-  allint = __syncthreads_and(allint);
-  return fast ? kFast : (allint ? kMixed : kGeneral);
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
 }
 
-// Second stage: out[b * ldo + k] = sum_j parts[(j * B + b) * K + k] for
-// j < nparts, one block per row b.  Thread t adds parts t, t + 128, ... in
+// K7's second stage (nb_elbo.cu): out[b * ldo + k] = sum_j
+// parts[(j * B + b) * K + k] for j < nparts, one block per row b.  Thread t adds parts t, t + 128, ... in
 // order, then a fixed tree adds the threads: the same bits every run.
 static __global__ void __launch_bounds__(kReduceThreads)
 reduce_parts(const float* __restrict__ parts, int64_t nparts, int64_t B, int K,
@@ -283,23 +228,223 @@ __device__ __forceinline__ float exp_nu(float sp) {
   return fminf(sp, kNuHi) + kEps;
 }
 
-// exp(pb) of the block's column, once per thread: row pbi of the W
-// column in registers (1 when the variant has no pb row)
-template <int NT>
-__device__ __forceinline__ float exp_pb(const float (&w)[NT], int pbi) {
-  float e = 1.f;
-#pragma unroll
-  for (int k = 0; k < NT; ++k)
-    if (k == pbi) e = expf(w[k]);
-  return e;
+// checks shared by the C entry points of K6, K2 and K3 (K3 passes
+// Rn = 1: it reads no overdispersion rows); the shared-memory limit of a
+// general instance is checked by its entry
+inline bool dims_ok(int64_t B, int64_t D, int R, int C, int Rn) {
+  return B >= 1 && D >= 1 && R >= 1 && C >= 0 && Rn >= 1 &&
+         num_tiles(D) <= 0x7fffffff && B <= 0x7fffffff;
 }
 
-// checks shared by the C entry points; extra = 1 for the pb row
-inline bool dims_ok(int64_t B, int64_t D, int R, int C, int Rn,
-                    int extra = 0) {
-  return B >= 1 && D >= 1 && R >= 1 && C >= 0 && Rn >= 1 &&
-         R + C + Rn + 2 + extra <= kMaxT && num_tiles(D) <= 0x7fffffff &&
-         B <= 0x7fffffff;
+// ----------------------------------------------------------------------
+// The tile layout of K2 (nb_valgrad.cu), K6 (nb_value.cu) and K3
+// (nb_finish.cu).  Stage 1: a block of kWarps = 4 warps owns one kTile =
+// 64-column tile of D and one chunk of rows (grid (tiles, chunks), the
+// chunking from the wrapper's plan); lane l owns the kLaneCols = 2
+// adjacent columns 2l, 2l + 1 of the tile, warp w takes the chunk's rows
+// w, w + 4, ...  Stage 2 (tile_sums) adds the partials in fixed orders.
+// ----------------------------------------------------------------------
+namespace tile {
+
+constexpr int kLaneCols = 2;                  // adjacent columns a thread owns
+constexpr int kWarps = 4;                     // row groups of a block
+constexpr int kBlockThreads = 32 * kWarps;
+constexpr int kTile = 32 * kLaneCols;         // columns of D a block owns
+constexpr int kScanBytes = 16;                // a regime-scan load
+constexpr int kSumThreads = 256;
+constexpr int kSumWarps = kSumThreads / 32;
+constexpr int kMaxChunks = 65535;             // gridDim.y
+// the compile-time instances: the widths every CLI default launches
+constexpr int kFixR = 2, kFixC = 1, kFixRn = 1;
+
+inline bool fixed_widths(int R, int C, int Rn) {
+  return R == kFixR && C == kFixC && Rn == kFixRn;
 }
+
+inline int64_t tiles_of(int64_t D) { return (D + kTile - 1) / kTile; }
+
+// A thread's kLaneCols adjacent counts of one row, one vector load wide
+template <typename T>
+struct alignas(kLaneCols * sizeof(T)) Counts {
+  T v[kLaneCols];
+};
+
+// Counts c0 .. c0 + kLaneCols - 1 of the row at xr (0 past D): one vector
+// load when vec (D a multiple of kLaneCols and x aligned to it), element
+// loads otherwise; the same values either way.
+template <typename T>
+__device__ __forceinline__ Counts<T> load_counts(const T* __restrict__ xr,
+                                                 int64_t c0, int64_t D,
+                                                 bool vec) {
+  Counts<T> c;
+  if (vec) {
+    if (c0 < D) return *reinterpret_cast<const Counts<T>*>(xr + c0);
+#pragma unroll
+    for (int j = 0; j < kLaneCols; ++j) c.v[j] = T(0);
+    return c;
+  }
+#pragma unroll
+  for (int j = 0; j < kLaneCols; ++j) c.v[j] = c0 + j < D ? xr[c0 + j] : T(0);
+  return c;
+}
+
+// The regime of the counts a thread scanned: fast = every count an
+// integer in [0, 7], allint = every count a non-negative integer, as the
+// TPU's _fast_flag / _int_flag test a tile.  Integer storage ORs the
+// counts' bits (a byte or half-word passes iff the OR of every such one
+// at its place does), float32 tests each count.
+template <typename T>
+struct RegimeScan {
+  uint32_t bits = 0u;
+  bool fast = true, allint = true;
+
+  __device__ __forceinline__ void add(T v) {
+    if constexpr (sizeof(T) == 1) {
+      bits |= static_cast<uint8_t>(v);
+    } else if constexpr (sizeof(T) == 2) {
+      bits |= static_cast<uint16_t>(v);
+    } else {
+      const bool integral = v == floorf(v);
+      fast &= v >= 0.f && v <= kXMaxFast && integral;
+      allint &= v >= 0.f && integral;
+    }
+  }
+  __device__ __forceinline__ void add(uint4 w) {  // 16 bytes of counts
+    if constexpr (sizeof(T) < 4) {
+      bits |= w.x | w.y | w.z | w.w;
+    } else {
+      add(__uint_as_float(w.x));
+      add(__uint_as_float(w.y));
+      add(__uint_as_float(w.z));
+      add(__uint_as_float(w.w));
+    }
+  }
+  __device__ __forceinline__ bool all_fast() const {
+    if constexpr (sizeof(T) == 1) return (bits & 0xF8F8F8F8u) == 0u;
+    if constexpr (sizeof(T) == 2) return (bits & 0xFFF8FFF8u) == 0u;
+    return fast;
+  }
+  __device__ __forceinline__ bool all_int() const {
+    if constexpr (sizeof(T) == 1) return (bits & 0x80808080u) == 0u;
+    if constexpr (sizeof(T) == 2) return (bits & 0x80008000u) == 0u;
+    return allint;
+  }
+};
+
+// The regime of a block's tile: every count of its kTile columns over all
+// B rows (not only the block's chunk), so every block of a tile, and K6
+// and K2 alike, choose one regime for a count.  16-byte loads where
+// scan16 (D a multiple of 16 / sizeof(T) and x 16-byte aligned), element
+// loads otherwise.  Called by every thread of the block (it synchronises).
+template <typename T>
+__device__ __forceinline__ int tile_regime(const T* __restrict__ x, int64_t B,
+                                           int64_t D, int64_t tile,
+                                           bool scan16) {
+  RegimeScan<T> scan;
+  const int t = threadIdx.x;
+  if (scan16) {
+    constexpr int kGroups = kTile * static_cast<int>(sizeof(T)) / kScanBytes;
+    constexpr int kPer = kScanBytes / static_cast<int>(sizeof(T));
+    const int64_t c = tile * kTile + (t % kGroups) * kPer;
+    if (c < D)
+      for (int64_t b = t / kGroups; b < B; b += kBlockThreads / kGroups)
+        scan.add(__ldg(reinterpret_cast<const uint4*>(x + b * D + c)));
+  } else {
+    const int64_t c = tile * kTile + t % kTile;
+    if (c < D)
+      for (int64_t b = t / kTile; b < B; b += kBlockThreads / kTile)
+        scan.add(x[b * D + c]);
+  }
+  const int fast = __syncthreads_and(scan.all_fast());
+  const int allint = __syncthreads_and(scan.all_int());
+  return fast ? kFast : (allint ? kMixed : kGeneral);
+}
+
+// vec: a row's kLaneCols counts of a thread in one load (D a multiple of
+// kLaneCols, x aligned to it); scan16: the regime scan in 16-byte loads
+template <typename T>
+inline bool vec_loads(const void* x, int64_t D) {
+  return D % kLaneCols == 0 &&
+         reinterpret_cast<uintptr_t>(x) % (kLaneCols * sizeof(T)) == 0;
+}
+template <typename T>
+inline bool scan16_loads(const void* x, int64_t D) {
+  return D % (kScanBytes / sizeof(T)) == 0 &&
+         reinterpret_cast<uintptr_t>(x) % kScanBytes == 0;
+}
+
+// Stage 2, one launch of three kinds of block (each kernel's own
+// __global__ calls it, so the profiler names the kernel):
+//   row blocks: 32 (row, output) sums each, lane = output o = k * B + b;
+//     warp w adds tiles w, w + 8, ... of parts (K, tiles, B) in order,
+//     then the 8 warps in order;
+//   column blocks (chunks > 1): one (row k, column) sum a thread of
+//     cparts (chunks, Tc, D), the chunks in order; a pb row (pb_src >= 0)
+//     written again as the copy of row pb_src;
+//   one value block (nvparts > 0): thread t adds partials t, t + 256, ...,
+//     then a fixed tree.
+__device__ __forceinline__ void tile_sums(
+    const float* __restrict__ parts, const float* __restrict__ cparts,
+    const float* __restrict__ vparts, int64_t B, int64_t D, int K,
+    int64_t tiles, int Tc, int chunks, int pb_src, int64_t nvparts,
+    int64_t row_blocks, int64_t col_blocks, float* __restrict__ rowout,
+    float* __restrict__ gout, float* __restrict__ value) {
+  __shared__ float red[kSumThreads];
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  int64_t blk = blockIdx.x;
+  if (blk < row_blocks) {
+    const int64_t o = blk * 32 + lane;
+    const bool ok = o < K * B;
+    const int64_t k = ok ? o / B : 0;
+    const int64_t b = ok ? o - k * B : 0;
+    float s = 0.f;
+    if (ok)
+      for (int64_t p = warp; p < tiles; p += kSumWarps)
+        s += parts[(k * tiles + p) * B + b];
+    red[t] = s;
+    __syncthreads();
+    if (warp == 0 && ok) {
+      float r = red[lane];
+#pragma unroll
+      for (int g = 1; g < kSumWarps; ++g) r += red[g * 32 + lane];
+      rowout[b * K + k] = r;
+    }
+    return;
+  }
+  blk -= row_blocks;
+  if (blk < col_blocks) {
+    const int64_t i = blk * kSumThreads + t;
+    if (i < Tc * D) {
+      float s = cparts[i];
+      for (int ch = 1; ch < chunks; ++ch) s += cparts[ch * Tc * D + i];
+      gout[i] = s;
+      if (i / D == pb_src) gout[Tc * D + (i - pb_src * D)] = s;
+    }
+    return;
+  }
+  float s = 0.f;
+  for (int64_t j = t; j < nvparts; j += kSumThreads) s += vparts[j];
+  red[t] = s;
+  __syncthreads();
+  for (int g = kSumThreads / 2; g > 0; g >>= 1) {
+    if (t < g) red[t] += red[t + g];
+    __syncthreads();
+  }
+  if (t == 0) *value = red[0];
+}
+
+// Opt a general instance into `bytes` of dynamic shared memory (past the
+// default 48 KB a launch needs it); 0 = done
+template <typename K>
+inline cudaError_t allow_smem(K kernel, int64_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace tile
 
 }  // namespace nbk

@@ -23,7 +23,8 @@
 //   * the digamma difference takes its column tile's regime (all counts
 //     <= 7, all integer, or general), chosen from every valid count of the
 //     tile's 64 columns over ALL B rows, as nb_value.cu's block and the
-//     TPU's per-tile flags choose it.
+//     TPU's per-tile flags choose it (nbk::tile::tile_regime, shared with
+//     K6).
 // JOINT: mu = pe * depth + EPS with pe = p * exp(pb), exp(pb) once per
 // column; dls uses pe, while K3's coupling term keeps the plain p, so
 // gw = gout - fout stays right.  nu = clamp(exp(npre), 0, NU_HI) + EPS:
@@ -52,13 +53,14 @@
 // chunks).  Lane l owns the kLaneCols = 2 adjacent columns 2l, 2l + 1 of
 // the tile (one 2-, 4- or 8-byte load of a row's counts where x and D
 // allow it, element loads otherwise, the same values either way); warp w
-// takes the chunk's rows w, w + 4, ...  A thread keeps its columns'
-// stacked W rows and their column sums in registers (the general instance
-// keeps both in shared memory) and computes its 2 counts of a row as 2
-// independent chains.  Per row a lane adds its columns' row terms; a warp
+// takes the chunk's rows w, w + 4, ... (nbk::tile, the layout K6 and K3
+// share).  A thread keeps its columns' stacked W rows and their column
+// sums in registers (the general instance keeps both in dynamic shared
+// memory, sized by the runtime widths) and computes its 2 counts of a row
+// as 2 independent chains.  Per row a lane adds its columns' row terms; a warp
 // then sums the row's four outputs over its 64 columns at once (6
 // shuffles).  The tile's regime is scanned first, over all B rows, in
-// 16-byte loads.  Stage 2 (valgrad_sum, one launch) adds, in fixed
+// 16-byte loads.  Stage 2 (valgrad_sum, nbk::tile::tile_sums) adds, in fixed
 // orders: the row partials, laid out (output, tile, row) so that
 // neighbouring threads read neighbouring rows; the chunks' column
 // partials, in chunk order; and the value partials.
@@ -74,12 +76,14 @@
 //   * runtime widths in unrolled loops: the instance the CLI defaults
 //     launch, (R, C, Rn) = (2, 1, 1), has its widths at compile time, so
 //     its loops carry no slot tests and it reads each row's zc and zn into
-//     registers once.  The general instance keeps runtime widths up to
-//     kMaxT = 16 stacked rows; the C entry picks the instance by shape;
+//     registers once.  The general instance takes runtime widths: W's
+//     rows and the column sums in shared memory (1,280 bytes a stacked
+//     row), so any R + C + Rn + 2 <= 181 (the card's 232,448 bytes a
+//     block); the C entry checks the plan's instance against the shape;
 //   * row sums by shuffles row by row: 4 trees of 5 shuffles per row and
 //     32 columns before, 6 shuffles per row and 64 columns now;
 //   * a slow, shared second stage: reduce_parts (one 128-thread block a
-//     row, uncoalesced, K serial tree passes) stays for K6, K3 and K7;
+//     row, uncoalesced, K serial tree passes), which stays for K7 alone;
 //     K2's own valgrad_sum reads coalesced and spreads its work.
 // Variants measured on the H100 and dropped (PERF.md): 4 columns a
 // thread (128-column tiles, 101-112 registers at 4 blocks an SM; stage 1
@@ -103,132 +107,23 @@
 namespace {
 
 using namespace nbk;
-
-constexpr int kLaneCols = 2;                  // adjacent columns a thread owns
-constexpr int kWarps = 4;                     // row groups of a block
-constexpr int kBlockThreads = 32 * kWarps;
-constexpr int kTile = 32 * kLaneCols;         // columns of D a block owns
-constexpr int kScanBytes = 16;                // a regime-scan load
-constexpr int kSumThreads = 256;
-constexpr int kSumWarps = kSumThreads / 32;
-constexpr int kMaxChunks = 65535;             // gridDim.y
-// the compile-time instance: the widths every CLI default launches
-constexpr int kFixR = 2, kFixC = 1, kFixRn = 1;
-static_assert(kTile == kTileCols,
-              "a block's tile is the regime's 64-column tile");
+using namespace nbk::tile;
 
 // Blocks an SM each instance asks for.  The compile-time instances ask
 // for 7 (<= 72 registers, 28 warps an SM): left at 4 they take 104-110
 // registers and stage 1 ran 1.13x slower on the H100 at the main path's
 // 5 row chunks (up to 1.36x at others); at 8 (64 registers) the
-// grad-only ones spill.  The general instances (16 stacked rows, column
-// sums in shared memory) take 131-139 registers and ask for 3.
+// grad-only ones spill.  The general instances (runtime widths, W and the
+// column sums in shared memory) ask for 3.
 template <bool FIXED>
 constexpr int min_blocks() {
   return FIXED ? 7 : 3;
 }
 
-inline bool fixed_widths(int R, int C, int Rn) {
-  return R == kFixR && C == kFixC && Rn == kFixRn;
-}
-
-inline int64_t vg_tiles(int64_t D) { return (D + kTile - 1) / kTile; }
-
-// A thread's kLaneCols adjacent counts of one row, one vector load wide
-template <typename T>
-struct alignas(kLaneCols * sizeof(T)) Counts {
-  T v[kLaneCols];
-};
-
-// Counts c0 .. c0 + kLaneCols - 1 of the row at xr (0 past D): one vector
-// load when vec (D a multiple of kLaneCols and x aligned to it), element
-// loads otherwise; the same values either way.
-template <typename T>
-__device__ __forceinline__ Counts<T> load_counts(const T* __restrict__ xr,
-                                                 int64_t c0, int64_t D,
-                                                 bool vec) {
-  Counts<T> c;
-  if (vec) {
-    if (c0 < D) return *reinterpret_cast<const Counts<T>*>(xr + c0);
-#pragma unroll
-    for (int j = 0; j < kLaneCols; ++j) c.v[j] = T(0);
-    return c;
-  }
-#pragma unroll
-  for (int j = 0; j < kLaneCols; ++j) c.v[j] = c0 + j < D ? xr[c0 + j] : T(0);
-  return c;
-}
-
-// The regime of the counts a thread scanned, as block_regime tests them:
-// fast = every count an integer in [0, 7], allint = every count a
-// non-negative integer.  Integer storage ORs the counts' bits (a byte or
-// half-word passes iff the OR of every such one at its place does),
-// float32 tests each count.
-template <typename T>
-struct RegimeScan {
-  uint32_t bits = 0u;
-  bool fast = true, allint = true;
-
-  __device__ __forceinline__ void add(T v) {
-    if constexpr (sizeof(T) == 1) {
-      bits |= static_cast<uint8_t>(v);
-    } else if constexpr (sizeof(T) == 2) {
-      bits |= static_cast<uint16_t>(v);
-    } else {
-      const bool integral = v == floorf(v);
-      fast &= v >= 0.f && v <= kXMaxFast && integral;
-      allint &= v >= 0.f && integral;
-    }
-  }
-  __device__ __forceinline__ void add(uint4 w) {  // 16 bytes of counts
-    if constexpr (sizeof(T) < 4) {
-      bits |= w.x | w.y | w.z | w.w;
-    } else {
-      add(__uint_as_float(w.x));
-      add(__uint_as_float(w.y));
-      add(__uint_as_float(w.z));
-      add(__uint_as_float(w.w));
-    }
-  }
-  __device__ __forceinline__ bool all_fast() const {
-    if constexpr (sizeof(T) == 1) return (bits & 0xF8F8F8F8u) == 0u;
-    if constexpr (sizeof(T) == 2) return (bits & 0xFFF8FFF8u) == 0u;
-    return fast;
-  }
-  __device__ __forceinline__ bool all_int() const {
-    if constexpr (sizeof(T) == 1) return (bits & 0x80808080u) == 0u;
-    if constexpr (sizeof(T) == 2) return (bits & 0x80008000u) == 0u;
-    return allint;
-  }
-};
-
-// The regime of a block's tile: every count of its kTile columns over all
-// B rows (not only the block's chunk), as block_regime decides it for a
-// block of nb_value.cu.  16-byte loads where scan16 (D a multiple of
-// 16 / sizeof(T) and x 16-byte aligned), element loads otherwise.  Called
-// by every thread of the block (it synchronises).
-template <typename T>
-__device__ __forceinline__ int tile_regime(const T* __restrict__ x, int64_t B,
-                                           int64_t D, int64_t tile,
-                                           bool scan16) {
-  RegimeScan<T> scan;
-  const int t = threadIdx.x;
-  if (scan16) {
-    constexpr int kGroups = kTile * static_cast<int>(sizeof(T)) / kScanBytes;
-    constexpr int kPer = kScanBytes / static_cast<int>(sizeof(T));
-    const int64_t c = tile * kTile + (t % kGroups) * kPer;
-    if (c < D)
-      for (int64_t b = t / kGroups; b < B; b += kBlockThreads / kGroups)
-        scan.add(__ldg(reinterpret_cast<const uint4*>(x + b * D + c)));
-  } else {
-    const int64_t c = tile * kTile + t % kTile;
-    if (c < D)
-      for (int64_t b = t / kTile; b < B; b += kBlockThreads / kTile)
-        scan.add(x[b * D + c]);
-  }
-  const int fast = __syncthreads_and(scan.all_fast());
-  const int allint = __syncthreads_and(scan.all_int());
-  return fast ? kFast : (allint ? kMixed : kGeneral);
+// Dynamic shared memory of a general instance: the tile's Tc weight rows
+// (sw) and each warp's Tc column sums (sacc), a float a (row, column)
+inline int64_t general_smem(int Tc) {
+  return static_cast<int64_t>(1 + kWarps) * Tc * kTile * sizeof(float);
 }
 
 // One count's gradient terms (and with VALUE its NLL terms): the
@@ -276,10 +171,13 @@ __device__ __forceinline__ void count_grad(float xv, float h, float lb,
 }
 
 // Stage 1.  FR, FC, FRn > 0: the widths at compile time (the instance the
-// CLI defaults launch); FR = 0: the general instance, R, C, Rn at run time
-// with up to kMaxT stacked rows.  Writes the row partials parts (K, tiles,
-// B), the column sums (straight to gout with one chunk, else to cparts
-// (chunks, Tc, D)) and with VALUE one value partial a warp.
+// CLI defaults launch), W's columns, the row's latents and the column
+// sums in registers; FR = 0: the general instance, R, C, Rn at run time,
+// W's Tc columns and each warp's Tc column sums in dynamic shared memory
+// (general_smem(Tc) bytes), any width that fits a block.  Writes the row
+// partials parts (K, tiles, B), the column sums (straight to gout with one
+// chunk, else to cparts (chunks, Tc, D)) and with VALUE one value partial
+// a warp.
 template <typename T, int FR, int FC, int FRn, bool JOINT, bool VALUE>
 __global__ void __launch_bounds__(kBlockThreads, min_blocks<(FR > 0)>())
 valgrad_tiles(const T* __restrict__ x, const float* __restrict__ zc,
@@ -290,7 +188,7 @@ valgrad_tiles(const T* __restrict__ x, const float* __restrict__ zc,
               float* __restrict__ gout, float* __restrict__ parts,
               float* __restrict__ cparts, float* __restrict__ vparts) {
   constexpr bool kFixed = FR > 0;
-  constexpr int NT = kFixed ? FR + FC + FRn + 2 : kMaxT;  // stacked row slots
+  constexpr int NT = kFixed ? FR + FC + FRn + 2 : 1;  // stacked rows held
   const int R = kFixed ? FR : R_;
   const int C = kFixed ? FC : C_;
   const int Rn = kFixed ? FRn : Rn_;
@@ -298,8 +196,12 @@ valgrad_tiles(const T* __restrict__ x, const float* __restrict__ zc,
   const int base = RC + 1;
   const int Tc = RC + Rn + 2;  // gradient rows summed (pb's is a copy)
   const int K = 1 + R + Rn;    // per-row outputs [rsum | u1 | dzn]
-  __shared__ __align__(16) float sacc[kWarps][NT][kTile];
-  __shared__ __align__(16) float sw[kFixed ? 1 : NT][kFixed ? 1 : kTile];
+  __shared__ __align__(16) float sacc[kFixed ? kWarps : 1][NT]
+                                     [kFixed ? kTile : 1];
+  // general: sw (Tc, kTile), then gsacc (kWarps, Tc, kTile)
+  extern __shared__ __align__(16) float dyn[];
+  float* const sw = dyn;
+  float* const gsacc = dyn + Tc * kTile;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -310,7 +212,7 @@ valgrad_tiles(const T* __restrict__ x, const float* __restrict__ zc,
   const int64_t c0 = tile * kTile + lane * kLaneCols;
 
   // the tile's W columns: registers (compile-time widths) or shared memory
-  float w[kFixed ? NT : 1][kLaneCols];
+  float w[NT][kLaneCols];
   if constexpr (kFixed) {
 #pragma unroll
     for (int k = 0; k < NT; ++k)
@@ -319,16 +221,12 @@ valgrad_tiles(const T* __restrict__ x, const float* __restrict__ zc,
         w[k][j] = c0 + j < D ? __ldg(W + k * D + c0 + j) : 0.f;
   } else {
     for (int i = threadIdx.x; i < Tc * kTile; i += kBlockThreads) {
-      const int k = i / kTile;
       const int64_t c = tile * kTile + (i % kTile);
-      sw[k][i % kTile] = c < D ? __ldg(W + k * D + c) : 0.f;
+      sw[i] = c < D ? __ldg(W + (i / kTile) * D + c) : 0.f;
     }
   }
   auto wv = [&](int k, int j) -> float {
-    if constexpr (kFixed)
-      return w[k][j];
-    else
-      return sw[k][lane * kLaneCols + j];
+    return sw[k * kTile + lane * kLaneCols + j];
   };
   float epb[kLaneCols];
 #pragma unroll
@@ -338,20 +236,21 @@ valgrad_tiles(const T* __restrict__ x, const float* __restrict__ zc,
   const int regime = tile_regime<T>(x, B, D, tile, scan16 != 0);
 
   // the column sums over this warp's rows: registers with compile-time
-  // widths, else this thread's own slots of sacc (16 rows of them in
-  // registers spilled)
-  float acc[kFixed ? NT : 1][kLaneCols];
+  // widths, else this thread's own slots of gsacc
+  float acc[NT][kLaneCols];
   auto accv = [&](int k, int j) -> float& {
-    if constexpr (kFixed)
-      return acc[k][j];
-    else
-      return sacc[warp][k][lane * kLaneCols + j];
+    return gsacc[(warp * Tc + k) * kTile + lane * kLaneCols + j];
   };
+  if constexpr (kFixed) {
 #pragma unroll
-  for (int k = 0; k < NT; ++k)
+    for (int k = 0; k < NT; ++k)
 #pragma unroll
-    for (int j = 0; j < kLaneCols; ++j)
-      if (k < Tc) accv(k, j) = 0.f;
+      for (int j = 0; j < kLaneCols; ++j) acc[k][j] = 0.f;
+  } else {
+    for (int k = 0; k < Tc; ++k)
+#pragma unroll
+      for (int j = 0; j < kLaneCols; ++j) accv(k, j) = 0.f;
+  }
   float val = 0.f;  // VALUE: this thread's NLL terms
 
   const int64_t r0 = chunk * B / chunks;
@@ -362,98 +261,130 @@ valgrad_tiles(const T* __restrict__ x, const float* __restrict__ zc,
     const float lb = __ldg(lse + b);
     const float* zcr = zc + b * RC;
     const float* znr = zn + b * Rn;
-    // this row's latents: registers with compile-time widths
-    float zr[kFixed ? NT : 1], znv[kFixed ? NT : 1];
     if constexpr (kFixed) {
+      // this row's latents in registers
+      float zr[NT], znv[NT];
 #pragma unroll
       for (int k = 0; k < NT; ++k) {
         zr[k] = k < RC ? __ldg(zcr + k) : 0.f;
         znv[k] = k < Rn ? __ldg(znr + k) : 0.f;
       }
-    }
-    auto zcv = [&](int k) -> float {
-      if constexpr (kFixed)
-        return zr[k];
-      else
-        return __ldg(zcr + k);
-    };
-    auto znk = [&](int k) -> float {
-      if constexpr (kFixed)
-        return znv[k];
-      else
-        return __ldg(znr + k);
-    };
-    float rs[NT];  // [rsum | u1 | dzn] over this lane's columns
+      float rs[NT];  // [rsum | u1 | dzn] over this lane's columns
 #pragma unroll
-    for (int s = 0; s < NT; ++s) rs[s] = 0.f;
+      for (int s = 0; s < NT; ++s) rs[s] = 0.f;
 #pragma unroll
-    for (int j = 0; j < kLaneCols; ++j) {
-      const bool ok = c0 + j < D;
-      const float xv = static_cast<float>(xc.v[j]);
-      // h = bias2 + sum_k zc[k] W[k] and nu_pre = bias_n + sum_r zn[r]
-      // wn[r], in compute_h's and compute_nupre's order (K1's normaliser
-      // sees the same h bits)
-      float h = 0.f, bias = 0.f;
+      for (int j = 0; j < kLaneCols; ++j) {
+        const bool ok = c0 + j < D;
+        const float xv = static_cast<float>(xc.v[j]);
+        // h = bias2 + sum_k zc[k] W[k] and nu_pre = bias_n + sum_r zn[r]
+        // wn[r], in the one order of nb_step_common.cuh (K1's normaliser
+        // sees the same h bits)
+        float h = 0.f, bias = 0.f;
 #pragma unroll
-      for (int k = 0; k < NT; ++k) {
-        if (k < RC) h = fmaf(zcv(k), wv(k, j), h);
-        if (k == RC) bias = wv(k, j);
-      }
-      h = h + bias;
-      float npre = 0.f;
+        for (int k = 0; k < NT; ++k) {
+          if (k < RC) h = fmaf(zr[k], w[k][j], h);
+          if (k == RC) bias = w[k][j];
+        }
+        h = h + bias;
+        float npre = 0.f;
 #pragma unroll
-      for (int k = 0; k < NT; ++k)
-        if (k >= base && k < base + Rn)
-          npre = fmaf(znk(k - base), wv(k, j), npre);
-      npre += wv(base + Rn, j);
-      float dls, dnp, vt = 0.f;
-      count_grad<JOINT, VALUE>(xv, h, lb, dep, epb[j], npre, regime, dls, dnp,
-                               vt);
-      dls = ok ? dls : 0.f;
-      dnp = ok ? dnp : 0.f;
-      if (VALUE) val += ok ? vt : 0.f;
+        for (int k = 0; k < NT; ++k)
+          if (k >= base && k < base + Rn)
+            npre = fmaf(znv[k - base], w[k][j], npre);
+        npre += w[base + Rn][j];
+        float dls, dnp, vt = 0.f;
+        count_grad<JOINT, VALUE>(xv, h, lb, dep, epb[j], npre, regime, dls,
+                                 dnp, vt);
+        dls = ok ? dls : 0.f;
+        dnp = ok ? dnp : 0.f;
+        if (VALUE) val += ok ? vt : 0.f;
 #pragma unroll
-      for (int k = 0; k < NT; ++k) {
-        if (k < RC) accv(k, j) = fmaf(zcv(k), dls, accv(k, j));
-        if (k == RC) accv(k, j) += dls;
-        if (k >= base && k < base + Rn)
-          accv(k, j) = fmaf(znk(k - base), dnp, accv(k, j));
-        if (k == base + Rn) accv(k, j) += dnp;
-      }
-      rs[0] += dls;
+        for (int k = 0; k < NT; ++k) {
+          if (k < RC) acc[k][j] = fmaf(zr[k], dls, acc[k][j]);
+          if (k == RC) acc[k][j] += dls;
+          if (k >= base && k < base + Rn)
+            acc[k][j] = fmaf(znv[k - base], dnp, acc[k][j]);
+          if (k == base + Rn) acc[k][j] += dnp;
+        }
+        rs[0] += dls;
 #pragma unroll
-      for (int s = 1; s < NT; ++s) {
-        if (s <= R) rs[s] = fmaf(dls, wv(s - 1, j), rs[s]);
-        if (s > R && s < K) rs[s] = fmaf(dnp, wv(base + s - 1 - R, j), rs[s]);
-      }
-    }
-    // the row's partials over the tile's kTile columns
-    if constexpr (kFixed && 1 + FR + FRn == 4) {
-      // four sums at once: the lanes trade halves of their four values
-      // (lane ^ 16) and then halves of the two left (lane ^ 8), and add
-      // the one left over the lanes of their group of 8; lane 8v holds
-      // output v.  A fixed order, 6 shuffles in place of 20.
-      const bool h16 = lane & 16, h8 = lane & 8;
-      float k0 = h16 ? rs[2] : rs[0], k1 = h16 ? rs[3] : rs[1];
-      k0 += __shfl_xor_sync(0xffffffffu, h16 ? rs[0] : rs[2], 16);
-      k1 += __shfl_xor_sync(0xffffffffu, h16 ? rs[1] : rs[3], 16);
-      float m = h8 ? k1 : k0;
-      m += __shfl_xor_sync(0xffffffffu, h8 ? k0 : k1, 8);
-#pragma unroll
-      for (int off = 4; off > 0; off >>= 1)
-        m += __shfl_xor_sync(0xffffffffu, m, off);
-      if ((lane & 7) == 0) parts[((lane >> 3) * tiles + tile) * B + b] = m;
-    } else {
-      // lane s writes output s
-      float mine = 0.f;
-#pragma unroll
-      for (int s = 0; s < NT; ++s) {
-        if (s < K) {
-          const float t = warp_sum(rs[s]);
-          if (lane == s) mine = t;
+        for (int s = 1; s < NT; ++s) {
+          if (s <= R) rs[s] = fmaf(dls, w[s - 1][j], rs[s]);
+          if (s > R && s < K) rs[s] = fmaf(dnp, w[base + s - 1 - R][j], rs[s]);
         }
       }
-      if (lane < K) parts[(lane * tiles + tile) * B + b] = mine;
+      // the row's partials over the tile's kTile columns
+      if constexpr (1 + FR + FRn == 4) {
+        // four sums at once: the lanes trade halves of their four values
+        // (lane ^ 16) and then halves of the two left (lane ^ 8), and add
+        // the one left over the lanes of their group of 8; lane 8v holds
+        // output v.  A fixed order, 6 shuffles in place of 20.
+        const bool h16 = lane & 16, h8 = lane & 8;
+        float k0 = h16 ? rs[2] : rs[0], k1 = h16 ? rs[3] : rs[1];
+        k0 += __shfl_xor_sync(0xffffffffu, h16 ? rs[0] : rs[2], 16);
+        k1 += __shfl_xor_sync(0xffffffffu, h16 ? rs[1] : rs[3], 16);
+        float m = h8 ? k1 : k0;
+        m += __shfl_xor_sync(0xffffffffu, h8 ? k0 : k1, 8);
+#pragma unroll
+        for (int off = 4; off > 0; off >>= 1)
+          m += __shfl_xor_sync(0xffffffffu, m, off);
+        if ((lane & 7) == 0) parts[((lane >> 3) * tiles + tile) * B + b] = m;
+      } else {
+        // lane s writes output s
+        float mine = 0.f;
+#pragma unroll
+        for (int s = 0; s < NT; ++s) {
+          if (s < K) {
+            const float t = warp_sum(rs[s]);
+            if (lane == s) mine = t;
+          }
+        }
+        if (lane < K) parts[(lane * tiles + tile) * B + b] = mine;
+      }
+    } else {
+      // runtime widths: each count's dls and dnp, then the row outputs
+      float dls[kLaneCols], dnp[kLaneCols];
+#pragma unroll
+      for (int j = 0; j < kLaneCols; ++j) {
+        const bool ok = c0 + j < D;
+        const float xv = static_cast<float>(xc.v[j]);
+        // h and nu_pre in the one order of nb_step_common.cuh
+        float h = 0.f;
+        for (int k = 0; k < RC; ++k) h = fmaf(__ldg(zcr + k), wv(k, j), h);
+        h = h + wv(RC, j);
+        float npre = 0.f;
+        for (int k = 0; k < Rn; ++k)
+          npre = fmaf(__ldg(znr + k), wv(base + k, j), npre);
+        npre += wv(base + Rn, j);
+        float vt = 0.f;
+        count_grad<JOINT, VALUE>(xv, h, lb, dep, epb[j], npre, regime,
+                                 dls[j], dnp[j], vt);
+        dls[j] = ok ? dls[j] : 0.f;
+        dnp[j] = ok ? dnp[j] : 0.f;
+        if (VALUE) val += ok ? vt : 0.f;
+        for (int k = 0; k < RC; ++k)
+          accv(k, j) = fmaf(__ldg(zcr + k), dls[j], accv(k, j));
+        accv(RC, j) += dls[j];
+        for (int k = 0; k < Rn; ++k)
+          accv(base + k, j) = fmaf(__ldg(znr + k), dnp[j], accv(base + k, j));
+        accv(base + Rn, j) += dnp[j];
+      }
+      // output s over this lane's columns (in column order), summed over
+      // the warp; lane s mod 32 writes it
+      for (int s = 0; s < K; ++s) {
+        float v = 0.f;
+#pragma unroll
+        for (int j = 0; j < kLaneCols; ++j) {
+          if (s == 0)
+            v += dls[j];
+          else if (s <= R)
+            v = fmaf(dls[j], wv(s - 1, j), v);
+          else
+            v = fmaf(dnp[j], wv(base + s - 1 - R, j), v);
+        }
+        const float t = warp_sum(v);
+        if (lane == (s & 31)) parts[(s * tiles + tile) * B + b] = t;
+      }
     }
   }
 
@@ -471,14 +402,20 @@ valgrad_tiles(const T* __restrict__ x, const float* __restrict__ zc,
         sacc[warp][k][lane * kLaneCols + j] = acc[k][j];
   }
   __syncthreads();
+  auto sac = [&](int g, int k, int col) -> float {
+    if constexpr (kFixed)
+      return sacc[g][k][col];
+    else
+      return gsacc[(g * Tc + k) * kTile + col];
+  };
   for (int i = threadIdx.x; i < Tc * kTile; i += kBlockThreads) {
     const int k = i / kTile;
     const int col = i % kTile;
     const int64_t c = tile * kTile + col;
     if (c >= D) continue;
-    float s = sacc[0][k][col];
+    float s = sac(0, k, col);
 #pragma unroll
-    for (int g = 1; g < kWarps; ++g) s += sacc[g][k][col];
+    for (int g = 1; g < kWarps; ++g) s += sac(g, k, col);
     if (chunks == 1) {
       gout[k * D + c] = s;
       if (JOINT && k == RC) gout[Tc * D + c] = s;  // the pb row
@@ -488,63 +425,16 @@ valgrad_tiles(const T* __restrict__ x, const float* __restrict__ zc,
   }
 }
 
-// Stage 2, one launch of three kinds of block:
-//   row blocks: 32 (row, output) sums each, lane = output o = k * B + b;
-//     warp w adds tiles w, w + 8, ... in order, then the 8 warps in order;
-//   column blocks (chunks > 1): one (row k, column) sum a thread, the
-//     chunks in order; the pb row (pb_src = R + C) a copy;
-//   one value block (VALUE): thread t adds partials t, t + 256, ..., then
-//     a fixed tree.
+// Stage 2 (nbk::tile::tile_sums): the row partials, the chunks' column
+// partials (the pb row a copy of row R + C) and the value partials
 __global__ void __launch_bounds__(kSumThreads)
 valgrad_sum(const float* __restrict__ parts, const float* __restrict__ cparts,
             const float* __restrict__ vparts, int64_t B, int64_t D, int K,
             int64_t tiles, int Tc, int chunks, int pb_src, int64_t nvparts,
             int64_t row_blocks, int64_t col_blocks, float* __restrict__ rowout,
             float* __restrict__ gout, float* __restrict__ value) {
-  __shared__ float red[kSumThreads];
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  int64_t blk = blockIdx.x;
-  if (blk < row_blocks) {
-    const int64_t o = blk * 32 + lane;
-    const bool ok = o < K * B;
-    const int64_t k = ok ? o / B : 0;
-    const int64_t b = ok ? o - k * B : 0;
-    float s = 0.f;
-    if (ok)
-      for (int64_t p = warp; p < tiles; p += kSumWarps)
-        s += parts[(k * tiles + p) * B + b];
-    red[t] = s;
-    __syncthreads();
-    if (warp == 0 && ok) {
-      float r = red[lane];
-#pragma unroll
-      for (int g = 1; g < kSumWarps; ++g) r += red[g * 32 + lane];
-      rowout[b * K + k] = r;
-    }
-    return;
-  }
-  blk -= row_blocks;
-  if (blk < col_blocks) {
-    const int64_t i = blk * kSumThreads + t;
-    if (i < Tc * D) {
-      float s = cparts[i];
-      for (int ch = 1; ch < chunks; ++ch) s += cparts[ch * Tc * D + i];
-      gout[i] = s;
-      if (i / D == pb_src) gout[Tc * D + (i - pb_src * D)] = s;
-    }
-    return;
-  }
-  float s = 0.f;
-  for (int64_t j = t; j < nvparts; j += kSumThreads) s += vparts[j];
-  red[t] = s;
-  __syncthreads();
-  for (int g = kSumThreads / 2; g > 0; g >>= 1) {
-    if (t < g) red[t] += red[t + g];
-    __syncthreads();
-  }
-  if (t == 0) *value = red[0];
+  tile_sums(parts, cparts, vparts, B, D, K, tiles, Tc, chunks, pb_src,
+            nvparts, row_blocks, col_blocks, rowout, gout, value);
 }
 
 // The launch plan's workspace, in floats: row partials (K, tiles, B),
@@ -558,7 +448,7 @@ struct Workspace {
 
 inline Workspace workspace(int64_t B, int64_t D, int R, int C, int Rn,
                            bool value, int chunks) {
-  const int64_t tiles = vg_tiles(D);
+  const int64_t tiles = tiles_of(D);
   return {(1 + R + Rn) * tiles * B,
           chunks > 1 ? static_cast<int64_t>(chunks) * (R + C + Rn + 2) * D : 0,
           value ? static_cast<int64_t>(chunks) * tiles * kWarps : 0};
@@ -574,39 +464,37 @@ struct Launch {
 };
 
 template <typename T, bool FIXED, bool JOINT, bool VALUE>
-void launch_tiles(const Launch& L, cudaStream_t s) {
-  const dim3 grid(static_cast<unsigned>(vg_tiles(L.D)),
+cudaError_t launch_tiles(const Launch& L, cudaStream_t s) {
+  const dim3 grid(static_cast<unsigned>(tiles_of(L.D)),
                   static_cast<unsigned>(L.chunks));
-  valgrad_tiles<T, FIXED ? kFixR : 0, FIXED ? kFixC : 0, FIXED ? kFixRn : 0,
-                JOINT, VALUE><<<grid, kBlockThreads, 0, s>>>(
+  const auto kernel =
+      valgrad_tiles<T, FIXED ? kFixR : 0, FIXED ? kFixC : 0,
+                    FIXED ? kFixRn : 0, JOINT, VALUE>;
+  const int64_t smem = FIXED ? 0 : general_smem(L.R + L.C + L.Rn + 2);
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<grid, kBlockThreads, smem, s>>>(
       static_cast<const T*>(L.x), L.zc, L.zn, L.depth, L.lse, L.W, L.B, L.D,
       L.R, L.C, L.Rn, L.vec, L.scan16, L.gout, L.parts, L.cparts, L.vparts);
+  return cudaGetLastError();
 }
 
 template <typename T, bool FIXED>
-void launch_variant(const Launch& L, bool joint, bool value, cudaStream_t s) {
-  if (joint && value)
-    launch_tiles<T, FIXED, true, true>(L, s);
-  else if (joint)
-    launch_tiles<T, FIXED, true, false>(L, s);
-  else if (value)
-    launch_tiles<T, FIXED, false, true>(L, s);
-  else
-    launch_tiles<T, FIXED, false, false>(L, s);
+cudaError_t launch_variant(const Launch& L, bool joint, bool value,
+                           cudaStream_t s) {
+  if (joint && value) return launch_tiles<T, FIXED, true, true>(L, s);
+  if (joint) return launch_tiles<T, FIXED, true, false>(L, s);
+  if (value) return launch_tiles<T, FIXED, false, true>(L, s);
+  return launch_tiles<T, FIXED, false, false>(L, s);
 }
 
-// vec: a row's kLaneCols counts of a thread in one load (D a multiple of
-// kLaneCols, x aligned to it); scan16: the regime scan in 16-byte loads
 template <typename T>
-void launch_dtype(Launch L, bool joint, bool value, bool fixed,
-                  cudaStream_t s) {
-  const auto addr = reinterpret_cast<uintptr_t>(L.x);
-  L.vec = L.D % kLaneCols == 0 && addr % (kLaneCols * sizeof(T)) == 0;
-  L.scan16 = L.D % (kScanBytes / sizeof(T)) == 0 && addr % kScanBytes == 0;
-  if (fixed)
-    launch_variant<T, true>(L, joint, value, s);
-  else
-    launch_variant<T, false>(L, joint, value, s);
+cudaError_t launch_dtype(Launch L, bool joint, bool value, bool fixed,
+                         cudaStream_t s) {
+  L.vec = vec_loads<T>(L.x, L.D);
+  L.scan16 = scan16_loads<T>(L.x, L.D);
+  return fixed ? launch_variant<T, true>(L, joint, value, s)
+               : launch_variant<T, false>(L, joint, value, s);
 }
 
 }  // namespace
@@ -617,7 +505,9 @@ void launch_dtype(Launch L, bool joint, bool value, bool fixed,
 // otherwise).  The launch plan (ops/nb_step.valgrad_plan): fixed = 1 for
 // the compile-time instance, which the entry picks by shape, (R, C, Rn) =
 // (2, 1, 1), and refuses otherwise; tile = kTile; chunks row chunks,
-// 1 <= chunks <= B; ws holds ws_floats >= the plan's workspace.  Writes
+// 1 <= chunks <= B; ws holds ws_floats >= the plan's workspace.  The
+// general instance takes any widths whose general_smem(R + C + Rn + 2)
+// fits a block (kMaxSmem: R + C + Rn + 2 <= 181).  Writes
 // gout (R+C+Rn+2+joint, D) and rowout (B, 1 + R + Rn) = [rsum | u1 | dzn].
 // Returns cudaGetLastError() after the two launches (0 = launched).
 extern "C" int mmvae_nb_valgrad(const void* x, int dtype, const void* zc,
@@ -628,10 +518,11 @@ extern "C" int mmvae_nb_valgrad(const void* x, int dtype, const void* zc,
                                 int chunks, void* gout, void* ws,
                                 int64_t ws_floats, void* rowout, void* value,
                                 void* stream) {
-  if (!dims_ok(B, D, R, C, Rn, joint != 0) || (joint != 0 && joint != 1) ||
+  if (!dims_ok(B, D, R, C, Rn) || (joint != 0 && joint != 1) ||
       (need_value != 0 && need_value != 1) ||
       fixed != (fixed_widths(R, C, Rn) ? 1 : 0) || tile != kTile ||
-      chunks < 1 || chunks > B || chunks > kMaxChunks || ws == nullptr)
+      chunks < 1 || chunks > B || chunks > kMaxChunks || ws == nullptr ||
+      general_smem(R + C + Rn + 2) > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool jt = joint != 0;
   const bool nv = need_value != 0;
@@ -647,20 +538,20 @@ extern "C" int mmvae_nb_valgrad(const void* x, int dtype, const void* zc,
                  static_cast<const float*>(depth),
                  static_cast<const float*>(lse), static_cast<const float*>(W),
                  B, D, R, C, Rn, chunks, 0, 0, gp, parts, cparts, vparts};
+  cudaError_t e;
   switch (dtype) {
     case 0:
-      launch_dtype<float>(L, jt, nv, fixed != 0, s);
+      e = launch_dtype<float>(L, jt, nv, fixed != 0, s);
       break;
     case 1:
-      launch_dtype<int16_t>(L, jt, nv, fixed != 0, s);
+      e = launch_dtype<int16_t>(L, jt, nv, fixed != 0, s);
       break;
     case 2:
-      launch_dtype<int8_t>(L, jt, nv, fixed != 0, s);
+      e = launch_dtype<int8_t>(L, jt, nv, fixed != 0, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int K = 1 + R + Rn;
   const int Tc = R + C + Rn + 2;
@@ -669,7 +560,7 @@ extern "C" int mmvae_nb_valgrad(const void* x, int dtype, const void* zc,
       chunks > 1 ? (Tc * D + kSumThreads - 1) / kSumThreads : 0;
   const int64_t blocks = row_blocks + col_blocks + (nv ? 1 : 0);
   valgrad_sum<<<static_cast<unsigned>(blocks), kSumThreads, 0, s>>>(
-      parts, cparts, vparts, B, D, K, vg_tiles(D), Tc, chunks,
+      parts, cparts, vparts, B, D, K, tiles_of(D), Tc, chunks,
       jt ? R + C : -1, plan.vals, row_blocks, col_blocks,
       static_cast<float*>(rowout), gp, static_cast<float*>(value));
   return static_cast<int>(cudaGetLastError());

@@ -125,26 +125,26 @@ def _bind(lib) -> None:
         _vp, _i64, _vp,          # workspace, its floats, stream
     ]
     lib.mmvae_count_encode_bwd.restype = _i32
-    for name, args in (("mmvae_nb_value_ws", [_i64]),
-                       ("mmvae_nb_finish_ws", [_i64, _i64, _i32])):
-        getattr(lib, name).argtypes = args
-        getattr(lib, name).restype = _i64
     rows = [_vp, _vp, _vp, _vp]  # zc, zn, depth, lse
     dims = [_i64, _i64, _i32, _i32, _i32]  # B, D, R, C, Rn
     # lse: zc, W, B, D, R, C, the plan (fixed instance, tile), ws, ws
     # floats, lse, stream
     lib.mmvae_nb_lse.argtypes = [_vp, _vp, _i64, _i64, _i32, _i32, _i32,
                                  _i32, _vp, _i64, _vp, _vp]
-    # value: ..., with_const, joint, ws, out, stream
+    # value: ..., with_const, joint, the plan (fixed instance, tile,
+    # chunks), ws, ws floats, out, stream
     lib.mmvae_nb_value.argtypes = [_vp, _i32, *rows, _vp, *dims, _i32, _i32,
-                                   _vp, _vp, _vp]
+                                   _i32, _i32, _i32, _vp, _i64, _vp, _vp]
     # valgrad: ..., joint, need_value, the plan (fixed instance, tile,
     # chunks), gout, ws, ws floats, rowout, value, stream
     lib.mmvae_nb_valgrad.argtypes = [_vp, _i32, *rows, _vp, *dims, _i32,
                                      _i32, _i32, _i32, _i32, _vp, _vp, _i64,
                                      _vp, _vp, _vp]
+    # finish: zc, lse, rsum, W, B, D, R, C, the plan (fixed instance,
+    # tile, chunks), fout, ws, ws floats, u2, stream
     lib.mmvae_nb_finish.argtypes = [_vp, _vp, _vp, _vp, _i64, _i64, _i32,
-                                    _i32, _vp, _vp, _vp, _vp]
+                                    _i32, _i32, _i32, _i32, _vp, _vp, _i64,
+                                    _vp, _vp]
     # elbo fwd: x, dtype, h, nu_pre, depth, B, D, with_const, rows, out,
     # stream; bwd: g, x, dtype, h, nu_pre, depth, lse, rowsum, B, D, dh,
     # dnu, stream

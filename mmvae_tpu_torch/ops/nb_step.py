@@ -22,12 +22,20 @@ Four kernels, each a wrapper with a plain PyTorch version beside it:
 - :func:`lse` (K1): row logsumexp of ``h``; :func:`lse_plan` is its
   launch plan and workspace;
 - :func:`value` (K6): the NB NLL given that normaliser (reporting pass);
+  :func:`value_plan` is its launch plan and workspace;
 - :func:`valgrad` (K2): one pass over ``x`` giving the stacked per-column
   gradient rows ``gout`` and the per-row ``rsum``, ``u1``, ``dzn``, and
   with ``need_value`` the NLL without ``lgamma(x + 1)`` (K2v for the NB
   model, K2pv for the joint one); :func:`valgrad_plan` is its launch
   plan and workspace;
-- :func:`finish` (K3): the softmax-coupling terms ``fout``, ``u2``.
+- :func:`finish` (K3): the softmax-coupling terms ``fout``, ``u2``;
+  :func:`finish_plan` is its launch plan and workspace.
+
+Every kernel takes the widths the reference trains: a compile-time
+instance for the CLI defaults ((R, C, Rn) = (2, 1, 1)) and a general one
+for any other R >= 1, C >= 0, Rn >= 1, up to the card's shared memory
+(``MAX_STACKED_ROWS``: 181 stacked rows for K2 and K3, 908 for K6, no
+limit for K1), which each plan states and names when it refuses.
 
 A wrapper given CPU tensors runs its plain version; given CUDA tensors it
 launches its kernel (``mmvae_tpu_torch/csrc/nb_*.cu``) or raises — there
@@ -59,30 +67,50 @@ import torch
 from .enc_kernel import _DTYPE_CODE
 from .nb_elbo import EPS, NU_HI, NU_LO, _softplus
 
-MAX_STACKED_ROWS = 16  # T = R + C + Rn + 2 (+ 1 with pb) the kernels take
-# K2's launch plan (csrc/nb_valgrad.cu): a block's D tile (kTile), its
-# warps (kWarps, one value partial each), the widths of the compile-time
-# instance, and the row chunking: ceil(B / 20) chunks, at most 8
+# K2's, K6's and K3's launch plans (csrc/nb_valgrad.cu, nb_value.cu,
+# nb_finish.cu, their shared layout nbk::tile): a block's D tile (kTile),
+# its warps (kWarps, one value partial each), the widths of the
+# compile-time instances, and each kernel's row chunking, at most 8
+# chunks: ceil(B / 20) for K2 and K6, ceil(B / 50) for K3 (the best of
+# 1-8 chunks at the main path's B = 100 on the H100, PERF.md)
 VALGRAD_TILE = 64
 VALGRAD_WARPS = 4
 VALGRAD_FIXED = (2, 1, 1)
 VALGRAD_CHUNK_ROWS = 20
 VALGRAD_MAX_CHUNKS = 8
+VALUE_CHUNK_ROWS = 20
+VALUE_MAX_CHUNKS = 8
+FINISH_FIXED = (2, 1)
+FINISH_CHUNK_ROWS = 50
+FINISH_MAX_CHUNKS = 8
 # K1's launch plan (csrc/nb_lse.cu): a block's D tile (kTile: 8 warps x
 # 32 columns) and rows (kGroup: one a lane), and the widths (R, C) of its
 # compile-time instance
 LSE_TILE = 256
 LSE_GROUP = 32
 LSE_FIXED = (2, 1)
+# The only width limit, forced by the card: the shared memory an H100
+# block can have (kMaxSmem).  The general instances of K2 and K3 keep a
+# float a (stacked row, column) for the tile's weights and for each of
+# the block's 4 warps' column sums, 5 x 64 x 4 = 1,280 bytes a row: at
+# most 181 rows (R + C + Rn + 2 for K2, R + C + 1 for K3).  K6's keeps
+# the weights alone, 256 bytes a row: 908 rows.  K1 walks its rows in
+# slices and has no limit.
+MAX_SMEM_BYTES = 232448
+SMEM_ROW_BYTES = {"valgrad": (1 + VALGRAD_WARPS) * VALGRAD_TILE * 4,
+                  "value": VALGRAD_TILE * 4,
+                  "finish": (1 + VALGRAD_WARPS) * VALGRAD_TILE * 4}
+MAX_STACKED_ROWS = {k: MAX_SMEM_BYTES // v for k, v in SMEM_ROW_BYTES.items()}
 
 
-class ValgradPlan(NamedTuple):
-    """One K2 call: its stage-1 instance ("fixed", the compile-time
-    (R, C, Rn) = (2, 1, 1), or "general"), the D tile width and count,
-    the row chunks, the stage-1 grid (tiles, chunks), and the workspace
-    in floats: row partials (1 + R + Rn, tiles, B), column partials
-    (chunks, R + C + Rn + 2, D) when chunks > 1, value partials
-    (chunks, tiles, warps) with ``need_value``."""
+class TilePlan(NamedTuple):
+    """One K2, K6 or K3 call: its stage-1 instance ("fixed", the
+    compile-time widths, or "general"), the D tile width and count, the
+    row chunks, the stage-1 grid (tiles, chunks), the workspace in
+    floats: row partials (outputs, tiles, B), column partials (chunks,
+    rows, D) when chunks > 1, value partials (chunks, tiles, warps); and
+    the general instance's dynamic shared memory in bytes (0 for the
+    compile-time one)."""
     instance: str
     tile: int
     tiles: int
@@ -91,36 +119,107 @@ class ValgradPlan(NamedTuple):
     row_parts: int
     col_parts: int
     value_parts: int
+    smem: int
 
     @property
     def workspace(self) -> int:
         return self.row_parts + self.col_parts + self.value_parts
 
 
+def _chunks(B: int, rows: int, most: int) -> int:
+    return min(-(-B // rows), most)
+
+
+def _check_rows(what: str, kernel: str, rows: int, R: int, C: int,
+                Rn: int = 1) -> int:
+    """The general instance's shared memory for ``rows`` stacked rows, or
+    a refusal naming the card's limit."""
+    if R < 1 or C < 0 or Rn < 1:
+        raise ValueError(f"{what} takes R >= 1 latent, C >= 0 covariate "
+                         f"and Rn >= 1 overdispersion stacked rows (R={R}, "
+                         f"C={C}, Rn={Rn})")
+    smem = rows * SMEM_ROW_BYTES[kernel]
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(
+            f"{what}: {rows} stacked rows need {smem:,} bytes of shared "
+            f"memory in the general instance ({SMEM_ROW_BYTES[kernel]:,} a "
+            f"row), past the {MAX_SMEM_BYTES:,} bytes an H100 block can "
+            f"have: at most {MAX_STACKED_ROWS[kernel]} stacked rows "
+            f"(R={R}, C={C}, Rn={Rn})")
+    return smem
+
+
+def _check_shape(B, D):
+    if B < 1 or D < 1:
+        raise ValueError(f"empty operands (B={B}, D={D})")
+
+
 def valgrad_plan(B: int, D: int, R: int, C: int, Rn: int,
                  joint: bool = False, need_value: bool = False
-                 ) -> ValgradPlan:
+                 ) -> TilePlan:
     """K2's launch plan for x (B, D).  The tile width and the chunking
     depend on (B, D) alone, never on the widths, the dtype or the card,
     so the order of every sum is fixed by (B, D); the instance by the
     widths; the workspace by the shape and ``need_value`` (the pb row of
-    ``joint`` is a copy of the colsum(dls) row and needs none)."""
-    _check_widths(B, D, R, C, Rn, int(joint))
+    ``joint`` is a copy of the colsum(dls) row and needs none).  Any
+    widths whose R + C + Rn + 2 rows fit the general instance's shared
+    memory (``MAX_STACKED_ROWS["valgrad"]``)."""
+    Tc = R + C + Rn + 2
+    smem = _check_rows("nb_step.valgrad", "valgrad", Tc, R, C, Rn)
+    _check_shape(B, D)
+    fixed = (R, C, Rn) == VALGRAD_FIXED
     tiles = -(-D // VALGRAD_TILE)
-    chunks = min(-(-B // VALGRAD_CHUNK_ROWS), VALGRAD_MAX_CHUNKS)
-    return ValgradPlan(
-        "fixed" if (R, C, Rn) == VALGRAD_FIXED else "general",
-        VALGRAD_TILE, tiles, chunks, (tiles, chunks),
-        (1 + R + Rn) * tiles * B,
-        chunks * (R + C + Rn + 2) * D if chunks > 1 else 0,
-        chunks * tiles * VALGRAD_WARPS if need_value else 0)
+    chunks = _chunks(B, VALGRAD_CHUNK_ROWS, VALGRAD_MAX_CHUNKS)
+    return TilePlan(
+        "fixed" if fixed else "general", VALGRAD_TILE, tiles, chunks,
+        (tiles, chunks), (1 + R + Rn) * tiles * B,
+        chunks * Tc * D if chunks > 1 else 0,
+        chunks * tiles * VALGRAD_WARPS if need_value else 0,
+        0 if fixed else smem)
+
+
+def value_plan(B: int, D: int, R: int, C: int, Rn: int,
+               joint: bool = False) -> TilePlan:
+    """K6's launch plan for x (B, D): K2's tiles, its own chunking (by B
+    alone), one value partial a warp; the instance by the widths (the
+    compile-time (2, 1, 1), or the general one for any widths whose
+    R + C + Rn + 2 weight rows fit its shared memory,
+    ``MAX_STACKED_ROWS["value"]``; ``joint``'s pb row is read apart)."""
+    Tw = R + C + Rn + 2
+    smem = _check_rows("nb_step.value", "value", Tw, R, C, Rn)
+    _check_shape(B, D)
+    fixed = (R, C, Rn) == VALGRAD_FIXED
+    tiles = -(-D // VALGRAD_TILE)
+    chunks = _chunks(B, VALUE_CHUNK_ROWS, VALUE_MAX_CHUNKS)
+    return TilePlan("fixed" if fixed else "general", VALGRAD_TILE, tiles,
+                    chunks, (tiles, chunks), 0, 0,
+                    chunks * tiles * VALGRAD_WARPS, 0 if fixed else smem)
+
+
+def finish_plan(B: int, D: int, R: int, C: int) -> TilePlan:
+    """K3's launch plan for B rows of D columns from R + C latents: K2's
+    tiles, its own chunking (by B alone), u2's row partials (R, tiles, B)
+    and, with more than one chunk, the chunks' partials of fout's
+    R + C + 1 rows; the instance by (R, C) (the compile-time (2, 1), or
+    the general one for any R + C + 1 <= ``MAX_STACKED_ROWS["finish"]``).
+    K3 reads no overdispersion rows: the widths are R and C alone."""
+    Tc = R + C + 1
+    smem = _check_rows("nb_step.finish", "finish", Tc, R, C)
+    _check_shape(B, D)
+    fixed = (R, C) == FINISH_FIXED
+    tiles = -(-D // VALGRAD_TILE)
+    chunks = _chunks(B, FINISH_CHUNK_ROWS, FINISH_MAX_CHUNKS)
+    return TilePlan("fixed" if fixed else "general", VALGRAD_TILE, tiles,
+                    chunks, (tiles, chunks), R * tiles * B,
+                    chunks * Tc * D if chunks > 1 else 0, 0,
+                    0 if fixed else smem)
 
 
 class LsePlan(NamedTuple):
     """One K1 call: its stage-1 instance ("fixed", the compile-time
-    (R, C) = (2, 1), or "general"), the D tile width and count, the row
-    groups, the stage-1 grid (row groups, tiles), and the workspace in
-    floats: one (max, sum) pair per (tile, row)."""
+    (R, C) = (2, 1), or "general", any R >= 1, C >= 0), the D tile width
+    and count, the row groups, the stage-1 grid (row groups, tiles), and
+    the workspace in floats: one (max, sum) pair per (tile, row)."""
     instance: str
     tile: int
     tiles: int
@@ -132,13 +231,12 @@ class LsePlan(NamedTuple):
 def lse_plan(B: int, D: int, R: int, C: int) -> LsePlan:
     """K1's launch plan for B rows of D logits from R + C latents.  The
     tile and the row groups depend on (B, D) alone, so the order of every
-    merge is fixed by the shape; the instance by the widths."""
-    if R < 1 or C < 0 or R + C + 1 > MAX_STACKED_ROWS:
-        raise ValueError(f"nb_step.lse takes R >= 1, C >= 0 and R + C + 1 "
-                         f"<= {MAX_STACKED_ROWS} stacked rows (R={R}, "
-                         f"C={C})")
-    if B < 1 or D < 1:
-        raise ValueError(f"empty operands (B={B}, D={D})")
+    merge is fixed by the shape; the instance by the widths (the general
+    one walks any R + C in slices of 16 stacked rows)."""
+    if R < 1 or C < 0:
+        raise ValueError(f"nb_step.lse takes R >= 1, C >= 0 stacked rows "
+                         f"(R={R}, C={C})")
+    _check_shape(B, D)
     tiles = -(-D // LSE_TILE)
     groups = -(-B // LSE_GROUP)
     return LsePlan("fixed" if (R, C) == LSE_FIXED else "general", LSE_TILE,
@@ -281,23 +379,13 @@ def _check(what: str, x, named: dict) -> torch.device:
     return dev
 
 
-def _check_widths(B, D, R, C, Rn, extra):
-    if (R < 1 or C < 0 or Rn < 1
-            or R + C + Rn + 2 + extra > MAX_STACKED_ROWS):
-        raise ValueError(f"the step kernels take R >= 1, Rn >= 1 and "
-                         f"R + C + Rn + 2 (+ 1 with pb) <= {MAX_STACKED_ROWS}"
-                         f" stacked rows (R={R}, C={C}, Rn={Rn})")
-    if B < 1 or D < 1:
-        raise ValueError(f"empty operands (B={B}, D={D})")
-
-
-def _dims(zc, W, R, C, Rn=1, extra=0):
-    B, D = zc.shape[0], W.shape[1]
+def _dims(zc, W, R, C):
+    """(B, D) of the latents zc (B, R + C) and the stacked rows W (T, D);
+    each kernel's plan checks the widths."""
     if zc.dim() != 2 or W.dim() != 2 or zc.shape[1] != R + C:
         raise ValueError(f"zc {tuple(zc.shape)} / W {tuple(W.shape)} do not "
                          f"match R={R}, C={C}")
-    _check_widths(B, D, R, C, Rn, extra)
-    return B, D
+    return zc.shape[0], W.shape[1]
 
 
 def _lib():
@@ -328,10 +416,7 @@ def lse(zc, W, R: int, C: int) -> torch.Tensor:
 
 
 def _lse_kernel(zc, W, R, C):
-    if zc.dim() != 2 or W.dim() != 2 or zc.shape[1] != R + C:
-        raise ValueError(f"zc {tuple(zc.shape)} / W {tuple(W.shape)} do not "
-                         f"match R={R}, C={C}")
-    B, D = zc.shape[0], W.shape[1]
+    B, D = _dims(zc, W, R, C)
     plan = lse_plan(B, D, R, C)
     if W.shape[0] < R + C + 1:
         raise ValueError("nb_step.lse: W needs R + C + 1 rows")
@@ -350,7 +435,7 @@ lse.launches = 0
 
 
 def _row_inputs(what, x, zc, zn, depth, norm, W, R, C, Rn, joint):
-    B, D = _dims(zc, W, R, C, Rn, int(joint))
+    B, D = _dims(zc, W, R, C)
     if tuple(x.shape) != (B, D):
         raise ValueError(f"{what}: x has shape {tuple(x.shape)}, expected "
                          f"{(B, D)}")
@@ -377,12 +462,15 @@ def _value_kernel(x, zc, zn, depth, norm, W, R, C, Rn, with_const,
     joint = bool(joint)
     B, D, dev = _row_inputs("nb_step.value", x, zc, zn, depth, norm, W, R,
                             C, Rn, joint)
-    ws = _f32((_lib().mmvae_nb_value_ws(D),), dev)
+    plan = value_plan(B, D, R, C, Rn, joint)
+    ws = _f32((plan.workspace,), dev)
     out = _f32((), dev)
     _call(dev, "nb_step.value", "mmvae_nb_value", x.data_ptr(),
           _DTYPE_CODE[x.dtype], zc.data_ptr(), zn.data_ptr(),
           depth.data_ptr(), norm.data_ptr(), W.data_ptr(), B, D, R, C, Rn,
-          int(with_const), int(joint), ws.data_ptr(), out.data_ptr())
+          int(with_const), int(joint), int(plan.instance == "fixed"),
+          plan.tile, plan.chunks, ws.data_ptr(), plan.workspace,
+          out.data_ptr())
     if joint:
         value.joint_launches += 1
     else:
@@ -452,18 +540,20 @@ def finish(zc, norm, rsum, W, R: int, C: int):
 
 def _finish_kernel(zc, norm, rsum, W, R, C):
     B, D = _dims(zc, W, R, C)
+    plan = finish_plan(B, D, R, C)
     rsum = rsum.contiguous()
     dev = _check("nb_step.finish", None, {
         "zc": (zc, (B, R + C)), "lse": (norm, (B, 1)),
         "rsum": (rsum, (B, 1)), "W": (W, (W.shape[0], D))})
     if W.shape[0] < R + C + 1:
         raise ValueError("nb_step.finish: W needs R + C + 1 rows")
-    ws = _f32((_lib().mmvae_nb_finish_ws(B, D, R),), dev)
+    ws = _f32((plan.workspace,), dev)
     fout = _f32((R + C + 1, D), dev)
     u2 = _f32((B, R), dev)
     _call(dev, "nb_step.finish", "mmvae_nb_finish", zc.data_ptr(),
           norm.data_ptr(), rsum.data_ptr(), W.data_ptr(), B, D, R, C,
-          fout.data_ptr(), ws.data_ptr(), u2.data_ptr())
+          int(plan.instance == "fixed"), plan.tile, plan.chunks,
+          fout.data_ptr(), ws.data_ptr(), plan.workspace, u2.data_ptr())
     finish.launches += 1
     return fout, u2
 

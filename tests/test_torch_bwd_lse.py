@@ -130,8 +130,15 @@ def test_lse_plan_instance_by_widths(widths):
 
 @pytest.mark.parametrize("bad", [(0, 1), (15, 1), (16, 0), (2, -1)])
 def test_lse_plan_refuses_bad_widths(bad):
-    with pytest.raises(ValueError, match="stacked rows"):
-        tns.lse_plan(10, 100, *bad)
+    """R = 0 and C < 0 stay refused; (15, 1) and (16, 0) (17 stacked
+    rows, which the port once refused) take the general instance, which
+    walks its rows in slices: K1 has no width limit."""
+    R, C = bad
+    if R >= 1 and C >= 0:
+        assert tns.lse_plan(10, 100, *bad).instance == "general"
+    else:
+        with pytest.raises(ValueError, match="stacked rows"):
+            tns.lse_plan(10, 100, *bad)
     with pytest.raises(ValueError, match="empty"):
         tns.lse_plan(0, 100, 2, 1)
     with pytest.raises(ValueError, match="empty"):
@@ -215,10 +222,8 @@ def test_lse_kernel_route_refuses_bad_operands(bad):
     match = {"widths": "stacked rows", "empty_rows": "empty",
              "empty_cols": "empty", "short_W": "R \\+ C \\+ 1 rows",
              "zc_width": "do not match"}[bad]
-    if bad == "widths":
-        R, C = 15, 1
-        zc = torch.zeros((5, 16))
-        W = torch.zeros((17, 70))
+    if bad == "widths":  # R = 0: no latents (any R >= 1 is taken)
+        R, C = 0, 3
     elif bad == "empty_rows":
         zc = zc[:0]
     elif bad == "empty_cols":

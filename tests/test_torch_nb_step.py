@@ -218,11 +218,20 @@ def test_kernel_routes_refuse_cpu_tensors(kernel):
 
 
 def test_kernel_routes_refuse_unsupported_widths():
+    """Any width the reference trains has a plan on the general instance
+    (T = 18 here, past the 16 stacked rows the port once took); what
+    stays refused: latents that do not match the widths, and widths past
+    the card's shared memory a block, whose refusal names the limit."""
     x, zm, c, zn, depth, *w = _torch(_inputs("le7", np.int8, B=4, D=64))
     zc = torch.cat([zm, c], 1)
     W = tns.stack_rows(*w)
+    assert tns._dims(zc, W, 2, 1) == (4, 64)
+    for plan in (tns.valgrad_plan(4, 64, 2, 1, 13),
+                 tns.value_plan(4, 64, 2, 1, 13),
+                 tns.finish_plan(4, 64, 2, 14)):
+        assert plan.instance == "general"
     with pytest.raises(ValueError, match="stacked rows"):
-        tns._dims(zc, W, 2, 1, Rn=13)
+        tns.valgrad_plan(4, 64, 2, 1, tns.MAX_STACKED_ROWS["valgrad"])
     with pytest.raises(ValueError, match="do not match"):
         tns._dims(zm, W, 2, 1)
 
@@ -335,12 +344,144 @@ def test_valgrad_plan_chunks():
 @pytest.mark.parametrize("bad", [(2, 1, 13), (0, 1, 1), (2, 1, 0),
                                  (2, -1, 1)])
 def test_valgrad_plan_refuses_unsupported_widths(bad):
-    with pytest.raises(ValueError, match="stacked rows"):
-        tns.valgrad_plan(10, 100, *bad)
-    with pytest.raises(ValueError, match="stacked rows"):
-        tns.valgrad_plan(10, 100, 2, 1, 11, joint=True)  # T = 17
+    """R = 0, Rn = 0 and C < 0 stay refused; (2, 1, 13) (T = 18) and the
+    joint (2, 1, 11) (T = 17), which the port once refused, take the
+    general instance; past the card's shared memory a block is refused
+    with the limit named."""
+    R, C, Rn = bad
+    if R >= 1 and C >= 0 and Rn >= 1:
+        assert tns.valgrad_plan(10, 100, *bad).instance == "general"
+    else:
+        with pytest.raises(ValueError, match="stacked rows"):
+            tns.valgrad_plan(10, 100, *bad)
+    assert tns.valgrad_plan(10, 100, 2, 1, 11,
+                            joint=True).instance == "general"  # T = 17
+    with pytest.raises(ValueError, match="at most 181 stacked rows"):
+        tns.valgrad_plan(10, 100, 2, 1, 200)
     with pytest.raises(ValueError, match="empty"):
         tns.valgrad_plan(0, 100, 2, 1, 1)
+
+
+# ----------------------------------------------------------------------
+# K6's and K3's launch plans (value_plan, finish_plan): K2's tiles, each
+# kernel's own chunking by B alone, the instance by the widths
+# (chip_smoke.py phase 30 launches every case below)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("B", PLAN_BS)
+def test_value_plan_tiles_and_chunks_depend_on_B_and_D_alone(B):
+    """One tiling and chunking for every width and variant; the workspace
+    is one value partial a warp of every (chunk, tile) block."""
+    for D in PLAN_DS:
+        layouts = set()
+        for R, C, Rn in ((2, 1, 1), (4, 2, 3), (1, 0, 1), (13, 1, 1)):
+            for joint in (False, True):
+                p = tns.value_plan(B, D, R, C, Rn, joint)
+                layouts.add((p.tile, p.tiles, p.chunks, p.grid))
+                assert (p.row_parts, p.col_parts) == (0, 0)
+                assert p.workspace == p.value_parts == (
+                    p.chunks * p.tiles * tns.VALGRAD_WARPS)
+        (layout,) = layouts
+        tile, tiles, chunks, grid = layout
+        assert tile == tns.VALGRAD_TILE and tiles * tile >= D > (
+            tiles - 1) * tile
+        assert 1 <= chunks <= min(B, tns.VALUE_MAX_CHUNKS)
+        assert grid == (tiles, chunks)
+
+
+@pytest.mark.parametrize("B", PLAN_BS)
+def test_finish_plan_tiles_and_chunks_depend_on_B_and_D_alone(B):
+    """One tiling and chunking for every (R, C); the workspace is u2's
+    row partials (R, tiles, B) and, with more than one chunk, the
+    chunks' partials of fout's R + C + 1 rows."""
+    for D in PLAN_DS:
+        layouts = set()
+        for R, C in ((2, 1), (4, 2), (1, 0), (13, 1), (2, 12)):
+            p = tns.finish_plan(B, D, R, C)
+            layouts.add((p.tile, p.tiles, p.chunks, p.grid))
+            assert p.row_parts == R * p.tiles * B
+            assert p.col_parts == (p.chunks * (R + C + 1) * D
+                                   if p.chunks > 1 else 0)
+            assert p.value_parts == 0
+        (layout,) = layouts
+        tile, tiles, chunks, grid = layout
+        assert tile == tns.VALGRAD_TILE and tiles * tile >= D > (
+            tiles - 1) * tile
+        assert 1 <= chunks <= min(B, tns.FINISH_MAX_CHUNKS)
+        assert grid == (tiles, chunks)
+
+
+def test_value_and_finish_plan_chunks():
+    """K6: ceil(B / 20) row chunks, at most 8 (5 at the main path's
+    B = 100); K3: ceil(B / 50), at most 8 (2 at B = 100)."""
+    Bs = (1, 20, 21, 37, 50, 51, 100, 140, 141, 1600)
+    assert [tns.value_plan(B, 20000, 2, 1, 1).chunks for B in Bs] == [
+        1, 1, 2, 2, 3, 3, 5, 7, 8, 8]
+    assert [tns.finish_plan(B, 20000, 2, 1).chunks for B in Bs] == [
+        1, 1, 1, 1, 1, 2, 2, 3, 3, 8]
+    assert tns.value_plan(100, 20000, 2, 1, 1).grid == (313, 5)
+    assert tns.finish_plan(100, 20000, 2, 1).grid == (313, 2)
+
+
+@pytest.mark.parametrize("widths", [(2, 1, 1), (4, 2, 3), (1, 0, 1),
+                                    (2, 0, 1), (2, 1, 2), (3, 1, 1),
+                                    (13, 1, 1), (2, 123, 1)])
+def test_value_and_finish_plan_instance_by_widths(widths):
+    """K6's compile-time instance takes (2, 1, 1) alone; K3's (2, 1),
+    whatever Rn (it reads no overdispersion rows); the general ones the
+    rest, with their shared memory."""
+    R, C, Rn = widths
+    for B in PLAN_BS:
+        for D in PLAN_DS:
+            for joint in (False, True):
+                p = tns.value_plan(B, D, R, C, Rn, joint)
+                assert p.instance == ("fixed" if widths == (2, 1, 1)
+                                      else "general")
+                assert p.smem == (0 if p.instance == "fixed"
+                                  else (R + C + Rn + 2) * 256)
+            p = tns.finish_plan(B, D, R, C)
+            assert p.instance == ("fixed" if (R, C) == (2, 1)
+                                  else "general")
+            assert p.smem == (0 if p.instance == "fixed"
+                              else (R + C + 1) * 1280)
+
+
+@pytest.mark.parametrize("bad", [(0, 1, 1), (2, -1, 1), (2, 1, 0)])
+def test_value_and_finish_plan_refuse_bad_widths(bad):
+    R, C, Rn = bad
+    with pytest.raises(ValueError, match="stacked rows"):
+        tns.value_plan(10, 100, *bad)
+    if Rn >= 1:  # K3 takes no Rn
+        with pytest.raises(ValueError, match="stacked rows"):
+            tns.finish_plan(10, 100, R, C)
+    with pytest.raises(ValueError, match="empty"):
+        tns.value_plan(10, 0, 2, 1, 1)
+    with pytest.raises(ValueError, match="empty"):
+        tns.finish_plan(0, 100, 2, 1)
+
+
+@pytest.mark.parametrize("widths", [(2, 1, 1), (3, 1, 2), (13, 1, 1)])
+def test_value_and_finish_kernel_routes_refuse_cpu_tensors(widths):
+    """A CPU tensor at K6's and K3's kernel routes raises whatever the
+    plan's instance; the public wrappers take the plain versions and
+    launch nothing."""
+    R, C, Rn = widths
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.poisson(1.0, (5, 70)).astype(np.int8))
+    zc = torch.from_numpy(rng.normal(size=(5, R + C)).astype(np.float32))
+    zn = torch.from_numpy(rng.normal(size=(5, Rn)).astype(np.float32))
+    depth = torch.ones((5, 1))
+    W = torch.from_numpy(
+        rng.normal(size=(R + C + Rn + 2, 70)).astype(np.float32))
+    lse = tns.lse_ref(zc, W, R, C)
+    with pytest.raises(ValueError, match="no kernel"):
+        tns._value_kernel(x, zc, zn, depth, lse, W, R, C, Rn, True)
+    with pytest.raises(ValueError, match="no kernel"):
+        tns._finish_kernel(zc, lse, lse, W, R, C)
+    before = (tns.value.launches, tns.finish.launches)
+    tns.value(x, zc, zn, depth, lse, W, R, C, Rn)
+    tns.finish(zc, lse, lse, W, R, C)
+    assert (tns.value.launches, tns.finish.launches) == before
 
 
 def test_valgrad_kernel_route_refuses_cpu_tensors_at_every_instance():
@@ -396,3 +537,35 @@ def test_valgrad_instances_read_by_phase_1():
     with pytest.raises(AssertionError, match="nb_valgrad.cu instances spill"):
         chip_smoke.check_instances(_vg_log(spill=8), "nb_valgrad.cu",
                                    chip_smoke.valgrad_label)
+
+
+# chip_smoke.py phase 1 reads every nb_value.cu and nb_finish.cu instance's
+# registers and spills from ptxas' report (the same reader)
+def _vf_log(spill=0):
+    value = "".join(_VG_ENTRY.format(name=n, spill=b, regs=r) for n, b, r in (
+        ("11value_tilesIaLi2ELi1ELi1ELb1ELb0EEEvPKT_PKfS5_S5_S5_S5_lliiiiiPf",
+         0, 72),
+        ("11value_tilesIfLi0ELi0ELi0ELb0ELb1EEEvPKT_PKfS5_S5_S5_S5_lliiiiiPf",
+         spill, 68),
+        ("9value_sumEPKflPf", 0, 31)))
+    finish = "".join(_VG_ENTRY.format(name=n, spill=b, regs=r) for n, b, r in (
+        ("12finish_tilesILi2ELi1EEEvPKfS2_S2_S2_lliiPfS3_S3_", 0, 47),
+        ("12finish_tilesILi0ELi0EEEvPKfS2_S2_S2_lliiPfS3_S3_", spill, 56),
+        ("10finish_sumEPKfS1_lliliillPfS2_", 0, 32)))
+    return f"== nb_value.cu\n{value}== nb_finish.cu\n{finish}"
+
+
+def test_value_and_finish_instances_read_by_phase_1():
+    import chip_smoke
+
+    assert chip_smoke.check_instances(
+        _vf_log(), "nb_value.cu", chip_smoke.value_label) == [
+        ("int8 2+1+1+const", 72, 0), ("f32 general+joint", 68, 0),
+        ("sum", 31, 0)]
+    assert chip_smoke.check_instances(
+        _vf_log(), "nb_finish.cu", chip_smoke.finish_label) == [
+        ("2+1", 47, 0), ("general", 56, 0), ("sum", 32, 0)]
+    for source, label in (("nb_value.cu", chip_smoke.value_label),
+                          ("nb_finish.cu", chip_smoke.finish_label)):
+        with pytest.raises(AssertionError, match=f"{source} instances spill"):
+            chip_smoke.check_instances(_vf_log(spill=8), source, label)

@@ -147,7 +147,7 @@ def test_port_kernel_names():
         "void (anonymous namespace)::valgrad_tiles<signed char, 2, 1, 1, "
         "false, false>(signed char const*)") == "nb_valgrad"
     assert trace_step.port_kernel("nbk::reduce_parts(float const*, long)"
-                                  ) == "nb_step rows"
+                                  ) == "nb_elbo_fwd"
     assert trace_step.port_kernel(
         "void (anonymous namespace)::lse_sum(float const*)") == "nb_lse"
     for torch_kernel in ("void at::native::vectorized_elementwise_kernel<4>",
@@ -160,8 +160,8 @@ def test_port_kernel_names():
 
 def test_port_kernel_names_valgrad_stages():
     """Both stages of K2 (``csrc/nb_valgrad.cu``) are K2's time in the
-    table, in every instance; the second stage of K6, K3 and K7
-    (``reduce_parts``) stays apart."""
+    table, in every instance; K7's second stage (``reduce_parts``, which
+    K6 and K3 no longer use) is K7's."""
     for stage in ("void (anonymous namespace)::valgrad_tiles<short, 0, 0, "
                   "0, true, true>(short const*, float const*)",
                   "void (anonymous namespace)::valgrad_tiles<float, 2, 1, 1, "
@@ -172,7 +172,27 @@ def test_port_kernel_names_valgrad_stages():
         assert trace_step.port_kernel(stage) == "nb_valgrad"
     assert trace_step.port_kernel(
         "nbk::reduce_parts(float const*, long, long, int, float*, long)"
-    ) == "nb_step rows"
+    ) == "nb_elbo_fwd"
+
+
+def test_port_kernel_names_value_and_finish_stages():
+    """Both stages of K6 (``csrc/nb_value.cu``) are K6's time and both
+    stages of K3 (``csrc/nb_finish.cu``) K3's, in every instance."""
+    for stage in ("void (anonymous namespace)::value_tiles<signed char, "
+                  "2, 1, 1, true, false>(signed char const*)",
+                  "void (anonymous namespace)::value_tiles<float, 0, 0, 0, "
+                  "true, true>(float const*)",
+                  "(anonymous namespace)::value_sum(float const*, long, "
+                  "float*)"):
+        assert trace_step.port_kernel(stage) == "nb_value"
+    for stage in ("void (anonymous namespace)::finish_tiles<2, 1>(float "
+                  "const*)",
+                  "void (anonymous namespace)::finish_tiles<0, 0>(float "
+                  "const*)",
+                  "(anonymous namespace)::finish_sum(float const*, float "
+                  "const*, long, long, int, long, int, int, long, long, "
+                  "float*, float*)"):
+        assert trace_step.port_kernel(stage) == "nb_finish"
 
 
 def test_port_kernel_names_encoder_forward_stages():

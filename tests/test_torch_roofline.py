@@ -108,7 +108,7 @@ def test_op_mix_prediction_keeps_the_jax_arithmetic():
 
 @pytest.mark.parametrize("kernel", list(vr.OP_MIX))
 def test_op_mix_prediction_of_each_instance(kernel):
-    """Every K2 instance prices its own op mix."""
+    """Every K2, K6 and K3 instance prices its own op mix."""
     rates = {"fma": 2.0, "exp": 7.0, "log": 4.0, "div": 5.0, "select": 3.0}
     alu, n_exp, n_log, n_div = vr.OP_MIX[kernel]
     total, parts = vr.op_mix_prediction(rates, 10, kernel)
@@ -128,6 +128,19 @@ def test_op_mix_of_the_variants():
         assert [v - g for g, v in zip(mix[grad], mix[value])] == [26, 0, 2, 0]
     assert mix["nb_valgrad[pb,nu_exp]"][0] < mix["nb_valgrad"][0]
     assert mix["nb_valgrad[pb,nu_exp]"][2] == 1
+
+
+def test_op_mix_of_k6_and_k3():
+    """K6 and K6p price their compile-time instances as K2's are priced:
+    the joint one drops the softplus (log1p) and the clip for the pb
+    multiply and exp-nu's min; K3 is an FMA chain with one exp, no log
+    and no divide; each is below K2's ALU count."""
+    mix = vr.OP_MIX
+    assert mix["nb_value"] == (79, 2, 5, 1)
+    assert mix["nb_value[pb,nu_exp]"] == (76, 2, 4, 1)
+    assert mix["nb_finish"] == (25, 1, 0, 0)
+    for k in ("nb_value", "nb_value[pb,nu_exp]", "nb_finish"):
+        assert mix[k][0] < mix["nb_valgrad"][0]
 
 
 def test_block_regimes():

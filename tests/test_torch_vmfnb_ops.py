@@ -363,10 +363,19 @@ def test_joint_cpu_wrappers_launch_no_kernel():
 
 
 def test_stacked_rows_limit_counts_the_pb_row():
-    """16 stacked rows at most: R + C + Rn + 3 with pb."""
+    """The joint model's R + C + Rn + 3 stacked rows with pb: 17 of them,
+    which the step kernels once refused, take the general instances; the
+    card's limit counts the rows a general instance holds in shared
+    memory, R + C + Rn + 2, since K2 and K6 read the pb row's exp(pb)
+    from W apart."""
     B, D = 2, 8
     zc = torch.zeros((B, 13))
     W = torch.zeros((17, D))
+    assert tns._dims(zc, W, 12, 1) == (B, D)
+    assert tns.valgrad_plan(B, D, 12, 1, 1, joint=True).instance == "general"
+    assert tns.value_plan(B, D, 12, 1, 1, joint=True).instance == "general"
+    most = tns.MAX_STACKED_ROWS["valgrad"]
+    plan = tns.valgrad_plan(B, D, 12, 1, most - 15, joint=True)
+    assert plan.smem == most * tns.SMEM_ROW_BYTES["valgrad"]
     with pytest.raises(ValueError, match="stacked rows"):
-        tns._dims(zc, W, 12, 1, 1, extra=1)
-    tns._dims(zc, W[:16], 12, 1, 1, extra=0)
+        tns.valgrad_plan(B, D, 12, 1, most - 14, joint=True)
