@@ -11,7 +11,8 @@ exits non-zero without the final line):
 1. build: compile every kernel of the port from ``mmvae_tpu_torch/csrc``
    with nvcc for sm_90a; the registers and spills of every
    ``count_encode``, ``nb_valgrad``, ``count_encode_bwd``, ``nb_lse``,
-   ``nb_value`` and ``nb_finish`` instance, failing if one spills;
+   ``nb_value``, ``nb_finish`` and ``nb_elbo`` instance, failing if one
+   spills;
 2. kernel against plain: ``count_encode`` on the card against its plain
    PyTorch version at the NB trainer's launch (M = 100, 2 + 2 rows), the
    serving launch (M = 1600, 2 + 0) and ragged and wide cases, with
@@ -75,10 +76,14 @@ exits non-zero without the final line):
     (``nb_elbo_fwd``, both ``with_const`` instances), K8
     (``nb_elbo_bwd``) and K2v (``valgrad(need_value=True)``) at B = 100,
     D = 20,000 (int8 counts <= 7, int8 integers up to 127, non-integer
-    float32) and at a ragged D = 1,003, with elements on both sides of
-    both overdispersion clamp edges; bitwise repeatability, K2v's value
-    against K6 and its gradient outputs equal to K2's, bitwise; device
-    times at the main path's case (int8 integers, D = 20,000);
+    float32) and at a ragged D = 1,003; K7 and K8 also at B = 1 and 300
+    (D = 20,000), at D = 5,001 (no multiple of K7's slice or of K8's 4
+    columns) and at B = 2, D = 160,000 (K7's re-read instance), with
+    elements on both sides of both overdispersion clamp edges (the clamp
+    mask exact); bitwise repeatability, int8 == int16 == float32 storage
+    of the same integer counts for K7, K7c and K8, K2v's value against K6
+    and its gradient outputs equal to K2's, bitwise; device times at the
+    main path's case (int8 integers, D = 20,000);
 19. one generic batch step per route, kernel route against plain route:
     ``--mean_encoding 16`` (the v2 step kernels), ``--mean_decoding 16``
     and ``--no_fused_step`` (K7 / K8), and the README's library trainer
@@ -329,6 +334,20 @@ def finish_label(name: str) -> str:
     if m is None:
         return "sum"
     return f"{m[1]}+{m[2]}" if m[1] != "0" else "general"
+
+
+def elbo_label(name: str) -> str:
+    """A ``nb_elbo.cu`` instance by its template arguments: K7's stage 1
+    (count dtype, CONST, on-chip or re-read) or K8 (count dtype, vector
+    loads)."""
+    m = re.search(r"elbo_fwd_rowsI(\w)Lb(\d)ELb(\d)E", name)
+    if m is not None:
+        return (f"K7 {DTYPE_CODES[m[1]]}" + ("+const" if m[2] == "1" else "")
+                + (" onchip" if m[3] == "1" else " reread"))
+    m = re.search(r"elbo_bwd_groupsI(\w)Lb(\d)E", name)
+    if m is not None:
+        return f"K8 {DTYPE_CODES[m[1]]}" + (" vec" if m[2] == "1" else "")
+    return "sum"
 
 
 def lse_label(name: str) -> str:
@@ -1317,17 +1336,31 @@ ELBO_CASES = [(B_TRAIN, D_GENES, torch.int8, "counts<=7"),
               (B_TRAIN, D_GENES, torch.float32, "non-integer"),
               (B_TRAIN, 1003, torch.int8, "integer")]
 ELBO_MAIN = 1  # int8 integer counts at B = 100, D = 20000: the main path
+# K7 and K8 alone: one row (a single cluster), more rows than the card's
+# 132 SMs, a D that is no multiple of K7's slice nor of K8's 4 columns,
+# and a slice past a block's shared memory (K7's re-read instance)
+ELBO_EXTRA = [(1, D_GENES, torch.int8, "integer"),
+              (300, D_GENES, torch.int8, "integer"),
+              (37, 5001, torch.int8, "integer"),
+              (2, 160_000, torch.int8, "integer")]
 # softplus(nu_pre) on both sides of each clamp edge (NU_LO = 1e-4,
 # NU_HI = 1e4), far enough from it that float32 rounding cannot move an
 # element across, and far outside it
 EDGE_SOFTPLUS = (0.5e-4, 2e-4, 0.99e4, 1.01e4)
 
 
+def edge_cells(B):
+    """(row, column) of the first of the four EDGE_SOFTPLUS elements and
+    of the pair far outside the clamp (rows 1 and 2; row 0 and the last
+    row for B <= 2)."""
+    return ((1, 0), (2, 0)) if B > 2 else ((0, 0), (B - 1, 4))
+
+
 def elbo_inputs(g, B, D, dtype, regime):
     """K7 / K8 operands at the trainer's scales: counts in the named
     regime (integer cases with a run of 127s), logits of a few tenths,
-    nu_pre ~ N(0, 1) with elements at and beyond both clamp edges, and
-    library-size depth."""
+    nu_pre ~ N(0, 1) with elements at and beyond both clamp edges
+    (``edge_cells``), and library-size depth."""
     x = make_counts(g, B, D, dtype)
     if regime == "counts<=7":
         x = x.clamp(max=7)
@@ -1336,10 +1369,11 @@ def elbo_inputs(g, B, D, dtype, regime):
     h = torch.randn((B, D), generator=g, device=DEV) * 0.5
     npre = torch.randn((B, D), generator=g, device=DEV)
     edges = torch.tensor(EDGE_SOFTPLUS, dtype=torch.float64)
+    (ra, ca), (rb, cb) = edge_cells(B)
     # softplus^-1(s) = log(expm1(s)), which is s to float32 above 30
-    npre[1, :4] = torch.where(edges > 30, edges, torch.log(torch.expm1(
-        edges.clamp(max=30)))).float().to(DEV)
-    npre[2, :2] = torch.tensor([-12.0, 2.0e4], device=DEV)
+    npre[ra, ca:ca + 4] = torch.where(edges > 30, edges, torch.log(
+        torch.expm1(edges.clamp(max=30)))).float().to(DEV)
+    npre[rb, cb:cb + 2] = torch.tensor([-12.0, 2.0e4], device=DEV)
     depth = (x.float().sum(1, keepdim=True)
              * (0.5 + torch.rand((B, 1), generator=g, device=DEV)))
     return x, h, npre, depth.contiguous()
@@ -1368,7 +1402,9 @@ def elbo_magnitudes(x, h, npre, depth, lse, with_const):
 
 def phase_generic_kernels(card):
     """Phase 18: K7 (both instances), K8 and K2v against their plain
-    versions; K2v's value against K6 and its gradients against K2."""
+    versions; K2v's value against K6 and its gradients against K2; K7 and
+    K8 alone at ELBO_EXTRA's shapes; K7's and K8's bits the same for
+    int8, int16 and float32 storage of the same integer counts."""
     from mmvae_tpu_torch.ops import nb_elbo as ne
     from mmvae_tpu_torch.ops import nb_step as ns
 
@@ -1401,10 +1437,11 @@ def phase_generic_kernels(card):
         return got, f"{line} kernel {k_dev:.4f} / plain {p_dev:.4f} ms", (
             k_dev, p_dev)
 
-    for case, (B, D, dt, regime) in enumerate(ELBO_CASES):
+    for case, (B, D, dt, regime) in enumerate(ELBO_CASES + ELBO_EXTRA):
         x, h, npre, depth = elbo_inputs(g, B, D, dt, regime)
         tag = (B, D, str(dt).replace("torch.", ""), regime)
-        parts, t_case = [], {}
+        plan = ne.elbo_plan(B, D)
+        parts, t_case, fwds = [], {}, []
         for const in (False, True):
             name = "nb_elbo_fwd[const]" if const else "nb_elbo_fwd"
             lse = torch.logsumexp(h, 1, keepdim=True)
@@ -1419,7 +1456,8 @@ def phase_generic_kernels(card):
                 lambda: ne.elbo_fwd_ref(x, h, npre, depth, const), bounds,
                 tag, case == ELBO_MAIN)
             parts.append(line)
-        _, lse, rs, _ = (t.contiguous() for t in fwd)
+            fwds.append(fwd)
+        _, lse, rs, _ = (t.contiguous() for t in fwds[0])
         p, _, dmu_m, dnu_m = elbo_magnitudes(x, h, npre, depth, lse, False)
         gv = torch.tensor(1.3, device=DEV)
         (dh, dnu), line, t_case["nb_elbo_bwd"] = check(
@@ -1428,14 +1466,45 @@ def phase_generic_kernels(card):
             (1.3 * (dmu_m * p * depth.double() + p * rs.double().abs()),
              1.3 * dnu_m), tag, case == ELBO_MAIN)
         masked = int((dnu == 0).sum())
-        # zero outside (NU_LO, NU_HI); inside, at NU_HI, dnu is a float32
-        # cancellation that may round to 0, so only the NU_LO side is
-        # required to be nonzero (the elementwise check holds the rest)
-        outside = torch.stack([dnu[1, 0], dnu[1, 3], dnu[2, 0], dnu[2, 1]])
-        if (outside != 0).any() or dnu[1, 1] == 0:
-            raise AssertionError(f"K8's clamp mask at the edges: "
-                                 f"{dnu[1, :4].tolist()}, {dnu[2, :2].tolist()}")
-        parts.append(line + f" ({masked} dnu zeroed by the clamp)")
+        # zero outside (NU_LO, NU_HI), every element (the float64
+        # softplus of nu_pre, which no element sits near); inside, at
+        # NU_HI, dnu is a float32 cancellation that may round to 0, so
+        # only the NU_LO side is required to be nonzero (the elementwise
+        # check holds the rest)
+        sp64 = torch.nn.functional.softplus(npre.double())
+        out_of_range = (sp64 <= ne.NU_LO) | (sp64 >= ne.NU_HI)
+        (ra, ca), (rb, cb) = edge_cells(B)
+        outside = torch.stack([dnu[ra, ca], dnu[ra, ca + 3], dnu[rb, cb],
+                               dnu[rb, cb + 1]])
+        if ((outside != 0).any() or dnu[ra, ca + 1] == 0
+                or (dnu[out_of_range] != 0).any()):
+            raise AssertionError(
+                f"K8's clamp mask at the edges: "
+                f"{dnu[ra, ca:ca + 4].tolist()}, "
+                f"{dnu[rb, cb:cb + 2].tolist()}; "
+                f"{int((dnu[out_of_range] != 0).sum())} nonzero outside")
+        parts.append(line + f" ({masked} dnu zeroed by the clamp, "
+                     f"{int(out_of_range.sum())} outside it)")
+        if regime != "non-integer":
+            # int16 and float32 storage of the same integer counts
+            for dt2 in (torch.int16, torch.float32):
+                x2 = x.to(dt2)
+                same = [all(torch.equal(a, b) for a, b in zip(
+                    ne.elbo_fwd(x2, h, npre, depth, const), fwds[const]))
+                    for const in (False, True)]
+                d2 = ne.elbo_bwd(gv, x2, h, npre, depth, lse, rs)
+                same.append(torch.equal(d2[0], dh) and torch.equal(d2[1], dnu))
+                if not all(same):
+                    raise AssertionError(
+                        f"K7 / K7c / K8 on {dt2} storage of {tag}'s counts "
+                        f"differ from int8's: same bits {same}")
+            parts.append("int8 == int16 == float32 storage bitwise")
+        head = (f"[phase 18] [{card}] B={B} D={D} {tag[2]} {regime} (K7 "
+                f"cluster {plan.cluster} x slice {plan.slice}, "
+                f"{plan.instance}): ")
+        if case >= len(ELBO_CASES):
+            log(head + "; ".join(parts))
+            continue
         # K2v on the step kernels' operands
         xs, zc, zn, sdep, W, (R, C, Rn) = step_inputs(g, B, D, dt, regime)
         if regime != "counts<=7" and dt != torch.float32:
@@ -1463,8 +1532,7 @@ def phase_generic_kernels(card):
                      f"bitwise")
         if case == ELBO_MAIN:
             times.update(t_case)
-        log(f"[phase 18] [{card}] B={B} D={D} {tag[2]} {regime}: "
-            + "; ".join(parts))
+        log(head + "; ".join(parts))
     return worst, times
 
 
@@ -2683,7 +2751,8 @@ def phase_roofline(card):
             f"{k} {res['brackets_us'][k][0]:.2f} / {res['brackets_us'][k][1]:.2f}"
             f" vs {m['kernel_ms'] * 1e3:.2f} + {m['sum_ms'] * 1e3:.2f}"
             for k, m in res["k2_all"].items())
-        + "; K6, K6p and K3 (phase 30 times them): "
+        + "; K6, K6p and K3 (phase 30 times them), K7, K7c and K8 (phase "
+        "18): "
         + "; ".join(f"{k} {lo:.2f} / {hi:.2f}"
                     for k, (lo, hi) in res["brackets_us"].items()
                     if k not in res["k2_all"])
@@ -3113,13 +3182,26 @@ def phase_train_full(card, data, kind="nb"):
     busy, per = device_profile(lambda: sub(q, po, 2, rand=rand))
     per_batch = times[1] * 1e3 / runner.nbatch
     top = sorted(per.items(), key=lambda kv: -kv[1])[:8]
+    # device time by the port's kernel (trace_step's map: both stages of
+    # a kernel, every instance), PyTorch's own as "torch"
+    from mmvae_tpu_torch.benchmarks.trace_step import port_kernel
+    by = {}
+    for k, v in per.items():
+        by[port_kernel(k)] = by.get(port_kernel(k), 0.0) + v / nprof
+    # (a trace that lost kernels fell back to CUDA events: no split)
+    if kind == "generic" and device_profile.kernels and min(
+            by.get("nb_elbo_fwd", 0.0), by.get("nb_elbo_bwd", 0.0)) <= 0:
+        raise AssertionError(f"the generic step's profile credits no time "
+                             f"to K7 or K8: {by}")
     log(f"{tag} [{card}] profile of {nprof} batches: device busy "
         f"{busy / nprof:.3f} ms per batch in "
         f"{device_profile.kernels / nprof:.0f} device kernels and copies, "
         f"against {per_batch:.3f} ms wall per batch of the unprofiled "
         f"second epoch (device idle share "
-        f"{1 - busy / nprof / per_batch:.1%}); top kernels over the "
-        f"{nprof} batches: "
+        f"{1 - busy / nprof / per_batch:.1%}); ms a batch by the port's "
+        f"kernel: " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+            by.items(), key=lambda kv: -kv[1]))
+        + f"; top kernels over the {nprof} batches: "
         + "; ".join(f"{k[:48]} {v:.1f} ms" for k, v in top))
     return N / times[1]
 
@@ -3148,14 +3230,17 @@ OPS_PER_ELEMENT = {
                          # lgamma ~47 and the value terms 7
     "nb_valgrad[pb,nu_exp,value]": 155,  # nb_valgrad[pb,nu_exp]'s 101,
                          # the mixed-regime lgamma ~47 and the value terms 7
-    "nb_elbo_fwd": 95,   # online max / sum of exp 5; p, mu 4; nu 8;
-                         # the reciprocals and dmu 7; lgamma_pos of nu
-                         # and nu + x ~55; the logs and terms 11; the
-                         # three row sums 5
-    "nb_elbo_fwd[const]": 123,  # and lgamma_pos(x + 1) ~28
-    "nb_elbo_bwd": 99,   # p, mu 4; nu 8; reciprocals and dmu 7; dh 5;
-                         # digamma_pos of nu and nu + x ~61 (16 divides);
-                         # the logs, sigmoid, mask and dnu 14
+    "nb_elbo_fwd": 71,   # max and regime scan 7; sum of exp 3; p, mu 4;
+                         # softplus and nu 8; the one divide 5; t, dmu p
+                         # 5; the select-products and -log P 29; the two
+                         # log ratios 8; the two row sums 2 (the counts
+                         # > 7, ~1%, add a Stirling correction)
+    "nb_elbo_fwd[const]": 90,  # and the select-products of Pc and Pc / P
+    "nb_elbo_bwd": 102,  # regime scan 7; p, mu 4; softplus and nu 8;
+                         # the regime test 1; the select-products of P
+                         # and dP and dP / P
+                         # 50; the shared divide 10; inv_mn, inv_mu, t,
+                         # dmu 6; dh 5; dnu's log and sum 5; the mask 6
 }
 
 
@@ -3238,7 +3323,8 @@ def main() -> int:
                           ("count_encode_bwd.cu", bwd_label),
                           ("nb_lse.cu", lse_label),
                           ("nb_value.cu", value_label),
-                          ("nb_finish.cu", finish_label)):
+                          ("nb_finish.cu", finish_label),
+                          ("nb_elbo.cu", elbo_label)):
         log(f"[phase 1] {source} instances (registers / spilled bytes): "
             + ", ".join(f"{n} {r}r/{b}B" for n, r, b in
                         check_instances(build_log, source, label)))

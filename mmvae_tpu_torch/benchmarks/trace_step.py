@@ -34,8 +34,7 @@ from ..utils.profiling import host_times, kernel_times, trace
 KINDS = ("nb", "vmf", "joint", "mixture")
 # the port's kernel each CUDA function belongs to (csrc/*.cu): each
 # kernel's two stages are one kernel's time (K4's count_encode_tiles and
-# _sum, K2's valgrad_tiles and _sum, ...); reduce_parts is K7's second
-# stage
+# _sum, K2's valgrad_tiles and _sum, K7's elbo_fwd_rows and _sum, ...)
 PORT_KERNELS = (
     ("count_encode_tiles", "count_encode"),
     ("count_encode_sum", "count_encode"),
@@ -45,18 +44,18 @@ PORT_KERNELS = (
     ("value_tiles", "nb_value"), ("value_sum", "nb_value"),
     ("valgrad_tiles", "nb_valgrad"), ("valgrad_sum", "nb_valgrad"),
     ("finish_tiles", "nb_finish"), ("finish_sum", "nb_finish"),
-    ("elbo_fwd_kernel", "nb_elbo_fwd"), ("reduce_parts", "nb_elbo_fwd"),
-    ("elbo_bwd_kernel", "nb_elbo_bwd"),
+    ("elbo_fwd_rows", "nb_elbo_fwd"), ("elbo_fwd_sum", "nb_elbo_fwd"),
+    ("elbo_bwd_groups", "nb_elbo_bwd"),
     ("elementwise_kernel", "roofline_probe"),
 )
 
 
 def port_kernel(name: str) -> str:
     """The port's kernel a profiled CUDA function belongs to (the port's
-    kernels live in an anonymous namespace, ``reduce_parts`` in
-    ``nbk``), or "torch" for PyTorch's own kernels and copies."""
+    kernels live in an anonymous namespace), or "torch" for PyTorch's own
+    kernels and copies."""
     return next((k for sym, k in PORT_KERNELS if re.search(
-        rf"(?:\(anonymous namespace\)|nbk)::{sym}[<(]", name)), "torch")
+        rf"\(anonymous namespace\)::{sym}[<(]", name)), "torch")
 
 
 def build(kind: str, D: int, S: int, device="cuda"):

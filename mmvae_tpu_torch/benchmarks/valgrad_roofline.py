@@ -144,8 +144,8 @@ def measure_op(x: torch.Tensor, op: str,
 
 # Op mix of K2's, K6's and K3's compile-time instances (csrc/nb_valgrad.cu
 # valgrad_tiles, nb_value.cu value_tiles, nb_finish.cu finish_tiles
-# with (R, C, Rn) = (2, 1, 1), int8 counts) in the counts <= 7 regime, per
-# (row, column) element.  An arithmetic operator, comparison, select,
+# with (R, C, Rn) = (2, 1, 1), int8 counts) and of K7, K7c and K8
+# (nb_elbo.cu) in the counts <= 7 regime, per (row, column) element.  An arithmetic operator, comparison, select,
 # fminf / fmaxf / fabsf or conversion is 1; a * b + c, which nvcc contracts
 # into one FFMA, is 1; a negation is an operand modifier, 0; loads are not
 # priced.  Lines of nb_valgrad.cu unless named (cuh = nb_step_common.cuh).
@@ -202,6 +202,35 @@ def measure_op(x: torch.Tensor, op: str,
 #   5 adds + 2 selects + the store's test ~14 a row and lane, for its 2
 #   columns, 7;  the row's loads, addresses and loop (137-145): ~4  = 25,
 #   with 1 exp (155).
+# K7's stage 1 (nb_elbo.cu elbo_fwd_rows, int8, on-chip instance), the
+# same way, lines of nb_elbo.cu:
+#   pass 0 (180-189): the count's conversion 1, fmaxf 1, the regime scan
+#   (184, cuh RegimeScan::add: floorf, the integer compare, the range
+#   compares and their ANDs) 8, the loop and the shared-memory addresses
+#   ~4  = 14;  the sum of exp (194-195): h - max, the add, the loop ~3
+#   = 5;  pass 1 (230-238): the loop and addresses ~4;  count_terms
+#   (131-143): h - lse 1;  mu FFMA 1;  softplus fmaxf + add 2;  the nu
+#   clip + EPS 3;  mn, mu * mn, inv_mn, inv_mu 4;  t 2;  dmu * p FFMA +
+#   multiply 2;  lg_terms<false> (cuh 157) -> fast_products<false,
+#   false>: 7 x (compare, nu + k, multiply + select of P) 28;  the two
+#   log ratios' multiplies and FFMAs (142-143) 4;  the two sums (237-238)
+#   2  = 72, with 3 exp (195; 131; -|nu_pre| 133), 4 log (log1pf 133,
+#   -log P cuh 158, mu * inv_mn and nu * inv_mn 142-143) and 1 divide
+#   (137).
+# K7c (CONST): fast_products' 6 x (compare, multiply + select of Pc)
+#   (cuh 147-148) 18 and log(Pc / P)'s divide (cuh 158): 90, 3 exp, 4 log,
+#   2 divides.
+# K8 (nb_elbo.cu elbo_bwd_groups, int8, 16-byte loads), per count:
+#   the count's conversion (354) 1;  the thread's index and addresses
+#   (339-343, for its 4 counts) 3;  the regime scan and the two votes
+#   (372-378) 9;  the row's scalars (379-382) 1;  count_bwd (298-319):
+#   h - lse 1;  mu FFMA 1;  softplus fmaxf + add 2;  the nu clip + EPS 3;
+#   the regime test 1;  dg_term (cuh 179) -> fast_products<true, false>:
+#   7 x (compare, nu + k, FFMA + select of dP, multiply + select of P)
+#   42;  the shared divide (306-312) 9, as K2's;  inv_mn, inv_mu 2;  t
+#   2;  dmu FFMA 1;  dh 4;  d: nu * inv_mn and 3 adds 4;  dnu's compares,
+#   AND, two multiplies and select 6  = 92, with 2 exp (298, 300), 2 log
+#   (log1pf 301, 318) and 2 divides (dP / P cuh 180, 309).
 OP_MIX = {                          # (ALU, exp, log, div) an element
     "nb_valgrad": (116, 2, 2, 2),
     "nb_valgrad[pb,nu_exp]": (104, 2, 1, 2),
@@ -210,6 +239,9 @@ OP_MIX = {                          # (ALU, exp, log, div) an element
     "nb_value": (79, 2, 5, 1),
     "nb_value[pb,nu_exp]": (76, 2, 4, 1),
     "nb_finish": (25, 1, 0, 0),
+    "nb_elbo_fwd": (72, 3, 4, 1),
+    "nb_elbo_fwd[const]": (90, 3, 4, 2),
+    "nb_elbo_bwd": (92, 2, 2, 2),
 }
 ALU_OPS, EXP_OPS, LOG_OPS, DIV_OPS = OP_MIX["nb_valgrad"]
 
@@ -217,7 +249,8 @@ ALU_OPS, EXP_OPS, LOG_OPS, DIV_OPS = OP_MIX["nb_valgrad"]
 def op_mix_prediction(rates: dict, n_elem: int,
                       kernel: str = "nb_valgrad") -> tuple[float, dict]:
     """(seconds, {class: seconds}) of the op mix of the step kernel
-    instance ``kernel`` (a key of :data:`OP_MIX`: K2's, K6's or K3's) at the per-element costs
+    instance ``kernel`` (a key of :data:`OP_MIX`: K2's, K6's, K3's, K7's
+    or K8's) at the per-element costs
     ``rates``: the exp / log / div probes carry one FMA each (the
     bounded-value FMA or add), which is subtracted; the ALU rate is the
     better of the fma probe and half the select probe (a select op is a
@@ -348,8 +381,8 @@ def sass_counts() -> str:
 
 
 def main() -> dict:
-    """Print the probe's per-op costs, the op-mix bracket of every K2, K6
-    and K3 instance of :data:`OP_MIX` and K2's
+    """Print the probe's per-op costs, the op-mix bracket of every K2, K6,
+    K3, K7 and K8 instance of :data:`OP_MIX` and K2's
     measured time on the card; returns them."""
     if not torch.cuda.is_available():
         raise RuntimeError("valgrad_roofline measures the CUDA card: no "
@@ -375,9 +408,9 @@ def main() -> dict:
                        for ilp, r in rates.items()}
 
     n_elem = B * D
-    print(f"\nThe op mix per element of K2, K6 and K3 (ALU, exp, log with "
-          f"logf at the log1p "
-          f"rate, div) over {B}x{D} elements, issue-bound ILP=4 / "
+    print(f"\nThe op mix per element of K2, K6, K3, K7 and K8 (ALU, exp, "
+          f"log with logf at the log1p rate, div) over {B}x{D} elements, "
+          f"issue-bound ILP=4 / "
           f"latency-bound ILP=1:")
     res["brackets_us"] = {}
     for kernel, mix in OP_MIX.items():

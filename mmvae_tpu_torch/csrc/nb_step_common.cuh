@@ -1,7 +1,7 @@
 // Shared device code of the fused NB step kernels (nb_lse.cu, nb_value.cu,
-// nb_valgrad.cu, nb_finish.cu) and of K7 (nb_elbo.cu): the in-kernel
-// logits' order, the lgamma / digamma regimes, the tile layout and
-// second stage of K2, K6 and K3, and reduce_parts.
+// nb_valgrad.cu, nb_finish.cu) and of K7 / K8 (nb_elbo.cu): the in-kernel
+// logits' order, the lgamma / digamma regimes, the regime scan, and the
+// tile layout and second stage of K2, K6 and K3 (K7's too).
 //
 // Port of the in-kernel pieces of mmvae_tpu/ops/nb_step.py (_compute_h,
 // _compute_nupre, _fast_flag, _int_flag, _fast_products, _mixed_lgdg) and
@@ -55,7 +55,6 @@ constexpr float kHalfLog2Pi = 0.9189385332046727f;
 constexpr int kTileCols = 64;
 constexpr int kRowGroups = 4;
 constexpr int kThreads = kTileCols * kRowGroups;
-constexpr int kReduceThreads = 128;
 // shared memory an H100 block can have (opt-in past 48 KB)
 constexpr int kMaxSmem = 232448;
 
@@ -188,38 +187,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
-}
-
-// K7's second stage (nb_elbo.cu): out[b * ldo + k] = sum_j
-// parts[(j * B + b) * K + k] for j < nparts, one block per row b.  Thread t adds parts t, t + 128, ... in
-// order, then a fixed tree adds the threads: the same bits every run.
-static __global__ void __launch_bounds__(kReduceThreads)
-reduce_parts(const float* __restrict__ parts, int64_t nparts, int64_t B, int K,
-             float* __restrict__ out, int64_t ldo) {
-  __shared__ float red[kReduceThreads];
-  const int64_t b = blockIdx.x;
-  const int t = threadIdx.x;
-  for (int k = 0; k < K; ++k) {
-    float s = 0.f;
-    for (int64_t j = t; j < nparts; j += kReduceThreads)
-      s += parts[(j * B + b) * K + k];
-    red[t] = s;
-    __syncthreads();
-    for (int w = kReduceThreads / 2; w > 0; w >>= 1) {
-      if (t < w) red[t] += red[t + w];
-      __syncthreads();
-    }
-    if (t == 0) out[b * ldo + k] = red[0];
-    __syncthreads();
-  }
-}
-
-static inline cudaError_t launch_reduce(const float* parts, int64_t nparts, int64_t B,
-                                 int K, float* out, int64_t ldo,
-                                 cudaStream_t s) {
-  reduce_parts<<<static_cast<unsigned>(B), kReduceThreads, 0, s>>>(
-      parts, nparts, B, K, out, ldo);
-  return cudaGetLastError();
 }
 
 // The joint variant's overdispersion decode: nu = clamp(exp(npre), 0,

@@ -145,13 +145,15 @@ def _bind(lib) -> None:
     lib.mmvae_nb_finish.argtypes = [_vp, _vp, _vp, _vp, _i64, _i64, _i32,
                                     _i32, _i32, _i32, _i32, _vp, _vp, _i64,
                                     _vp, _vp]
-    # elbo fwd: x, dtype, h, nu_pre, depth, B, D, with_const, rows, out,
-    # stream; bwd: g, x, dtype, h, nu_pre, depth, lse, rowsum, B, D, dh,
-    # dnu, stream
+    # elbo fwd: x, dtype, h, nu_pre, depth, B, D, with_const, the plan
+    # (cluster, threads, slice, onchip), ws (the rows), ws floats, out,
+    # stream; bwd: g, x, dtype, h, nu_pre, depth, lse, rowsum, B, D, the
+    # plan's columns a block, dh, dnu, stream
     lib.mmvae_nb_elbo_fwd.argtypes = [_vp, _i32, _vp, _vp, _vp, _i64, _i64,
-                                      _i32, _vp, _vp, _vp]
+                                      _i32, _i32, _i32, _i64, _i32, _vp,
+                                      _i64, _vp, _vp]
     lib.mmvae_nb_elbo_bwd.argtypes = [_vp, _vp, _i32, _vp, _vp, _vp, _vp,
-                                      _vp, _i64, _i64, _vp, _vp, _vp]
+                                      _vp, _i64, _i64, _i32, _vp, _vp, _vp]
     # roofline probe: x, B, D, op, nrep, chains, reps, out, stream
     lib.mmvae_roofline_elementwise.argtypes = [_vp, _i64, _i64, _i32, _i32,
                                                _i32, _i32, _vp, _vp]

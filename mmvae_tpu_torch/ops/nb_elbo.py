@@ -15,11 +15,14 @@ Port of ``mmvae_tpu/ops/nb_elbo.py``:
 
   * forward (K7, ``csrc/nb_elbo.cu``, replacing ``_make_fwd_kernel`` /
     ``_fwd_call``): the scalar NLL and the per-row residuals
-    ``lse = logsumexp(h)``, ``rowsum(dls)`` and ``rowsum(dmu * p)``;
-    plain version :func:`elbo_fwd_ref`;
+    ``lse = logsumexp(h)``, ``rowsum(dls)`` and ``rowsum(dmu * p)``, a
+    thread-block cluster a row; plain version :func:`elbo_fwd_ref`;
   * backward (K8, replacing ``_bwd_kernel`` / ``_bwd_call``): ``dh`` and
-    ``dnu`` recomputed from the residuals; plain version
-    :func:`elbo_bwd_ref`.
+    ``dnu`` recomputed from the residuals, 4 adjacent columns a thread;
+    plain version :func:`elbo_bwd_ref`.
+
+  :func:`elbo_plan` is both kernels' launch plan, which the C entries
+  check.
 
   ``elbo_fwd`` and ``elbo_bwd`` pick by where ``x`` lies: a CPU tensor
   goes to the plain version, a CUDA tensor launches the kernel or raises.
@@ -38,6 +41,8 @@ Semantics (up to float reassociation)::
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -152,8 +157,64 @@ def elbo_bwd_ref(g, x, h, nu_pre, depth, lse, rowsum):
 
 
 # ----------------------------------------------------------------------
-# kernel wrappers
+# the launch plan and the kernel wrappers
 # ----------------------------------------------------------------------
+
+ELBO_THREADS = 256         # K7's threads a block (kFwdThreads)
+ELBO_MAX_CLUSTER = 8       # blocks a row at most: the portable cluster size
+ELBO_MIN_SLICE = 1024      # columns a block before a row is cut further
+ELBO_SLICE_ALIGN = 32      # a slice is whole warps of columns
+ELBO_COL_BYTES = 12        # h, nu_pre and the widened count of a column
+# a slice's shared memory at most: the 232,448 bytes an H100 block can
+# have, less 1 KB kept for the kernel's static shared memory
+ELBO_SLICE_SMEM = 232448 - 1024
+ELBO_BWD_BLOCK_COLS = 1024  # K8's columns a block: 256 threads x 4
+
+
+class ElboPlan(NamedTuple):
+    """One K7 / K8 call: K7's cluster of blocks a row, threads a block,
+    columns a block (``slice``), dynamic shared memory a block, instance
+    ("onchip": the slice of h, nu_pre and the counts held in shared
+    memory; "reread": read again from global memory), grid (cluster x B
+    blocks) and workspace (the (4, B) rows, in floats); K8's grid
+    (column blocks, B) of ``bwd_block_cols`` columns a block."""
+    cluster: int
+    threads: int
+    slice: int
+    smem: int
+    instance: str
+    grid: int
+    workspace: int
+    bwd_block_cols: int
+    bwd_grid: tuple[int, int]
+
+
+def elbo_plan(B: int, D: int) -> ElboPlan:
+    """K7's and K8's launch plan for (B, D) operands, from the shape
+    alone (never the dtype or the card), so every sum's order is fixed by
+    (B, D).  A row's cluster doubles from one block while each block keeps
+    at least ``ELBO_MIN_SLICE`` columns, up to ``ELBO_MAX_CLUSTER``; the
+    slice is the row's share rounded up to whole warps of columns; the
+    on-chip instance takes every slice whose 12 bytes a column fit
+    ``ELBO_SLICE_SMEM`` (D <= 154,112 at 8 blocks), the re-read instance
+    the rest."""
+    if B < 1 or D < 1:
+        raise ValueError(f"nb_elbo: empty operands (B={B}, D={D})")
+    if B > 65535:
+        raise ValueError(f"nb_elbo: B={B} rows, past the 65,535 a launch "
+                         f"takes")
+    cluster = 1
+    while (cluster < ELBO_MAX_CLUSTER
+           and -(-D // (2 * cluster)) >= ELBO_MIN_SLICE):
+        cluster *= 2
+    share = -(-D // cluster)
+    slice_ = -(-share // ELBO_SLICE_ALIGN) * ELBO_SLICE_ALIGN
+    smem = slice_ * ELBO_COL_BYTES
+    onchip = smem <= ELBO_SLICE_SMEM
+    return ElboPlan(cluster, ELBO_THREADS, slice_, smem if onchip else 0,
+                    "onchip" if onchip else "reread", cluster * B, 4 * B,
+                    ELBO_BWD_BLOCK_COLS, (-(-D // ELBO_BWD_BLOCK_COLS), B))
+
 
 def _check(what: str, x, named: dict) -> torch.device:
     """Everything the kernels do not take raises here, before any CUDA
@@ -195,12 +256,14 @@ def elbo_fwd(x, h, nu_pre, depth, with_const: bool = False):
     dev = _check("nb_elbo.fwd", x, {"h": (h, (B, D)),
                                     "nu_pre": (nu_pre, (B, D)),
                                     "depth": (depth, (B, 1))})
+    plan = elbo_plan(B, D)
     rows = torch.empty((4, B), dtype=torch.float32, device=dev)
     nll = torch.empty((), dtype=torch.float32, device=dev)
     _call(dev, "nb_elbo.fwd", "mmvae_nb_elbo_fwd", x.data_ptr(),
           _DTYPE_CODE[x.dtype], h.data_ptr(), nu_pre.data_ptr(),
-          depth.data_ptr(), B, D, int(bool(with_const)), rows.data_ptr(),
-          nll.data_ptr())
+          depth.data_ptr(), B, D, int(bool(with_const)), plan.cluster,
+          plan.threads, plan.slice, int(plan.instance == "onchip"),
+          rows.data_ptr(), rows.numel(), nll.data_ptr())
     if with_const:
         elbo_fwd.const_launches += 1
     else:
@@ -230,7 +293,8 @@ def elbo_bwd(g, x, h, nu_pre, depth, lse, rowsum):
     _call(dev, "nb_elbo.bwd", "mmvae_nb_elbo_bwd", g.data_ptr(),
           x.data_ptr(), _DTYPE_CODE[x.dtype], h.data_ptr(),
           nu_pre.data_ptr(), depth.data_ptr(), lse.data_ptr(),
-          rowsum.data_ptr(), B, D, dh.data_ptr(), dnu.data_ptr())
+          rowsum.data_ptr(), B, D, elbo_plan(B, D).bwd_block_cols,
+          dh.data_ptr(), dnu.data_ptr())
     elbo_bwd.launches += 1
     return dh, dnu
 

@@ -250,8 +250,8 @@ class PackedFastStep:
 
     #: what the port raises where the JAX package would fall back to its
     #: generic step path for a model the packed step does not support
-    UNSUPPORTED = ("this architecture needs the generic step path, which "
-                   "is not ported yet (ROADMAP.md Queue 1 item 11)")
+    UNSUPPORTED = ("the packed step does not take this architecture; it "
+                   "trains on the generic step, train.loop.Trainer")
 
     def __init__(self, model, opt, kl=(1.0, 1e-2, 0.1), plain: bool = False):
         if not self.supports(model):

@@ -153,6 +153,235 @@ def test_cpu_wrappers_launch_no_kernel():
 
 
 # ----------------------------------------------------------------------
+# K7's and K8's launch plan, the C entry's check of it, and a float32
+# mirror of the count-regime arithmetic the kernels use
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,D,cluster,slice_,instance", [
+    (100, 20000, 8, 2528, "onchip"),    # the CLI's batch
+    (1, 20000, 8, 2528, "onchip"),
+    (300, 20000, 8, 2528, "onchip"),
+    (100, 1003, 1, 1024, "onchip"),
+    (37, 5001, 4, 1280, "onchip"),
+    (2, 160000, 8, 20000, "reread"),   # a slice past a block's shared memory
+])
+def test_elbo_plan(B, D, cluster, slice_, instance):
+    """The plan depends on (B, D) alone: a power-of-two cluster of at most
+    8 blocks a row, each block a non-empty slice of whole warps of
+    columns, the on-chip instance exactly when the slice's 12 bytes a
+    column fit; K8's grid covers D in blocks of 1,024 columns."""
+    plan = tne.elbo_plan(B, D)
+    assert (plan.cluster, plan.slice, plan.instance) == (cluster, slice_,
+                                                          instance)
+    assert plan.threads == 256 and plan.grid == cluster * B
+    assert plan.workspace == 4 * B
+    assert plan.slice % 32 == 0
+    assert plan.slice * plan.cluster >= D > plan.slice * (plan.cluster - 1)
+    onchip = plan.slice * 12 <= tne.ELBO_SLICE_SMEM
+    assert (plan.instance == "onchip") == onchip
+    assert plan.smem == (plan.slice * 12 if onchip else 0)
+    assert plan.bwd_block_cols == 1024
+    assert plan.bwd_grid == (-(-D // 1024), B)
+
+
+def test_elbo_plan_refusals_and_instance_edge():
+    for B, D in ((0, 10), (3, 0), (65536, 10)):
+        with pytest.raises(ValueError):
+            tne.elbo_plan(B, D)
+    assert tne.elbo_plan(2, 154112).instance == "onchip"
+    assert tne.elbo_plan(2, 154113).instance == "reread"
+    assert tne.elbo_plan(65535, 1).cluster == 1
+
+
+def _c_body(name):
+    import os
+    src = open(os.path.join(os.path.dirname(tne.__file__), "..", "csrc",
+                            "nb_elbo.cu")).read()
+    i = src.index(f"inline bool {name}(")
+    return src[i:src.index("\n}\n", i)]
+
+
+def _c_accepts(D, cluster, threads, slice_, onchip):
+    """``fwd_plan_ok`` of csrc/nb_elbo.cu, condition by condition (the
+    test below reads each one in the source)."""
+    return (threads == 256 and 1 <= cluster <= 8
+            and cluster & (cluster - 1) == 0 and slice_ >= 1
+            and slice_ % 32 == 0 and slice_ * cluster >= D
+            and slice_ * (cluster - 1) < D
+            and onchip == (1 if slice_ * 12 <= 232448 - 1024 else 0))
+
+
+def test_c_entry_refuses_a_plan_that_does_not_match():
+    """The C entry's check (``fwd_plan_ok``) holds every condition the
+    mirror holds; it takes every plan ``elbo_plan`` gives and refuses each
+    kind of mismatch: another thread count, a cluster that is no power of
+    two or past 8, a slice of partial warps, slices that leave columns
+    out or a block empty, the other instance."""
+    body = _c_body("fwd_plan_ok")
+    for cond in ("threads == kFwdThreads", "cluster >= 1",
+                 "cluster <= kMaxCluster", "(cluster & (cluster - 1)) == 0",
+                 "slice >= 1", "slice % kSliceAlign == 0",
+                 "slice * cluster >= D", "slice * (cluster - 1) < D",
+                 "onchip == (slice * kColBytes <= kSliceSmem ? 1 : 0)"):
+        assert cond in body, cond
+    for B, D in ((1, 1), (100, 257), (100, 1003), (100, 20000), (5, 2049),
+                 (2, 154112), (2, 154113), (2, 160000)):
+        p = tne.elbo_plan(B, D)
+        args = (D, p.cluster, p.threads, p.slice, int(p.instance == "onchip"))
+        assert _c_accepts(*args)
+        D_, cl, th, sl, oc = args
+        short = 32 * ((D_ - 1) // cl // 32)    # leaves columns out
+        bads = [(D_, cl, 512, sl, oc), (D_, 3, th, sl, oc),
+                (D_, 16, th, sl, oc), (D_, cl, th, sl + 1, oc),
+                (D_, cl, th, short, int(short * 12 <= 232448 - 1024)),
+                (D_, cl, th, sl, 1 - oc)]
+        if cl > 1:                              # leaves the last block empty
+            bads.append((D_, cl, th, 2 * sl, int(2 * sl * 12 <= 231424)))
+        for bad in bads:
+            assert not _c_accepts(*bad), (args, bad)
+    dims = _c_body("elbo_dims_ok")
+    assert "B <= 65535" in dims and "D >= 1" in dims
+
+
+def _f(v):
+    return torch.as_tensor(v, dtype=torch.float32)
+
+
+def _fast_products(x, nu, dg, const):
+    """nbk::fast_products in float32: P = prod_{k<min(x,7)} (nu + k),
+    dP = dP/dnu, Pc = min(x, 7)!, by selects."""
+    P, dP = torch.ones_like(nu), torch.zeros_like(nu)
+    for k in range(7):
+        sel = x > k
+        m = nu + _f(k)
+        if dg:
+            dP = torch.where(sel, dP * m + P, dP)
+        P = torch.where(sel, P * m, P)
+    Pc = torch.ones_like(nu)
+    if const:
+        for k in range(2, 8):
+            Pc = torch.where(x >= k, Pc * _f(k), Pc)
+    return P, dP, Pc
+
+
+def _stirling_lgamma32(w):
+    iw = 1.0 / w
+    iw2 = iw * iw
+    corr = iw * (_f(1 / 12) - iw2 * (_f(1 / 360) - iw2 * _f(1 / 1260)))
+    return (w - 0.5) * torch.log(w) - w + _f(0.9189385332046727) + corr
+
+
+def _stirling_digamma32(w):
+    iw = 1.0 / w
+    iw2 = iw * iw
+    return torch.log(w) - 0.5 * iw - iw2 * (
+        _f(1 / 12) - iw2 * (_f(1 / 120) - iw2 * _f(1 / 252)))
+
+
+def _lg_terms32(fast, x, nu, const):
+    """nbk::lg_terms<CONST> in the all <= 7 (fast) or all-integer (mixed)
+    regime: lgamma(nu) - lgamma(nu + x) [+ lgamma(x + 1)]."""
+    P, _, Pc = _fast_products(x, nu, False, const)
+    if fast:
+        return torch.log(Pc / P) if const else -torch.log(P)
+    small = x <= 7
+    lg = -torch.log(P) + torch.where(
+        small, torch.zeros_like(nu),
+        _stirling_lgamma32(nu + 7) - _stirling_lgamma32(
+            torch.clamp_min(nu + x, 8.0)))
+    if const:
+        lg = lg + torch.where(small, torch.log(Pc), _stirling_lgamma32(
+            torch.clamp_min(x, 8.0) + 1))
+    return lg
+
+
+def _dg_term32(x, nu):
+    """nbk::dg_term in the integer regimes (both give the same bits for
+    counts <= 7): digamma(nu) - digamma(nu + x)."""
+    P, dP, _ = _fast_products(x, nu, True, False)
+    return -dP / P + torch.where(
+        x > 7, _stirling_digamma32(nu + 7) - _stirling_digamma32(
+            torch.clamp_min(nu + x, 8.0)), torch.zeros_like(nu))
+
+
+def _digamma_q32(z):
+    """nb_elbo.cu's digamma_q: the eight shift reciprocals as dP / P, and
+    Stirling's 1/w, from one divide 1/(P w)."""
+    P, dP = torch.ones_like(z), torch.zeros_like(z)
+    for k in range(8):
+        m = z + _f(k)
+        dP = dP * m + P
+        P = P * m
+    shift = z < 8
+    P = torch.where(shift, P, torch.ones_like(z))
+    dP = torch.where(shift, dP, torch.zeros_like(z))
+    w = torch.where(shift, z + 8, z)
+    r = 1.0 / (P * w)
+    iw = P * r
+    iw2 = iw * iw
+    return (torch.log(w) - 0.5 * iw - iw2 * (
+        _f(1 / 12) - iw2 * (_f(1 / 120) - iw2 * _f(1 / 252))) - dP * (w * r))
+
+
+# nu on both clamps (NU_LO + EPS, NU_HI + EPS) and between
+_NUS = (tne.NU_LO + tne.EPS, 1e-3, 0.37, 3.7, 42.0, tne.NU_HI + tne.EPS)
+_COUNTS = {"0-7": np.arange(8.0), "8-255": np.arange(8.0, 256.0),
+           "non-integer": np.array([0.37, 1.5, 6.99, 7.25, 12.6, 254.5])}
+
+
+def _grid(counts):
+    x, nu = np.meshgrid(_COUNTS[counts], np.array(_NUS))
+    return _f(x.ravel()), _f(nu.ravel())
+
+
+@pytest.mark.parametrize("const", [False, True])
+@pytest.mark.parametrize("counts", ["0-7", "8-255", "non-integer"])
+def test_lgamma_regimes_against_float64(counts, const):
+    """K7's lgamma terms in float32 in the regime its block takes for
+    such counts (select-products at 0-7, saturated products plus Stirling
+    at 8-255, the shift-into-Stirling lgamma_pos otherwise) against
+    float64 ``torch.lgamma``, within 3e-6 of the pieces' magnitudes."""
+    x, nu = _grid(counts)
+    if counts == "non-integer":
+        got = tne._lgamma_pos(nu) - tne._lgamma_pos(nu + x)
+        if const:
+            got = got + tne._lgamma_pos(x + 1)
+    else:
+        got = _lg_terms32(counts == "0-7", x, nu, const)
+    assert got.dtype == torch.float32
+    xd, nd = x.double(), nu.double()
+    pieces = [torch.lgamma(nd), -torch.lgamma(nd + xd)]
+    if const:
+        pieces.append(torch.lgamma(xd + 1))
+    want = sum(pieces)
+    tol = 3e-6 * sum(p.abs() for p in pieces) + 1e-6
+    assert ((got.double() - want).abs() <= tol).all()
+    if counts != "non-integer":   # the mixed regime agrees with the fast one
+        mixed = _lg_terms32(False, x, nu, const)
+        assert ((mixed.double() - want).abs() <= tol).all()
+
+
+@pytest.mark.parametrize("counts", ["0-7", "8-255", "non-integer"])
+def test_digamma_regimes_against_float64(counts):
+    """K8's digamma difference in float32: the integer regimes' dg_term
+    and the general regime's dP / P quotient (digamma_q, also at integer
+    counts) against float64 ``torch.digamma``, within 3e-6 of the pieces'
+    magnitudes; the quotient against the eight reciprocals of the plain
+    ``_digamma_pos``."""
+    x, nu = _grid(counts)
+    want = torch.digamma(nu.double()) - torch.digamma((nu + x).double())
+    tol = 3e-6 * (torch.digamma(nu.double()).abs()
+                  + torch.digamma((nu + x).double()).abs()) + 1e-6
+    quot = _digamma_q32(nu) - _digamma_q32(nu + x)
+    assert ((quot.double() - want).abs() <= tol).all()
+    if counts != "non-integer":
+        assert ((_dg_term32(x, nu).double() - want).abs() <= tol).all()
+    z = torch.cat([nu, nu + x])
+    assert torch.allclose(_digamma_q32(z), tne._digamma_pos(z), rtol=2e-6,
+                          atol=2e-6)
+
+
+# ----------------------------------------------------------------------
 # K2v: the value-bearing boot step
 # ----------------------------------------------------------------------
 

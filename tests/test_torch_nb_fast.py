@@ -217,3 +217,20 @@ def test_hidden_layers_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NBFastStep(NBVAE(data_dim=D, mean_encoding=(8,)), TrainingOptions())
     assert params_to_numpy({"a": torch.ones(2)})["a"].dtype == np.float32
+
+
+def test_packed_step_refusal_names_the_generic_step():
+    """A packed step refuses an architecture it does not take by naming
+    the generic step the architecture trains on (ported since the NB
+    generic step), not an unported path."""
+    from mmvae_tpu_torch.ops.nb_fast import PackedFastStep
+
+    class Never(PackedFastStep):
+        @staticmethod
+        def supports(model):
+            return False
+
+    with pytest.raises(NotImplementedError,
+                       match=r"generic step, train\.loop\.Trainer"):
+        Never(None, TrainingOptions())
+    assert "not ported" not in PackedFastStep.UNSUPPORTED

@@ -146,8 +146,9 @@ def test_port_kernel_names():
     assert trace_step.port_kernel(
         "void (anonymous namespace)::valgrad_tiles<signed char, 2, 1, 1, "
         "false, false>(signed char const*)") == "nb_valgrad"
-    assert trace_step.port_kernel("nbk::reduce_parts(float const*, long)"
-                                  ) == "nb_elbo_fwd"
+    assert trace_step.port_kernel(
+        "(anonymous namespace)::elbo_fwd_sum(float const*, long, float*)"
+    ) == "nb_elbo_fwd"
     assert trace_step.port_kernel(
         "void (anonymous namespace)::lse_sum(float const*)") == "nb_lse"
     for torch_kernel in ("void at::native::vectorized_elementwise_kernel<4>",
@@ -160,8 +161,8 @@ def test_port_kernel_names():
 
 def test_port_kernel_names_valgrad_stages():
     """Both stages of K2 (``csrc/nb_valgrad.cu``) are K2's time in the
-    table, in every instance; K7's second stage (``reduce_parts``, which
-    K6 and K3 no longer use) is K7's."""
+    table, in every instance; so are both stages of K7 (``csrc/nb_elbo.cu``,
+    whose second stage was ``reduce_parts``) K7's."""
     for stage in ("void (anonymous namespace)::valgrad_tiles<short, 0, 0, "
                   "0, true, true>(short const*, float const*)",
                   "void (anonymous namespace)::valgrad_tiles<float, 2, 1, 1, "
@@ -170,9 +171,37 @@ def test_port_kernel_names_valgrad_stages():
                   "const*, float const*, long, long, int, long, int, int, "
                   "int, long, long, long, float*, float*, float*)"):
         assert trace_step.port_kernel(stage) == "nb_valgrad"
+    for stage in ("void (anonymous namespace)::elbo_fwd_rows<signed char, "
+                  "true, true>(signed char const*, float const*)",
+                  "(anonymous namespace)::elbo_fwd_sum(float const*, long, "
+                  "float*)"):
+        assert trace_step.port_kernel(stage) == "nb_elbo_fwd"
     assert trace_step.port_kernel(
         "nbk::reduce_parts(float const*, long, long, int, float*, long)"
-    ) == "nb_elbo_fwd"
+    ) == "torch"
+
+
+def test_port_kernel_names_elbo_stages():
+    """Every instance of K7's stage 1 (dtype x with_const x on-chip or
+    re-read) and of K8 (dtype x vector loads) is its kernel's time; the
+    earlier names no longer match."""
+    for dtype in ("signed char", "short", "float"):
+        for const in ("false", "true"):
+            for onchip in ("false", "true"):
+                assert trace_step.port_kernel(
+                    f"void (anonymous namespace)::elbo_fwd_rows<{dtype}, "
+                    f"{const}, {onchip}>({dtype} const*, float const*, "
+                    f"float const*, float const*, long, long, long, float*)"
+                ) == "nb_elbo_fwd"
+        for vec in ("false", "true"):
+            assert trace_step.port_kernel(
+                f"void (anonymous namespace)::elbo_bwd_groups<{dtype}, "
+                f"{vec}>(float const*, {dtype} const*)") == "nb_elbo_bwd"
+    for old in ("void (anonymous namespace)::elbo_fwd_kernel<float, true>"
+                "(float const*)",
+                "void (anonymous namespace)::elbo_bwd_kernel<short>(float "
+                "const*)"):
+        assert trace_step.port_kernel(old) == "torch"
 
 
 def test_port_kernel_names_value_and_finish_stages():

@@ -108,7 +108,7 @@ def test_op_mix_prediction_keeps_the_jax_arithmetic():
 
 @pytest.mark.parametrize("kernel", list(vr.OP_MIX))
 def test_op_mix_prediction_of_each_instance(kernel):
-    """Every K2, K6 and K3 instance prices its own op mix."""
+    """Every K2, K6, K3, K7 and K8 instance prices its own op mix."""
     rates = {"fma": 2.0, "exp": 7.0, "log": 4.0, "div": 5.0, "select": 3.0}
     alu, n_exp, n_log, n_div = vr.OP_MIX[kernel]
     total, parts = vr.op_mix_prediction(rates, 10, kernel)
@@ -141,6 +141,22 @@ def test_op_mix_of_k6_and_k3():
     assert mix["nb_finish"] == (25, 1, 0, 0)
     for k in ("nb_value", "nb_value[pb,nu_exp]", "nb_finish"):
         assert mix[k][0] < mix["nb_valgrad"][0]
+
+
+def test_op_mix_of_k7_and_k8():
+    """K7, K7c and K8 (csrc/nb_elbo.cu) price their integer-count
+    instances as K2's are priced: K7c adds the select-products of
+    lgamma(x + 1) (18 ALU) and the divide of Pc / P to K7; K7 spends one
+    exp more than K6 (the row's sum of exp) and no logits; K8's
+    digamma select-products (42) and shared divide (9) are K2's."""
+    mix = vr.OP_MIX
+    assert mix["nb_elbo_fwd"] == (72, 3, 4, 1)
+    assert mix["nb_elbo_fwd[const]"] == (90, 3, 4, 2)
+    assert mix["nb_elbo_bwd"] == (92, 2, 2, 2)
+    assert [c - n for n, c in zip(mix["nb_elbo_fwd"],
+                                  mix["nb_elbo_fwd[const]"])] == [18, 0, 0, 1]
+    assert mix["nb_elbo_fwd"][1] == mix["nb_value"][1] + 1
+    assert mix["nb_elbo_bwd"][2:] == mix["nb_valgrad"][2:]
 
 
 def test_block_regimes():
