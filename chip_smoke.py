@@ -24,7 +24,9 @@ exits non-zero without the final line):
 4. the serving CLI end to end (the main path) on a synthetic
    4000 x 20000 matrix and a random D=20000 NB-VAE checkpoint, resident
    and streaming;
-5. full-size serving sweep: 100,000 x 20,000 int8 counts on the card;
+5. full-size serving sweep: 100,000 x 20,000 int8 counts on the card,
+   through the NB encoder and through the vMF-VAE's (cells/sec, device
+   busy and idle share);
 6. training kernels against plain: K5 (``count_encode`` backward), K1
    (``lse``), K6 (``value``), K2 (``valgrad``) and K3 (``finish``) on the
    card against their plain PyTorch versions at B = 100, D = 20,000 in
@@ -136,7 +138,8 @@ exits non-zero without the final line):
     instance's two stages alone;
 27. the tooling end to end: ``trace_step joint`` at D = 20,000, B = 100,
     8 batches an epoch, whose table must name the port's kernels with
-    device time; ``nb_vae`` on phase 4's matrix with ``MMVAE_TRACE_DIR``
+    device time, and ``trace_step vmf`` at the same size (PyTorch's
+    kernels only); ``nb_vae`` on phase 4's matrix with ``MMVAE_TRACE_DIR``
     set, whose trace must hold the ``ondevice_epoch`` annotation and the
     kernels and whose ``.metrics.jsonl`` rows the JAX trainer's
     ``time_*`` keys;
@@ -167,11 +170,26 @@ exits non-zero without the final line):
 31. a wide model's trainer: ``nb_vae --mean_latent 13`` (17 stacked
     rows) on phase 4's matrix for one epoch, every kernel of the NB path
     launched (its step kernels on their general instances), the score
-    finite.
+    finite;
+32. one vMF-VAE batch step at B = 100, D = 20,000 int8: the packed step
+    against the generic ``Trainer`` with the same draws, at the JAX
+    suite's tolerance; int8 == int16 == float32 storage and two runs,
+    bitwise.  The vMF-VAE is plain PyTorch (the JAX package computes it
+    in XLA): its path launches no kernel of the port, which this and the
+    next two phases check;
+33. the vMF-VAE's CLIs end to end on phase 4's matrix: ``vmf_vae`` for 2
+    epochs with recording and a checkpoint, ``--resume`` for one more;
+    ``vmf_vae --encoding 16 --decoding 16`` (the generic step) for one
+    epoch; ``encode --model vmf`` on the checkpoint, resident and
+    streaming (bitwise equal), against the plain unfolded encoder;
+34. full-width vMF-VAE training: two epochs over the first 20,000 of
+    phase 5's counts, with a profile of 20 batches and kappa before and
+    after.
 
 Each main path (phases 4, 8, 12, 16, the runs of 20 and 24, the
-probe's run in 26 and the wide trainer of 31) is driven with every
-launch counter set to 0 just before it and read just after.
+probe's run in 26, the wide trainer of 31 and the vMF-VAE's runs of 32,
+33, 34 and 5) is driven with every launch counter set to 0 just before
+it and read just after.
 The last two lines are the kernels' JSON record (with each kernel's
 bound at the main path's shape) and ``{"ok": true, "device": {...}}``.
 """
@@ -1165,9 +1183,14 @@ def phase_filt_kernels(card):
 
 
 def model_and_step(kind: str):
-    """(model, packed-step class) of the NB, joint or mixture model at
-    the default architecture and D = 20,000 (the mixture with
-    :func:`marker_label`)."""
+    """(model, packed-step class) of the NB, vMF, joint or mixture model
+    at the default architecture and D = 20,000 (the vMF-VAE with the
+    auto covariate's width 1, the mixture with :func:`marker_label`)."""
+    if kind == "vmf":
+        from mmvae_tpu_torch.models.vmf import VMFVAE
+        from mmvae_tpu_torch.ops.vmf_fast import VMFFastStep
+
+        return VMFVAE(data_dim=D_GENES, covar_dim=1), VMFFastStep
     if kind == "mixture":
         from mmvae_tpu_torch.models.vmfnb_mixture import VMFNBMixtureVAE
         from mmvae_tpu_torch.ops.vmfnb_fast import VMFNBMixtureFastStep
@@ -1188,7 +1211,8 @@ PHASE = {"nb": {"step": 7, "cli": 8, "full": 9},
          "joint": {"step": 11, "cli": 12, "full": 13},
          "mixture": {"step": 15, "cli": 16, "full": 17},
          "generic": {"step": 19, "cli": 20, "full": 21},
-         "library": {"step": 23, "cli": 24, "full": 25}}
+         "library": {"step": 23, "cli": 24, "full": 25},
+         "vmf": {"step": 32, "cli": 33, "full": 34}}
 
 
 def first_boot_grad(fast, q, x, c, rand, dtype=torch.float32):
@@ -2762,7 +2786,8 @@ def phase_roofline(card):
 
 def phase_tooling(card, tmp, mtx):
     """Phase 27: ``trace_step joint`` at D = 20,000, B = 100, S = 8 (its
-    table must name the port's kernels with device time), then ``nb_vae``
+    table must name the port's kernels with device time) and ``trace_step
+    vmf`` at the same size (PyTorch's kernels only), then ``nb_vae``
     on phase 4's matrix with ``MMVAE_TRACE_DIR`` set: a trace holding the
     ``ondevice_epoch`` annotation and the kernels, and ``.metrics.jsonl``
     rows with the JAX trainer's ``time_*`` keys (B = 1,000 keeps the
@@ -2792,6 +2817,24 @@ def phase_tooling(card, tmp, mtx):
         f"): {rate}; device us a batch by kernel: "
         + ", ".join(f"{k} {v:.1f}" for k, v in
                     sorted(by_kernel.items(), key=lambda kv: -kv[1])))
+    # the vMF-VAE's packed step: plain PyTorch, so every row of its table
+    # is PyTorch's own
+    buf = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(buf):
+        rows = trace_step.main(["vmf", str(D_GENES), "8", str(B_TRAIN),
+                                "--out", os.path.join(tmp, "trace_vmf")])
+    wall = time.time() - t0
+    kinds = {trace_step.port_kernel(name) for name in rows}
+    us = sum(v for v, _ in rows.values()) / 16
+    if kinds != {"torch"} or not us > 0:
+        raise AssertionError(f"trace_step vmf's table: {kinds}, {us} us")
+    rate = next(ln for ln in buf.getvalue().splitlines() if "cells/sec" in ln)
+    top = sorted(rows.items(), key=lambda kv: -kv[1][0])[:3]
+    log(f"{tag} [{card}] trace_step vmf {D_GENES} 8 {B_TRAIN} ({wall:.1f}s):"
+        f" {rate}; device {us:.1f} us a batch in {len(rows)} PyTorch "
+        f"kernels (no kernel of the port); top: " + "; ".join(
+            f"{k[:50]} {v / 16:.1f} us" for k, (v, _) in top))
 
     out, tdir = os.path.join(tmp, "traced"), os.path.join(tmp, "cli_trace")
     os.environ["MMVAE_TRACE_DIR"] = tdir
@@ -2870,7 +2913,10 @@ NB_PATH = ["count_encode", "count_encode_bwd", "nb_lse", "nb_value",
 JOINT_PATH = ["count_encode[stats]", "count_encode_bwd", "nb_lse",
               "nb_value[pb,nu_exp]", "nb_valgrad[pb,nu_exp]", "nb_finish"]
 MIXTURE_PATH = ["count_encode[filt]"] + JOINT_PATH[1:]
-PATHS = {"nb": NB_PATH, "joint": JOINT_PATH, "mixture": MIXTURE_PATH}
+# the vMF-VAE is plain PyTorch, as the JAX package computes it in XLA: its
+# path launches no kernel of the port
+PATHS = {"nb": NB_PATH, "joint": JOINT_PATH, "mixture": MIXTURE_PATH,
+         "vmf": []}
 # the library trainer of the joint model and of the mixture (K2pv)
 JOINT_VALUE_PATH = ["count_encode[stats]", "count_encode_bwd", "nb_lse",
                     "nb_value[pb,nu_exp]", "nb_valgrad[pb,nu_exp,value]",
@@ -2927,19 +2973,20 @@ def step_line(err: str) -> str:
 def phase_train_cli(card, tmp, mtx, kind="nb", arch=None, tag=None,
                     route=None):
     """Phase 8 (``nb_vae``) / 12 (``vmfnb_vae``) / 16 (``vmfnb_vae
-    --annot --row``): the trainer CLI on the synthetic matrix, 2 epochs
-    with recording and a checkpoint, then ``--resume`` for epoch 3;
-    returns the first run's launches and the checkpoint.  ``arch`` (the
-    vMF+NB models' hidden layers, phase 24) adds its flags and ``route``
-    is then the step the run must log."""
-    from mmvae_tpu_torch.cli import nb_vae, vmfnb_vae
-    from mmvae_tpu_torch.train.recorder import flatten_params
+    --annot --row``) / 33 (``vmf_vae``): the trainer CLI on the synthetic
+    matrix, 2 epochs with recording and a checkpoint, then ``--resume``
+    for epoch 3; returns the first run's launches and the checkpoint.
+    Every kernel of the model's path is launched (the vMF-VAE's path
+    launches none).  ``arch`` (the vMF+NB models' hidden layers, phase
+    24) adds its flags and ``route`` is then the step the run must log."""
+    from mmvae_tpu_torch.cli import nb_vae, vmf_vae, vmfnb_vae
+    from mmvae_tpu_torch.train.recorder import flatten_params, latent_names
 
     arch = arch or {}
     tag = tag or f"[phase {PHASE[kind]['cli']}]"
-    cli = nb_vae if kind == "nb" else vmfnb_vae
+    cli = {"nb": nb_vae, "vmf": vmf_vae}.get(kind, vmfnb_vae)
     path = PATHS[kind]
-    name = " ".join([{"nb": "nb_vae", "joint": "vmfnb_vae",
+    name = " ".join([{"nb": "nb_vae", "vmf": "vmf_vae", "joint": "vmfnb_vae",
                       "mixture": "vmfnb_vae --annot --row"}[kind],
                      *arch_flags(arch)])
     out = os.path.join(tmp, {"nb": "train"}.get(kind, kind)
@@ -2956,9 +3003,10 @@ def phase_train_cli(card, tmp, mtx, kind="nb", arch=None, tag=None,
                                "--checkpoint_dir", ck])
     wall = time.time() - t0
     launches = read_launches()
-    if min(launches[k] for k in path) < 1:
-        raise AssertionError(f"the {name} main path skipped a kernel: "
-                             f"{launches}")
+    if (min(launches[k] for k in path) < 1 if path
+            else any(launches.values())):
+        raise AssertionError(f"the {name} main path skipped a kernel, or "
+                             f"launched one off its path: {launches}")
     if "dense-resident" not in err:
         raise AssertionError(f"{name} did not run dense-resident")
     if route is not None and route not in step_line(err):
@@ -2969,8 +3017,7 @@ def phase_train_cli(card, tmp, mtx, kind="nb", arch=None, tag=None,
     # recording artifacts: the JAX CLI's names and shapes
     model = vmfnb_model(kind, **arch) if arch else model_and_step(kind)[0]
     names = flatten_params(model.init(torch.Generator().manual_seed(0)))
-    want = {f"{out}_1.mu_mean.gz": (N_CLI, 2), f"{out}_1.mu_lnvar.gz":
-            (N_CLI, 2)}
+    want = {f"{out}_1.{k}.gz": (N_CLI, 2) for k in latent_names(model)}
     if kind == "mixture":
         want[f"{out}_1.clust.gz"] = (N_CLI, K_MIX)
     want.update({f"{out}_1_{k}.gz": v.shape for k, v in names.items()})
@@ -2997,57 +3044,69 @@ def phase_train_cli(card, tmp, mtx, kind="nb", arch=None, tag=None,
     return launches, ck
 
 
-def phase_joint_encode(card, tmp, mtx, ck, arch=None, tag="[phase 12]"):
-    """Phase 12, serving: ``encode --model vmfnb`` on the trained joint
-    checkpoint, resident and streaming (bitwise equal), against the plain
-    unfolded encoder on the card; ``arch``: a hidden-layer checkpoint's
-    architecture (phase 24)."""
+def phase_joint_encode(card, tmp, mtx, ck, arch=None, tag="[phase 12]",
+                       kind="joint"):
+    """Phase 12 / 33, serving: ``encode --model vmfnb`` on the trained
+    joint checkpoint (``kind`` "vmf": ``encode --model vmf`` on the
+    vMF-VAE's, which launches no kernel), resident and streaming (bitwise
+    equal), against the plain unfolded encoder on the card; ``arch``: a
+    hidden-layer checkpoint's architecture (phase 24)."""
     from mmvae_tpu_torch.cli import encode
     from mmvae_tpu_torch.models.nb import params_from_numpy
     from mmvae_tpu_torch.train.checkpoint import load_checkpoint
+    from mmvae_tpu_torch.train.recorder import latent_names
 
     arch = arch or {}
-    args = ["--model", "vmfnb", "--mtx", mtx, "--checkpoint", ck,
-            "--batch_size", "100", "--device", DEV, *arch_flags(arch)]
+    vmf = kind == "vmf"
+    args = ["--model", "vmf" if vmf else "vmfnb", "--mtx", mtx,
+            "--checkpoint", ck, "--batch_size", "100", "--device", DEV,
+            *arch_flags(arch)]
     reset_launches()
+    t0 = time.time()
     err = run_cli(encode, args + ["--out", os.path.join(tmp, "jres")])
-    launches = read_launches()["count_encode[stats]"]
-    if "dense-resident" not in err or launches < 1:
-        raise AssertionError(f"joint resident sweep: {launches} launches")
-    res = [np.loadtxt(os.path.join(tmp, f"jres.mu_{k}.gz"), ndmin=2)
-           for k in ("mean", "lnvar")]
-    model = vmfnb_model("joint", **arch)
+    wall = time.time() - t0
+    counts = read_launches()
+    launches = counts["count_encode[stats]"]
+    if "dense-resident" not in err or (any(counts.values()) if vmf
+                                       else launches < 1):
+        raise AssertionError(f"{kind} resident sweep: launches {counts}")
+    model = model_and_step("vmf")[0] if vmf else vmfnb_model("joint", **arch)
+    names = latent_names(model)
+    res = [np.loadtxt(os.path.join(tmp, f"jres.{k}.gz"), ndmin=2)
+           for k in names]
     params = params_from_numpy(load_checkpoint(ck, model)[0], DEV)
     with torch.inference_mode():
         x = torch.from_numpy(read_mtx_dense(mtx)).to(DEV)
-        want = [t.double().cpu().numpy()
-                for t in model.shared_encode_mu(params, x)]
+        plain = model.encode if vmf else model.shared_encode_mu
+        want = [t.double().cpu().numpy() for t in plain(params, x)]
     worst = 0.0
     for got, w in zip(res, want):
         if got.shape != (N_CLI, 2) or not np.isfinite(got).all():
-            raise AssertionError(f"bad joint encode output {got.shape}")
+            raise AssertionError(f"bad {kind} encode output {got.shape}")
         # the fold reorders float32 sums over 20,000 genes: 1e-4 of the
         # output's scale, plus the %g text rounding (6 digits)
         lim = 1e-4 * np.abs(w).max() + 1e-5 * np.abs(w)
         worst = max(worst, float(np.max(np.abs(got - w) / lim)))
     if not worst <= 1.0:
-        raise AssertionError(f"joint encode vs plain: err/tol {worst:.3g}")
+        raise AssertionError(f"{kind} encode vs plain: err/tol {worst:.3g}")
     os.environ["MMVAE_DENSE_BYTES"] = "1"
     try:
         err = run_cli(encode, args + ["--out", os.path.join(tmp, "jstr")])
     finally:
         del os.environ["MMVAE_DENSE_BYTES"]
     if "resident fast path skipped" not in err:
-        raise AssertionError("joint streaming sweep did not run")
-    for k, a in zip(("mean", "lnvar"), res):
-        b = np.loadtxt(os.path.join(tmp, f"jstr.mu_{k}.gz"), ndmin=2)
+        raise AssertionError(f"{kind} streaming sweep did not run")
+    for k, a in zip(names, res):
+        b = np.loadtxt(os.path.join(tmp, f"jstr.{k}.gz"), ndmin=2)
         if not np.array_equal(a, b):
-            raise AssertionError(f"joint streaming mu_{k} != resident")
-    log(f"{tag} [{card}] encode --model vmfnb {' '.join(arch_flags(arch))}"
-        f": {launches} "
-        f"count_encode[stats] launches; outputs ({N_CLI}, 2) match the "
-        f"plain unfolded encoder (err/tol {worst:.3g}; tol 1e-4 * max|ref| "
-        f"+ 1e-5 * |ref|); streaming equals resident bitwise")
+            raise AssertionError(f"{kind} streaming {k} != resident")
+    done = ("no kernel launches" if vmf
+            else f"{launches} count_encode[stats] launches")
+    log(f"{tag} [{card}] encode --model {args[1]} "
+        f"{' '.join(arch_flags(arch))}: {done}; outputs ({N_CLI}, 2) "
+        f".{names[0]} / .{names[1]} match the plain unfolded encoder "
+        f"(err/tol {worst:.3g}; tol 1e-4 * max|ref| + 1e-5 * |ref|); "
+        f"streaming equals resident bitwise; resident CLI wall {wall:.2f}s")
     return launches
 
 
@@ -3135,11 +3194,13 @@ def phase_mixture_encode(card, tmp, mtx, ck, arch=None, tag="[phase 16]"):
 def phase_train_full(card, data, kind="nb"):
     """Phase 9 (NB) / 13 (joint) / 17 (mixture) / 21 (NB on the generic
     step, ``nb_vae --no_fused_step``) / 25 (the joint model's library
-    trainer, K2pv's main path): two epochs of the dense-resident epoch
-    runner at full width over the first N_EARLIER cells (N_SHORT for the
-    joint and mixture models), with the kernels' launches per batch, and
-    a profile of 20 batches (processing a trace takes about a second a
-    batch, the largest cost of these phases)."""
+    trainer, K2pv's main path) / 34 (the vMF-VAE's packed step): two
+    epochs of the dense-resident epoch runner at full width over the
+    first N_EARLIER cells (N_SHORT for the joint, mixture and vMF
+    models), with the kernels' launches per batch (none for the vMF-VAE,
+    whose kappa is printed before and after), and a profile of 20 batches
+    (processing a trace takes about a second a batch, the largest cost
+    of these phases)."""
     from mmvae_tpu_torch.train.config import TrainingOptions
     from mmvae_tpu_torch.train.loop import DenseEpochRunner
 
@@ -3164,18 +3225,29 @@ def phase_train_full(card, data, kind="nb"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         q, po, reps, _ = runner(q, po, epoch)
-        losses.append(reps.mean().item())
+        # in float64: the vMF loss at D = 20,000 is ~7e4, where one
+        # float32 ulp (0.0078) is the size of its fall over two epochs
+        losses.append(reps.double().mean().item())
         times.append(time.perf_counter() - t0)
     per = {k: n / (2 * runner.nbatch) for k, n in read_launches().items()
            if n}
     if not (np.isfinite(losses).all() and losses[1] < losses[0]):
         raise AssertionError(f"full-size training loss {losses}")
+    extra = ""
+    if kind == "vmf":
+        if per:
+            raise AssertionError(f"the vMF step launched a kernel: {per}")
+        ln = (params["ln_kappa"].item(), fast.unpack(q)["ln_kappa"].item())
+        kap = [model.kappa(torch.tensor([v])).item() for v in ln]
+        extra = (f"; ln_kappa {ln[0]:.6f} -> {ln[1]:.6f} (kappa "
+                 f"{kap[0]:.6f} -> {kap[1]:.6f}, clamp [{model.kappa_min}, "
+                 f"{model.kappa_max}])")
     N = data.shape[0]
     log(f"{tag} [{card}] {kind} training {N} x "
         f"{D_GENES} int8, B={B_TRAIN}, nboot 3: epoch losses "
         f"{losses[0]:.4f} -> {losses[1]:.4f}; epoch times {times[0]:.2f}s, "
         f"{times[1]:.2f}s; second epoch {N / times[1]:,.1f} cells/sec; "
-        f"kernel launches a batch {per}")
+        f"kernel launches a batch {per}{extra}")
     nprof = 20
     sub = DenseEpochRunner(fast, data[:nprof * B_TRAIN], B_TRAIN, seed=SEED)
     rand = sub.draw(2)
@@ -3204,6 +3276,152 @@ def phase_train_full(card, data, kind="nb"):
         + f"; top kernels over the {nprof} batches: "
         + "; ".join(f"{k[:48]} {v:.1f} ms" for k, v in top))
     return N / times[1]
+
+
+# ----------------------------------------------------------------------
+# the vMF-VAE (32-34, and its serving sweep in 5): plain PyTorch, as the
+# JAX package computes it in XLA, so its path launches no kernel of the
+# port; every launch counter is read after each of its runs
+# ----------------------------------------------------------------------
+
+def phase_vmf_step(card):
+    """Phase 32: one vMF-VAE batch step on the card at B = 100, D = 20,000
+    int8 counts, the packed ``VMFFastStep`` against the generic
+    ``Trainer`` (``forward`` + ``vmf_loss``, the route ``--no_fused_step``
+    takes) with the same draws, at the JAX suite's contract for the two
+    (tests/test_vmf_fast.py:76-80): the report rtol 2e-4, every parameter
+    rtol 3e-3, atol 1e-4.  Then int8 == int16 == float32 storage of the
+    same counts and two runs, bitwise; every kernel's launch counter
+    stays at 0."""
+    from mmvae_tpu_torch.cli.vmf_vae import make_step
+    from mmvae_tpu_torch.ops.nb_fast import batch_rand, tree_leaves
+    from mmvae_tpu_torch.train.config import TrainingOptions
+
+    tag = "[phase 32]"
+    g = torch.Generator(device=DEV).manual_seed(SEED + 32)
+    model, step_cls = model_and_step("vmf")
+    params = random_params(model, DEV)
+    x8 = make_counts(g, B_TRAIN, D_GENES, torch.int8)
+    c = torch.ones((B_TRAIN, 1), device=DEV)
+    packed = step_cls(model, TrainingOptions())
+    generic, route = make_step(model, TrainingOptions(fused_step=False))
+    rand = batch_rand(packed.draw_rand(
+        torch.Generator(device=DEV).manual_seed(SEED + 5), 1, B_TRAIN), 0)
+
+    def run(step, x):
+        q = step.pack(params)
+        q2, _, rep = step.batch_step(q, step.optimizer.init(q), x, c, 0.0,
+                                     rand)
+        torch.cuda.synchronize()
+        return step.unpack(q2), rep.item()
+
+    reset_launches()
+    (pk, rk), (pg, rg) = run(packed, x8), run(generic, x8)
+    launched = {k: n for k, n in read_launches().items() if n}
+    if launched:
+        raise AssertionError(f"the vMF step launched kernels: {launched}")
+    rep_err = abs(rk - rg) / abs(rg)
+    if not rep_err <= 2e-4:
+        raise AssertionError(f"vMF report: packed {rk} vs generic {rg}")
+    q_p = max(((a - b).abs() / (3e-3 * b.abs() + 1e-4)).max().item()
+              for a, b in zip(tree_leaves(pk), tree_leaves(pg)))
+    if not q_p <= 1.0:
+        raise AssertionError(f"vMF packed vs generic: params err/tol "
+                             f"{q_p:.3g}")
+    for name, x in (("int16", x8.to(torch.int16)),
+                    ("float32", x8.float()), ("int8 again", x8)):
+        p2, r2 = run(packed, x)
+        if not (r2 == rk and all(torch.equal(u, v) for u, v in zip(
+                tree_leaves(p2), tree_leaves(pk)))):
+            raise AssertionError(f"vMF packed step: {name} != int8 bitwise")
+    log(f"{tag} [{card}] one vMF batch step, B={B_TRAIN} D={D_GENES} int8, "
+        f"packed step vs {route} with the same draws: report {rk:.6f} vs "
+        f"{rg:.6f} (rel {rep_err:.2g}, tol 2e-4); every parameter err/tol "
+        f"{q_p:.3g} (rtol 3e-3, atol 1e-4); int8 == int16 == float32 "
+        f"storage and two runs bitwise; no kernel launched")
+
+
+def phase_vmf_cli(card, tmp, mtx):
+    """Phase 33: the vMF-VAE's CLIs end to end on phase 4's matrix, every
+    launch counter reset just before each run and read just after (all
+    stay 0): ``vmf_vae`` for 2 epochs with recording and a checkpoint,
+    then ``--resume`` for one more (:func:`phase_train_cli`); ``vmf_vae
+    --encoding 16 --decoding 16`` (the generic step) for one epoch;
+    ``encode --model vmf`` on the first checkpoint, resident and
+    streaming (bitwise equal), against the plain unfolded encoder
+    (:func:`phase_joint_encode`).  Width 16 is a test width: the
+    reference publishes no hidden-layer default."""
+    from mmvae_tpu_torch.cli import vmf_vae
+
+    tag = "[phase 33]"
+    launches, ck = phase_train_cli(card, tmp, mtx, "vmf",
+                                   route="packed step (VMFFastStep)")
+    reset_launches()
+    hidden = dict(encoding=(16,), decoding=(16,))
+    err = run_cli(vmf_vae, ["--mtx", mtx, "--batch_size", str(B_TRAIN),
+                            "--device", DEV, "--max_epoch", "1",
+                            *arch_flags(hidden), "--out",
+                            os.path.join(tmp, "vmf_hidden")])
+    n = read_launches()
+    route = step_line(err)
+    score = np.loadtxt(os.path.join(tmp, "vmf_hidden.scores.gz"), ndmin=1)
+    if ("generic step, forward + vmf_loss" not in route or any(n.values())
+            or score.shape != (1,) or not np.isfinite(score).all()):
+        raise AssertionError(f"vmf_vae hidden: route {route!r}, launches "
+                             f"{n}, score {score}")
+    log(f"{tag} [{card}] vmf_vae {' '.join(arch_flags(hidden))}, 1 epoch: "
+        f"step {route!r}; score {score.tolist()}; no kernel launched; "
+        + [ln.split("] ", 1)[-1] for ln in err.splitlines()
+           if "cells/sec" in ln][-1])
+    phase_joint_encode(card, tmp, mtx, ck, tag=tag, kind="vmf")
+    return launches
+
+
+def phase_full_vmf(card, data):
+    """Phase 5, the vMF-VAE: the resident serving sweep (the folded
+    Angular encoder, plain PyTorch) over the same 100,000 x 20,000 int8
+    counts, with random parameters; the first 1000 rows against the
+    unfolded ``encode``; no kernel launched."""
+    from mmvae_tpu_torch.train.loop import encode_resident
+
+    N, B, chunk = N_FULL, 100, 16
+    model = model_and_step("vmf")[0]
+    params = random_params(model, DEV)
+    reset_launches()
+    with torch.inference_mode():
+        encode_resident(model, params, data, B, chunk)  # warm-up
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, lnvar = encode_resident(model, params, data, B, chunk)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        busy, per = device_profile(
+            lambda: encode_resident(model, params, data, B, chunk))
+        want = model.encode(params, data[:1000])
+    launched = {k: n for k, n in read_launches().items() if n}
+    if launched:
+        raise AssertionError(f"the vMF sweep launched kernels: {launched}")
+    worst = 0.0
+    for got, w in zip((mean[:1000], lnvar[:1000]), want):
+        w = w.double()
+        lim = 1e-4 * w.abs().max() + 1e-5 * w.abs()
+        worst = max(worst, ((got.double() - w).abs() / lim).max().item())
+    if not (worst <= 1.0 and mean.shape == (N, 2)
+            and torch.isfinite(mean).all() and torch.isfinite(lnvar).all()):
+        raise AssertionError(f"vMF sweep vs plain: err/tol {worst:.3g}")
+    dt = statistics.median(times)
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:4]
+    log(f"[phase 5] [{card}] vMF resident sweep {N} x {D_GENES} int8, "
+        f"B={B}, chunk {chunk}: {N / dt:,.1f} cells/sec (median of 3: "
+        f"{', '.join(f'{t * 1e3:.3f}' for t in times)} ms); device busy "
+        f"{busy:.3f} ms of {dt * 1e3:.3f} ms wall (idle share "
+        f"{1 - busy / (dt * 1e3):.1%}) in {device_profile.kernels:.0f} "
+        f"device kernels and copies; first 1000 rows match the unfolded "
+        f"encoder (err/tol {worst:.3g}; tol 1e-4 * max|ref| + 1e-5 * "
+        f"|ref|); no kernel of the port launched; "
+        + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
 
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and
@@ -3366,7 +3584,8 @@ def main() -> int:
         phase_batch_step(card, kind)
     phase_generic_step(card)
     phase_vmfnb_generic_step(card)
-    mark("7, 11, 15, 19, 23")
+    phase_vmf_step(card)
+    mark("7, 11, 15, 19, 23, 32")
     with tempfile.TemporaryDirectory() as tmp:
         serve_launches, mtx = phase_cli(card, tmp)
         mark("4")
@@ -3380,12 +3599,15 @@ def main() -> int:
         vj_launches, vm_launches, v_lib = phase_vmfnb_generic_cli(card, tmp,
                                                                   mtx)
         mark("8, 31, 12, 16, 20, 24")
+        phase_vmf_cli(card, tmp, mtx)
+        mark("33")
         phase_tooling(card, tmp, mtx)
         mark("27")
         data = full_size_counts()
         phase_full(card, data)
+        phase_full_vmf(card, data)
         mark("5")
-        for kind in ("nb", "joint", "mixture", "generic", "library"):
+        for kind in ("nb", "joint", "mixture", "generic", "library", "vmf"):
             phase_train_full(card, data, kind)
             mark(str(PHASE[kind]["full"]))
         del data
@@ -3420,7 +3642,9 @@ def main() -> int:
         f"{ {k: wide_launches[k] for k in NB_PATH} }"
         f"; library trainers: joint "
         f"{ {k: v_lib['joint'][k] for k in JOINT_VALUE_PATH} }, mixture "
-        f"{ {k: v_lib['mixture'][k] for k in MIXTURE_VALUE_PATH} }")
+        f"{ {k: v_lib['mixture'][k] for k in MIXTURE_VALUE_PATH} }"
+        f"; vmf_vae, encode --model vmf and the vMF step and sweep "
+        f"(phases 32-34, 5): no kernel launched")
     log(card)
     int8 = dict(B=B_TRAIN, D=D_GENES, x_bytes=1, dtype="int8")
     shapes = {"count_encode": dict(int8, B=1600, r1=2, r2=0),

@@ -1,7 +1,7 @@
 """Profile the packed fast-step epoch and print time by kernel: the port
 of ``benchmarks/trace_step.py``.
 
-    python -m mmvae_tpu_torch.benchmarks.trace_step [nb|joint|mixture]
+    python -m mmvae_tpu_torch.benchmarks.trace_step [nb|vmf|joint|mixture]
         [D] [S] [B] [--device cuda] [--out DIR]
 
 Builds the model at its default architecture on its packed fast step
@@ -65,10 +65,12 @@ def build(kind: str, D: int, S: int, device="cuda"):
 
     topt = TrainingOptions(nboot=3, superbatch=S, seed=0)
     if kind == "vmf":
-        raise NotImplementedError(
-            "trace_step vmf: the vMF-VAE is not ported yet (ROADMAP.md "
-            "Queue 1 item 9)")
-    if kind == "nb":
+        from ..models.vmf import VMFVAE
+        from ..ops.vmf_fast import VMFFastStep
+
+        model = VMFVAE(data_dim=D, covar_dim=1, latent=2)
+        fast = VMFFastStep(model, topt)
+    elif kind == "nb":
         from ..models.nb import NBVAE
         from ..ops.nb_fast import NBFastStep
 

@@ -24,7 +24,7 @@ from ..models.nb import adam_from_numpy, params_from_numpy
 from ..train.checkpoint import load_checkpoint, load_opt_state, save_checkpoint
 from ..train.config import MMVaeOptions, TrainingOptions
 from ..train.loop import train_vae_model
-from ..train.recorder import LatentRecorder
+from ..train.recorder import LatentRecorder, latent_names
 from ..utils.logging import ELOG, TLOG, WLOG
 from ..utils.summary import pretty_print
 
@@ -145,13 +145,16 @@ def run_training(opts: MMVaeOptions, topt: TrainingOptions, model, fast,
     print the model summary to stderr, train on the dense-resident step
     (packed or generic) with recording and checkpoints, and write
     ``${out}.scores.gz``.  The recorder's encode and its extra artifact
-    come from ``model.record_encoder``."""
+    come from ``model.record_encoder``, its posterior artifacts' names
+    from :func:`~mmvae_tpu_torch.train.recorder.latent_names`."""
     params = model.init(torch.Generator().manual_seed(topt.seed),
                         device=device)
     encode_fn, extra_name = model.record_encoder(topt.seed,
                                                  data_block.size())
+    mean_name, lnvar_name = latent_names(model)
     recorder = LatentRecorder(opts.out, topt.max_epoch, data_block.ntot(),
-                              encode_fn=encode_fn, extra_name=extra_name)
+                              encode_fn=encode_fn, extra_name=extra_name,
+                              mean_name=mean_name, lnvar_name=lnvar_name)
     start_epoch, init_opt_state, prev_losses = 0, None, []
     if topt.resume:
         params_np, start_epoch, prev_losses = load_checkpoint(topt.resume,

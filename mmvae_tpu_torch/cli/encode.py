@@ -1,16 +1,20 @@
 """``encode`` — whole-dataset encoding with a trained checkpoint (serving).
 
-Port of ``mmvae_tpu/cli/encode.py`` for ``--model nb``, ``--model
-vmfnb`` (the joint model's shared encoder) and ``--model mixture`` (the
-labeled mixture, with ``--annot`` and ``--row``): load a checkpoint
-written by either package (``--checkpoint_dir`` of the trainers, or
+Port of ``mmvae_tpu/cli/encode.py`` for ``--model nb``, ``--model vmf``
+(the vMF-VAE, ``--latent`` / ``--encoding`` / ``--decoding`` as its
+trainer's), ``--model vmfnb`` (the joint model's shared encoder) and
+``--model mixture`` (the labeled mixture, with ``--annot`` and
+``--row``): load a checkpoint written by either package
+(``--checkpoint_dir`` of the trainers, or
 :func:`mmvae_tpu_torch.train.checkpoint.save_checkpoint`), sweep the
 full dataset once, and write the ``.mu_mean.gz`` / ``.mu_lnvar.gz``
-posterior matrices, and for the mixture the ``.clust.gz`` assignments:
-the frozen model's hard Gumbel draw, with one (B, K) matrix of uniforms
-from ``--seed`` reused for every batch.
+posterior matrices (the vMF-VAE's ``.latent_mean.gz`` /
+``.latent_lnvar.gz``, encoded with no covariate as the JAX CLI does),
+and for the mixture the ``.clust.gz`` assignments: the frozen model's
+hard Gumbel draw, with one (B, K) matrix of uniforms from ``--seed``
+reused for every batch.
 
-    python -m mmvae_tpu_torch.cli.encode --model nb|vmfnb|mixture \
+    python -m mmvae_tpu_torch.cli.encode --model nb|vmf|vmfnb|mixture \
         --mtx data.mtx.gz --checkpoint ckpt_dir --out encoded \
         [--annot annot.txt --row features.txt --seed 0] [--device cuda]
 
@@ -35,12 +39,14 @@ from ..data.block import MtxDataBlock
 from ..io.index import build_mmutil_index
 from ..io.writers import write_data_file
 from ..models.nb import NBVAE, params_from_numpy
+from ..models.vmf import VMFVAE
 from ..models.vmfnb import VMFNBVAE
 from ..models.vmfnb_mixture import VMFNBMixtureVAE
 from ..train.checkpoint import load_checkpoint
 from ..train.config import _csv_ints
 from ..train.loop import (as_memory_block, build_dense, encode_resident,
                           encode_streaming)
+from ..train.recorder import latent_names
 from ..utils.logging import ELOG, TLOG
 from .common import warn_unknown_args
 from .vmfnb_vae import load_label, resolve_kappa_defaults
@@ -81,10 +87,6 @@ def main(argv=None) -> int:
     ns, unknown = p.parse_known_args(argv)
     warn_unknown_args(unknown)
 
-    if ns.model == "vmf":
-        raise NotImplementedError(
-            "--model vmf: not ported yet (ROADMAP.md Queue 1 item 9, "
-            "vMF-VAE)")
     if ns.model == "mixture" and not (ns.annot and ns.row):
         raise ValueError("--model mixture needs --annot and --row")
     if ns.tensor_parallel > 1:
@@ -116,6 +118,10 @@ def main(argv=None) -> int:
                                 kappa_min=kmin, kappa_max=kmax, **shape)
     elif ns.model == "nb":
         model = NBVAE(data_dim=D, covar_dim=1, **shape)
+    elif ns.model == "vmf":  # kappa does not enter the encoder
+        model = VMFVAE(data_dim=D, covar_dim=1, latent=ns.mean_latent,
+                       encoding=ns.encoding, decoding=ns.decoding,
+                       do_relu=ns.do_relu)
     else:  # --kappa_min / --kappa_max do not enter the joint encoder
         model = VMFNBVAE(data_dim=D, **shape)
     params_np, epoch, _ = load_checkpoint(ns.checkpoint, model)
@@ -163,7 +169,7 @@ def main(argv=None) -> int:
             outs = encode_streaming(model, params, db, ns.batch_size,
                                     ns.chunk_batches, device, prep)
 
-    for name, out in zip(("mu_mean", "mu_lnvar", "clust"), outs):
+    for name, out in zip((*latent_names(model), "clust"), outs):
         write_data_file(f"{ns.out}.{name}.gz", out)
     TLOG("Done")
     return 0

@@ -1,19 +1,22 @@
-"""ELBO terms of the NB-VAE and the vMF+NB models.
+"""ELBO terms of the NB-VAE, the vMF-VAE and the vMF+NB models.
 
 Port of ``mmvae_tpu/ops/losses.py`` (``l2_normalize`` :23,
 ``gaussian_kl`` :29, ``uniform_kl`` :38, ``kl_weight_schedule`` :124,
-``nb_nllik`` / ``nb_loss`` :49-95).  The training steps use
-``gaussian_kl``, ``kl_weight_schedule`` and (the labeled mixture)
-``uniform_kl``; ``l2_normalize`` serves the vMF+NB models' plain
-encoders; ``nb_nllik`` and ``nb_loss`` are the unfused reference
-formulas, kept for the tests.
+``nb_nllik`` / ``nb_loss`` :49-95, ``vmf_loss`` :98-122).  The training
+steps use ``gaussian_kl``, ``kl_weight_schedule`` and (the labeled
+mixture) ``uniform_kl``; ``l2_normalize`` serves the vMF models' plain
+encoders; ``vmf_loss`` is the vMF-VAE's generic-step loss; ``nb_nllik``
+and ``nb_loss`` are the unfused reference formulas, kept for the tests.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .fastmath import fasterlog
+from .lbessel import lbessel
 from .nb_elbo import _lgamma_pos
 
 
@@ -75,3 +78,34 @@ def nb_loss(x: torch.Tensor, recon_mu, recon_nu, recon_depth, mu_mean,
     ret = ret + gaussian_kl(mu_mean, mu_lnvar) * kl_weight
     ret = ret + gaussian_kl(nu_mean, nu_lnvar) * kl_weight
     return ret / x.shape[0]
+
+
+
+def vmf_loss_parts(cos: torch.Tensor, kappa: torch.Tensor, kl, kl_weight,
+                   dd: float, include_const: bool = True) -> torch.Tensor:
+    """``kl / n * beta - sum(llik) / n`` with ``llik = kappa * cos + df log
+    kappa - lbessel(kappa, df) - D / 2 fasterlog(2 pi)`` from the rows'
+    cosines ``yobs . recon`` (vmf.hh:419-440), ``df = max(D / 2 - 1, 0)``;
+    ``include_const=False`` drops the data constant (no gradient: the
+    packed step's boot passes skip it)."""
+    df = max(0.5 * dd - 1.0, 0.0)
+    llik = cos * kappa
+    llik = llik + (df * torch.log(kappa) - lbessel(kappa, df))
+    if include_const:
+        # the reference's fasterlog constant (vmf.hh:437), bit-exact
+        llik = llik - 0.5 * dd * fasterlog(2.0 * math.pi)
+    n = cos.shape[0]
+    return kl / n * kl_weight - torch.sum(llik) / n
+
+
+def vmf_loss(x: torch.Tensor, out, kl_weight) -> torch.Tensor:
+    """Total vMF-VAE loss (reference vmf_vae_loss, vmf.hh:419-440):
+    :func:`vmf_loss_parts` of ``yobs . recon``, ``yobs`` the unit row of
+    ``log1p(relu(x)) + 1e-2 / D``.  ``out`` is a
+    :class:`~mmvae_tpu_torch.models.vmf.VMFVAEOutput` (unit ``recon``
+    rows, the posterior, the clamped scalar ``kappa``)."""
+    dd = float(x.shape[1])
+    yobs = l2_normalize(torch.log1p(torch.relu(x.float())) + 1e-2 / dd,
+                        dim=1)
+    return vmf_loss_parts(torch.sum(yobs * out.recon, dim=1), out.kappa,
+                          gaussian_kl(out.mean, out.lnvar), kl_weight, dd)

@@ -241,9 +241,12 @@ class PackedFastStep:
     A subclass gives ``_make_rows(model)``, ``_sv_entries()`` (the
     small-vector segments, in order), ``_eps_widths()`` (the latent width
     of each reparameterization draw), ``supports(model)``, ``pack`` /
-    ``unpack`` and ``_loss(q, x, c, ridx, eps, beta, include_const,
-    boot)``; :meth:`batch_step`, :meth:`draw_rand`, the small-vector
-    layout and the packed optimizer are common.  The epoch runner in
+    ``unpack`` and ``_loss(q, views, c, ridx, eps, beta, include_const,
+    boot)``, and may give ``_views(x)``: the parameter-free data views
+    computed once a batch and handed to every ``_loss`` of it (by
+    default the counts themselves); :meth:`batch_step`,
+    :meth:`draw_rand`, the small-vector layout and the packed optimizer
+    are common.  The epoch runner in
     ``train/loop.py`` drives any subclass through this protocol.
     ``plain=True`` selects the plain route of the same step (the JAX
     package's XLA path) instead of the kernels."""
@@ -282,14 +285,24 @@ class PackedFastStep:
         off, shape = self._sv_segs[name]
         return sv[off:off + math.prod(shape)].reshape(shape)
 
+    @staticmethod
+    def _sv_leaf(t: dict, name: str):
+        """The tree's leaf of a small-vector segment: ``top.leaf`` names a
+        layer's leaf, a name without a dot a top-level tensor (the vMF
+        model's ``ln_kappa``)."""
+        for part in name.split("."):
+            t = t[part]
+        return t
+
     def _pack_sv(self, t: dict) -> torch.Tensor:
-        return torch.cat([t[top][leaf].reshape(-1) for top, leaf in
-                          (n.split(".") for n in self._sv_segs)])
+        return torch.cat([self._sv_leaf(t, n).reshape(-1)
+                          for n in self._sv_segs])
 
     def _unpack_sv(self, sv, out: dict) -> dict:
         for name in self._sv_segs:
-            top, leaf = name.split(".")
-            out.setdefault(top, {})[leaf] = self._sv(sv, name)
+            *top, leaf = name.split(".")
+            node = out.setdefault(top[0], {}) if top else out
+            node[leaf] = self._sv(sv, name)
         return out
 
     def pack_opt_state(self, state: dict) -> dict:
@@ -304,6 +317,13 @@ class PackedFastStep:
     @staticmethod
     def _reparam(eps, mean, lnvar):
         return mean + eps * torch.exp(lnvar / 2.0)
+
+    @staticmethod
+    def _views(x):
+        """The per-batch data views every ``_loss`` of a batch step takes
+        (JAX ``batch_step``'s ``views = self._views(x)``); by default the
+        counts themselves."""
+        return x
 
     # ------------------------------------------------------------------
     # randomness
@@ -326,13 +346,14 @@ class PackedFastStep:
         (no update) and ``nboot`` bootstrap-resampled Adam steps
         (mmvae_alg.hh:277-311).  Returns (q, opt_state, report)."""
         beta = self._beta_for(epoch_f, x.device)
+        views = self._views(x)
         with torch.no_grad():
-            report = self._loss(q, x, c, None, rand["rep_eps"], beta,
+            report = self._loss(q, views, c, None, rand["rep_eps"], beta,
                                 include_const=True, boot=False)
         for i in range(self.opt.nboot):
             qq = {k: v.detach().requires_grad_() for k, v in q.items()}
             eps = tuple(e[i] for e in rand["boot_eps"])
-            loss = self._loss(qq, x, c, rand["ridx"][i], eps, beta,
+            loss = self._loss(qq, views, c, rand["ridx"][i], eps, beta,
                               include_const=False, boot=True)
             gP, gsv = torch.autograd.grad(loss, (qq["P"], qq["sv"]))
             with torch.no_grad():

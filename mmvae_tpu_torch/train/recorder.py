@@ -5,7 +5,8 @@ Port of ``mmvae_tpu/train/recorder.py`` (``LatentRecorder``,
 
 - ``${out}_<epoch>.{mu_mean,mu_lnvar}.gz`` — N x latent posterior
   matrices assembled batch by batch (reference nbvae_recorder_t,
-  include/models/nb.hh:569-662);
+  include/models/nb.hh:569-662); the vMF-VAE's are
+  ``{latent_mean,latent_lnvar}`` (``mean_name`` / ``lnvar_name``);
 - ``${out}_<epoch>_<param>.gz`` — every named parameter as gzipped dense
   text, weights in the reference's (out, in) orientation (nb.hh:599-615);
   the mixture's stacked (K, H, R) heads as one file per component;
@@ -52,21 +53,33 @@ def flatten_params(params: dict) -> dict[str, np.ndarray]:
     return out
 
 
+def latent_names(model) -> tuple[str, str]:
+    """The posterior artifacts' names of ``model``'s recorder and serving
+    CLI: ``mu_mean`` / ``mu_lnvar`` unless the model names its own (the
+    vMF-VAE's ``latent_mean`` / ``latent_lnvar``,
+    ``mmvae_tpu/cli/vmf_vae.py:73-78``, ``cli/encode.py:100-105``)."""
+    return getattr(model, "latent_names", ("mu_mean", "mu_lnvar"))
+
+
 class LatentRecorder:
     """N x latent posterior collector and artifact writer.
 
     ``encode_fn(params, x) -> (mean, lnvar)`` is the no-covariate encode
-    (the reference records with ``encode_mu(x)``, nb.hh:628).  With
-    ``extra_name`` it returns a third per-row matrix, written as
-    ``.<extra_name>.gz`` (the mixture's assignments, ``clust``)."""
+    (the reference records with ``encode_mu(x)``, nb.hh:628), written as
+    ``.<mean_name>.gz`` / ``.<lnvar_name>.gz``.  With ``extra_name`` it
+    returns a third per-row matrix, written as ``.<extra_name>.gz`` (the
+    mixture's assignments, ``clust``)."""
 
     def __init__(self, header: str, max_epoch: int, ntot: int,
-                 encode_fn: Callable, extra_name: str | None = None):
+                 encode_fn: Callable, extra_name: str | None = None,
+                 mean_name: str = "mu_mean", lnvar_name: str = "mu_lnvar"):
         self.header = header
         self.max_epoch = max_epoch
         self.ntot = ntot
         self.encode_fn = encode_fn
         self.extra_name = extra_name
+        self.mean_name = mean_name
+        self.lnvar_name = lnvar_name
         self.mean_out = np.zeros((ntot, 0), np.float32)
         self.lnvar_out = np.zeros((ntot, 0), np.float32)
         self.extra_out = np.zeros((ntot, 0), np.float32)
@@ -97,8 +110,8 @@ class LatentRecorder:
 
     def update_on_epoch(self, params: dict, epoch: int) -> None:
         tag = f"{self.header}_{zeropad(epoch, self.max_epoch)}"
-        write_data_file(f"{tag}.mu_mean.gz", self.mean_out)
-        write_data_file(f"{tag}.mu_lnvar.gz", self.lnvar_out)
+        write_data_file(f"{tag}.{self.mean_name}.gz", self.mean_out)
+        write_data_file(f"{tag}.{self.lnvar_name}.gz", self.lnvar_out)
         if self.extra_name is not None:
             write_data_file(f"{tag}.{self.extra_name}.gz", self.extra_out)
         for key, arr in flatten_params(params).items():

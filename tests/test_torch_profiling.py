@@ -112,7 +112,7 @@ def test_step_timer_sums_as_jax(monkeypatch):
                                 "input": 0.25}
 
 
-@pytest.mark.parametrize("kind", ["nb", "joint", "mixture"])
+@pytest.mark.parametrize("kind", ["nb", "vmf", "joint", "mixture"])
 def test_trace_step_runs_on_cpu(kind, tmp_path, capsys):
     rows = trace_step.main([kind, "64", "2", "8", "--device", "cpu",
                             "--out", str(tmp_path)])
@@ -138,8 +138,13 @@ def test_trace_step_build_matches_jax_models():
 
 
 def test_trace_step_vmf_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        trace_step.build("vmf", 64, 2, "cpu")
+    """Once refused, the ``vmf`` kind now builds the JAX script's model:
+    the default vMF-VAE (covariate 1, latent 2) on its packed step."""
+    model, fast, params = trace_step.build("vmf", 64, 2, "cpu")
+    assert (model.data_dim, model.covar_dim, model.latent) == (64, 1, 2)
+    assert not model.encoding and not model.decoding
+    assert type(fast).__name__ == "VMFFastStep"
+    assert tuple(params["encoding"]["weight"].shape) == (64, 2)
 
 
 def test_port_kernel_names():

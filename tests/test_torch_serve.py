@@ -150,9 +150,11 @@ def test_port_data_block_matches_jax(tmp_path):
 
 
 def test_other_models_not_ported(served, tmp_path):
+    """Tensor-parallel serving is not ported, for any model (``--model
+    vmf``, once refused, serves: tests/test_torch_vmf_train.py)."""
     args = _port_args(served, str(tmp_path / "x"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_encode.main(args + ["--model", "vmf"])
+        port_encode.main(args + ["--model", "vmf", "--tensor_parallel", "2"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_encode.main(args + ["--tensor_parallel", "2"])
 

@@ -186,6 +186,7 @@ def test_unported_options_raise(runs, tmp_path, capsys, flags, expect):
         scores = [float(v) for v in read_vector_file(
             str(tmp_path / "x.scores.gz"))]
         assert len(scores) == 1 and np.isfinite(scores[0])
-    with pytest.raises(NotImplementedError, match="item 9, vMF-VAE"):
+    with pytest.raises(NotImplementedError, match="item 13, multi-GPU"):
         port_encode.main(["--model", "vmf", "--mtx", common[1],
-                          "--checkpoint", "none", "--out", "x"])
+                          "--checkpoint", "none", "--out", "x",
+                          "--tensor_parallel", "2"])
