@@ -184,12 +184,31 @@ exits non-zero without the final line):
     streaming (bitwise equal), against the plain unfolded encoder;
 34. full-width vMF-VAE training: two epochs over the first 20,000 of
     phase 5's counts, with a profile of 20 batches and kappa before and
-    after.
+    after;
+35. the data tiers beyond the dense budget end to end: ``nb_vae`` on
+    phase 4's matrix for 2 epochs with recording and a checkpoint on the
+    ELL-resident tier, on rotating host shards in the dense, ell and csr
+    layouts (4 or more shards) and with half the shards resident, with
+    ``--data_mode stream`` and with ``--no_auto_ondevice`` (budgets set
+    through ``MMVAE_DENSE_BYTES``, ``MMVAE_ROTATE``, ``MMVAE_SHARD_BYTES``,
+    ``MMVAE_SHARD_LAYOUT`` and ``MMVAE_PIN_BYTES``, scaled to the depth):
+    each run's scores.gz, artifacts and checkpoint equal phase 8's
+    dense-resident run bitwise, every NB kernel launched; ``--resume``
+    from a rotating run's epoch-1 checkpoint equal to the uninterrupted
+    run; ``vmfnb_vae``, ``vmfnb_vae --annot --row`` and ``vmf_vae`` on
+    rotation (csr) equal to phases 12, 16 and 33 bitwise;
+36. the rotating tier at depth: phase 9's 40,000 cells copied to a host
+    CSC, 8 shards in the layout the store picks, 4 of them resident, the
+    NB packed step for 2 epochs from phase 9's seed and initialization:
+    reports and parameters equal phase 9's bitwise, with cells/sec beside
+    phase 9's, the device idle share, the bytes copied host to device an
+    epoch, the copy stream's busy time and the compute stream's waits on
+    copies; then the ELL-resident tier on the same cells.
 
 Each main path (phases 4, 8, 12, 16, the runs of 20 and 24, the
-probe's run in 26, the wide trainer of 31 and the vMF-VAE's runs of 32,
-33, 34 and 5) is driven with every launch counter set to 0 just before
-it and read just after.
+probe's run in 26, the wide trainer of 31, the vMF-VAE's runs of 32,
+33, 34 and 5, and each tier's run in 35 and 36) is driven with every
+launch counter set to 0 just before it and read just after.
 The last two lines are the kernels' JSON record (with each kernel's
 bound at the main path's shape) and ``{"ok": true, "device": {...}}``.
 """
@@ -3219,18 +3238,23 @@ def phase_train_full(card, data, kind="nb"):
     runner = DenseEpochRunner(fast, data, B_TRAIN, seed=SEED)
     q = fast.pack(params)
     po = fast.optimizer.init(q)
-    losses, times = [], []
+    losses, times, reps_all = [], [], []
     reset_launches()
     for epoch in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         q, po, reps, _ = runner(q, po, epoch)
+        reps_all.append(reps)
         # in float64: the vMF loss at D = 20,000 is ~7e4, where one
         # float32 ulp (0.0078) is the size of its fall over two epochs
         losses.append(reps.double().mean().item())
         times.append(time.perf_counter() - t0)
     per = {k: n / (2 * runner.nbatch) for k, n in read_launches().items()
            if n}
+    # the trained state, before the profile below steps on: phase 36's
+    # reference
+    result = {"rate": data.shape[0] / times[1], "reps": reps_all,
+              "params": clone_tree(fast.unpack(q))}
     if not (np.isfinite(losses).all() and losses[1] < losses[0]):
         raise AssertionError(f"full-size training loss {losses}")
     extra = ""
@@ -3275,7 +3299,12 @@ def phase_train_full(card, data, kind="nb"):
             by.items(), key=lambda kv: -kv[1]))
         + f"; top kernels over the {nprof} batches: "
         + "; ".join(f"{k[:48]} {v:.1f} ms" for k, v in top))
-    return N / times[1]
+    return result
+
+
+def clone_tree(tree: dict) -> dict:
+    return {k: clone_tree(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
 
 
 # ----------------------------------------------------------------------
@@ -3422,6 +3451,360 @@ def phase_full_vmf(card, data):
         f"encoder (err/tol {worst:.3g}; tol 1e-4 * max|ref| + 1e-5 * "
         f"|ref|); no kernel of the port launched; "
         + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
+
+
+# ----------------------------------------------------------------------
+# the data tiers beyond the dense budget (35-36): every tier gives the
+# dense-resident tier's batches and draws, so its bits
+# ----------------------------------------------------------------------
+
+@contextlib.contextmanager
+def environ(**env):
+    """``os.environ`` with ``env`` set, restored after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def run_outputs(out: str) -> dict:
+    """A trainer CLI run's ``scores.gz`` and recording artifacts (their
+    decompressed text: the gzip header holds the file's name) and its
+    checkpoint's arrays."""
+    d, base = os.path.split(out)
+    pat = re.compile(re.escape(base) + r"(_\d.*|\.scores)\.gz$")
+    got = {}
+    for f in sorted(os.listdir(d)):
+        m = pat.match(f)
+        if m:
+            with gzip.open(os.path.join(d, f)) as fh:
+                got[m.group(1)] = fh.read()
+    with np.load(os.path.join(out + "_ckpt", "ckpt.npz")) as z:
+        got.update({k: z[k] for k in z.files if k != "__meta__"})
+    return got
+
+
+def same_outputs(got: dict, want: dict) -> bool:
+    return got.keys() == want.keys() and all(
+        np.array_equal(got[k], want[k]) if isinstance(got[k], np.ndarray)
+        else got[k] == want[k] for k in got)
+
+
+# (label, environment, flags, the line the tier logs); shard budgets
+# scaled to phase 4's 4,000 cells (40 batches): dense batches are 2 MB,
+# ELL and CSR batches a few hundred kB
+TIER_RUNS = [
+    ("ELL-resident", {"MMVAE_DENSE_BYTES": "1", "MMVAE_ROTATE": "0"}, [],
+     "Loading data on device (ELL layout)"),
+    ("rotation, dense layout", {"MMVAE_DENSE_BYTES": "1",
+                                "MMVAE_SHARD_LAYOUT": "dense",
+                                "MMVAE_SHARD_BYTES": str(20 << 20)}, [],
+     "dense layout"),
+    ("rotation, ell layout", {"MMVAE_DENSE_BYTES": "1",
+                              "MMVAE_SHARD_LAYOUT": "ell",
+                              "MMVAE_SHARD_BYTES": str(1 << 20)}, [],
+     "ell layout"),
+    ("rotation, csr layout", {"MMVAE_DENSE_BYTES": "1",
+                              "MMVAE_SHARD_LAYOUT": "csr",
+                              "MMVAE_SHARD_BYTES": str(1 << 20)}, [],
+     "csr layout"),
+    ("rotation, half resident", {"MMVAE_DENSE_BYTES": "1",
+                                 "MMVAE_SHARD_LAYOUT": "dense",
+                                 "MMVAE_SHARD_BYTES": str(20 << 20),
+                                 "MMVAE_PIN_BYTES": str(40 << 20)}, [],
+     "Rotating 2/4 host-resident shards"),
+    ("--data_mode stream", {}, ["--data_mode", "stream"], "cells/sec)"),
+    ("--no_auto_ondevice", {}, ["--no_auto_ondevice"], "cells/sec)"),
+]
+CSR_ENV = TIER_RUNS[3][1]
+
+
+def tier_run(cli, args, out, env, line, path):
+    """One trainer CLI run on a tier with every launch counter reset just
+    before and read just after: the tier's log line, the kernels of
+    ``path`` launched (none at all for an empty path), at least 4 shards
+    when it rotates.  Returns (outputs, launches, the tier's line, the
+    epoch-2 rate)."""
+    reset_launches()
+    with environ(**env):
+        err = run_cli(cli, args + ["--out", out, "--checkpoint_dir",
+                                   out + "_ckpt"])
+    launches = read_launches()
+    if line not in err or "dense-resident" in err:
+        raise AssertionError(f"{out}: the run did not log {line!r}")
+    if (min(launches[k] for k in path) < 1 if path
+            else any(launches.values())):
+        raise AssertionError(f"{out}: launches {launches}")
+    tier = next((ln.split("] ", 1)[-1] for ln in err.splitlines()
+                 if "host-resident shards" in ln or "ELL layout" in ln),
+                "host path (no on-device line)")
+    m = re.search(r"Rotating (\d+)/(\d+) ", err)
+    if m and int(m.group(2)) < 4:
+        raise AssertionError(f"{out}: {m.group(0)}: fewer than 4 shards")
+    rate = [ln.split("(", 1)[-1].split(" cells/sec")[0]
+            for ln in err.splitlines() if "cells/sec" in ln][-1]
+    return run_outputs(out), launches, tier, rate
+
+
+def phase_tiers(card, tmp, mtx):
+    """Phase 35: ``nb_vae`` on phase 4's matrix, 2 epochs with recording
+    and a checkpoint, on every tier beyond the dense-resident one (ELL,
+    rotation in the dense, ell and csr layouts with 4 or more shards, with
+    half the shards resident, ``--data_mode stream``, ``--no_auto_ondevice``),
+    each equal to phase 8's dense-resident run bitwise (scores.gz, the
+    artifacts' text, the checkpoint's arrays) with every NB kernel
+    launched; ``--resume`` from a rotating run's epoch-1 checkpoint equal
+    to the uninterrupted run; then ``vmfnb_vae``, ``vmfnb_vae --annot
+    --row`` and ``vmf_vae`` on rotation (csr) against phases 12, 16 and
+    33's dense-resident runs (the vMF-VAE launching no kernel)."""
+    from mmvae_tpu_torch.cli import nb_vae, vmf_vae, vmfnb_vae
+
+    tag = "[phase 35]"
+    args = ["--mtx", mtx, "--batch_size", str(B_TRAIN), "--device", DEV,
+            "--recording", "2", "--max_epoch", "2"]
+    want = run_outputs(os.path.join(tmp, "train"))
+    t0 = time.time()
+    for i, (label, env, flags, line) in enumerate(TIER_RUNS):
+        got, launches, tier, rate = tier_run(
+            nb_vae, args + flags, os.path.join(tmp, f"tier{i}"), env, line,
+            NB_PATH)
+        if not same_outputs(got, want):
+            raise AssertionError(f"{label}: outputs differ from the "
+                                 f"dense-resident run")
+        log(f"{tag} [{card}] nb_vae on {label}: {tier}; {len(got)} outputs "
+            f"equal phase 8's dense-resident run bitwise; launches "
+            f"{ {k: launches[k] for k in NB_PATH} }; epoch 2 {rate} "
+            f"cells/sec")
+    # a checkpoint written while the next epoch's first shard is copied
+    out = os.path.join(tmp, "tier_resume")
+    a = args[:-1] + ["1"]
+    with environ(**CSR_ENV):
+        run_cli(nb_vae, a + ["--out", out + "1", "--checkpoint_dir",
+                             out + "1_ckpt"])
+        err = run_cli(nb_vae, args + ["--out", out, "--checkpoint_dir",
+                                      out + "_ckpt", "--resume",
+                                      out + "1_ckpt"])
+    if "Resumed from" not in err or not same_outputs(run_outputs(out), want):
+        raise AssertionError("--resume from a rotating epoch-1 checkpoint "
+                             "differs from the uninterrupted run")
+    log(f"{tag} [{card}] nb_vae --resume from the csr rotating run's epoch-1 "
+        f"checkpoint (written while the next shard's copy was in flight) "
+        f"equals the uninterrupted run bitwise")
+    for kind, cli in (("joint", vmfnb_vae), ("mixture", vmfnb_vae),
+                      ("vmf", vmf_vae)):
+        extra = []
+        if kind == "mixture":
+            extra = ["--annot", os.path.join(tmp, "markers.txt"), "--row",
+                     os.path.join(tmp, "genes.txt")]
+        got, launches, tier, rate = tier_run(
+            cli, args + extra, os.path.join(tmp, f"tier_{kind}"), CSR_ENV,
+            "csr layout", PATHS[kind])
+        if not same_outputs(got, run_outputs(os.path.join(tmp, kind))):
+            raise AssertionError(f"{kind} on rotation differs from its "
+                                 f"dense-resident run")
+        done = ({k: launches[k] for k in PATHS[kind]} if PATHS[kind]
+                else "no kernel launched")
+        name = {"joint": "vmfnb_vae", "mixture": "vmfnb_vae --annot --row",
+                "vmf": "vmf_vae"}[kind]
+        log(f"{tag} [{card}] {name} on rotation (csr): {tier}; "
+            f"{len(got)} outputs equal phase "
+            f"{PHASE[kind]['cli']}'s dense-resident run bitwise; launches "
+            f"{done}; epoch 2 {rate} cells/sec")
+    log(f"{tag} [{card}] {len(TIER_RUNS) + 5} trainer runs in "
+        f"{time.time() - t0:.1f}s")
+
+
+class HostCSC:
+    """Counts held in host memory as CSC arrays, behind the in-memory
+    block's contract (what ``ShardStore.build`` and ``DeviceCSC`` read)."""
+
+    def __init__(self, data: torch.Tensor, B: int):
+        cells, genes = torch.nonzero(data, as_tuple=True)
+        self.vals = data[cells, genes].float().cpu().numpy()
+        self.rows = genes.int().cpu().numpy()
+        counts = torch.bincount(cells, minlength=data.shape[0])
+        self.indptr = np.concatenate([[0], counts.cumsum(0).cpu().numpy()])
+        self.N, self.D, self.B = data.shape[0], data.shape[1], B
+        self.val_dtype = np.dtype({torch.int8: np.int8,
+                                   torch.int16: np.int16}[data.dtype])
+
+    def csc_arrays(self):
+        return self.rows, self.vals, self.indptr
+
+    def k_max(self) -> int:
+        return int(np.diff(self.indptr).max())
+
+    def nfeature(self) -> int:
+        return self.D
+
+    def ntot(self) -> int:
+        return self.N
+
+    def size(self) -> int:
+        return self.B
+
+
+def locked_store_copy(store):
+    """The design the staging ring stands in for: the rotating shards
+    page-locked whole (``pin_memory``: page-locked host memory and one
+    host copy, once), then one epoch's copies of them from there on a
+    side stream.  Returns (bytes, page-lock ms, copy stream ms)."""
+    rot = [r for r in range(store.nshards) if r not in store.pinned_idx]
+    t0 = time.perf_counter()
+    locked = [torch.from_numpy(a).pin_memory() for r in rot
+              for a in store.shards[r].arrays]
+    lock_ms = (time.perf_counter() - t0) * 1e3
+    s = torch.cuda.Stream()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(s):
+        a.record(s)
+        outs = [t.to(DEV, non_blocking=True) for t in locked]
+        b.record(s)
+    b.synchronize()
+    del outs
+    return sum(t.numel() * t.element_size() for t in locked), lock_ms, \
+        a.elapsed_time(b)
+
+
+def phase_rotating_full(card, data, ref):
+    """Phase 36: phase 9's training (NB packed step, the same seed and
+    initialization) over the same 40,000 cells on the rotating tier: the
+    counts copied to a host CSC, 8 shards in the layout the store picks,
+    4 of them resident, 2 epochs; reports and parameters equal phase 9's
+    bitwise.  Prints epoch-2 cells/sec beside phase 9's, the device idle
+    share (profile of a 20-batch store of 4 shards, 2 rotating), the bytes
+    copied an epoch, the copy stream's busy time and whether compute
+    waited on a copy; then the ELL-resident tier on the same cells."""
+    from mmvae_tpu_torch.data.shards import ShardStore
+    from mmvae_tpu_torch.ops.densify import DeviceCSC
+    from mmvae_tpu_torch.ops.nb_fast import tree_leaves
+    from mmvae_tpu_torch.train.config import TrainingOptions
+    from mmvae_tpu_torch.train.loop import (DenseEpochRunner, EllBatches,
+                                            RotatingBatches)
+
+    tag = "[phase 36]"
+    t0 = time.time()
+    host = HostCSC(data[:N_EARLIER], B_TRAIN)
+    nnz = len(host.rows)
+    whole = ShardStore.build(host, B_TRAIN, shard_budget=1 << 62)
+    per_batch = whole.shard_bytes(0) / whole.nbatch
+    # 8 shards of nbatch / 8 batches, 4 kept resident
+    budget = int(per_batch * (whole.nbatch // 8))
+    store = ShardStore.build(host, B_TRAIN, shard_budget=budget,
+                             pin_budget=4 * budget, device=DEV)
+    del whole
+    setup = time.time() - t0
+    if store.nshards < 8 or len(store.pinned_idx) != store.nshards // 2:
+        raise AssertionError(f"store plan: {store.nshards} shards, "
+                             f"{len(store.pinned_idx)} resident")
+    model, step_cls = model_and_step("nb")
+
+    def train(source):
+        fast = step_cls(model, TrainingOptions())
+        params = model.init(torch.Generator().manual_seed(SEED), device=DEV)
+        runner = DenseEpochRunner(fast, source, B_TRAIN, seed=SEED)
+        q = fast.pack(params)
+        po = fast.optimizer.init(q)
+        reps, times, copies = [], [], []
+        for epoch in range(2):
+            if getattr(source, "store", None) is not None \
+                    and source.store.stager is not None:
+                source.store.stager.reset_stats()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            q, po, r, _ = runner(q, po, epoch)
+            r.double().mean().item()
+            times.append(time.perf_counter() - t1)
+            reps.append(r)
+            if getattr(source, "store", None) is not None:
+                copies.append(source.store.stager.stats())
+        return fast, q, reps, times, copies
+
+    reset_launches()
+    fast, q, reps, times, copies = train(RotatingBatches(store))
+    launches = read_launches()
+    if any(launches[k] < 1 for k in NB_PATH):
+        raise AssertionError(f"rotating run launches {launches}")
+    same = all(torch.equal(a, b) for a, b in zip(reps, ref["reps"]))
+    got, want = fast.unpack(q), ref["params"]
+    same_p = leaf_names(got) == leaf_names(want) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                          tree_leaves(want)))
+    if not (same and same_p):
+        raise AssertionError(f"rotating tier vs phase 9: reports equal "
+                             f"{same}, parameters equal {same_p}")
+    N = N_EARLIER
+    rate, c2 = N / times[1], copies[1]
+    lk_bytes, lock_ms, lk_copy_ms = locked_store_copy(store)
+    # device idle share: a profile of a 20-batch store (4 shards of 5
+    # batches, 2 rotating) in steady state, against the full run's wall
+    nprof = 20
+    sub_host = HostCSC(data[:nprof * B_TRAIN], B_TRAIN)
+    sub_store = ShardStore.build(sub_host, B_TRAIN,
+                                 shard_budget=int(per_batch * 5),
+                                 pin_budget=int(per_batch * 10),
+                                 layout=store.layout, device=DEV)
+    sub = DenseEpochRunner(fast, RotatingBatches(sub_store), B_TRAIN,
+                           seed=SEED)
+    rand = sub.draw(2)
+    qs, pos = q, fast.optimizer.init(q)
+    sub(qs, pos, 2, rand=rand)  # the resident shards' first copies
+    busy, per = device_profile(lambda: sub(qs, pos, 2, rand=rand))
+    copy_ms = sum(v for k, v in per.items() if "Memcpy" in k or "memcpy"
+                  in k)
+    wall_batch = times[1] * 1e3 / store.nbatch
+    log(f"{tag} [{card}] rotating tier, {N} x {D_GENES} int8 from a host "
+        f"CSC ({nnz:,} nonzeros, built in {setup:.1f}s): {store.layout} "
+        f"layout, {store.nshards} shards of ~{store.shard_bytes(0) / 1e6:.2f}"
+        f" MB, {len(store.pinned_idx)} resident "
+        f"({sorted(store.pinned_idx)}); 2 epochs: reports and parameters "
+        f"equal phase 9's bitwise; epoch times {times[0]:.2f}s, "
+        f"{times[1]:.2f}s; second epoch {rate:,.1f} cells/sec (phase 9, "
+        f"dense-resident, same run: {ref['rate']:,.1f}); epoch 2 copied "
+        f"{c2['copies']} shards, {c2['bytes']:,} bytes host to device "
+        f"(epoch 1 {copies[0]['copies']} shards, {copies[0]['bytes']:,} "
+        f"bytes), host memcpy into the staging ring {c2['host_memcpy_ms']:.3f}"
+        f" ms, copy stream busy {c2['copy_stream_ms']:.3f} ms "
+        f"({c2['bytes'] / max(c2['copy_stream_ms'], 1e-9) / 1e6:.2f} GB/s); "
+        f"compute waited on a copy {c2['compute_waits']} times "
+        f"({c2['compute_wait_ms']:.3f} ms; epoch 1 {copies[0]['compute_waits']}"
+        f" times, {copies[0]['compute_wait_ms']:.3f} ms); kernel launches a "
+        f"batch { {k: launches[k] / (2 * store.nbatch) for k in NB_PATH} }")
+    log(f"{tag} [{card}] against page-locking the rotating shards whole "
+        f"(no staging ring): {lk_bytes:,} bytes page-locked in "
+        f"{lock_ms:.3f} ms once, then an epoch's copies {lk_copy_ms:.3f} ms "
+        f"of copy stream ({lk_bytes / max(lk_copy_ms, 1e-9) / 1e6:.2f} "
+        f"GB/s) and no host memcpy; the ring: {c2['host_memcpy_ms']:.3f} ms "
+        f"host memcpy + {c2['copy_stream_ms']:.3f} ms copy stream an epoch")
+    log(f"{tag} [{card}] profile of {nprof} rotating batches (4 shards, 2 "
+        f"rotating, steady state): device busy {busy / nprof:.3f} ms per "
+        f"batch in {device_profile.kernels / nprof:.0f} device kernels and "
+        f"copies (host-to-device copies {copy_ms / nprof:.4f} ms a batch, on "
+        f"the copy stream beside compute), against {wall_batch:.3f} ms wall "
+        f"per batch of the second epoch (device idle share "
+        f"{1 - busy / nprof / wall_batch:.1%})")
+    del store, sub_store
+    csc = DeviceCSC.from_memory_block(host, count_dtype="auto", device=DEV)
+    reset_launches()
+    fast, q, reps, times, _ = train(EllBatches(csc, B_TRAIN))
+    launches = read_launches()
+    if any(launches[k] < 1 for k in NB_PATH) or not all(
+            torch.equal(a, b) for a, b in zip(reps, ref["reps"])):
+        raise AssertionError(f"ELL tier: reports differ from phase 9's, or "
+                             f"launches {launches}")
+    ell_mb = sum(t.numel() * t.element_size()
+                 for t in (csc.ell_rows, csc.ell_vals)) / 1e6
+    log(f"{tag} [{card}] ELL-resident tier on the same cells (ELL "
+        f"{ell_mb:,.1f} MB on the card, k_max {csc.k_max}): "
+        f"reports equal phase 9's bitwise; epoch times {times[0]:.2f}s, "
+        f"{times[1]:.2f}s; second epoch {N / times[1]:,.1f} cells/sec")
 
 
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and
@@ -3601,16 +3984,21 @@ def main() -> int:
         mark("8, 31, 12, 16, 20, 24")
         phase_vmf_cli(card, tmp, mtx)
         mark("33")
+        phase_tiers(card, tmp, mtx)
+        mark("35")
         phase_tooling(card, tmp, mtx)
         mark("27")
         data = full_size_counts()
         phase_full(card, data)
         phase_full_vmf(card, data)
         mark("5")
+        full = {}
         for kind in ("nb", "joint", "mixture", "generic", "library", "vmf"):
-            phase_train_full(card, data, kind)
+            full[kind] = phase_train_full(card, data, kind)
             mark(str(PHASE[kind]["full"]))
-        del data
+        phase_rotating_full(card, data, full["nb"])
+        mark("36")
+        del data, full
     log("[timing] seconds by phase: " + "; ".join(
         f"{b[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:]))
         + f"; since the build {marks[-1][1] - t0:.1f}")

@@ -142,8 +142,9 @@ def resolve_device(name: str) -> torch.device | None:
 def run_training(opts: MMVaeOptions, topt: TrainingOptions, model, fast,
                  data_block, covar_block, device) -> int:
     """Initialise (or ``--resume``) the parameters and the Adam state,
-    print the model summary to stderr, train on the dense-resident step
-    (packed or generic) with recording and checkpoints, and write
+    print the model summary to stderr, train the step (packed or generic)
+    on the data tier :func:`~mmvae_tpu_torch.train.loop.load_batches`
+    picks, with recording and checkpoints, and write
     ``${out}.scores.gz``.  The recorder's encode and its extra artifact
     come from ``model.record_encoder``, its posterior artifacts' names
     from :func:`~mmvae_tpu_torch.train.recorder.latent_names`."""

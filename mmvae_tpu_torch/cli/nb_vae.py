@@ -2,7 +2,9 @@
 
 Port of ``mmvae_tpu/cli/nb_vae.py`` (reference src/nb_vae_main.cc:39-133):
 parse the option groups, build indexes and the covariate, construct the
-model, train with KL annealing on dense-resident counts, and write
+model, train with KL annealing on the data tier the JAX CLI picks
+(dense-resident, ELL-resident, rotating host shards or host streaming;
+``train.loop.load_batches``), and write
 ``${out}.scores.gz`` plus the per-epoch latent and parameter artifacts.
 
     python -m mmvae_tpu_torch.cli.nb_vae --mtx data.mtx.gz --out run \\
@@ -18,8 +20,8 @@ packed fast step for the default architecture; otherwise the generic
 the v1 ELBO kernels K7 / K8 (a hidden decoder, or ``--no_fused_step``),
 or plain ``forward`` + ``nb_loss`` (``--no_fused``).  Checkpoints (with
 the Adam state) load in either package.  What the port does not do yet
-raises ``NotImplementedError`` naming its ROADMAP.md item: data beyond
-the dense device budget (item 12), ``--data_parallel``, ``--dp_shard``,
+raises ``NotImplementedError`` naming its ROADMAP.md item:
+``--data_parallel``, ``--dp_shard``,
 ``--tensor_parallel`` > 1 and multi-host runs (item 13).  Feature
 clustering is not applied (item 8).  Float32 matmuls run in full float32
 (TF32 off).

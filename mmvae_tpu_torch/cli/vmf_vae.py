@@ -2,8 +2,9 @@
 
 Port of ``mmvae_tpu/cli/vmf_vae.py`` (reference src/vmf_vae_main.cc:
 38-127): parse the option groups, build indexes and the covariate,
-construct the model, train with KL annealing on dense-resident counts,
-and write ``${out}.scores.gz`` plus the per-epoch ``latent_mean`` /
+construct the model, train with KL annealing on the data tier the JAX
+CLI picks (dense-resident, ELL-resident, rotating host shards or host
+streaming; ``train.loop.load_batches``), and write ``${out}.scores.gz`` plus the per-epoch ``latent_mean`` /
 ``latent_lnvar`` and parameter artifacts.
 
     python -m mmvae_tpu_torch.cli.vmf_vae --mtx data.mtx.gz --out run \\
@@ -22,8 +23,8 @@ covariate pathway: the covariate's width is the model's ``covar_dim``.
 The model is plain PyTorch (no kernel of the port lies on its path);
 float32 matmuls run in full float32 (TF32 off).  Checkpoints (with the
 Adam state) load in either package.  What the port does not do yet
-raises ``NotImplementedError`` naming its ROADMAP.md item: data beyond
-the dense device budget (item 12), ``--data_parallel``, ``--dp_shard``,
+raises ``NotImplementedError`` naming its ROADMAP.md item:
+``--data_parallel``, ``--dp_shard``,
 ``--tensor_parallel`` > 1 and multi-host runs (item 13).  Feature
 clustering is not applied (item 8).
 """

@@ -3,8 +3,9 @@
 Port of ``mmvae_tpu/cli/vmfnb_vae.py``: without ``--annot`` the
 shared-encoder joint model (reference include/models/vmfnb.hh), with
 ``--annot`` + ``--row`` the labeled mixture
-(include/models/vmfnb_mixture.hh), trained with KL annealing on
-dense-resident counts, writing ``${out}.scores.gz`` and the per-epoch
+(include/models/vmfnb_mixture.hh), trained with KL annealing on the data
+tier the JAX CLI picks (dense-resident, ELL-resident, rotating host
+shards or host streaming; ``train.loop.load_batches``), writing ``${out}.scores.gz`` and the per-epoch
 latent and parameter artifacts (the mixture also
 ``${out}_<epoch>.clust.gz``).
 
@@ -27,8 +28,7 @@ decoder), or ``forward`` + the composite loss (a hidden mu decoder,
 ``--vmf_decoding`` with ``--annot`` is ignored, as in the JAX CLI.
 Checkpoints (with the Adam state) load in either package.  What the port
 does not do yet raises ``NotImplementedError`` naming its ROADMAP.md
-item: data beyond the dense device budget (item 12), ``--data_parallel``,
-``--dp_shard``, ``--tensor_parallel`` > 1 and multi-host runs (item 13).
+item: ``--data_parallel``, ``--dp_shard``, ``--tensor_parallel`` > 1 and multi-host runs (item 13).
 Feature clustering is not applied (item 8).  The covariate file is read
 and ignored: neither model has a covariate pathway.
 """

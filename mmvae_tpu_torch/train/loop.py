@@ -1,18 +1,23 @@
 """Training epochs, whole-dataset encoding sweeps, the resident matrix.
 
 Ports of ``mmvae_tpu/train/loop.py`` (``_as_memory_block``,
-``_build_dense``, the dense-resident branch of
-``Trainer.make_ondevice_epoch`` and the single-device dense-resident path
-of ``train_vae_model``) and of the two sweeps of
-``mmvae_tpu/cli/encode.py``:
+``_build_dense``, ``Trainer.make_ondevice_epoch``,
+``Trainer.make_rotating_epoch`` and the single-device paths of
+``train_vae_model``) and of the two sweeps of ``mmvae_tpu/cli/encode.py``:
 
-- :class:`DenseEpochRunner` / :func:`train_vae_model`: the (N, D) counts
-  live on the device in their narrow integer dtype; each epoch walks the
-  reference's sequential wrap-around batch schedule (a contiguous slice
-  when N % B == 0) through a step — a packed fast step (any
+- :class:`DenseEpochRunner` / :func:`train_vae_model`: each epoch walks
+  the reference's sequential wrap-around batch schedule through a step —
+  a packed fast step (any
   :class:`~mmvae_tpu_torch.ops.nb_fast.PackedFastStep`) or the generic
   :class:`Trainer` (``Trainer._batch_step`` on the named parameter tree)
-  — with every random draw of the epoch made up front;
+  — with every random draw of the epoch made up front.  The batches come
+  from one of four tiers (:func:`load_batches`, JAX's choice): the
+  (N, D) counts resident on the device in their narrow dtype; padded-ELL
+  arrays on the device, densified a batch at a time
+  (:class:`EllBatches`); host-resident shards rotated through the device
+  (:class:`RotatingBatches`); or batches read from the file on the host
+  (:class:`StreamedBatches`).  Every tier gives the same batches and
+  draws, so the same bits;
 - :func:`encode_resident`: ``chunk`` batches of B rows go through the
   encoder per kernel launch (the encoder works row by row, and the
   mixture's per-batch noise is tiled over the chunk, so grouping changes
@@ -31,8 +36,10 @@ import numpy as np
 import torch
 
 from ..data.block import MtxDataBlock, MtxMemoryBlock
-from ..data.pipeline import sequential_batches
+from ..data.pipeline import PrefetchLoader, sequential_batches
+from ..data.shards import ShardStore
 from ..io import native
+from ..ops.densify import DeviceCSC, densify_gathered, densify_triplets
 from ..ops.losses import kl_weight_schedule
 from ..ops.nb_fast import (PackedAdam, batch_rand, draw_rand, tree_leaves,
                            tree_unflatten)
@@ -208,46 +215,181 @@ def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
     return gen
 
 
-class DenseEpochRunner:
-    """One training epoch over device-resident counts (the dense branch
-    of ``Trainer.make_ondevice_epoch``, train/loop.py:411-556).
+def schedule_cols(N: int, B: int, device) -> torch.Tensor:
+    """The (nbatch, B) cell ids of the reference's sequential wrap-around
+    schedule (mmvae_alg.hh:261-266) on ``device``."""
+    return torch.from_numpy(np.stack(sequential_batches(N, B))).to(device)
 
-    ``fast`` is a packed step or a :class:`Trainer`.
-    The schedule is the reference's sequential wrap-around one
-    (mmvae_alg.hh:261-266): batch b is rows (b*B + i) % N, a contiguous
-    slice when N % B == 0.  The covariate is the all-ones column unless a
-    dense (N, C) covariate matrix is given.  ``record_fn(params, x) ->
-    (mean, lnvar[, extra])`` is evaluated right after each batch's
-    updates on a recording epoch (the recorder's observation point,
+
+class ResidentBatches:
+    """Batches of the dense-resident tier: the (N, D) counts live on the
+    device in their narrow dtype; batch b is a contiguous slice when
+    N % B == 0, else a row gather of its wrap-around schedule."""
+
+    def __init__(self, data: torch.Tensor, B: int):
+        self.data, self.B = data, B
+        self.N, self.device = data.shape[0], data.device
+        self.cols = None if self.N % B == 0 else schedule_cols(
+            self.N, B, self.device)
+
+    def batches(self):
+        for b in range(-(-self.N // self.B)):
+            if self.cols is None:
+                yield self.data[b * self.B:(b + 1) * self.B], None
+            else:
+                yield self.data.index_select(0, self.cols[b]), None
+
+
+class EllBatches:
+    """Batches of the ELL-resident tier (the ELL branch of JAX's
+    ``make_ondevice_epoch``, train/loop.py:411-556): the padded-ELL
+    arrays live on the device and each batch is densified there."""
+
+    def __init__(self, csc, B: int):
+        self.csc, self.B = csc, B
+        self.N, self.device = csc.N, csc.ell_rows.device
+        self.cols = schedule_cols(self.N, B, self.device)
+
+    def batches(self):
+        for cols in self.cols:
+            yield self.csc.densify(cols), None
+
+
+class RotatingBatches:
+    """Batches of the rotating tier (JAX's ``make_rotating_epoch``,
+    train/loop.py:559-757): one pass over the host-resident shards of a
+    :class:`~mmvae_tpu_torch.data.shards.ShardStore` an epoch, each
+    shard's batches contiguous slices of it, densified on the device.
+
+    The next rotating shard's copy is issued before the current shard's
+    batches, so it overlaps their compute, and the last shard prefetches
+    the next epoch's first rotating shard (``_carry``).  Before a new
+    copy is issued, the compute of the rotating shard before last must
+    have finished, so about three rotating buffers are alive at most.
+    The batches, their order and their random draws (sliced by global
+    batch id) are the dense-resident tier's, so the bits are too."""
+
+    def __init__(self, store):
+        self.store, self.B = store, store.B
+        self.N, self.device = store.ntot, store.device
+        self.rotating = [r for r in range(store.nshards)
+                         if r not in store.pinned_idx]
+        self._carry = None     # (index, ShardCopy) of the prefetched shard
+        self._done: list = []  # end of each rotating shard's compute
+
+    def _next_rot(self, after: int):
+        """The first rotating shard after ``after``, wrapping to the next
+        epoch's first."""
+        for r in self.rotating:
+            if r > after:
+                return r
+        return self.rotating[0] if self.rotating else None
+
+    def _batch(self, arrays: tuple, i: int) -> torch.Tensor:
+        B, D, layout = self.B, self.store.D, self.store.layout
+        if layout == "csr":
+            return densify_triplets(*(a[i] for a in arrays), B, D)
+        rows = slice(i * B, (i + 1) * B)
+        if layout == "dense":
+            return arrays[0][rows]
+        return densify_gathered(arrays[0][rows], arrays[1][rows], D)
+
+    def batches(self):
+        store, cuda = self.store, self.device.type == "cuda"
+        for r in range(store.nshards):
+            if self._carry is not None and self._carry[0] == r:
+                dev, self._carry = self._carry[1], None
+            else:
+                # resident shards after their first copy; rotating ones
+                # on the first epoch, or when R == 1
+                dev = store.put(r)
+            nxt = self._next_rot(r)
+            if nxt is not None and self._carry is None:
+                if len(self._done) >= 2:
+                    self._done.pop(0).synchronize()
+                self._carry = (nxt, store.put(nxt))
+            arrays = dev.take()
+            for i in range(store.shards[r].nb):
+                yield self._batch(arrays, i), None
+            if cuda and r in self.rotating:
+                ev = torch.cuda.Event()
+                ev.record(torch.cuda.current_stream(self.device))
+                self._done.append(ev)
+
+
+class StreamedBatches:
+    """Batches of the host-streaming tier (the host path of JAX's
+    ``train_vae_model``, train/loop.py:1686-1790): each epoch reads the
+    batches from the data block (the BGZF file for a streaming block)
+    through :class:`~mmvae_tpu_torch.data.pipeline.PrefetchLoader`, the
+    covariate from its block, and copies them to the device from
+    page-locked memory.  One batch a step; JAX's superbatches only group
+    XLA dispatches."""
+
+    def __init__(self, data_block, covar_block, B: int, device):
+        self.data_block, self.covar_block, self.B = (data_block, covar_block,
+                                                     B)
+        self.N, self.device = data_block.ntot(), torch.device(device)
+        self.schedule = sequential_batches(self.N, B)
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def batches(self):
+        loader = PrefetchLoader(self.data_block, self.covar_block,
+                                self.schedule, depth=2)
+        for _, x, c in loader:
+            yield self._to_device(x), self._to_device(c).float()
+
+
+class DenseEpochRunner:
+    """One training epoch of dense (B, D) batches through a step (the
+    epoch of JAX's ``Trainer.make_ondevice_epoch``, train/loop.py:
+    411-556, ``make_rotating_epoch`` (:559-757) and the host path of
+    ``train_vae_model``).
+
+    ``data`` is the device-resident (N, D) count tensor (the
+    dense-resident tier) or a batch source of another tier
+    (:class:`EllBatches`, :class:`RotatingBatches`,
+    :class:`StreamedBatches`), whose ``batches()`` yields each batch of
+    the reference's sequential wrap-around schedule (mmvae_alg.hh:
+    261-266) in order, with its covariate rows or None.  ``fast`` is a
+    packed step or a :class:`Trainer`.  The covariate is the all-ones
+    column unless a dense (N, C) covariate matrix is given (or the
+    source reads its own).  ``record_fn(params, x) -> (mean, lnvar[,
+    extra])`` is evaluated right after each batch's updates on a
+    recording epoch (the recorder's observation point,
     mmvae_alg.hh:315-317)."""
 
-    def __init__(self, fast, data: torch.Tensor, B: int, seed: int = 0,
+    def __init__(self, fast, data, B: int, seed: int = 0,
                  covar: torch.Tensor | None = None, covar_dim: int = 1,
                  record_fn=None):
-        self.fast, self.data, self.B, self.seed = fast, data, B, seed
+        self.fast, self.B, self.seed = fast, B, seed
+        self.source = (ResidentBatches(data, B)
+                       if isinstance(data, torch.Tensor) else data)
         self.covar, self.record_fn = covar, record_fn
-        self.N = data.shape[0]
+        self.N = self.source.N
         self.nbatch = self.N // B + (1 if self.N % B else 0)
-        self.device = data.device
+        self.device = self.source.device
         self.ones = torch.ones((B, covar_dim), dtype=torch.float32,
                                device=self.device)
-        self.cols = (None if self.N % B == 0 else torch.from_numpy(
-            np.stack(sequential_batches(self.N, B))).to(self.device))
+        self.cols = (None if covar is None or self.N % B == 0
+                     else schedule_cols(self.N, B, self.device))
 
     def draw(self, epoch: int) -> dict:
         return self.fast.draw_rand(
             epoch_generator(self.seed, epoch, self.device), self.nbatch,
             self.B)
 
-    def _rows(self, b: int):
-        if self.N % self.B == 0:
-            sl = slice(b * self.B, (b + 1) * self.B)
-            return self.data[sl], (self.ones if self.covar is None
-                                   else self.covar[sl])
-        cols = self.cols[b]
-        return self.data.index_select(0, cols), (
-            self.ones if self.covar is None
-            else self.covar.index_select(0, cols))
+    def _covar(self, b: int) -> torch.Tensor:
+        if self.covar is None:
+            return self.ones
+        if self.cols is None:
+            return self.covar[b * self.B:(b + 1) * self.B]
+        return self.covar.index_select(0, self.cols[b])
 
     def __call__(self, q: dict, opt_state: dict, epoch: int,
                  record: bool = False, rand: dict | None = None):
@@ -259,8 +401,8 @@ class DenseEpochRunner:
         reps = torch.empty(self.nbatch, dtype=torch.float32,
                            device=self.device)
         enc = None
-        for b in range(self.nbatch):
-            x, c = self._rows(b)
+        for b, (x, c) in enumerate(self.source.batches()):
+            c = self._covar(b) if c is None else c
             q, opt_state, rep = self.fast.batch_step(
                 q, opt_state, x, c, float(epoch), batch_rand(rand, b))
             reps[b] = rep
@@ -275,14 +417,101 @@ class DenseEpochRunner:
         return q, opt_state, reps, enc
 
 
+def _env_bytes(name: str, default: int) -> int:
+    return int(os.environ.get(name) or default)
+
+
+def load_batches(data_block, covar_block, opt, device):
+    """The tier of JAX's ``train_vae_model`` (train/loop.py:1288-1545,
+    single device, no feature clustering) for these blocks and options,
+    loaded: returns (source, dense covariate or None, on-device?), the
+    source being the (N, D) tensor of the dense-resident tier or the
+    batch source of another tier, each logged with JAX's line.
+
+    - ``--ondevice``, or auto-enabled (``opt.auto_ondevice``) for an
+      in-memory block when the smaller of its dense and ELL sizes fits
+      ``MMVAE_ONDEVICE_BYTES`` (4 GiB) — beyond it, rotation unless
+      ``MMVAE_ROTATE=0`` — and then, under ``MMVAE_DENSE_BYTES``
+      (6 GiB; the auto-rotation budget if that is smaller): the
+      dense-resident tier when the dense matrix fits; the ELL tier when
+      ELL fits or ``MMVAE_ROTATE=0``; otherwise rotating shards of
+      ``MMVAE_SHARD_BYTES`` (default max(64 MB, budget / 8)) with
+      ``MMVAE_PIN_BYTES`` (default budget - 3 shards) of them resident;
+    - otherwise (a streaming block, or ``--no_auto_ondevice``) the
+      host-streaming tier, which loads nothing into memory."""
+    ntot, B = data_block.ntot(), data_block.size()
+    ondevice = bool(getattr(opt, "ondevice", False))
+    auto_rotate_budget = None
+    if (not ondevice and getattr(opt, "auto_ondevice", True)
+            and isinstance(data_block, MtxMemoryBlock)):
+        vd_item = np.dtype(getattr(data_block, "val_dtype",
+                                   np.float32)).itemsize
+        need = min(8 * ntot * data_block.k_max(),
+                   vd_item * ntot * data_block.nfeature())
+        budget = _env_bytes("MMVAE_ONDEVICE_BYTES", 4 << 30)
+        if 0 < need <= budget:
+            TLOG(f"Auto-enabling on-device epochs (~{need / 1e6:,.0f} MB; "
+                 "--no_auto_ondevice to disable)")
+            ondevice = True
+        elif need > budget and os.environ.get("MMVAE_ROTATE", "1") != "0":
+            TLOG(f"Auto-enabling rotating-shard on-device epochs "
+                 f"(~{need / 1e6:,.0f} MB exceeds the {budget / 1e6:,.0f} "
+                 "MB resident budget; --no_auto_ondevice or MMVAE_ROTATE=0 "
+                 "to disable)")
+            ondevice = True
+            auto_rotate_budget = budget
+    if not ondevice:
+        return StreamedBatches(data_block, covar_block, B, device), None, \
+            False
+
+    # --ondevice on a streaming block loads it, as in JAX
+    data_mem = as_memory_block(data_block)
+    covar = None
+    if not getattr(covar_block, "auto_ones", False):
+        covar = build_dense(covar_block, device).float()
+    vd = np.dtype(getattr(data_mem, "val_dtype", np.float32))
+    dense_bytes = ntot * data_mem.nfeature() * vd.itemsize
+    ell_bytes = ntot * data_mem.k_max() * (4 + vd.itemsize)
+    budget = _env_bytes("MMVAE_DENSE_BYTES", 6 << 30)
+    if auto_rotate_budget is not None:
+        budget = min(budget, auto_rotate_budget)
+    if 0 < dense_bytes <= budget:
+        TLOG(f"Loading data on device (dense-resident, "
+             f"{dense_bytes / 1e6:,.0f} MB {vd.name})")
+        TLOG("Feature clustering is not applied (not ported yet, "
+             "ROADMAP.md Queue 1 item 8): genes stay in input order")
+        return build_dense(data_mem, device), covar, True
+    if 0 < ell_bytes <= budget or os.environ.get("MMVAE_ROTATE", "1") == "0":
+        TLOG("Loading data on device (ELL layout)")
+        csc = DeviceCSC.from_memory_block(data_mem, count_dtype="auto",
+                                          device=device)
+        return EllBatches(csc, B), covar, True
+    # shards of ~budget/8 keep the rotating buffers a small share of the
+    # budget; the rest keeps shards resident, less three shard slots (the
+    # previous shard, the current one and the next one's copy)
+    shard_budget = _env_bytes("MMVAE_SHARD_BYTES", max(64 << 20, budget // 8))
+    pin_budget = _env_bytes("MMVAE_PIN_BYTES",
+                            max(0, budget - 3 * shard_budget))
+    store = ShardStore.build(data_mem, B, shard_budget=shard_budget,
+                             pin_budget=pin_budget, device=device)
+    n_rot = store.nshards - len(store.pinned_idx)
+    TLOG(f"Rotating {n_rot}/{store.nshards} host-resident shards through "
+         f"HBM ({len(store.pinned_idx)} pinned; {store.layout} layout, "
+         f"~{store.shard_bytes(0) / 1e6:,.0f} MB/shard; dense "
+         f"{dense_bytes / 1e6:,.0f} MB and ELL {ell_bytes / 1e6:,.0f} MB "
+         f"both exceed MMVAE_DENSE_BYTES={budget / 1e6:,.0f} MB)")
+    return RotatingBatches(store), covar, True
+
+
 def train_vae_model(fast, recorder, data_block, covar_block, opt,
                     init_params: dict, device, start_epoch: int = 0,
                     init_opt_state: dict | None = None, on_epoch_end=None,
                     metrics_path: str | None = None
                     ) -> tuple[dict, list[float]]:
-    """The training loop (reference mmvae_alg.hh:200-338) on the
-    dense-resident path only: the counts are copied to ``device`` once
-    and every epoch runs :class:`DenseEpochRunner`.
+    """The training loop (reference mmvae_alg.hh:200-338) on one device:
+    :func:`load_batches` picks and loads the tier (dense-resident, ELL,
+    rotating shards or host streaming) and every epoch runs
+    :class:`DenseEpochRunner` over it.
 
     ``init_opt_state`` is the named Adam state ``{count, mu, nu}``;
     ``on_epoch_end(epoch, params, opt_state, loss_vec)`` gets the named
@@ -290,8 +519,9 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
     row carries the JAX trainer's ``time_*`` host phase seconds
     (``time_step``, and ``time_record_submit`` on recording epochs);
     ``MMVAE_TRACE_DIR`` traces the training phase, each epoch under an
-    ``ondevice_epoch`` annotation.  Returns (trained params, per-epoch
-    mean reported loss)."""
+    ``ondevice_epoch`` (``host_epoch`` on the host-streaming tier)
+    annotation.  Returns (trained params, per-epoch mean reported
+    loss)."""
     ntot = data_block.ntot()
     B = data_block.size()
     if ntot != covar_block.ntot() or B != covar_block.size():
@@ -300,31 +530,15 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
     batches = sequential_batches(ntot, B)
     TLOG(f"Batch size = {B}, Number of batches = {len(batches)}")
 
-    data_mem = as_memory_block(data_block)
-    vd = np.dtype(getattr(data_mem, "val_dtype", np.float32))
-    dense_bytes = ntot * data_mem.nfeature() * vd.itemsize
-    budget = int(os.environ.get("MMVAE_DENSE_BYTES", 6 << 30))
-    if not 0 < dense_bytes <= budget:
-        raise NotImplementedError(
-            f"the {vd.name} count matrix ({dense_bytes / 1e6:,.0f} MB) "
-            f"exceeds MMVAE_DENSE_BYTES={budget / 1e6:,.0f} MB: training "
-            f"beyond the dense-resident budget (ELL, rotation, host "
-            f"streaming) is not ported yet (ROADMAP.md Queue 1 item 12)")
-    TLOG(f"Loading data on device (dense-resident, "
-         f"{dense_bytes / 1e6:,.0f} MB {vd.name})")
-    data = build_dense(data_mem, device)
-    covar = None
-    if not getattr(covar_block, "auto_ones", False):
-        covar = build_dense(covar_block, device).float()
-    TLOG("Feature clustering is not applied (not ported yet, ROADMAP.md "
-         "Queue 1 item 8): genes stay in input order")
+    source, covar, ondevice = load_batches(data_block, covar_block, opt,
+                                           device)
     if torch.device(device).type == "cuda":
         from ..ops import _cuda
 
         _cuda.lib()  # build the kernels now, outside the epoch timing
 
     runner = DenseEpochRunner(
-        fast, data, B, seed=opt.seed, covar=covar,
+        fast, source, B, seed=opt.seed, covar=covar,
         covar_dim=covar_block.nfeature(),
         record_fn=recorder.encode if recorder is not None else None)
     q = fast.pack(init_params)
@@ -334,6 +548,7 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
     metrics = MetricsLogger(metrics_path)
     timer = StepTimer()
     loss_vec: list[float] = []
+    where = ", on-device" if ondevice else ""
     # a trace of the whole training phase when MMVAE_TRACE_DIR is set
     # (no-op otherwise)
     with trace():
@@ -344,13 +559,14 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
                           and (epoch + 1) % opt.recording == 0)
             # host time of the epoch's launches: the device runs on until
             # the loss fetch below, the one point where the JAX loop blocks
-            with timer.phase("step"), annotate("ondevice_epoch"):
+            with timer.phase("step"), annotate(
+                    "ondevice_epoch" if ondevice else "host_epoch"):
                 q, po, reps, enc = runner(q, po, epoch, record=record_now)
             epoch_loss = float(reps.cpu().numpy().mean())
             dt = time.time() - t0
             loss_vec.append(epoch_loss)
             TLOG(f"[{epoch + 1:>20}] {epoch_loss:>20.6f}"
-                 f"  ({runner.nbatch * B / dt:,.0f} cells/sec, on-device)")
+                 f"  ({runner.nbatch * B / dt:,.0f} cells/sec{where})")
             params = fast.unpack(q)
             if record_now:
                 # after the epoch's clock: the port's recorder writes its
@@ -362,7 +578,7 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
                 epoch, loss=epoch_loss,
                 kl_weight=float(kl_weight_schedule(epoch, *kl)),
                 cells_per_sec=round(runner.nbatch * B / dt, 1),
-                ondevice=True,
+                **({"ondevice": True} if ondevice else {}),
                 **{f"time_{k}": round(v, 4)
                    for k, v in timer.summary().items()})
             if on_epoch_end is not None:
