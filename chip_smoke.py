@@ -15,8 +15,8 @@ exits non-zero without the final line):
    spills;
 2. kernel against plain: ``count_encode`` on the card against its plain
    PyTorch version at the NB trainer's launch (M = 100, 2 + 2 rows), the
-   serving launch (M = 1600, 2 + 0) and ragged and wide cases, with
-   times;
+   serving launch (M = 1600, 2 + 0), a data-parallel rank's launches
+   (M = 50, 2 + 2 and 2 + 0) and ragged and wide cases, with times;
 3. grouping and storage invariance of the three forward instances (K4,
    K4s, K4f with the marker filter of phase 14), bitwise: one launch over
    1600 rows == 16 of 100 == a ragged split (1 + 37 + 62 + 15 x 100);
@@ -44,8 +44,9 @@ exits non-zero without the final line):
    profile of 20 batches;
 10. the joint vMF+NB model's kernel variants against their plain
     versions: ``count_encode`` with row stats (a training batch, 5 + 3
-    rows, the serving launch, 2 + 0 rows, and 37 rows at D = 1,003 and
-    at the forward tile's edges D = 255, 256, 257), its backward (K5) at
+    rows, the serving launch, 2 + 0 rows, a data-parallel rank's 50 rows,
+    and 37 rows at D = 1,003 and at the forward tile's edges D = 255,
+    256, 257), its backward (K5) at
     the 5 + 3 rows, ``value`` and ``valgrad``
     with ``pb`` and exp-nu in phase 6's regimes, with elements at the
     NU_HI clamp;
@@ -62,7 +63,8 @@ exits non-zero without the final line):
     marker-gene mask (10 components of 200 genes from seed 0, ~90% of the
     genes outside it): the training launch (B = 100, 12 + 3 rows) in
     int8, int16 and float32 counts, the serving launch (M = 1600,
-    12 + 1 rows), a two-launch case (22 + 3 rows) and 37 rows at
+    12 + 1 rows), a two-launch case (22 + 3 rows), a data-parallel
+    rank's 50 rows and 37 rows at
     D = 1,003, 255, 256 and 257 (the mask's first D genes); bitwise
     repeatability, 1 launch == 16 launches, and K5 at 12 + 3 rows;
 15. one mixture batch step, kernel route against plain route;
@@ -78,9 +80,10 @@ exits non-zero without the final line):
     (``nb_elbo_fwd``, both ``with_const`` instances), K8
     (``nb_elbo_bwd``) and K2v (``valgrad(need_value=True)``) at B = 100,
     D = 20,000 (int8 counts <= 7, int8 integers up to 127, non-integer
-    float32) and at a ragged D = 1,003; K7 and K8 also at B = 1 and 300
-    (D = 20,000), at D = 5,001 (no multiple of K7's slice or of K8's 4
-    columns) and at B = 2, D = 160,000 (K7's re-read instance), with
+    float32) and at a ragged D = 1,003; K7 and K8 also at B = 1, 50 (a
+    data-parallel rank's rows) and 300 (D = 20,000), at D = 5,001 (no
+    multiple of K7's slice or of K8's 4 columns) and at B = 2,
+    D = 160,000 (K7's re-read instance), with
     elements on both sides of both overdispersion clamp edges (the clamp
     mask exact); bitwise repeatability, int8 == int16 == float32 storage
     of the same integer counts for K7, K7c and K8, K2v's value against K6
@@ -144,7 +147,7 @@ exits non-zero without the final line):
     kernels and whose ``.metrics.jsonl`` rows the JAX trainer's
     ``time_*`` keys;
 28. K2's cases: the four ``nb_valgrad`` instances against their plain
-    version at B in {1, 37, 100, 1600} x D in {255, 256, 257, 1003,
+    version at B in {1, 37, 50, 100, 1600} x D in {255, 256, 257, 1003,
     20,000}, with the compile-time widths (2, 1, 1) and the general
     instance at (4, 2, 3), and at B in {37, 100} x D in {257, 20,000}
     with the widths the reference trains past 16 stacked rows (T = 17,
@@ -153,9 +156,9 @@ exits non-zero without the final line):
     the wide widths): each bitwise repeatable, the value-bearing
     gradients equal to the grad-only ones bitwise;
 29. K5's and K1's cases: every ``count_encode_bwd`` instance against its
-    plain version at M in {1, 37, 100, 1600} x D in {255, 256, 257,
-    1003, 20,000} x (r1, r2) in {(2, 2), (5, 3), (12, 3), (16, 0),
-    (7, 9)}, counts stored as int8, int16 and float32 (bitwise equal)
+    plain version at M in {1, 37, 50, 100, 1600} x D in {255, 256, 257,
+    1003, 20,000} x (r1, r2) in {(2, 2), (5, 3), (12, 3), (2, 0),
+    (16, 0), (7, 9)}, counts stored as int8, int16 and float32 (bitwise equal)
     and non-integer float32; both ``nb_lse`` instances at the same B x D
     x (R, C) in {(2, 1), (4, 2), (15, 0)} and at the wide widths' (R, C)
     and (13, 3) on phase 28's subset; each call bitwise repeatable,
@@ -203,12 +206,34 @@ exits non-zero without the final line):
     reports and parameters equal phase 9's bitwise, with cells/sec beside
     phase 9's, the device idle share, the bytes copied host to device an
     epoch, the copy stream's busy time and the compute stream's waits on
-    copies; then the ELL-resident tier on the same cells.
+    copies; then the ELL-resident tier on the same cells;
+37. data-parallel training end to end on two ranks, each a process of
+    this script (``--dp-worker``; NCCL on two cards when the machine has
+    two, gloo with both ranks on the one card otherwise, the phase says
+    which): ``nb_vae --data_parallel`` (the host path) and ``--dp_shard``
+    (dense-resident, DP layout) on phase 4's matrix, 2 epochs with
+    recording and a checkpoint, each run twice and resumed from its
+    epoch-1 checkpoint (bitwise equal), ``--data_parallel`` within
+    :data:`DP_TOL` of phase 8's single-process run; then one epoch each
+    of ``vmfnb_vae``, ``vmfnb_vae --annot --row``, ``vmf_vae`` and ``nb_vae
+    --mean_decoding 16`` under ``--dp_shard``; on each rank every kernel
+    of each path launched, every launch at 50 rows and at a shape (rows,
+    D, storage, widths and instance: :data:`SHAPE_ARGS`) at which phases
+    2, 6, 10, 14, 18, 22 and 28-30 held that kernel against its plain
+    version in this run (:func:`launch_shapes`), the ranks' final
+    parameters bitwise equal, rank 0 alone writing;
+38. data parallel at full width: the NB packed step under ``--dp_shard``
+    on the two ranks over phase 9's 40,000 cells (each rank makes phase
+    5's counts on its card from the seed and keeps its 50 rows of every
+    batch), phase 9's seed and initialization, 2 epochs: cells/sec summed
+    over the ranks beside phase 9's, each rank's device idle share, and
+    the gradient all-reduce's time a batch.
 
 Each main path (phases 4, 8, 12, 16, the runs of 20 and 24, the
 probe's run in 26, the wide trainer of 31, the vMF-VAE's runs of 32,
-33, 34 and 5, and each tier's run in 35 and 36) is driven with every
-launch counter set to 0 just before it and read just after.
+33, 34 and 5, each tier's run in 35 and 36, and each run of 37 and 38 on
+each rank) is driven with every launch counter set to 0 just before it
+and read just after.
 The last two lines are the kernels' JSON record (with each kernel's
 bound at the main path's shape) and ``{"ok": true, "device": {...}}``.
 """
@@ -217,11 +242,13 @@ from __future__ import annotations
 
 import contextlib
 import gzip
+import hashlib
 import io
 import json
 import os
 import re
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -240,6 +267,8 @@ N_FULL = 100_000    # cells of the full-size phases
 N_EARLIER = 40_000
 N_SHORT = 20_000    # the joint and mixture models (13, 17)
 B_TRAIN = 100
+DP_WORLD = 2  # the ranks of phases 37-38
+DP_M = B_TRAIN // DP_WORLD  # the rows of every batch a rank owns
 DEV = "cuda"
 TOL = "|kernel - plain| <= 1e-5 * S + 1e-6, S = |log1p x| @ |WL|^T (|x| @ |WX|^T)"
 
@@ -296,6 +325,56 @@ def device_profile(fn, reps: int = 1):
     device_profile.kernels = n / reps
     per = {k: v / reps / 1e3 for k, v in per.items()}
     return sum(per.values()), per
+
+
+# the arguments of each C entry of the kernel library that fix a launch's
+# shape: (integer arguments, pointer arguments counted as present or not)
+SHAPE_ARGS = {
+    # M, D, storage, log1p rows, raw rows; row stats, filter
+    "mmvae_count_encode_fwd": ((2, 3, 1, 5, 7), (12, 13)),
+    # M, D, storage, the launch's log1p rows and raw rows
+    "mmvae_count_encode_bwd": ((2, 3, 1, 5, 8), ()),
+    "mmvae_nb_lse": ((2, 3, 4, 5), ()),  # B, D, R, C
+    # B, D, storage, R, C, Rn, joint
+    "mmvae_nb_value": ((7, 8, 1, 9, 10, 11, 13), ()),
+    # B, D, storage, R, C, Rn, joint, need_value
+    "mmvae_nb_valgrad": ((7, 8, 1, 9, 10, 11, 12, 13), ()),
+    "mmvae_nb_finish": ((4, 5, 6, 7), ()),  # B, D, R, C
+    "mmvae_nb_elbo_fwd": ((5, 6, 1, 7), ()),  # B, D, storage, with_const
+    "mmvae_nb_elbo_bwd": ((8, 9, 2), ()),  # B, D, storage
+}
+# {C entry: set of shapes} of the launches that phases 2, 6, 10, 14, 18,
+# 22 and 28-30 held against their plain versions in this run
+HELD: dict = {}
+
+
+@contextlib.contextmanager
+def launch_shapes(into: dict):
+    """Within the block, add each launch's shape (:data:`SHAPE_ARGS`) to
+    ``into`` ({C entry: set of tuples}); the entries are restored
+    after."""
+    from mmvae_tpu_torch.ops import _cuda
+
+    lib = _cuda.lib()
+    real = {name: getattr(lib, name) for name in SHAPE_ARGS}
+
+    def wrap(name, fn):
+        ints, ptrs = SHAPE_ARGS[name]
+
+        def call(*a):
+            into.setdefault(name, set()).add(
+                tuple(int(a[i]) for i in ints)
+                + tuple(int(bool(a[i])) for i in ptrs))
+            return fn(*a)
+        return call
+
+    for name, fn in real.items():
+        setattr(lib, name, wrap(name, fn))
+    try:
+        yield into
+    finally:
+        for name, fn in real.items():
+            setattr(lib, name, fn)
 
 
 def ptxas_summary(build_log: str) -> str:
@@ -453,7 +532,9 @@ def phase_kernels(enc, card):
              (37, 255, 3, 1, torch.float32), (37, 256, 2, 2, torch.int8),
              (37, 257, 2, 0, torch.int16),  # D at the tile edges
              (1600, 20000, 2, 0, torch.int8),
-             (100, 20000, 24, 2, torch.int16)]
+             (100, 20000, 24, 2, torch.int16),
+             # a data-parallel rank's rows (phase 37): packed, generic
+             (DP_M, 20000, 2, 2, torch.int8), (DP_M, 20000, 2, 0, torch.int8)]
     g = torch.Generator(device=DEV).manual_seed(SEED)
     worst = 0.0
     times = {}
@@ -463,7 +544,8 @@ def phase_kernels(enc, card):
         WL = torch.randn((r1, D), generator=g, device=DEV) * 0.1
         WX = (torch.randn((r2, D), generator=g, device=DEV) * 0.01
               if r2 else None)
-        hL, hX = enc.count_encode(x, WL, WX)
+        with launch_shapes(HELD):  # only here: the timing below is bare
+            hL, hX = enc.count_encode(x, WL, WX)
         eL, eX = enc.count_encode_ref(x, WL, WX)
         torch.cuda.synchronize()
         xf = x.double()
@@ -933,7 +1015,8 @@ STATS_CASES = [(100, D_GENES, 5, 3, torch.int8),    # a training batch
                (37, 1003, 5, 3, torch.int8),        # D off the tile width
                (37, 255, 5, 3, torch.int16),        # D at the tile edges
                (37, 256, 5, 3, torch.float32),
-               (37, 257, 5, 0, torch.int8)]
+               (37, 257, 5, 0, torch.int8),
+               (DP_M, D_GENES, 5, 3, torch.int8)]  # a rank's rows (37)
 
 
 def joint_step_inputs(g, B, D, dtype, regime, widths=(2, 1, 1)):
@@ -1108,7 +1191,8 @@ FILT_CASES = [(100, D_GENES, 12, 3, torch.int8),    # a training batch
               (37, 1003, 12, 3, torch.int8),        # D off the tile width
               (37, 255, 12, 3, torch.int16),        # D at the tile edges
               (37, 256, 12, 1, torch.float32),
-              (37, 257, 12, 3, torch.int8)]
+              (37, 257, 12, 3, torch.int8),
+              (DP_M, D_GENES, 12, 3, torch.int8)]  # a rank's rows (37)
 
 
 def phase_filt_kernels(card):
@@ -1385,7 +1469,8 @@ ELBO_MAIN = 1  # int8 integer counts at B = 100, D = 20000: the main path
 ELBO_EXTRA = [(1, D_GENES, torch.int8, "integer"),
               (300, D_GENES, torch.int8, "integer"),
               (37, 5001, torch.int8, "integer"),
-              (2, 160_000, torch.int8, "integer")]
+              (2, 160_000, torch.int8, "integer"),
+              (DP_M, D_GENES, torch.int8, "integer")]  # a rank's rows (37)
 # softplus(nu_pre) on both sides of each clamp edge (NU_LO = 1e-4,
 # NU_HI = 1e4), far enough from it that float32 rounding cannot move an
 # element across, and far outside it
@@ -2059,7 +2144,7 @@ def phase_k2pv(card):
     return {name: worst}, {name: times}
 
 
-VALGRAD_BS = (1, 37, 100, 1600)
+VALGRAD_BS = (1, 37, DP_M, 100, 1600)  # DP_M: a data-parallel rank's rows
 VALGRAD_DS = (255, 256, 257, 1003, D_GENES)
 VALGRAD_WIDTHS = ((2, 1, 1), (4, 2, 3))  # the compile-time instance, a general one
 # the widths the reference trains past 16 stacked rows (R, C, Rn):
@@ -2191,11 +2276,12 @@ def phase_valgrad_cases(card):
     return worst
 
 
-BWD_MS = (1, 37, 100, 1600)
+BWD_MS = (1, 37, DP_M, 100, 1600)
 BWD_DS = (255, 256, 257, 1003, D_GENES)
-# K5's compile-time widths (the trainers'), a general one at the launch's
-# 16 rows with no raw side, a general one with both
-BWD_WIDTHS = ((2, 2), (5, 3), (12, 3), (16, 0), (7, 9))
+# K5's compile-time widths (the trainers', first: phase 29 times them),
+# the generic NB step's encoder (2 + 0), a general one at the launch's 16
+# rows with no raw side, a general one with both
+BWD_WIDTHS = ((2, 2), (5, 3), (12, 3), (2, 0), (16, 0), (7, 9))
 LSE_WIDTHS = ((2, 1), (4, 2), (15, 0))  # K1's compile-time (R, C), general
 # K1 at the wide widths' (R, C) (WIDE_BS x WIDE_DS) and at (13, 3), a
 # covariate file of 3 columns at latent 13: one slice and a partial one
@@ -3807,6 +3893,388 @@ def phase_rotating_full(card, data, ref):
         f"{times[1]:.2f}s; second epoch {N / times[1]:,.1f} cells/sec")
 
 
+# ----------------------------------------------------------------------
+# data-parallel phases (37-38): each rank a process of this script
+# (``--dp-worker``), both ranks on their own card, or sharing the one
+# ----------------------------------------------------------------------
+
+# phase 37's --data_parallel run against phase 8's single-process run:
+# the packed step's trajectory yardstick (tests/test_torch_train.py), the
+# ranks' kernels seeing 50 rows where phase 8's saw 100 (a 64-column
+# tile's lgamma regime is chosen over the rows a launch sees)
+DP_TOL = ("scores |dp - single| <= 2e-4 |single|; every artifact "
+          "|dp - single| <= 3e-3 |single| + 2e-5 max|single|")
+
+
+def dp_runs(tmp: str, mtx: str) -> list[dict]:
+    """Phase 37's CLI runs, in order, each in its own directory: per mode
+    two 2-epoch runs, a 1-epoch run and its resume to epoch 2; then one
+    epoch of each other trainer under --dp_shard.  Rank 1 is given a
+    checkpoint directory of its own, which must stay unmade."""
+    annot, row = write_annotation(tmp, marker_label())
+    runs = []
+
+    def run(name, cli, epochs, *extra, path=NB_PATH):
+        d = os.path.join(tmp, "dp", name)
+        os.makedirs(d)
+        label = " ".join([cli, *(a for a in extra if a.startswith("--")
+                                 and a not in ("--row", "--resume"))])
+        runs.append(dict(
+            name=name, cli=cli, path=path, dir=d, label=label,
+            args=["--mtx", mtx, "--batch_size", str(B_TRAIN), "--device",
+                  DEV, "--recording", "2", "--out", os.path.join(d, "run"),
+                  "--max_epoch", str(epochs), "--checkpoint_dir",
+                  os.path.join(d, "ck"), *extra],
+            rank1_args=["--checkpoint_dir", os.path.join(d, "ck_rank1")]))
+
+    for mode in ("data_parallel", "dp_shard"):
+        for name, epochs in (("a", 2), ("b", 2), ("r1", 1)):
+            run(f"{mode}_{name}", "nb_vae", epochs, f"--{mode}")
+        run(f"{mode}_r", "nb_vae", 2, f"--{mode}", "--resume",
+            os.path.join(tmp, "dp", f"{mode}_r1", "ck"))
+    run("joint", "vmfnb_vae", 1, "--dp_shard", path=JOINT_PATH)
+    run("mixture", "vmfnb_vae", 1, "--dp_shard", "--annot", annot, "--row",
+        row, path=MIXTURE_PATH)
+    run("vmf", "vmf_vae", 1, "--dp_shard", path=[])
+    run("generic", "nb_vae", 1, "--dp_shard", "--mean_decoding", "16",
+        path=GENERIC_PATH)
+    return runs
+
+
+def dp_full(rank: int, shapes: dict) -> dict:
+    """Phase 38 on one rank: the NB packed step under --dp_shard over this
+    rank's rows of phase 9's cells (phase 5's counts, made on the card
+    from the seed), phase 9's seed and initialization, 2 epochs; then
+    20 batches with the device synchronised around each collective (the
+    all-reduce's own time), and 20 profiled.  Every rank calls the same
+    collectives in the same order, so nothing here retries on one rank
+    alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmvae_tpu_torch.parallel.mesh import DataMesh
+    from mmvae_tpu_torch.parallel.multihost import barrier
+    from mmvae_tpu_torch.train.config import TrainingOptions
+    from mmvae_tpu_torch.train.loop import DenseEpochRunner
+    from mmvae_tpu_torch.utils.profiling import kernel_times
+
+    data = full_size_counts()
+    local = data[:N_EARLIER].view(-1, DP_WORLD, DP_M, D_GENES)[:, rank]
+    local = local.reshape(-1, D_GENES).contiguous()
+    del data
+    torch.cuda.empty_cache()
+    model, step_cls = model_and_step("nb")
+    fast = step_cls(model, TrainingOptions())
+    params = model.init(torch.Generator().manual_seed(SEED), device=DEV)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = DataMesh(DP_WORLD, rank, dev, "dp_shard")
+    runner = DenseEpochRunner(fast, local, B_TRAIN, seed=SEED, mesh=mesh)
+    q = fast.pack(params)
+    po = fast.optimizer.init(q)
+    reset_launches()
+    shapes.clear()
+    times, losses = [], []
+    for epoch in range(2):
+        torch.cuda.synchronize()
+        barrier()
+        t0 = time.perf_counter()
+        q, po, reps, _ = runner(q, po, epoch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(reps.double().mean().item())
+    launches = {k: n / (2 * runner.nbatch)
+                for k, n in read_launches().items() if n}
+    nprof = 20
+    sub = DenseEpochRunner(fast, local[:nprof * DP_M], B_TRAIN, seed=SEED,
+                           mesh=mesh)
+    rand = sub.draw(2)
+    # the step's all-reduces, timed with the device synchronised before
+    # each clock starts (so leaving out the kernels that make the buffer)
+    # and after it stops
+    ar = {"calls": 0, "bytes": 0, "seconds": 0.0}
+    real = torch.distributed.all_reduce
+
+    def timed(t, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(t, *a, **kw)
+        torch.cuda.synchronize()
+        ar["seconds"] += time.perf_counter() - t0
+        ar["calls"] += 1
+        ar["bytes"] += t.numel() * t.element_size()
+        return out
+
+    barrier()
+    torch.distributed.all_reduce = timed
+    try:
+        sub(q, po, 2, rand=rand)
+    finally:
+        torch.distributed.all_reduce = real
+    torch.cuda.synchronize()
+    barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sub(q, po, 2, rand=rand)
+        torch.cuda.synchronize()
+    kt = kernel_times(prof)
+    # NCCL's kernels run from the collective's launch until the peer
+    # arrives: their time is mostly waiting, so it stays out of busy
+    comm = sum(us for k, (us, _) in kt.items()
+               if "nccl" in k.lower()) / 1e3 / nprof
+    busy = sum(us for us, _ in kt.values()) / 1e3 / nprof - comm
+    copies = sum(us for k, (us, _) in kt.items()
+                 if "memcpy" in k.lower()) / 1e3 / nprof
+    per_batch = times[1] * 1e3 / runner.nbatch
+    return dict(
+        rate=local.shape[0] / times[1], times=times, losses=losses,
+        launches=launches,
+        shapes={k: sorted(v) for k, v in shapes.items()},
+        allreduce_ms=ar["seconds"] * 1e3 / nprof,
+        allreduce_calls=ar["calls"] / nprof,
+        allreduce_bytes=ar["bytes"] / max(1, ar["calls"]),
+        busy_ms=busy, copy_ms=copies, comm_ms=comm, per_batch_ms=per_batch,
+        idle=1 - busy / per_batch if busy else None,
+        q_sha=hashlib.sha256(b"".join(
+            q[k].cpu().numpy().tobytes() for k in sorted(q))).hexdigest())
+
+
+def dp_worker(rank: int, plan_path: str) -> int:
+    """One rank of phases 37-38 (``python3 chip_smoke.py --dp-worker RANK
+    PLAN``): join the process group, run each planned CLI with every
+    launch counter and the launches' shapes reset just before and read
+    just after, keep each run's final parameters, then phase 38; writes
+    ``rank<RANK>.json`` beside the plan."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from mmvae_tpu_torch.cli import common, nb_vae, vmf_vae, vmfnb_vae
+    from mmvae_tpu_torch.parallel.multihost import init_multihost
+    from mmvae_tpu_torch.train.recorder import flatten_params
+
+    with open(plan_path) as f:
+        plan = json.load(f)
+    init_multihost(plan["coordinator"], DP_WORLD, rank, torch.device(DEV))
+    clis = {"nb_vae": nb_vae, "vmf_vae": vmf_vae, "vmfnb_vae": vmfnb_vae}
+    final = {}
+    real = common.train_vae_model
+
+    def keep_final(*a, **kw):
+        final["params"], scores = real(*a, **kw)
+        return final["params"], scores
+
+    common.train_vae_model = keep_final
+    out, shapes = {"runs": {}}, {}
+    with launch_shapes(shapes):
+        for run in plan["runs"]:
+            argv = run["args"] + [
+                "--num_hosts", str(DP_WORLD), "--host_id", str(rank),
+                "--coordinator", plan["coordinator"]]
+            if rank:
+                argv += run["rank1_args"]
+            reset_launches()
+            shapes.clear()
+            t0 = time.time()
+            tee = _Tee(sys.stderr)
+            with contextlib.redirect_stderr(tee):
+                rc = clis[run["cli"]].main(argv)
+            if rc != 0:
+                raise AssertionError(f"rank {rank}: {run['name']} failed")
+            err = tee.buf.getvalue()
+            out["runs"][run["name"]] = dict(
+                launches=read_launches(), wall=time.time() - t0,
+                shapes={k: sorted(v) for k, v in shapes.items()},
+                tier=("dense-resident DP layout"
+                      if "dense-resident, DP layout" in err else "host path"),
+                resumed="Resumed from" in err)
+            np.savez(os.path.join(run["dir"], f"final_rank{rank}.npz"),
+                     **flatten_params(final["params"]))
+        out["full"] = dp_full(rank, shapes)
+    with open(os.path.join(os.path.dirname(plan_path),
+                           f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dp_outputs(d: str) -> dict:
+    """A run's files: ``run*.gz`` decompressed (the gzip header holds the
+    file's name), the checkpoint's arrays."""
+    got = {}
+    for f in sorted(os.listdir(d)):
+        if f.startswith("run") and f.endswith(".gz"):
+            with gzip.open(os.path.join(d, f)) as fh:
+                got[f] = fh.read()
+    with np.load(os.path.join(d, "ck", "ckpt.npz")) as z:
+        got.update({f"ck/{k}": z[k] for k in z.files})
+    return got
+
+
+def dp_vs_single(d: str, single: str) -> tuple[float, float]:
+    """(largest |dp - single| / |single| of the scores, largest err/tol of
+    the artifacts under :data:`DP_TOL`) of a run against phase 8's."""
+    s_dp = np.loadtxt(os.path.join(d, "run.scores.gz"), ndmin=1)
+    s_1 = np.loadtxt(single + ".scores.gz", ndmin=1)
+    worst = 0.0
+    for f in os.listdir(d):
+        if f.startswith("run_") and f.endswith(".gz"):
+            a = np.loadtxt(os.path.join(d, f), ndmin=1)
+            w = np.loadtxt(single + f[3:], ndmin=1)
+            if a.shape != w.shape:
+                raise AssertionError(f"{f}: shape {a.shape} vs {w.shape}")
+            tol = 3e-3 * np.abs(w) + 2e-5 * np.abs(w).max()
+            worst = max(worst, float(np.max(np.abs(a - w) / tol)))
+    return float(np.max(np.abs(s_dp - s_1) / np.abs(s_1))), worst
+
+
+def check_dp_shapes(what: str, shapes: dict) -> None:
+    """Every launch of a rank's run (``{C entry: shapes}``) at DP_M rows
+    and at a shape that phases 2-30 held against plain (:data:`HELD`)."""
+    bad = {k: [s for s in v if s[0] != DP_M or tuple(s) not in HELD.get(k, ())]
+           for k, v in shapes.items()}
+    bad = {k: v for k, v in bad.items() if v}
+    if bad:
+        raise AssertionError(
+            f"{what}: launches not at {DP_M} rows or at a shape no phase "
+            f"held against plain ({SHAPE_ARGS} gives the arguments): {bad}; "
+            f"held: { {k: sorted(v) for k, v in HELD.items()} }")
+
+
+def phase_dp(card, tmp, mtx, rate9):
+    """Phases 37-38: two ranks (NCCL on two cards when there are two,
+    gloo with both on the one card otherwise), each a process of this
+    script with its own timeout."""
+    runs = dp_runs(tmp, mtx)
+    plan = os.path.join(tmp, "dp", "plan.json")
+    with open(plan, "w") as f:
+        json.dump({"coordinator": f"127.0.0.1:{free_port()}", "runs": runs},
+                  f)
+    env = dict(os.environ, MMVAE_DIST_TIMEOUT="120")
+    logs = [open(os.path.join(tmp, "dp", f"rank{r}.log"), "w+")
+            for r in range(DP_WORLD)]
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dp-worker", str(r), plan], env=env,
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(DP_WORLD)]
+    try:
+        for p in procs:
+            p.wait(timeout=480)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("a rank failed:\n" + "\n---\n".join(
+            t[-4000:] for t in texts))
+    res = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(tmp, "dp", f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    backend = re.search(r"backend (\w+) \(([^;]*);", texts[0])
+    log(f"[phase 37] [{card}] {DP_WORLD} ranks, backend {backend.group(1)} "
+        f"({backend.group(2)}; {torch.cuda.device_count()} device(s)); "
+        f"ranks ran {time.time() - t0:.1f}s")
+    single = os.path.join(tmp, "train")  # phase 8's run
+    for run in runs:
+        name, d = run["name"], run["dir"]
+        per_rank = [x["runs"][name] for x in res]
+        for r, got in enumerate(per_rank):
+            lau = got["launches"]
+            if (min(lau[k] for k in run["path"]) < 1 if run["path"]
+                    else any(lau.values())):
+                raise AssertionError(f"{name} rank {r}: launches {lau}")
+            check_dp_shapes(f"{name} rank {r}", got["shapes"])
+        finals = [dict(np.load(os.path.join(d, f"final_rank{r}.npz")))
+                  for r in range(DP_WORLD)]
+        if not all(np.array_equal(finals[0][k], x[k]) for x in finals[1:]
+                   for k in finals[0]):
+            raise AssertionError(f"{name}: the ranks' parameters differ")
+        if os.path.exists(os.path.join(d, "ck_rank1")):
+            raise AssertionError(f"{name}: rank 1 wrote a checkpoint")
+        scores = np.loadtxt(os.path.join(d, "run.scores.gz"), ndmin=1)
+        if not np.isfinite(scores).all():
+            raise AssertionError(f"{name}: scores {scores}")
+        extra = ""
+        if name == "data_parallel_a":
+            e_s, e_a = dp_vs_single(d, single)
+            if not (e_s <= 2e-4 and e_a <= 1.0):
+                raise AssertionError(f"--data_parallel vs phase 8: scores "
+                                     f"{e_s:.3g}, artifacts err/tol {e_a:.3g}")
+            extra = (f"; against phase 8's single-process run: scores rel "
+                     f"{e_s:.3g}, artifacts err/tol {e_a:.3g} ({DP_TOL})")
+        for mode in ("data_parallel", "dp_shard"):
+            if name in (f"{mode}_b", f"{mode}_r"):
+                want = dp_outputs(os.path.join(tmp, "dp", f"{mode}_a"))
+                got = dp_outputs(d)
+                if not same_outputs(got, want):
+                    raise AssertionError(f"{name} differs from {mode}_a")
+                extra = (f"; equals {mode}_a bitwise ({len(want)} files and "
+                         f"arrays)")
+        tier = per_rank[0]["tier"]
+        if tier != ("host path" if name.startswith("data_parallel")
+                    else "dense-resident DP layout"):
+            raise AssertionError(f"{name}: {tier}, not JAX's tier")
+        if name.endswith("_r") and not per_rank[0]["resumed"]:
+            raise AssertionError(f"{name} did not resume")
+        log(f"[phase 37] [{card}] {name} ({run['label']}, {tier}): scores "
+            f"{scores.tolist()}; launches rank 0 "
+            f"{ {k: per_rank[0]['launches'][k] for k in run['path']} }, "
+            f"rank 1 { {k: per_rank[1]['launches'][k] for k in run['path']} }"
+            f", every launch at {DP_M} rows and at one of "
+            f"{sum(map(len, per_rank[0]['shapes'].values()))} shapes (rank 0) "
+            f"held against plain in phases 2-30; ranks' final parameters "
+            f"bitwise equal; rank 0 alone wrote; wall "
+            f"{per_rank[0]['wall']:.2f}s{extra}")
+    full = [x["full"] for x in res]
+    for r, fr in enumerate(full):
+        if not (np.isfinite(fr["losses"]).all()
+                and fr["losses"][1] < fr["losses"][0]):
+            raise AssertionError(f"phase 38 rank {r}: losses {fr['losses']}")
+        if any(fr["launches"].get(k, 0) <= 0 for k in NB_PATH):
+            raise AssertionError(f"phase 38 rank {r}: {fr['launches']}")
+        check_dp_shapes(f"phase 38 rank {r}", fr["shapes"])
+    if full[0]["q_sha"] != full[1]["q_sha"]:
+        raise AssertionError("phase 38: the ranks' parameters differ")
+    total = sum(fr["rate"] for fr in full)
+    log(f"[phase 38] [{card}] NB packed step --dp_shard, {DP_WORLD} ranks "
+        f"({backend.group(1)}) x {DP_M} rows of every batch of {B_TRAIN}, "
+        f"{N_EARLIER} x {D_GENES} int8, 2 epochs: epoch losses "
+        f"{full[0]['losses'][0]:.4f} -> {full[0]['losses'][1]:.4f}; second "
+        f"epoch {total:,.1f} cells/sec summed over the ranks ("
+        + ", ".join(f"rank {r} {fr['rate']:,.1f}" for r, fr in
+                    enumerate(full))
+        + f") against phase 9's {rate9:,.1f} on one process "
+        f"({total / rate9:.2f}x); launches a batch {full[0]['launches']}")
+    for r, fr in enumerate(full):
+        log(f"[phase 38] [{card}] rank {r}: {fr['per_batch_ms']:.3f} ms wall "
+            f"a batch (second epoch); profile of 20 batches: device busy "
+            f"{fr['busy_ms']:.3f} ms a batch, of it copies "
+            f"{fr['copy_ms']:.3f} ms"
+            + (f", beside NCCL's kernels {fr['comm_ms']:.3f} ms (most of it "
+               f"waiting for the peer)" if fr["comm_ms"] else "")
+            + " (device idle share "
+            + (f"{fr['idle']:.1%}" if fr["idle"] is not None else
+               "not measured: the trace holds no device events")
+            + f"); gradient all-reduce {fr['allreduce_ms']:.3f} ms a batch "
+            f"in {fr['allreduce_calls']:g} collectives of "
+            f"{fr['allreduce_bytes'] / 1e6:.2f} MB (host clock, device "
+            f"synchronised around each)")
+    return total
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 # H100 SXM published peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s and
 # float32 FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12
@@ -3940,26 +4408,29 @@ def main() -> int:
         phase_kernels(enc, card))
     phase_chunks(enc)
     mark("2-3")
-    for w, t in (phase_variant_kernels(card), phase_train_kernels(card)):
-        worst.update(w)
-        times.update(t)
-    (worst["count_encode[filt]"], times["count_encode[filt]"],
-     times["count_encode_bwd mixture"]) = phase_filt_kernels(card)
-    mark("6, 10, 14")
-    for w, t in (phase_generic_kernels(card), phase_k2pv(card)):
-        worst.update(w)
-        times.update(t)
-    for name, e in phase_valgrad_cases(card).items():
-        worst[name] = max(worst[name], e)
-    mark("18, 22, 28")
-    w29, bwd_times = phase_bwd_lse_cases(card)
-    for name, e in w29.items():
-        worst[name] = max(worst[name], e)
-    mark("29")
-    w30, _ = phase_value_finish_cases(card)
-    for name, e in w30.items():
-        worst[name] = max(worst[name], e)
-    mark("30")
+    # every launch of these phases is held against its plain version;
+    # their times are device times, which the recording leaves alone
+    with launch_shapes(HELD):
+        for w, t in (phase_variant_kernels(card), phase_train_kernels(card)):
+            worst.update(w)
+            times.update(t)
+        (worst["count_encode[filt]"], times["count_encode[filt]"],
+         times["count_encode_bwd mixture"]) = phase_filt_kernels(card)
+        mark("6, 10, 14")
+        for w, t in (phase_generic_kernels(card), phase_k2pv(card)):
+            worst.update(w)
+            times.update(t)
+        for name, e in phase_valgrad_cases(card).items():
+            worst[name] = max(worst[name], e)
+        mark("18, 22, 28")
+        w29, bwd_times = phase_bwd_lse_cases(card)
+        for name, e in w29.items():
+            worst[name] = max(worst[name], e)
+        mark("29")
+        w30, _ = phase_value_finish_cases(card)
+        for name, e in w30.items():
+            worst[name] = max(worst[name], e)
+        mark("30")
     worst["roofline_probe"], times["roofline_probe"], p1_launches = (
         phase_roofline(card))
     mark("26")
@@ -3998,7 +4469,11 @@ def main() -> int:
             mark(str(PHASE[kind]["full"]))
         phase_rotating_full(card, data, full["nb"])
         mark("36")
+        rate9 = full["nb"]["rate"]
         del data, full
+        torch.cuda.empty_cache()
+        phase_dp(card, tmp, mtx, rate9)
+        mark("37-38")
     log("[timing] seconds by phase: " + "; ".join(
         f"{b[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:]))
         + f"; since the build {marks[-1][1] - t0:.1f}")
@@ -4087,4 +4562,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

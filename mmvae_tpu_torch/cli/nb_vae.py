@@ -21,10 +21,12 @@ the v1 ELBO kernels K7 / K8 (a hidden decoder, or ``--no_fused_step``),
 or plain ``forward`` + ``nb_loss`` (``--no_fused``).  Checkpoints (with
 the Adam state) load in either package.  What the port does not do yet
 raises ``NotImplementedError`` naming its ROADMAP.md item:
-``--data_parallel``, ``--dp_shard``,
-``--tensor_parallel`` > 1 and multi-host runs (item 13).  Feature
-clustering is not applied (item 8).  Float32 matmuls run in full float32
-(TF32 off).
+``--tensor_parallel`` > 1 (item 13).  Feature clustering is not applied
+(item 8).  Float32 matmuls run in full float32 (TF32 off).
+Data-parallel training: ``--data_parallel`` or ``--dp_shard``, one
+process a device, started with ``--num_hosts H --host_id i
+--coordinator host:port`` (``parallel.multihost``; README,
+"Data-parallel training").
 """
 
 from __future__ import annotations
@@ -38,8 +40,8 @@ from ..train.loop import Trainer
 from ..train.config import MMVaeOptions, TrainingOptions, _csv_ints
 from ..utils.logging import TLOG
 from .common import (add_device_flag, add_relu_flags, compose_parsers,
-                     prepare_blocks, refuse_unported, resolve_device,
-                     run_training, warn_unknown_args)
+                     multihost_setup, prepare_blocks, refuse_unported,
+                     resolve_device, run_training, warn_unknown_args)
 
 _MODEL_DESC = r"""[Likelihood]
 
@@ -126,8 +128,9 @@ def main(argv=None) -> int:
     device = resolve_device(ns.device)
     if device is None:
         return 2
-
-    data_block, covar_block = prepare_blocks(opts)
+    device = topt.apply_runtime_config(device)
+    local_b, mesh = multihost_setup(opts, topt, device)
+    data_block, covar_block = prepare_blocks(opts, local_batch=local_b)
 
     TLOG("Constructing a model")
     model = NBVAE(data_dim=data_block.nfeature(),
@@ -141,7 +144,7 @@ def main(argv=None) -> int:
                             kl=(opts.kl_max, opts.kl_min, opts.kl_discount))
     TLOG(f"Step: {route}")
     return run_training(opts, topt, model, fast, data_block, covar_block,
-                        device)
+                        device, mesh)
 
 
 if __name__ == "__main__":

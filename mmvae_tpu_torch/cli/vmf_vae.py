@@ -24,9 +24,11 @@ The model is plain PyTorch (no kernel of the port lies on its path);
 float32 matmuls run in full float32 (TF32 off).  Checkpoints (with the
 Adam state) load in either package.  What the port does not do yet
 raises ``NotImplementedError`` naming its ROADMAP.md item:
-``--data_parallel``, ``--dp_shard``,
-``--tensor_parallel`` > 1 and multi-host runs (item 13).  Feature
-clustering is not applied (item 8).
+``--tensor_parallel`` > 1 (item 13).  Feature clustering is not applied
+(item 8).  Data-parallel training: ``--data_parallel`` or
+``--dp_shard``, one process a device, started with ``--num_hosts H
+--host_id i --coordinator host:port`` (``parallel.multihost``; README,
+"Data-parallel training").
 """
 
 from __future__ import annotations
@@ -40,8 +42,8 @@ from ..train.config import MMVaeOptions, TrainingOptions, _csv_ints
 from ..train.loop import Trainer
 from ..utils.logging import TLOG
 from .common import (add_device_flag, add_relu_flags, compose_parsers,
-                     prepare_blocks, refuse_unported, resolve_device,
-                     run_training, warn_unknown_args)
+                     multihost_setup, prepare_blocks, refuse_unported,
+                     resolve_device, run_training, warn_unknown_args)
 
 _MODEL_DESC = r"""Likelihood:
 f(x) = C_d(kappa) exp(kappa mu'x)
@@ -87,8 +89,9 @@ def main(argv=None) -> int:
     device = resolve_device(ns.device)
     if device is None:
         return 2
-
-    data_block, covar_block = prepare_blocks(opts)
+    device = topt.apply_runtime_config(device)
+    local_b, mesh = multihost_setup(opts, topt, device)
+    data_block, covar_block = prepare_blocks(opts, local_batch=local_b)
 
     TLOG("Constructing a model")
     model = VMFVAE(data_dim=data_block.nfeature(),
@@ -100,7 +103,7 @@ def main(argv=None) -> int:
                             kl=(opts.kl_max, opts.kl_min, opts.kl_discount))
     TLOG(f"Step: {route}")
     return run_training(opts, topt, model, fast, data_block, covar_block,
-                        device)
+                        device, mesh)
 
 
 if __name__ == "__main__":

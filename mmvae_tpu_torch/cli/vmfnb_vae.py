@@ -28,9 +28,12 @@ decoder), or ``forward`` + the composite loss (a hidden mu decoder,
 ``--vmf_decoding`` with ``--annot`` is ignored, as in the JAX CLI.
 Checkpoints (with the Adam state) load in either package.  What the port
 does not do yet raises ``NotImplementedError`` naming its ROADMAP.md
-item: ``--data_parallel``, ``--dp_shard``, ``--tensor_parallel`` > 1 and multi-host runs (item 13).
-Feature clustering is not applied (item 8).  The covariate file is read
-and ignored: neither model has a covariate pathway.
+item: ``--tensor_parallel`` > 1 (item 13).  Feature clustering is not
+applied (item 8).  Data-parallel training: ``--data_parallel`` or
+``--dp_shard``, one process a device, started with ``--num_hosts H
+--host_id i --coordinator host:port`` (``parallel.multihost``; README,
+"Data-parallel training").  The covariate file is read and ignored:
+neither model has a covariate pathway.
 """
 
 from __future__ import annotations
@@ -45,8 +48,8 @@ from ..train.config import MMVaeOptions, TrainingOptions, _csv_ints
 from ..train.loop import Trainer
 from ..utils.logging import TLOG, WLOG
 from .common import (add_device_flag, add_relu_flags, compose_parsers,
-                     prepare_blocks, refuse_unported, resolve_device,
-                     run_training, warn_unknown_args)
+                     multihost_setup, prepare_blocks, refuse_unported,
+                     resolve_device, run_training, warn_unknown_args)
 
 _MODEL_DESC = "Joint von Mises-Fisher + Negative Binomial VAE"
 
@@ -150,8 +153,9 @@ def main(argv=None) -> int:
     device = resolve_device(ns.device)
     if device is None:
         return 2
-
-    data_block, covar_block = prepare_blocks(opts)
+    device = topt.apply_runtime_config(device)
+    local_b, mesh = multihost_setup(opts, topt, device)
+    data_block, covar_block = prepare_blocks(opts, local_batch=local_b)
 
     TLOG("Constructing a model" + (" (labeled mixture)" if mixture else ""))
     kmin, kmax = resolve_kappa_defaults(ns.kappa_min, ns.kappa_max, mixture)
@@ -174,7 +178,7 @@ def main(argv=None) -> int:
                             kl=(opts.kl_max, opts.kl_min, opts.kl_discount))
     TLOG(f"Step: {route}")
     return run_training(opts, topt, model, fast, data_block, covar_block,
-                        device)
+                        device, mesh)
 
 
 if __name__ == "__main__":

@@ -302,10 +302,10 @@ class NBVAE(nn.Module):
                    else nb_step_boot_gradonly)(*args)
         return (nll + beta * pre["kl"]) / x.shape[0]
 
-    def record_encoder(self, seed: int, B: int):
+    def record_encoder(self, seed: int, B: int, rows: slice | None = None):
         """The recorder's encode ``(params, x) -> (mean, lnvar)`` and its
-        extra artifact's name (none); seed and B do not enter it."""
-        del seed, B
+        extra artifact's name (none); seed, B and rows do not enter it."""
+        del seed, B, rows
         return self.encode_mu, None
 
 

@@ -213,8 +213,8 @@ class VMFVAE(nn.Module):
         serving CLI's encode (``mmvae_tpu/cli/vmf_vae.py:73-78``)."""
         return self.encode_prepared(params, self.prepare_encoder(params), x)
 
-    def record_encoder(self, seed: int, B: int):
+    def record_encoder(self, seed: int, B: int, rows: slice | None = None):
         """The recorder's encode ``(params, x) -> (mean, lnvar)`` and its
-        extra artifact's name (none); seed and B do not enter it."""
-        del seed, B
+        extra artifact's name (none); seed, B and rows do not enter it."""
+        del seed, B, rows
         return self.encode_mu, None

@@ -491,11 +491,14 @@ class VMFNBMixtureVAE(nn.Module):
         return self.encode_prepared(
             params, self.prepare_encoder(params, gumbel_u), x)
 
-    def record_encoder(self, seed: int, B: int):
+    def record_encoder(self, seed: int, B: int, rows: slice | None = None):
         """The recorder's encode ``(params, x) -> (mean, lnvar, clust)``
         with the uniforms of ``seed`` for B-row batches, and the name of
-        its extra artifact."""
+        its extra artifact.  ``rows`` keeps the uniforms of those rows of
+        a batch (a data-parallel rank's, which encodes only its rows)."""
         u = self.gumbel_uniforms(B, seed)
+        if rows is not None:
+            u = u[rows]
         on_device: dict = {}
 
         def encode(params, x):

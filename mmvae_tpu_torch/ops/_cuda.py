@@ -11,12 +11,17 @@ bits), and every C entry returns ``cudaGetLastError()`` after its
 launches, which :func:`check` turns into an exception.
 
 Nothing here runs at import time: the CPU tests import every module, and
-the CPU host has no ``nvcc``.  A failed build raises.
+the CPU host has no ``nvcc``.  A failed build raises.  Processes that
+build at once (the ranks of a data-parallel run on one machine) take
+turns on an exclusive ``flock`` of ``build.lock`` beside the library:
+the first builds, the others find it fresh; the library is written
+under a temporary name and renamed, so a half-written one never loads.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import os
 import shutil
@@ -29,6 +34,7 @@ SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "mmvae_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libmmvae_torch_kernels.so")
 BUILD_LOG = os.path.join(BUILD_DIR, "build.log")
+BUILD_LOCK = os.path.join(BUILD_DIR, "build.lock")
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -67,11 +73,20 @@ def build(force: bool = False) -> str:
     """Compile the kernel library if missing or stale; return its path.
 
     The compilers' output (``-Xptxas -v``: registers, shared memory and
-    spills per kernel) is kept in :data:`BUILD_LOG`."""
+    spills per kernel) is kept in :data:`BUILD_LOG`.  Holds
+    :data:`BUILD_LOCK` while it checks and builds."""
     if not force and not _stale():
         return LIB_PATH
-    nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(BUILD_LOCK, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if not force and not _stale():
+            return LIB_PATH
+        return _build()
+
+
+def _build() -> str:
+    nvcc = _nvcc()
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
     objs = [os.path.join(BUILD_DIR, os.path.basename(s) + ".o")

@@ -38,6 +38,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..parallel.collectives import pmean
 from .enc_kernel import count_encode, count_encode_ref
 from .losses import gaussian_kl, kl_weight_schedule
 from .nb_elbo import _softplus
@@ -227,6 +228,13 @@ def draw_rand(gen: torch.Generator, nbatch: int, B: int, nboot: int,
     return dict(rep_eps=rep_eps, ridx=ridx, boot_eps=boot_eps)
 
 
+def reduce_step(grads: list, report, i: int) -> tuple[list, object]:
+    """Boot step ``i``'s gradients ``pmean``-ed over the ranks, with the
+    report in the same collective when ``i`` is 0."""
+    red = pmean(grads + [report] if i == 0 else grads)
+    return red[:len(grads)], red[-1] if i == 0 else report
+
+
 def batch_rand(rand: dict, b: int) -> dict:
     """Batch ``b``'s slice of an epoch of draws."""
     return {"rep_eps": tuple(e[b] for e in rand["rep_eps"]),
@@ -341,24 +349,38 @@ class PackedFastStep:
         return self._beta[1]
 
     def batch_step(self, q: dict, opt_state: dict, x, c, epoch_f,
-                   rand: dict):
+                   rand: dict, mesh=None):
         """One reference batch step on packed state: the reporting pass
         (no update) and ``nboot`` bootstrap-resampled Adam steps
-        (mmvae_alg.hh:277-311).  Returns (q, opt_state, report)."""
+        (mmvae_alg.hh:277-311).  Returns (q, opt_state, report).
+
+        With a :class:`~mmvae_tpu_torch.parallel.mesh.DataMesh` (JAX's
+        ``axis_name``) ``x`` and ``c`` are this rank's rows, the boot
+        passes draw from :meth:`DataMesh.step_inputs`, and the report and
+        each boot step's gradients are ``pmean``-ed: the report rides the
+        first boot step's collective."""
         beta = self._beta_for(epoch_f, x.device)
+        xb, cb = x, c
+        if mesh is not None:
+            xb, cb, rand = mesh.step_inputs(x, c, rand)
         views = self._views(x)
+        bviews = views if xb is x else self._views(xb)
         with torch.no_grad():
             report = self._loss(q, views, c, None, rand["rep_eps"], beta,
                                 include_const=True, boot=False)
         for i in range(self.opt.nboot):
             qq = {k: v.detach().requires_grad_() for k, v in q.items()}
             eps = tuple(e[i] for e in rand["boot_eps"])
-            loss = self._loss(qq, views, c, rand["ridx"][i], eps, beta,
+            loss = self._loss(qq, bviews, cb, rand["ridx"][i], eps, beta,
                               include_const=False, boot=True)
-            gP, gsv = torch.autograd.grad(loss, (qq["P"], qq["sv"]))
+            grads = list(torch.autograd.grad(loss, (qq["P"], qq["sv"])))
+            if mesh is not None:
+                grads, report = reduce_step(grads, report, i)
             with torch.no_grad():
                 q, opt_state = self.optimizer.update(
-                    {"P": gP, "sv": gsv}, opt_state, q)
+                    {"P": grads[0], "sv": grads[1]}, opt_state, q)
+        if mesh is not None and self.opt.nboot == 0:
+            report = pmean([report])[0]
         return q, opt_state, report
 
 

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..models.nb import params_to_numpy
+from ..parallel.multihost import host_role
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict:
@@ -103,7 +104,12 @@ def save_checkpoint(ckpt_dir: str, params: dict, epoch: int, seed: int,
                     loss_vec=(), opt_state: dict | None = None) -> str:
     """Atomically write ``<ckpt_dir>/ckpt.npz`` + ``meta.json``: the
     parameters and, when given, the named Adam state ``{count, mu, nu}``
-    (the trainer's ``unpack_opt_state``)."""
+    (the trainer's ``unpack_opt_state``).  In a multi-process run rank 0
+    alone writes (every rank holds the same state); every rank loads the
+    same file."""
+    path = os.path.join(ckpt_dir, "ckpt.npz")
+    if not host_role():
+        return path
     os.makedirs(ckpt_dir, exist_ok=True)
     flat_p = {f"params/{k}": v
               for k, v in _flatten(params_to_numpy(params)).items()}
@@ -117,7 +123,6 @@ def save_checkpoint(ckpt_dir: str, params: dict, epoch: int, seed: int,
         "n_opt_leaves": len(flat_o),
     }
     meta_arr = np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8)
-    path = os.path.join(ckpt_dir, "ckpt.npz")
     _atomic_write(path, lambda tmp: np.savez(tmp, __meta__=meta_arr,
                                              **flat_p, **flat_o))
 

@@ -4,9 +4,10 @@ A copy of ``mmvae_tpu/train/config.py`` (``MMVaeOptions``,
 ``TrainingOptions``, ``_csv_ints``): the shared module cannot be imported
 without loading JAX (``mmvae_tpu/train/__init__.py`` imports the JAX
 trainer).  Flags and defaults are the same, so one command line means
-the same run to both packages; the JAX-only ``apply_runtime_config``
-(multi-host init, ``jax_debug_nans``) is left out — the port's CLI
-refuses the flags it would serve.  Each option group is a dataclass with
+the same run to both packages.  ``apply_runtime_config`` starts the
+multi-process group (``parallel.multihost.init_multihost``); JAX's
+``jax_debug_nans`` has no counterpart and ``--debug_nans`` is accepted
+and ignored.  Each option group is a dataclass with
 an ``add_args``/``from_args`` pair; the CLIs run all groups over one
 command line (reference include/mmvae.hh:109-120).
 """
@@ -193,3 +194,13 @@ class TrainingOptions:
             report_every=getattr(ns, "report_every", 0),
             tensor_parallel=getattr(ns, "tensor_parallel", 1),
         )
+
+    def apply_runtime_config(self, device):
+        """Process-level set-up (call once in CLI mains, before any CUDA
+        tensor is made; JAX ``config.py:194-200``): with ``--num_hosts >
+        1`` join the process group at ``--coordinator`` as rank
+        ``--host_id``.  Returns this process's device (the rank's card)."""
+        from ..parallel.multihost import init_multihost
+
+        return init_multihost(self.coordinator, self.num_hosts,
+                              self.host_id, device)

@@ -41,8 +41,10 @@ from ..data.shards import ShardStore
 from ..io import native
 from ..ops.densify import DeviceCSC, densify_gathered, densify_triplets
 from ..ops.losses import kl_weight_schedule
-from ..ops.nb_fast import (PackedAdam, batch_rand, draw_rand, tree_leaves,
-                           tree_unflatten)
+from ..ops.nb_fast import (PackedAdam, batch_rand, draw_rand, reduce_step,
+                           tree_leaves, tree_unflatten)
+from ..parallel.collectives import pmean
+from ..parallel.multihost import host_role, sharded_batches
 from ..utils.logging import TLOG
 from ..utils.metrics import MetricsLogger
 from ..utils.profiling import StepTimer, annotate, trace
@@ -55,22 +57,27 @@ def as_memory_block(block):
     return block
 
 
-def build_dense(block, device: torch.device | str) -> torch.Tensor:
+def build_dense(block, device: torch.device | str,
+                order: np.ndarray | None = None) -> torch.Tensor:
     """The (N, D) count matrix on ``device`` in the block's ``val_dtype``
     (int8, int16 or float32): filled on the host — the native one-pass
     fill when the C++ extension loads, a numpy scatter of the CSC arrays
-    otherwise — then ONE host->device copy."""
+    otherwise — then ONE host->device copy.  ``order`` keeps only those
+    cells, in that order (a rank's rows of a data-parallel run)."""
     blk = as_memory_block(block)
     rows, vals, indptr = blk.csc_arrays()
     vd = np.dtype(getattr(blk, "val_dtype", np.float32))
     if native.available():
         TLOG("dense fill: native")
-        host = native.dense_fill(rows, vals, indptr, blk.nfeature(), vd)
+        host = native.dense_fill(rows, vals, indptr, blk.nfeature(), vd,
+                                 order)
     else:
         TLOG("dense fill: numpy (native extension unavailable)")
         host = np.zeros((len(indptr) - 1, blk.nfeature()), vd)
         cols = np.repeat(np.arange(len(indptr) - 1), np.diff(indptr))
         host[cols, rows] = vals.astype(vd)
+        if order is not None:
+            host = host[order]
     return torch.from_numpy(host).to(device)
 
 
@@ -183,16 +190,22 @@ class Trainer:
                                  beta)
 
     def batch_step(self, params: dict, opt_state: dict, x, c, epoch_f,
-                   rand: dict):
+                   rand: dict, mesh=None):
         """The reporting loss (no update) and ``nboot`` bootstrap Adam
         steps, each on the resampled input rows ``x[ridx]``
-        (mmvae_alg.hh:277-311).  Returns (params, opt_state, report)."""
+        (mmvae_alg.hh:277-311).  Returns (params, opt_state, report).
+        ``mesh`` as in the packed steps' ``batch_step``: every leaf's
+        gradient (and, with the first, the report) ``pmean``-ed in one
+        flat buffer in ``PackedAdam``'s leaf order."""
         beta = self._beta_for(epoch_f, x.device)
+        xs, cs = x, c
+        if mesh is not None:
+            xs, cs, rand = mesh.step_inputs(x, c, rand)
         with torch.no_grad():
             report = self._report(params, x, c, rand["rep_eps"], beta)
         for i in range(self.opt.nboot):
             ridx = rand["ridx"][i]
-            xb, cb = x.index_select(0, ridx), c.index_select(0, ridx)
+            xb, cb = xs.index_select(0, ridx), cs.index_select(0, ridx)
             leaves = [v.detach().requires_grad_() for v in
                       tree_leaves(params)]
             loss = self._boot(tree_unflatten(params, leaves), xb, cb,
@@ -201,17 +214,27 @@ class Trainer:
             # a leaf the loss does not reach has a zero gradient, as in JAX
             grads = [torch.zeros_like(v) if g is None else g
                      for g, v in zip(grads, leaves)]
+            if mesh is not None:
+                grads, report = reduce_step(grads, report, i)
             with torch.no_grad():
                 params, opt_state = self.optimizer.update(
                     tree_unflatten(params, grads), opt_state, params)
+        if mesh is not None and self.opt.nboot == 0:
+            report = pmean([report])[0]
         return params, opt_state, report
 
 
-def epoch_generator(seed: int, epoch: int, device) -> torch.Generator:
+def epoch_generator(seed: int, epoch: int, device,
+                    rank: int | None = None) -> torch.Generator:
     """The generator of one epoch's draws: a pure function of (seed,
-    epoch), so a resumed run draws what the uninterrupted one drew."""
+    epoch), so a resumed run draws what the uninterrupted one drew.  A
+    ``--dp_shard`` rank's is a pure function of (seed, epoch, rank), the
+    counterpart of JAX's ``fold_in(key, axis_index)``."""
     gen = torch.Generator(device=device)
-    gen.manual_seed((int(seed) << 20) + int(epoch))
+    s = (int(seed) << 20) + int(epoch)
+    if rank is not None:
+        s = ((s << 12) + int(rank) + 1) & ((1 << 64) - 1)
+    gen.manual_seed(s)
     return gen
 
 
@@ -229,11 +252,12 @@ class ResidentBatches:
     def __init__(self, data: torch.Tensor, B: int):
         self.data, self.B = data, B
         self.N, self.device = data.shape[0], data.device
+        self.nbatch = -(-self.N // B)
         self.cols = None if self.N % B == 0 else schedule_cols(
             self.N, B, self.device)
 
     def batches(self):
-        for b in range(-(-self.N // self.B)):
+        for b in range(self.nbatch):
             if self.cols is None:
                 yield self.data[b * self.B:(b + 1) * self.B], None
             else:
@@ -249,6 +273,7 @@ class EllBatches:
         self.csc, self.B = csc, B
         self.N, self.device = csc.N, csc.ell_rows.device
         self.cols = schedule_cols(self.N, B, self.device)
+        self.nbatch = len(self.cols)
 
     def batches(self):
         for cols in self.cols:
@@ -272,6 +297,7 @@ class RotatingBatches:
     def __init__(self, store):
         self.store, self.B = store, store.B
         self.N, self.device = store.ntot, store.device
+        self.nbatch = -(-self.N // self.B)
         self.rotating = [r for r in range(store.nshards)
                          if r not in store.pinned_idx]
         self._carry = None     # (index, ShardCopy) of the prefetched shard
@@ -324,13 +350,18 @@ class StreamedBatches:
     through :class:`~mmvae_tpu_torch.data.pipeline.PrefetchLoader`, the
     covariate from its block, and copies them to the device from
     page-locked memory.  One batch a step; JAX's superbatches only group
-    XLA dispatches."""
+    XLA dispatches.  ``schedule`` is the cell ids of each batch (default
+    the sequential one over blocks of B; a data-parallel rank's slices of
+    the global one, ``parallel.multihost.sharded_batches``)."""
 
-    def __init__(self, data_block, covar_block, B: int, device):
+    def __init__(self, data_block, covar_block, B: int, device,
+                 schedule=None):
         self.data_block, self.covar_block, self.B = (data_block, covar_block,
                                                      B)
         self.N, self.device = data_block.ntot(), torch.device(device)
-        self.schedule = sequential_batches(self.N, B)
+        self.schedule = (sequential_batches(self.N, B) if schedule is None
+                         else schedule)
+        self.nbatch = len(self.schedule)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(a)
@@ -362,24 +393,40 @@ class DenseEpochRunner:
     source reads its own).  ``record_fn(params, x) -> (mean, lnvar[,
     extra])`` is evaluated right after each batch's updates on a
     recording epoch (the recorder's observation point,
-    mmvae_alg.hh:315-317)."""
+    mmvae_alg.hh:315-317).
+
+    With a :class:`~mmvae_tpu_torch.parallel.mesh.DataMesh` (world > 1)
+    ``B`` is the global batch and the source yields this rank's M = B /
+    world rows of each (a tensor ``data`` holds only those rows, batch
+    after batch); the draws are the global batch's under
+    ``data_parallel`` and the rank's own M rows' under ``dp_shard``, and
+    ``record_fn`` sees the rank's rows."""
 
     def __init__(self, fast, data, B: int, seed: int = 0,
                  covar: torch.Tensor | None = None, covar_dim: int = 1,
-                 record_fn=None):
-        self.fast, self.B, self.seed = fast, B, seed
-        self.source = (ResidentBatches(data, B)
+                 record_fn=None, mesh=None):
+        self.fast, self.B, self.seed, self.mesh = fast, B, seed, mesh
+        M = B if mesh is None else mesh.local_batch(B)
+        self.source = (ResidentBatches(data, M)
                        if isinstance(data, torch.Tensor) else data)
         self.covar, self.record_fn = covar, record_fn
         self.N = self.source.N
-        self.nbatch = self.N // B + (1 if self.N % B else 0)
+        self.nbatch = self.source.nbatch
         self.device = self.source.device
-        self.ones = torch.ones((B, covar_dim), dtype=torch.float32,
+        self.ones = torch.ones((M, covar_dim), dtype=torch.float32,
                                device=self.device)
+        if mesh is not None and covar is not None:
+            raise ValueError("a data-parallel source reads its own "
+                             "covariate rows")
         self.cols = (None if covar is None or self.N % B == 0
                      else schedule_cols(self.N, B, self.device))
 
     def draw(self, epoch: int) -> dict:
+        if self.mesh is not None and self.mesh.shard:
+            return self.fast.draw_rand(
+                epoch_generator(self.seed, epoch, self.device,
+                                self.mesh.rank), self.nbatch,
+                self.mesh.local_batch(self.B))
         return self.fast.draw_rand(
             epoch_generator(self.seed, epoch, self.device), self.nbatch,
             self.B)
@@ -404,7 +451,8 @@ class DenseEpochRunner:
         for b, (x, c) in enumerate(self.source.batches()):
             c = self._covar(b) if c is None else c
             q, opt_state, rep = self.fast.batch_step(
-                q, opt_state, x, c, float(epoch), batch_rand(rand, b))
+                q, opt_state, x, c, float(epoch), batch_rand(rand, b),
+                mesh=self.mesh)
             reps[b] = rep
             if record:
                 outs = self.record_fn(self.fast.unpack(q), x)
@@ -421,12 +469,52 @@ def _env_bytes(name: str, default: int) -> int:
     return int(os.environ.get(name) or default)
 
 
-def load_batches(data_block, covar_block, opt, device):
+def load_dp_batches(data_block, covar_block, opt, device, mesh):
+    """The tier of a data-parallel rank, JAX's rule under a mesh
+    (train/loop.py:1281-1310, 1363-1410): the blocks read this rank's M =
+    B / world rows of every global batch.  Dense-resident epochs only
+    under ``--dp_shard`` with a wrap-free schedule and the all-ones
+    covariate (``--ondevice``, or auto-enabled when the dense matrix fits
+    ``MMVAE_ONDEVICE_BYTES``): the rank holds its rows of every batch,
+    batch after batch.  Otherwise the host-streaming tier over the rank's
+    slices of the global schedule (``parallel.multihost.sharded_batches``);
+    ``--ondevice`` is then logged as not taken, with JAX's line.  Returns
+    what :func:`load_batches` returns."""
+    ntot, M = data_block.ntot(), data_block.size()
+    B = M * mesh.world
+    ondevice = bool(getattr(opt, "ondevice", False))
+    dense_ok = (mesh.shard and ntot % B == 0
+                and getattr(covar_block, "auto_ones", False))
+    vd = np.dtype(getattr(data_block, "val_dtype", np.float32))
+    dense_bytes = ntot * data_block.nfeature() * vd.itemsize
+    if (not ondevice and getattr(opt, "auto_ondevice", True) and dense_ok
+            and isinstance(data_block, MtxMemoryBlock)):
+        if 0 < dense_bytes <= _env_bytes("MMVAE_ONDEVICE_BYTES", 4 << 30):
+            TLOG(f"Auto-enabling on-device epochs (~{dense_bytes / 1e6:,.0f}"
+                 " MB; --no_auto_ondevice to disable)")
+            ondevice = True
+    schedule = sharded_batches(ntot, B, mesh.rank, mesh.world)
+    if ondevice and dense_ok:
+        TLOG(f"Loading data on device (dense-resident, DP layout over "
+             f"{mesh.world} processes, {dense_bytes / mesh.world / 1e6:,.0f}"
+             f" MB {vd.name} a rank)")
+        return (build_dense(data_block, device, np.concatenate(schedule)),
+                None, True)
+    if ondevice:
+        TLOG("on-device epochs with a mesh need --dp_shard or "
+             "--tensor_parallel, a wrap-free schedule, and the all-ones "
+             "covariate; falling back to the host loop")
+    return (StreamedBatches(data_block, covar_block, M, device, schedule),
+            None, False)
+
+
+def load_batches(data_block, covar_block, opt, device, mesh=None):
     """The tier of JAX's ``train_vae_model`` (train/loop.py:1288-1545,
     single device, no feature clustering) for these blocks and options,
     loaded: returns (source, dense covariate or None, on-device?), the
     source being the (N, D) tensor of the dense-resident tier or the
-    batch source of another tier, each logged with JAX's line.
+    batch source of another tier, each logged with JAX's line.  A
+    data-parallel rank (``mesh``) takes :func:`load_dp_batches`.
 
     - ``--ondevice``, or auto-enabled (``opt.auto_ondevice``) for an
       in-memory block when the smaller of its dense and ELL sizes fits
@@ -439,6 +527,8 @@ def load_batches(data_block, covar_block, opt, device):
       ``MMVAE_PIN_BYTES`` (default budget - 3 shards) of them resident;
     - otherwise (a streaming block, or ``--no_auto_ondevice``) the
       host-streaming tier, which loads nothing into memory."""
+    if mesh is not None:
+        return load_dp_batches(data_block, covar_block, opt, device, mesh)
     ntot, B = data_block.ntot(), data_block.size()
     ondevice = bool(getattr(opt, "ondevice", False))
     auto_rotate_budget = None
@@ -506,9 +596,9 @@ def load_batches(data_block, covar_block, opt, device):
 def train_vae_model(fast, recorder, data_block, covar_block, opt,
                     init_params: dict, device, start_epoch: int = 0,
                     init_opt_state: dict | None = None, on_epoch_end=None,
-                    metrics_path: str | None = None
+                    metrics_path: str | None = None, mesh=None
                     ) -> tuple[dict, list[float]]:
-    """The training loop (reference mmvae_alg.hh:200-338) on one device:
+    """The training loop (reference mmvae_alg.hh:200-338):
     :func:`load_batches` picks and loads the tier (dense-resident, ELL,
     rotating shards or host streaming) and every epoch runs
     :class:`DenseEpochRunner` over it.
@@ -521,34 +611,46 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
     ``MMVAE_TRACE_DIR`` traces the training phase, each epoch under an
     ``ondevice_epoch`` (``host_epoch`` on the host-streaming tier)
     annotation.  Returns (trained params, per-epoch mean reported
-    loss)."""
+    loss).
+
+    With a :class:`~mmvae_tpu_torch.parallel.mesh.DataMesh` (JAX's
+    ``host_count`` / ``host_id``) the blocks hold this rank's B / world
+    rows of every global batch; each rank encodes its rows on a recording
+    epoch, and rank 0 alone writes the metrics (the recorder and
+    ``save_checkpoint`` keep their writes to rank 0 too); every rank
+    returns the same parameters."""
     ntot = data_block.ntot()
     B = data_block.size()
     if ntot != covar_block.ntot() or B != covar_block.size():
         raise ValueError("data and covariate blocks differ in cells or "
                          "batch size")
-    batches = sequential_batches(ntot, B)
-    TLOG(f"Batch size = {B}, Number of batches = {len(batches)}")
+    world = 1 if mesh is None else mesh.world
+    primary = host_role()
+    batches = sequential_batches(ntot, B * world)
+    TLOG(f"Batch size = {B}{f' x {world} processes' if world > 1 else ''}"
+         f", Number of batches = {len(batches)}")
 
     source, covar, ondevice = load_batches(data_block, covar_block, opt,
-                                           device)
+                                           device, mesh)
     if torch.device(device).type == "cuda":
         from ..ops import _cuda
 
         _cuda.lib()  # build the kernels now, outside the epoch timing
 
     runner = DenseEpochRunner(
-        fast, source, B, seed=opt.seed, covar=covar,
+        fast, source, B * world, seed=opt.seed, covar=covar,
         covar_dim=covar_block.nfeature(),
-        record_fn=recorder.encode if recorder is not None else None)
+        record_fn=recorder.encode if recorder is not None else None,
+        mesh=mesh)
     q = fast.pack(init_params)
     po = (fast.pack_opt_state(init_opt_state) if init_opt_state is not None
           else fast.optimizer.init(q))
     kl = (fast.kl_max, fast.kl_min, fast.kl_discount)
-    metrics = MetricsLogger(metrics_path)
+    metrics = MetricsLogger(metrics_path if primary else None)
     timer = StepTimer()
     loss_vec: list[float] = []
     where = ", on-device" if ondevice else ""
+    cells = runner.nbatch * B * world
     # a trace of the whole training phase when MMVAE_TRACE_DIR is set
     # (no-op otherwise)
     with trace():
@@ -566,7 +668,7 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
             dt = time.time() - t0
             loss_vec.append(epoch_loss)
             TLOG(f"[{epoch + 1:>20}] {epoch_loss:>20.6f}"
-                 f"  ({runner.nbatch * B / dt:,.0f} cells/sec{where})")
+                 f"  ({cells / dt:,.0f} cells/sec{where})")
             params = fast.unpack(q)
             if record_now:
                 # after the epoch's clock: the port's recorder writes its
@@ -577,7 +679,7 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
             metrics.log_epoch(
                 epoch, loss=epoch_loss,
                 kl_weight=float(kl_weight_schedule(epoch, *kl)),
-                cells_per_sec=round(runner.nbatch * B / dt, 1),
+                cells_per_sec=round(cells / dt, 1),
                 **({"ondevice": True} if ondevice else {}),
                 **{f"time_{k}": round(v, 4)
                    for k, v in timer.summary().items()})

@@ -14,7 +14,9 @@ Port of ``mmvae_tpu/train/recorder.py`` (``LatentRecorder``,
   encode returns a third output (vmfnb_mixture.hh:797-804).
 
 Writes are synchronous (the JAX package's background writer is not
-ported).
+ported).  In a multi-process run each rank encodes its rows of every
+batch and rank 0 gathers them into the (N, width) matrices and writes
+(JAX ``LatentRecorder._merged``, ``recorder.py:175-197``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from ..io.writers import write_data_file
+from ..parallel.multihost import host_role, local_rows
 
 
 def zeropad(t: int, tmax: int) -> str:
@@ -99,7 +102,12 @@ class LatentRecorder:
         """A whole epoch of posteriors collected on the device: ``enc``
         is the (mean, lnvar[, extra]) tuple of shape (nbatch, B, width),
         applied in batch order so wrap-around duplicates resolve to the
-        last visit."""
+        last visit.  In a multi-process run every rank passes its
+        (nbatch, B / world, width) rows of each batch of ``batches`` (the
+        global schedule) and rank 0 gathers them."""
+        enc = tuple(local_rows(t) for t in enc)
+        if not host_role():
+            return
         attrs = ("mean_out", "lnvar_out", "extra_out")[:len(enc)]
         for attr, t in zip(attrs, enc):
             a = t.cpu().numpy()
@@ -109,6 +117,9 @@ class LatentRecorder:
                 mat[batch[ok]] = a[b][ok]
 
     def update_on_epoch(self, params: dict, epoch: int) -> None:
+        """Write the epoch's artifacts (rank 0 of a multi-process run)."""
+        if not host_role():
+            return
         tag = f"{self.header}_{zeropad(epoch, self.max_epoch)}"
         write_data_file(f"{tag}.{self.mean_name}.gz", self.mean_out)
         write_data_file(f"{tag}.{self.lnvar_name}.gz", self.lnvar_out)

@@ -38,6 +38,7 @@ from mmvae_tpu_torch.ops.nb_fast import NBFastStep, rand_from_numpy
 from mmvae_tpu_torch.train import checkpoint as tck
 from mmvae_tpu_torch.train.config import TrainingOptions
 from mmvae_tpu_torch.train.loop import DenseEpochRunner
+from tests.test_torch_multihost import check_dp_flag
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D, N_CELLS = 30, 80
@@ -224,8 +225,16 @@ def test_device_cuda_without_gpu_fails(runs, tmp_path):
 @pytest.mark.parametrize("flags", [["--data_parallel"],
                                    ["--num_hosts", "2"], ["--dp_shard"],
                                    ["--tensor_parallel", "2"]])
-def test_unported_options_raise(runs, tmp_path, flags):
-    _, common = runs
+def test_unported_options_raise(runs, tmp_path, flags, capsys,
+                                monkeypatch):
+    """``--tensor_parallel 2`` raises naming its ROADMAP.md item; the
+    data-parallel flags as
+    :func:`tests.test_torch_multihost.check_dp_flag` says."""
+    tmp, common = runs
+    if flags[0] != "--tensor_parallel":
+        check_dp_flag(nb_vae.main, common, tmp, tmp_path, flags, capsys,
+                       monkeypatch, n_outputs=29)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         nb_vae.main(common + ["--out", str(tmp_path / "x"), "--device",
                               "cpu", *flags])

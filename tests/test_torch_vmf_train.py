@@ -41,6 +41,7 @@ from mmvae_tpu_torch.models.vmf import VMFVAE
 from mmvae_tpu_torch.ops.nb_fast import rand_from_numpy
 from mmvae_tpu_torch.train import checkpoint as tck
 from mmvae_tpu_torch.train.loop import DenseEpochRunner
+from tests.test_torch_multihost import check_dp_flag
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D, N_CELLS = 30, 80
@@ -83,7 +84,6 @@ def _dense():
     dens = rng.poisson(1.5, size=(D, N_CELLS)).astype(np.float32)
     dens[0, ~(dens > 0).any(axis=0)] = 1.0
     return dens
-
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
@@ -291,10 +291,16 @@ def test_device_cuda_without_gpu_fails(runs, tmp_path):
 @pytest.mark.parametrize("flags", [["--dp_shard"], ["--data_parallel"],
                                    ["--tensor_parallel", "2"],
                                    ["--num_hosts", "2"]])
-def test_unported_options_raise(runs, tmp_path, flags):
-    """Multi-GPU and multi-host runs raise naming their ROADMAP.md item,
-    before anything is written."""
-    _, common = runs
+def test_unported_options_raise(runs, tmp_path, flags, capsys,
+                                monkeypatch):
+    """``--tensor_parallel 2`` raises naming its ROADMAP.md item, before
+    anything is written; the data-parallel flags as
+    :func:`tests.test_torch_multihost.check_dp_flag` says."""
+    tmp, common = runs
+    if flags[0] != "--tensor_parallel":
+        check_dp_flag(vmf_vae.main, common, tmp, tmp_path, flags, capsys,
+                       monkeypatch, n_outputs=17)
+        return
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md Queue 1 item 13"):
         vmf_vae.main(common + ["--out", str(tmp_path / "x"), "--device",

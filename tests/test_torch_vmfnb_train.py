@@ -31,6 +31,7 @@ from mmvae_tpu_torch.cli import vmfnb_vae
 from mmvae_tpu_torch.models.nb import adam_from_numpy
 from mmvae_tpu_torch.models.vmfnb import VMFNBVAE
 from mmvae_tpu_torch.train import checkpoint as tck
+from tests.test_torch_multihost import check_dp_flag
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D, N_CELLS = 30, 80
@@ -42,7 +43,6 @@ def _run_jax(module, args):
     r = subprocess.run([sys.executable, "-m", module] + args,
                        capture_output=True, text=True, env=env, timeout=600)
     assert r.returncode == 0, r.stderr[-2000:]
-
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
@@ -167,14 +167,19 @@ def test_device_cuda_without_gpu_fails(runs, tmp_path):
     (["--no_fused_step"], "forward + composite loss"),
     (["--dp_shard"], "item 13"),
     (["--tensor_parallel", "2"], "item 13")])
-def test_unported_options_raise(runs, tmp_path, capsys, flags, expect):
-    """Multi-GPU flags raise naming their ROADMAP.md item; the generic
-    step's flags (once refused) train one epoch on the route the JAX CLI
-    takes, logged in one ``Step:`` line."""
-    _, common = runs
+def test_unported_options_raise(runs, tmp_path, capsys, flags, expect,
+                                monkeypatch):
+    """``--tensor_parallel 2`` raises naming its ROADMAP.md item; the
+    generic step's flags (once refused) train one epoch on the route the
+    JAX CLI takes, logged in one ``Step:`` line; ``--dp_shard`` (once
+    refused) as :func:`tests.test_torch_multihost.check_dp_flag` says."""
+    tmp, common = runs
     args = common + ["--out", str(tmp_path / "x"), "--device", "cpu",
                      "--max_epoch", "1", *flags]
-    if expect == "item 13":
+    if flags == ["--dp_shard"]:
+        check_dp_flag(vmfnb_vae.main, common, tmp, tmp_path, flags, capsys,
+                       monkeypatch, n_outputs=29)
+    elif expect == "item 13":
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.md Queue 1 {expect}"):
             vmfnb_vae.main(args)
