@@ -39,9 +39,8 @@ exits non-zero without the final line):
    checkpoint, every kernel's launch count > 0, then ``--resume`` for one
    more epoch;
 9. full-width training: two epochs of the dense-resident epoch runner
-   over the first 40,000 of phase 5's 100,000 x 20,000 int8 counts (the
-   depth cut keeps the script inside half its time limit), with a
-   profile of 20 batches;
+   over the first 40,000 of phase 5's 100,000 x 20,000 int8 counts (a
+   depth cut for the time limit), with a profile of 20 batches;
 10. the joint vMF+NB model's kernel variants against their plain
     versions: ``count_encode`` with row stats (a training batch, 5 + 3
     rows, the serving launch, 2 + 0 rows, a data-parallel rank's 50 rows,
@@ -56,7 +55,7 @@ exits non-zero without the final line):
     kernel of the path launched, ``--resume`` for one more epoch; then
     ``encode --model vmfnb`` on that checkpoint, resident and streaming
     (bitwise equal), against the plain unfolded encoder;
-13. full-width joint training: two epochs over the first 20,000 of phase
+13. full-width joint training: two epochs over the first 10,000 of phase
     5's counts, with a profile of 20 batches;
 14. the labeled mixture's kernel instance K4f (``count_encode`` with the
     annotation-filtered row stats) against its plain version, with a
@@ -74,7 +73,7 @@ exits non-zero without the final line):
     one more epoch; then ``encode --model mixture``, resident and
     streaming (bitwise equal), against the plain unfolded encoder with
     the same Gumbel noise;
-17. full-width mixture training: two epochs over the first 20,000 of
+17. full-width mixture training: two epochs over the first 10,000 of
     phase 5's counts, with a profile of 20 batches;
 18. the generic step's kernels against their plain versions: K7
     (``nb_elbo_fwd``, both ``with_const`` instances), K8
@@ -102,9 +101,9 @@ exits non-zero without the final line):
     plain unfolded encoder (the width 16 is a test width: the reference
     publishes no hidden-layer default);
 21. full-width generic training: ``nb_vae --no_fused_step``'s step at
-    the default architecture, two epochs over the first 40,000 of phase
-    5's counts (phase 9's model and data: the two phases price the packed
-    step against the generic one), with a profile of 20 batches;
+    the default architecture, two epochs over the first 10,000 of phase
+    5's counts (phase 9's model and cells: the two phases price the
+    packed step against the generic one), with a profile of 20 batches;
 22. K2pv (``valgrad(joint=True, need_value=True)``, the value-bearing
     joint boot step) against its plain version in phase 18's regimes and
     at D = 1,003, with exp(nu_pre) on both sides of the NU_HI clamp:
@@ -128,7 +127,7 @@ exits non-zero without the final line):
     unfolded encoders;
 25. full-width generic training of the joint model: the library
     trainer (K2pv's main path) at the default architecture, two epochs
-    over the first 20,000 of phase 5's counts (phase 13's model and data:
+    over the first 10,000 of phase 5's counts (phase 13's model and data:
     the two phases price the packed joint step against the generic one),
     with a profile of 20 batches;
 26. the roofline probe P1 (``csrc/roofline_probe.cu``) against its plain
@@ -169,7 +168,9 @@ exits non-zero without the final line):
     lgamma(x + 1)), ``value(joint=True)`` and ``finish`` against their
     plain versions on phase 28's grid and wide widths and counts: each
     call bitwise repeatable, K6's int8 == int16 == float32; then the
-    three at the main path's shape, stage 1 and stage 2 apart;
+    three at the main path's shape, stage 1 and stage 2 apart; and K1,
+    K6, K6p, K2, K2p and K3 at the TP launch shape of phases 39-41 (B =
+    100, D = 10,000, int8) beside their plain versions;
 31. a wide model's trainer: ``nb_vae --mean_latent 13`` (17 stacked
     rows) on phase 4's matrix for one epoch, every kernel of the NB path
     launched (its step kernels on their general instances), the score
@@ -227,11 +228,33 @@ exits non-zero without the final line):
     5's counts on its card from the seed and keeps its 50 rows of every
     batch), phase 9's seed and initialization, 2 epochs: cells/sec summed
     over the ranks beside phase 9's, each rank's device idle share, and
-    the gradient all-reduce's time a batch.
+    the gradient all-reduce's time a batch;
+39. tensor-parallel training end to end on two ranks of one model row
+    (``--tp-worker``; the backend as in 37): ``nb_vae``, ``vmfnb_vae``,
+    ``vmfnb_vae --annot --row`` and ``vmf_vae`` with ``--tensor_parallel
+    2`` on phase 4's matrix at full width (each rank 10,000 of its 20,000
+    genes), one epoch each with a checkpoint (``nb_vae`` two, and once
+    one epoch resumed to two: bitwise equal), each held to one process of
+    the port's generic ``Trainer`` on the full parameters fed the same
+    draws (data index 0) within :data:`TP_TOL`; on each rank K1, K6 / K6p,
+    K2 / K2p and K3 launched and K4 and K5 not (the TP encoders are plain,
+    as in JAX), every launch at D / 2 columns and at a shape phases 28-30
+    held against plain in this run, the ranks' final parameters bitwise
+    equal, rank 0 alone writing;
+40. tensor-parallel serving: ``encode --tensor_parallel 2`` of phase 39's
+    four checkpoints, no kernel launched, against ``encode`` in one
+    process within phase 12's tolerance (the mixture's assignments equal
+    but for near-ties);
+41. tensor parallel at full width: phase 9's NB model and 40,000 cells
+    under ``--tensor_parallel 2``'s step, 2 epochs: epoch-2 cells/sec
+    beside phase 9's, each rank's device idle share, the collectives' ms
+    a batch (K1, K6, K6p, K2, K2p and K3 at the TP launch shape, B =
+    100, D = 10,000, int8, are timed against their plain versions at the
+    close of phase 30).
 
 Each main path (phases 4, 8, 12, 16, the runs of 20 and 24, the
 probe's run in 26, the wide trainer of 31, the vMF-VAE's runs of 32,
-33, 34 and 5, each tier's run in 35 and 36, and each run of 37 and 38 on
+33, 34 and 5, each tier's run in 35 and 36, and each run of 37-41 on
 each rank) is driven with every launch counter set to 0 just before it
 and read just after.
 The last two lines are the kernels' JSON record (with each kernel's
@@ -260,12 +283,18 @@ SEED = 0
 D_GENES = 20000
 N_CLI = 4000        # cells of the synthetic CLI matrix
 N_FULL = 100_000    # cells of the full-size phases
-# cells the full-size training phases walk: their depth is cut so that
-# the script keeps inside half its time limit on a slow host; the NB
-# packed and generic steps (9, 21) share the longer walk, which prices
-# the one against the other
+# cells the full-size training phases walk: their depth is cut to keep
+# the script well inside its time limit on a slow host; the NB packed
+# step (9) takes the longer walk, which phases 36, 38 and 41 repeat on
+# the rotating tier, two DP ranks and two TP ranks
 N_EARLIER = 40_000
-N_SHORT = 20_000    # the joint and mixture models (13, 17)
+# the joint and mixture models and the generic steps (13, 17, 21, 25);
+# their cells/sec are per cell, so phase 21 still prices the generic NB
+# step against phase 9's packed one
+N_SHORT = 10_000
+# the vMF-VAE (34): its loss at D = 20,000 falls by about one float32
+# ulp of its value over two epochs of this walk
+N_VMF = 20_000
 B_TRAIN = 100
 DP_WORLD = 2  # the ranks of phases 37-38
 DP_M = B_TRAIN // DP_WORLD  # the rows of every batch a rank owns
@@ -2145,7 +2174,8 @@ def phase_k2pv(card):
 
 
 VALGRAD_BS = (1, 37, DP_M, 100, 1600)  # DP_M: a data-parallel rank's rows
-VALGRAD_DS = (255, 256, 257, 1003, D_GENES)
+# D_GENES // 2: a rank's features under --tensor_parallel 2 (phases 39-41)
+VALGRAD_DS = (255, 256, 257, 1003, D_GENES // 2, D_GENES)
 VALGRAD_WIDTHS = ((2, 1, 1), (4, 2, 3))  # the compile-time instance, a general one
 # the widths the reference trains past 16 stacked rows (R, C, Rn):
 # nb_vae --mean_latent 13 with one covariate (T = 17), a covariate file of
@@ -2277,7 +2307,7 @@ def phase_valgrad_cases(card):
 
 
 BWD_MS = (1, 37, DP_M, 100, 1600)
-BWD_DS = (255, 256, 257, 1003, D_GENES)
+BWD_DS = VALGRAD_DS
 # K5's compile-time widths (the trainers', first: phase 29 times them),
 # the generic NB step's encoder (2 + 0), a general one at the launch's 16
 # rows with no raw side, a general one with both
@@ -3301,8 +3331,8 @@ def phase_train_full(card, data, kind="nb"):
     step, ``nb_vae --no_fused_step``) / 25 (the joint model's library
     trainer, K2pv's main path) / 34 (the vMF-VAE's packed step): two
     epochs of the dense-resident epoch runner at full width over the
-    first N_EARLIER cells (N_SHORT for the joint, mixture and vMF
-    models), with the kernels' launches per batch (none for the vMF-VAE,
+    first N_EARLIER cells (N_VMF for the vMF-VAE, N_SHORT for the joint
+    and mixture models and the generic steps), with the kernels' launches per batch (none for the vMF-VAE,
     whose kappa is printed before and after), and a profile of 20 batches
     (processing a trace takes about a second a batch, the largest cost
     of these phases)."""
@@ -3310,7 +3340,7 @@ def phase_train_full(card, data, kind="nb"):
     from mmvae_tpu_torch.train.loop import DenseEpochRunner
 
     tag = f"[phase {PHASE[kind]['full']}]"
-    data = data[:N_EARLIER if kind in ("nb", "generic") else N_SHORT]
+    data = data[:{"nb": N_EARLIER, "vmf": N_VMF}.get(kind, N_SHORT)]
     if kind == "generic":
         model = model_and_step("nb")[0]
         fast = generic_trainer(model, TrainingOptions(fused_step=False))
@@ -4267,6 +4297,586 @@ def phase_dp(card, tmp, mtx, rate9):
     return total
 
 
+# ----------------------------------------------------------------------
+# tensor-parallel phases (39-41): each rank a process of this script
+# (``--tp-worker``), as in phases 37-38
+# ----------------------------------------------------------------------
+
+TP_WORLD = 2  # the ranks of phases 39-41: one model row of TP_N
+TP_N = 2      # --tensor_parallel
+D_TP = D_GENES // TP_N  # the features of every rank's shard
+# the kernels of each TP path: the encoders are plain PyTorch (JAX's TP
+# encoders are plain products too), so K4, K4s, K4f and K5 stay at 0
+TP_PATHS = {"nb": ["nb_lse", "nb_value", "nb_valgrad", "nb_finish"],
+            "joint": ["nb_lse", "nb_value[pb,nu_exp]",
+                      "nb_valgrad[pb,nu_exp]", "nb_finish"],
+            "vmf": []}
+TP_PATHS["mixture"] = TP_PATHS["joint"]
+TP_CLI = {"nb": "nb_vae", "joint": "vmfnb_vae", "mixture": "vmfnb_vae",
+          "vmf": "vmf_vae"}
+# phase 39 against one process of the generic Trainer, "single" (the
+# ranks' kernels and sums see D / 2 columns where it sees D): PR 15's
+# DP_TOL for the scores; Adam's first moments as the CPU tests hold them
+# (tests/test_torch_tp_train.py); the parameters by DP_TOL's form where
+# the moment is at least 2% of its leaf's largest (Adam's first steps map
+# each gradient element to about +-lr by its sign), plus twice the
+# largest gap on the leaf between the single process's two routes, the
+# generic Trainer and the packed step on the same draws: the float32
+# floor of the same math summed in another order.  The joint and mixture
+# models' ln_kappa head needs it: its gradient is a sum that cancels
+# (ROADMAP Queue 3), and phase 23 holds it to a float64 step
+TP_TOL = ("scores |tp - single| <= 2e-4 |single|; Adam's first moments "
+          "|tp - single| <= 3e-3 |single| + 1e-3 max|single| over the "
+          "leaf's module; parameters |tp - single| <= 3e-3 |single| + "
+          "2e-5 max|single| + 2 max|packed - single| over the leaf, where "
+          "the moment is >= 2% of its leaf's largest")
+
+
+def tp_runs(tmp: str, mtx: str) -> list[dict]:
+    """Phase 39's CLI runs, in order, each in its own directory: nb_vae
+    for 2 epochs, and for 1 epoch resumed to 2; vmfnb_vae, vmfnb_vae
+    --annot --row and vmf_vae for 1 epoch; then phase 40's encodes of the
+    four checkpoints.  Rank 1 is given a checkpoint directory of its
+    own, which must stay unmade."""
+    annot, row = write_annotation(tmp, marker_label())
+    runs = []
+
+    def run(name, kind, epochs, *extra):
+        d = os.path.join(tmp, "tp", name)
+        os.makedirs(d)
+        runs.append(dict(
+            name=name, kind=kind, cli=TP_CLI[kind], dir=d, epochs=epochs,
+            args=["--mtx", mtx, "--batch_size", str(B_TRAIN), "--device",
+                  DEV, "--recording", "2", "--out", os.path.join(d, "run"),
+                  "--max_epoch", str(epochs), "--checkpoint_dir",
+                  os.path.join(d, "ck"), "--tensor_parallel", str(TP_N),
+                  *extra],
+            rank1_args=["--checkpoint_dir", os.path.join(d, "ck_rank1")]))
+
+    run("nb", "nb", 2)
+    run("nb_r1", "nb", 1)
+    run("nb_r", "nb", 2, "--resume", os.path.join(tmp, "tp", "nb_r1", "ck"))
+    run("joint", "joint", 1)
+    run("mixture", "mixture", 1, "--annot", annot, "--row", row)
+    run("vmf", "vmf", 1)
+    for kind, model in (("nb", "nb"), ("joint", "vmfnb"),
+                        ("mixture", "mixture"), ("vmf", "vmf")):
+        d = os.path.join(tmp, "tp", f"enc_{kind}")
+        os.makedirs(d)
+        runs.append(dict(
+            name=f"enc_{kind}", kind=kind, cli="encode", dir=d,
+            args=["--model", model, "--mtx", mtx, "--checkpoint",
+                  os.path.join(tmp, "tp", kind, "ck"), "--out",
+                  os.path.join(d, "enc"), "--batch_size", str(B_TRAIN),
+                  "--device", DEV, "--annot", annot, "--row", row,
+                  "--tensor_parallel", str(TP_N)],
+            rank1_args=[]))
+    return runs
+
+
+def tp_full(rank: int, shapes: dict) -> dict:
+    """Phase 41 on one rank: phase 9's NB model (phase 9's seed and
+    initialization, this rank's shard of it) on phase 9's 40,000 cells
+    (phase 5's counts made on the card from the seed, this rank's
+    D / 2 features kept), the TP ``Trainer`` of ``nb_vae
+    --tensor_parallel 2``, 2 epochs; then 20 batches with the device
+    synchronised around each collective, and 20 profiled.  Every rank
+    calls the same collectives in the same order, so nothing here
+    retries on one rank alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mmvae_tpu_torch.cli import nb_vae
+    from mmvae_tpu_torch.ops.nb_fast import tree_leaves
+    from mmvae_tpu_torch.parallel.mesh import (gather_params, make_mesh,
+                                               shard_params)
+    from mmvae_tpu_torch.parallel.multihost import barrier
+    from mmvae_tpu_torch.train.config import TrainingOptions
+    from mmvae_tpu_torch.train.loop import DenseEpochRunner
+    from mmvae_tpu_torch.utils.profiling import kernel_times
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = make_mesh(dev, "dp_shard", TP_N)
+    data = full_size_counts()
+    local = data[:N_EARLIER, mesh.local_cols(D_GENES)].contiguous()
+    del data
+    torch.cuda.empty_cache()
+    model, _ = model_and_step("nb")
+    fast, _ = nb_vae.make_step(model, TrainingOptions(), mesh=mesh)
+    params = shard_params(
+        model.init(torch.Generator().manual_seed(SEED), device=DEV),
+        fast.tp_pspecs, mesh)
+    runner = DenseEpochRunner(fast, local, B_TRAIN, seed=SEED, mesh=mesh)
+    q, po = params, fast.optimizer.init(params)
+    reset_launches()
+    shapes.clear()
+    times, losses = [], []
+    for epoch in range(2):
+        torch.cuda.synchronize()
+        barrier()
+        t0 = time.perf_counter()
+        q, po, reps, _ = runner(q, po, epoch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(reps.double().mean().item())
+    launches = {k: n / (2 * runner.nbatch)
+                for k, n in read_launches().items() if n}
+    nprof = 20
+    sub = DenseEpochRunner(fast, local[:nprof * B_TRAIN], B_TRAIN,
+                           seed=SEED, mesh=mesh)
+    rand = sub.draw(2)
+    # the step's all-reduces, timed with the device synchronised before
+    # each clock starts (so leaving out the kernels that make the buffer)
+    # and after it stops
+    ar = {"calls": 0, "bytes": 0, "seconds": 0.0}
+    real = torch.distributed.all_reduce
+
+    def timed(t, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(t, *a, **kw)
+        torch.cuda.synchronize()
+        ar["seconds"] += time.perf_counter() - t0
+        ar["calls"] += 1
+        ar["bytes"] += t.numel() * t.element_size()
+        return out
+
+    barrier()
+    torch.distributed.all_reduce = timed
+    try:
+        sub(q, po, 2, rand=rand)
+    finally:
+        torch.distributed.all_reduce = real
+    torch.cuda.synchronize()
+    barrier()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sub(q, po, 2, rand=rand)
+        torch.cuda.synchronize()
+    kt = kernel_times(prof)
+    comm = sum(us for k, (us, _) in kt.items()
+               if "nccl" in k.lower()) / 1e3 / nprof
+    busy = sum(us for us, _ in kt.values()) / 1e3 / nprof - comm
+    copies = sum(us for k, (us, _) in kt.items()
+                 if "memcpy" in k.lower()) / 1e3 / nprof
+    per_batch = times[1] * 1e3 / runner.nbatch
+    full = gather_params(q, fast.tp_pspecs, mesh)
+    return dict(
+        rate=local.shape[0] / times[1], times=times, losses=losses,
+        launches=launches, shapes={k: sorted(v) for k, v in shapes.items()},
+        allreduce_ms=ar["seconds"] * 1e3 / nprof,
+        allreduce_calls=ar["calls"] / nprof,
+        allreduce_bytes=ar["bytes"] / max(1, ar["calls"]),
+        busy_ms=busy, copy_ms=copies, comm_ms=comm, per_batch_ms=per_batch,
+        idle=1 - busy / per_batch if busy else None,
+        q_sha=hashlib.sha256(b"".join(
+            v.cpu().numpy().tobytes() for v in tree_leaves(full)))
+        .hexdigest())
+
+
+def tp_worker(rank: int, plan_path: str) -> int:
+    """One rank of phases 39-41 (``python3 chip_smoke.py --tp-worker RANK
+    PLAN``): join the process group, run each planned CLI with every
+    launch counter and the launches' shapes reset just before and read
+    just after, keep each training run's final (gathered) parameters,
+    then phase 41; writes ``rank<RANK>.json`` beside the plan."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from mmvae_tpu_torch.cli import common, encode, nb_vae, vmf_vae, vmfnb_vae
+    from mmvae_tpu_torch.parallel.multihost import init_multihost
+    from mmvae_tpu_torch.train.recorder import flatten_params
+
+    with open(plan_path) as f:
+        plan = json.load(f)
+    init_multihost(plan["coordinator"], TP_WORLD, rank, torch.device(DEV))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    clis = {"nb_vae": nb_vae, "vmf_vae": vmf_vae, "vmfnb_vae": vmfnb_vae,
+            "encode": encode}
+    final = {}
+    real = common.train_vae_model
+
+    def keep_final(*a, **kw):
+        final["params"], scores = real(*a, **kw)
+        return final["params"], scores
+
+    common.train_vae_model = keep_final
+    out, shapes = {"runs": {}}, {}
+    with launch_shapes(shapes):
+        for run in plan["runs"]:
+            argv = run["args"] + [
+                "--num_hosts", str(TP_WORLD), "--host_id", str(rank),
+                "--coordinator", plan["coordinator"]]
+            if rank:
+                argv += run["rank1_args"]
+            final.clear()
+            reset_launches()
+            shapes.clear()
+            t0 = time.time()
+            tee = _Tee(sys.stderr)
+            with contextlib.redirect_stderr(tee):
+                rc = clis[run["cli"]].main(argv)
+            if rc != 0:
+                raise AssertionError(f"rank {rank}: {run['name']} failed")
+            err = tee.buf.getvalue()
+            out["runs"][run["name"]] = dict(
+                launches=read_launches(), wall=time.time() - t0,
+                shapes={k: sorted(v) for k, v in shapes.items()},
+                tier=("dense-resident TP layout" if "TP layout" in err
+                      else "TP serving" if "TP serving over" in err
+                      else "host path"),
+                resumed="Resumed from" in err)
+            if final:
+                np.savez(os.path.join(run["dir"], f"final_rank{rank}.npz"),
+                         **flatten_params(final["params"]))
+        out["full"] = tp_full(rank, shapes)
+    with open(os.path.join(os.path.dirname(plan_path),
+                           f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def check_tp_shapes(what: str, shapes: dict) -> None:
+    """Every launch of a rank's TP run (``{C entry: shapes}``) at D_TP
+    columns and at a shape that phases 2-30 held against plain
+    (:data:`HELD`)."""
+    bad = {k: [s for s in v if s[1] != D_TP or tuple(s) not in
+               HELD.get(k, ())] for k, v in shapes.items()}
+    bad = {k: v for k, v in bad.items() if v}
+    if bad:
+        raise AssertionError(
+            f"{what}: launches not at {D_TP} columns or at a shape no phase "
+            f"held against plain ({SHAPE_ARGS} gives the arguments): {bad}; "
+            f"held: { {k: sorted(v) for k, v in HELD.items()} }")
+
+
+def tp_reference(kind: str, mtx: str, epochs: int, packed=False) -> tuple:
+    """(epoch mean losses, final parameters, Adam's first moments) of one
+    process of the port's generic ``Trainer`` (the non-TP step of the
+    same model: the v2 step kernels' ``fused_step_report`` /
+    ``fused_step_boot(need_value=False)``, the vMF-VAE's ``forward`` +
+    ``vmf_loss``), or with ``packed`` of its packed step, on the full
+    parameters of phase 39's seed, fed the draws of the TP run's data
+    index 0, dense-resident over phase 4's matrix."""
+    from mmvae_tpu_torch.data.block import MtxMemoryBlock
+    from mmvae_tpu_torch.ops.losses import vmf_loss
+    from mmvae_tpu_torch.train.config import TrainingOptions
+    from mmvae_tpu_torch.train.loop import (DenseEpochRunner, Trainer,
+                                            build_dense, epoch_generator)
+
+    model, step_cls = model_and_step(kind)
+    topt = TrainingOptions()
+    if packed:
+        fast = step_cls(model, topt)
+    elif kind == "vmf":
+        fast = Trainer(lambda p, x, c, e, t: model.forward(p, x, c, e, t),
+                       vmf_loss, topt, eps_widths=(model.latent,))
+    else:
+        widths = (2, 1, 2) if kind == "joint" else (2, 1)
+        fast = Trainer(
+            None, None, topt, eps_widths=widths,
+            report_loss_override=lambda p, x, c, e, b:
+            model.fused_step_report(p, x, c, e, b, include_data_const=True),
+            boot_loss_override=lambda p, x, c, e, b:
+            model.fused_step_boot(p, x, c, e, b, need_value=False))
+    blk = MtxMemoryBlock(mtx, mtx + ".index", B_TRAIN, count_dtype="auto")
+    runner = DenseEpochRunner(fast, build_dense(blk, DEV), B_TRAIN,
+                              seed=SEED)
+    q = fast.pack(model.init(torch.Generator().manual_seed(SEED),
+                             device=DEV))
+    st = fast.optimizer.init(q)
+    losses = []
+    for epoch in range(epochs):
+        rand = fast.draw_rand(epoch_generator(SEED, epoch, DEV, 0),
+                              runner.nbatch, B_TRAIN)
+        q, st, reps, _ = runner(q, st, epoch, rand=rand)
+        losses.append(float(reps.cpu().numpy().mean()))
+    return losses, fast.unpack(q), fast.unpack_opt_state(st)["mu"]
+
+
+def tp_vs_single(d: str, kind: str, mtx: str, epochs: int) -> tuple:
+    """(largest |tp - single| / |single| of the scores, the largest
+    err/tol of Adam's first moments and of the final parameters under
+    :data:`TP_TOL`, each with its leaf) of a TP run (its last epoch's
+    checkpoint: the gathered full arrays in JAX's TP layout) against
+    :func:`tp_reference`."""
+    losses, q, mu = tp_reference(kind, mtx, epochs)
+    _, qp, _ = tp_reference(kind, mtx, epochs, packed=True)
+    s_tp = np.loadtxt(os.path.join(d, "run.scores.gz"), ndmin=1)
+    ck = dict(np.load(os.path.join(d, "ck", "ckpt.npz")))
+    worst = {"mu": (0.0, ""), "params": (0.0, "")}
+
+    def hold(what, name, a, w, tol):
+        if a.shape != w.shape:
+            raise AssertionError(f"{name}: shape {a.shape} vs {w.shape}")
+        e = float(np.max(np.abs(a - w) / np.maximum(
+            tol, np.finfo(np.float32).tiny), initial=0.0))
+        if e > worst[what][0]:
+            worst[what] = (e, name)
+
+    for k, v in q.items():
+        leaves = v.items() if isinstance(v, dict) else [(None, v)]
+        m_k = mu[k].items() if isinstance(v, dict) else [(None, mu[k])]
+        scale = max(float(t.abs().max()) for _, t in m_k)
+        for (sub, w), (_, m) in zip(leaves, m_k):
+            name = k + (f".{sub}" if sub else "")
+            path = f"['{k}']" + (f"['{sub}']" if sub else "")
+            p = (qp[k][sub] if sub else qp[k]).cpu().numpy()
+            w, m = w.cpu().numpy(), m.cpu().numpy()
+            hold("mu", name, ck[f"opt/[1].mu{path}"], m,
+                 3e-3 * np.abs(m) + 1e-3 * scale)
+            big = np.abs(m) >= 0.02 * np.abs(m).max()
+            a = ck["params/" + k + (f"/{sub}" if sub else "")]
+            floor = 2.0 * float(np.abs(p - w).max())
+            hold("params", name, a[big], w[big], 3e-3 * np.abs(w[big])
+                 + 2e-5 * np.abs(w).max() + floor)
+    return float(np.max(np.abs(s_tp - losses) / np.abs(losses))), worst
+
+
+def tp_encode_vs_one(card, tmp, run) -> str:
+    """Phase 40 for one model: the TP sweep's artifacts against ``encode``
+    in one process on the card (the folded kernel encoder; the TP
+    encoder is the plain unfolded one): every posterior within phase
+    12's tolerance (1e-4 * max|ref| + 1e-5 * |ref|), the mixture's
+    assignments equal but for near-ties (as phase 16 allows), the rows
+    compared where they agree."""
+    from mmvae_tpu_torch.cli import encode
+
+    one = os.path.join(run["dir"], "one")
+    args = [a for a in run["args"]]
+    i = args.index("--out")
+    args[i + 1] = one
+    i = args.index("--tensor_parallel")
+    del args[i:i + 2]
+    reset_launches()
+    run_cli(encode, args)
+    kind = run["kind"]
+    names = (("latent_mean", "latent_lnvar") if kind == "vmf"
+             else ("mu_mean", "mu_lnvar"))
+    names += ("clust",) if kind == "mixture" else ()
+    got = [np.loadtxt(os.path.join(run["dir"], f"enc.{k}.gz"), ndmin=2)
+           for k in names]
+    want = [np.loadtxt(f"{one}.{k}.gz", ndmin=2) for k in names]
+    rows = np.ones(N_CLI, bool)
+    if kind == "mixture":
+        rows = got[2].argmax(1) == want[2].argmax(1)
+        if (~rows).sum() > N_CLI // 1000 + 1:
+            raise AssertionError(f"TP mixture assignments: "
+                                 f"{int((~rows).sum())} differ")
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.shape[0] != N_CLI:
+            raise AssertionError(f"{kind}: {g.shape} vs {w.shape}")
+        g, w = g[rows], w[rows]
+        lim = 1e-4 * np.abs(w).max() + 1e-5 * np.abs(w)
+        worst = max(worst, float(np.max(np.abs(g - w) / lim)))
+    if not worst <= 1.0:
+        raise AssertionError(f"TP encode {kind} vs one process: err/tol "
+                             f"{worst:.3g}")
+    return (f"{len(names)} artifacts of ({N_CLI}, *) match the one-process "
+            f"sweep (err/tol {worst:.3g}"
+            + (f"; assignments equal on {int(rows.sum())} of {N_CLI} rows"
+               if kind == "mixture" else "") + ")")
+
+
+def tp_kernel_times(card) -> dict:
+    """Phase 30's close: the TP launch shape of phases 39-41 (B = 100,
+    D = D_TP, int8 integer counts, the compile-time widths): K1, K6,
+    K6p, K2, K2p and K3 against their plain versions, device ms a launch
+    (torch.profiler, after 50 warm-up calls each), with each one's bound
+    at that shape."""
+    from mmvae_tpu_torch.ops import nb_step as ns
+
+    g = torch.Generator(device=DEV).manual_seed(SEED + 41)
+    x, zc, zn, depth, Wj, (R, C, Rn) = joint_step_inputs(
+        g, B_TRAIN, D_TP, torch.int8, "integer")
+    Wn = Wj[:-1].contiguous()
+    lr = ns.lse(zc, Wn, R, C)
+    rs = ns.valgrad(x, zc, zn, depth, lr, Wn, R, C, Rn)[1].contiguous()
+    cases = {
+        "nb_lse": (lambda: ns.lse(zc, Wn, R, C),
+                   lambda: ns.lse_ref(zc, Wn, R, C)),
+        "nb_value": (lambda: ns.value(x, zc, zn, depth, lr, Wn, R, C, Rn),
+                     lambda: ns.value_ref(x, zc, zn, depth, lr, Wn, R, C,
+                                          Rn, True)),
+        "nb_value[pb,nu_exp]": (
+            lambda: ns.value(x, zc, zn, depth, lr, Wj, R, C, Rn, True, True),
+            lambda: ns.value_ref(x, zc, zn, depth, lr, Wj, R, C, Rn, True,
+                                 True)),
+        "nb_valgrad": (
+            lambda: ns.valgrad(x, zc, zn, depth, lr, Wn, R, C, Rn),
+            lambda: ns.valgrad_ref(x, zc, zn, depth, lr, Wn, R, C, Rn)),
+        "nb_valgrad[pb,nu_exp]": (
+            lambda: ns.valgrad(x, zc, zn, depth, lr, Wj, R, C, Rn, True),
+            lambda: ns.valgrad_ref(x, zc, zn, depth, lr, Wj, R, C, Rn,
+                                   True)),
+        "nb_finish": (lambda: ns.finish(zc, lr, rs, Wn, R, C),
+                      lambda: ns.finish_ref(zc, lr, rs, Wn, R, C))}
+    shape = dict(B=B_TRAIN, D=D_TP, x_bytes=1, dtype="int8")
+    out = {}
+    for name, (kern, plain) in cases.items():
+        for fn in (kern, plain) * 50:
+            fn()
+        ms, _ = device_profile(kern, 20)
+        p_ms, _ = device_profile(plain, 20)
+        b_ms, b_by = bound_ms(name, dict(shape, dtype="")
+                              if name in ("nb_lse", "nb_finish") else shape)
+        out[name] = dict(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    log(f"[phase 30] [{card}] the TP launch shape B={B_TRAIN} D={D_TP} int8 "
+        f"(held against plain in phases 28-30), device ms a launch, kernel "
+        f"/ plain (bound): " + "; ".join(
+            f"{k} {v['ms']:.4f} / {v['plain_ms']:.4f} ({v['bound_ms']:.5f}, "
+            f"{v['bound_by']})" for k, v in out.items()))
+    return out
+
+
+def phase_tp(card, tmp, mtx, rate9):
+    """Phases 39-41: two ranks of one model row (NCCL on two cards when
+    there are two, gloo with both on the one card otherwise), each a
+    process of this script with its own timeout."""
+    runs = tp_runs(tmp, mtx)
+    plan = os.path.join(tmp, "tp", "plan.json")
+    with open(plan, "w") as f:
+        json.dump({"coordinator": f"127.0.0.1:{free_port()}", "runs": runs},
+                  f)
+    env = dict(os.environ, MMVAE_DIST_TIMEOUT="120")
+    logs = [open(os.path.join(tmp, "tp", f"rank{r}.log"), "w+")
+            for r in range(TP_WORLD)]
+    t0 = time.time()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--tp-worker", str(r), plan], env=env,
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(TP_WORLD)]
+    try:
+        for p in procs:
+            p.wait(timeout=480)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("a TP rank failed:\n" + "\n---\n".join(
+            t[-4000:] for t in texts))
+    res = []
+    for r in range(TP_WORLD):
+        with open(os.path.join(tmp, "tp", f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    backend = re.search(r"backend (\w+) \(([^;]*);", texts[0])
+    log(f"[phase 39] [{card}] {TP_WORLD} ranks of --tensor_parallel {TP_N}, "
+        f"backend {backend.group(1)} ({backend.group(2)}; "
+        f"{torch.cuda.device_count()} device(s)); ranks ran "
+        f"{time.time() - t0:.1f}s")
+    totals = {}
+    for run in runs:
+        name, d, kind = run["name"], run["dir"], run["kind"]
+        per_rank = [x["runs"][name] for x in res]
+        path = [] if run["cli"] == "encode" else TP_PATHS[kind]
+        for r, got in enumerate(per_rank):
+            lau = got["launches"]
+            if (path and min(lau[k] for k in path) < 1) or any(
+                    n for k, n in lau.items() if k not in path):
+                raise AssertionError(f"{name} rank {r}: launches {lau}")
+            check_tp_shapes(f"{name} rank {r}", got["shapes"])
+            for k in path:
+                totals[k] = totals.get(k, 0) + lau[k]
+        if run["cli"] == "encode":
+            if per_rank[0]["tier"] != "TP serving":
+                raise AssertionError(f"{name}: {per_rank[0]['tier']}")
+            line = tp_encode_vs_one(card, tmp, run)
+            log(f"[phase 40] [{card}] encode --model {run['args'][1]} "
+                f"--tensor_parallel {TP_N} on phase 39's {kind} checkpoint:"
+                f" no kernel launched (the TP encoder is plain, as in JAX); "
+                f"{line}; wall {per_rank[0]['wall']:.2f}s")
+            continue
+        finals = [dict(np.load(os.path.join(d, f"final_rank{r}.npz")))
+                  for r in range(TP_WORLD)]
+        if not all(np.array_equal(finals[0][k], x[k]) for x in finals[1:]
+                   for k in finals[0]):
+            raise AssertionError(f"{name}: the ranks' parameters differ")
+        if os.path.exists(os.path.join(d, "ck_rank1")):
+            raise AssertionError(f"{name}: rank 1 wrote a checkpoint")
+        scores = np.loadtxt(os.path.join(d, "run.scores.gz"), ndmin=1)
+        if not np.isfinite(scores).all():
+            raise AssertionError(f"{name}: scores {scores}")
+        if per_rank[0]["tier"] != "dense-resident TP layout":
+            raise AssertionError(f"{name}: {per_rank[0]['tier']}")
+        extra = ""
+        if name in ("nb", "joint", "mixture", "vmf"):
+            e_s, w = tp_vs_single(d, kind, mtx, run["epochs"])
+            line = (f"scores rel {e_s:.3g}, first moments err/tol "
+                    f"{w['mu'][0]:.3g} ({w['mu'][1]}), parameters err/tol "
+                    f"{w['params'][0]:.3g} ({w['params'][1]})")
+            if not (e_s <= 2e-4 and w["mu"][0] <= 1.0
+                    and w["params"][0] <= 1.0):
+                raise AssertionError(f"{name} TP vs one process: {line}")
+            extra = (f"; against one process of the generic Trainer on "
+                     f"the same draws: {line} ({TP_TOL})")
+        if name == "nb_r":
+            if not per_rank[0]["resumed"]:
+                raise AssertionError("nb_r did not resume")
+            want = dp_outputs(os.path.join(tmp, "tp", "nb"))
+            if not same_outputs(dp_outputs(d), want):
+                raise AssertionError("the resumed TP run differs from the "
+                                     "uninterrupted one")
+            extra = f"; equals the uninterrupted run bitwise ({len(want)} " \
+                    f"files and arrays)"
+        log(f"[phase 39] [{card}] {name} ({TP_CLI[kind]} --tensor_parallel "
+            f"{TP_N}, {run['epochs']} epoch(s), dense-resident TP layout): "
+            f"scores {scores.tolist()}; launches rank 0 "
+            f"{ {k: per_rank[0]['launches'][k] for k in path} }, rank 1 "
+            f"{ {k: per_rank[1]['launches'][k] for k in path} }, K4 and K5 "
+            f"0, every launch at {D_TP} columns and at one of "
+            f"{sum(map(len, per_rank[0]['shapes'].values()))} shapes "
+            f"(rank 0) held against plain in phases 28-30; ranks' final "
+            f"parameters bitwise equal; rank 0 alone wrote; wall "
+            f"{per_rank[0]['wall']:.2f}s{extra}")
+    need = ("nb_lse", "nb_valgrad", "nb_valgrad[pb,nu_exp]", "nb_finish",
+            "nb_value", "nb_value[pb,nu_exp]")
+    if any(totals.get(k, 0) < 1 for k in need):
+        raise AssertionError(f"phase 39 launched no {need}: {totals}")
+    full = [x["full"] for x in res]
+    for r, fr in enumerate(full):
+        if not (np.isfinite(fr["losses"]).all()
+                and fr["losses"][1] < fr["losses"][0]):
+            raise AssertionError(f"phase 41 rank {r}: losses {fr['losses']}")
+        if any(fr["launches"].get(k, 0) <= 0 for k in TP_PATHS["nb"]) or \
+                set(fr["launches"]) - set(TP_PATHS["nb"]):
+            raise AssertionError(f"phase 41 rank {r}: {fr['launches']}")
+        check_tp_shapes(f"phase 41 rank {r}", fr["shapes"])
+    if full[0]["q_sha"] != full[1]["q_sha"]:
+        raise AssertionError("phase 41: the ranks' parameters differ")
+    rate = full[0]["rate"]
+    log(f"[phase 41] [{card}] NB, generic TP step, --tensor_parallel {TP_N} "
+        f"({backend.group(1)}) x {D_TP} features a rank, {N_EARLIER} x "
+        f"{D_GENES} int8, 2 epochs: epoch losses {full[0]['losses'][0]:.4f}"
+        f" -> {full[0]['losses'][1]:.4f}; second epoch {rate:,.1f} cells/sec"
+        f" (both ranks on the same rows) against phase 9's {rate9:,.1f} on "
+        f"one process with the packed step ({rate / rate9:.2f}x); launches "
+        f"a batch {full[0]['launches']}")
+    for r, fr in enumerate(full):
+        log(f"[phase 41] [{card}] rank {r}: {fr['per_batch_ms']:.3f} ms wall "
+            f"a batch (second epoch); profile of 20 batches: device busy "
+            f"{fr['busy_ms']:.3f} ms a batch, of it copies "
+            f"{fr['copy_ms']:.3f} ms"
+            + (f", beside NCCL's kernels {fr['comm_ms']:.3f} ms (most of it "
+               f"waiting for the peer)" if fr["comm_ms"] else "")
+            + " (device idle share "
+            + (f"{fr['idle']:.1%}" if fr["idle"] is not None else
+               "not measured: the trace holds no device events")
+            + f"); collectives {fr['allreduce_ms']:.3f} ms a batch in "
+            f"{fr['allreduce_calls']:g} all-reduces of "
+            f"{fr['allreduce_bytes'] / 1e3:.2f} kB on average (host clock, "
+            f"device synchronised around each)")
+    return {"rate": rate, "totals": totals}
+
+
 def free_port() -> int:
     import socket
 
@@ -4430,6 +5040,7 @@ def main() -> int:
         w30, _ = phase_value_finish_cases(card)
         for name, e in w30.items():
             worst[name] = max(worst[name], e)
+        tp_times = tp_kernel_times(card)
         mark("30")
     worst["roofline_probe"], times["roofline_probe"], p1_launches = (
         phase_roofline(card))
@@ -4474,6 +5085,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_dp(card, tmp, mtx, rate9)
         mark("37-38")
+        tp = phase_tp(card, tmp, mtx, rate9)
+        mark("39-41")
     log("[timing] seconds by phase: " + "; ".join(
         f"{b[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:]))
         + f"; since the build {marks[-1][1] - t0:.1f}")
@@ -4554,6 +5167,13 @@ def main() -> int:
         k5[model] = {"shape": label(sh), "ms": k_ms, "plain_ms": p_ms,
                      "bound_ms": bound_ms("count_encode_bwd", sh)[0],
                      "library_ms": bwd_times[(r1, r2)]["library_ms"]}
+    # the step kernels at the TP launch shape: phase 41's times, phase
+    # 39's launches (both ranks, all four trainers)
+    for r in records:
+        if r["name"] in tp_times:
+            r["tp"] = {"shape": f"B={B_TRAIN} D={D_TP} int8",
+                       "launches": tp["totals"].get(r["name"], 0),
+                       **tp_times[r["name"]]}
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4564,4 +5184,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--tp-worker"]:
+        sys.exit(tp_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -1,16 +1,15 @@
 """Shared CLI scaffolding of the port's trainers: one parser over the
-option groups, the data-parallel set-up, index auto-build and covariate
-auto-creation, the flag every trainer refuses, and the run itself
-(resume, checkpoints, recording, scores).
+option groups, the data-parallel and tensor-parallel set-up, index
+auto-build and covariate auto-creation, and the run itself (resume,
+checkpoints, recording, scores).
 
 Port of the JAX-free part of ``mmvae_tpu/cli/common.py`` (that module
 loads JAX at import), mirroring the setup phase of the reference mains
 (src/nb_vae_main.cc:51-82).  A trainer's main runs::
 
-    refuse_unported(topt)                    # --tensor_parallel > 1
     device = resolve_device(ns.device)
     device = topt.apply_runtime_config(device)   # the process group
-    local_b, mesh = multihost_setup(opts, topt, device)
+    local_b, mesh = multihost_setup(opts, topt, device, fusable)
     data_block, covar_block = prepare_blocks(opts, local_batch=local_b)
     ...
     run_training(..., device, mesh=mesh)
@@ -28,14 +27,16 @@ import torch
 
 from ..data.block import MtxDataBlock, MtxMemoryBlock, create_ones_like
 from ..io.index import build_mmutil_index
+import torch.distributed as dist
+
 from ..io.mtx import peek_mtx_header
 from ..io.writers import write_vector_file
 from ..models.nb import adam_from_numpy, params_from_numpy
-from ..parallel.mesh import make_mesh
+from ..parallel.mesh import make_mesh, shard_params
 from ..parallel.multihost import barrier, host_role
 from ..train.checkpoint import load_checkpoint, load_opt_state, save_checkpoint
 from ..train.config import MMVaeOptions, TrainingOptions
-from ..train.loop import train_vae_model
+from ..train.loop import Trainer, train_vae_model
 from ..train.recorder import LatentRecorder, latent_names
 from ..utils.logging import ELOG, TLOG, WLOG
 from ..utils.summary import pretty_print
@@ -85,7 +86,8 @@ def _pick_block_type(opts: MMVaeOptions):
     return MtxDataBlock
 
 
-def multihost_setup(opts: MMVaeOptions, topt: TrainingOptions, device
+def multihost_setup(opts: MMVaeOptions, topt: TrainingOptions, device,
+                    fusable: bool | None = None
                     ) -> tuple[int | None, object]:
     """(local batch or None, :class:`~mmvae_tpu_torch.parallel.mesh.DataMesh`
     or None) of the run (JAX ``cli/common.py:111-125``).
@@ -95,7 +97,19 @@ def multihost_setup(opts: MMVaeOptions, topt: TrainingOptions, device
     batch and trains data-parallel: ``--dp_shard`` semantics with that
     flag, ``--data_parallel`` ones otherwise (JAX ``cli/nb_vae.py:
     137-140``).  ``--data_parallel`` or ``--dp_shard`` in a world of one
-    process is logged and trains the single-device step."""
+    process is logged and trains the single-device step.
+
+    ``--tensor_parallel N`` > 1 wins over both (JAX ``cli/nb_vae.py:
+    114-140``): the world forms a (W / N, N) grid, each rank reads
+    B / (W / N) rows of every batch and keeps its D / N features.  It
+    raises JAX's errors when N does not divide the feature dim D and,
+    where the trainer needs it (``fusable`` not None), when the step is
+    not the fused direct-decoder path; and, where JAX's ``make_mesh``
+    asserts, when N does not divide the world, naming the flags that
+    start ranks."""
+    tp = max(1, topt.tensor_parallel)
+    if tp > 1:
+        return _tp_setup(opts, tp, device, fusable)
     mode = "dp_shard" if topt.dp_shard else "data_parallel"
     mesh = make_mesh(device, mode)
     if mesh is None:
@@ -108,6 +122,29 @@ def multihost_setup(opts: MMVaeOptions, topt: TrainingOptions, device
     TLOG(f"Data-parallel ({mode}) over {mesh.world} processes: rank "
          f"{mesh.rank} on {mesh.device}, {M} rows of every batch of "
          f"{opts.batch_size}")
+    return M, mesh
+
+
+def _tp_setup(opts: MMVaeOptions, tp: int, device, fusable):
+    D = peek_mtx_header(opts.mtx).rows
+    if D % tp:
+        raise ValueError(f"--tensor_parallel {tp} must divide the feature "
+                         f"dim {D}")
+    if fusable is not None and not fusable:
+        raise ValueError("--tensor_parallel needs the fused step path "
+                         "(direct mu decoder, --fused_step)")
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world % tp:
+        raise ValueError(f"--tensor_parallel {tp} does not divide the "
+                         f"{world} processes: start a multiple of {tp} ranks "
+                         f"with --num_hosts, --host_id and --coordinator")
+    mesh = make_mesh(device, "dp_shard", tp)
+    M = mesh.local_batch(opts.batch_size)  # B must divide: raises
+    cols = mesh.local_cols(D)
+    TLOG(f"Tensor-parallel over (data={mesh.ndata}, model={tp}) processes: "
+         f"rank {mesh.rank} at data index {mesh.data_index}, model index "
+         f"{mesh.model_index} on {mesh.device}, {M} rows of every batch of "
+         f"{opts.batch_size}, features [{cols.start}, {cols.stop}) of {D}")
     return M, mesh
 
 
@@ -156,13 +193,15 @@ def add_device_flag(g) -> None:
                         "(never falls back to the CPU)")
 
 
-def refuse_unported(topt: TrainingOptions) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP.md item for what
-    the port's trainers do not do yet (tensor parallelism)."""
-    if topt.tensor_parallel > 1:
-        raise NotImplementedError(
-            "--tensor_parallel > 1: not ported yet (ROADMAP.md Queue 1 "
-            "item 13)")
+def tp_trainer(model, topt: TrainingOptions, kl, eps_widths, report,
+               boot) -> Trainer:
+    """The tensor-parallel generic ``Trainer`` of ``model`` (JAX's
+    ``tp_shard_map`` Trainer): the ``report`` and ``boot`` losses on the
+    shard, the model's ``tp_pspecs`` for the clip across the model row."""
+    specs = model.tp_pspecs(model.init(torch.Generator().manual_seed(0)))
+    return Trainer(None, None, topt, kl=kl, eps_widths=eps_widths,
+                   report_loss_override=report, boot_loss_override=boot,
+                   tp_pspecs=specs)
 
 
 def resolve_device(name: str) -> torch.device | None:
@@ -188,12 +227,21 @@ def run_training(opts: MMVaeOptions, topt: TrainingOptions, model, fast,
     come from ``model.record_encoder``, its posterior artifacts' names
     from :func:`~mmvae_tpu_torch.train.recorder.latent_names`.  Under a
     ``mesh`` every rank initialises (or resumes) the same parameters and
-    rank 0 alone writes."""
+    rank 0 alone writes.  Under tensor parallelism each rank then keeps
+    its shard of the parameters and of the Adam state (``fast`` is the
+    TP ``Trainer``), the recorder encodes with the model's
+    ``tp_record_encoder``, and the checkpoints hold the full arrays in
+    the tensor-parallel chain's layout."""
     params = model.init(torch.Generator().manual_seed(topt.seed),
                         device=device)
     B = opts.batch_size
-    encode_fn, extra_name = model.record_encoder(
-        topt.seed, B, rows=None if mesh is None else mesh.rows(B))
+    tp = mesh is not None and mesh.tp
+    rows = None if mesh is None else mesh.rows(B)
+    if tp:
+        encode_fn, extra_name = model.tp_record_encoder(
+            topt.seed, B, rows, mesh.model_group)
+    else:
+        encode_fn, extra_name = model.record_encoder(topt.seed, B, rows=rows)
     mean_name, lnvar_name = latent_names(model)
     recorder = LatentRecorder(opts.out, topt.max_epoch, data_block.ntot(),
                               encode_fn=encode_fn, extra_name=extra_name,
@@ -203,13 +251,13 @@ def run_training(opts: MMVaeOptions, topt: TrainingOptions, model, fast,
         params_np, start_epoch, prev_losses = load_checkpoint(topt.resume,
                                                               model)
         params = params_from_numpy(params_np, device)
-        init_opt_state = adam_from_numpy(load_opt_state(topt.resume, model),
-                                         device)
+        init_opt_state = adam_from_numpy(
+            load_opt_state(topt.resume, model, tp=tp), device)
         TLOG(f"Resumed from {topt.resume} at epoch {start_epoch}")
 
     def on_epoch_end(epoch, p, o, losses):
         save_checkpoint(topt.checkpoint_dir, p, epoch, topt.seed,
-                        prev_losses + losses, opt_state=o)
+                        prev_losses + losses, opt_state=o, tp=tp)
 
     primary = host_role()
     TLOG("Training the model...")
@@ -217,6 +265,13 @@ def run_training(opts: MMVaeOptions, topt: TrainingOptions, model, fast,
         # reference parity: model->pretty_print(std::cerr) at train start
         # (mmvae_alg.hh:238), where both JAX trainer CLIs print it
         pretty_print(model, params)
+    if tp:
+        params = shard_params(params, fast.tp_pspecs, mesh)
+        if init_opt_state is not None:
+            init_opt_state = {
+                "count": init_opt_state["count"],
+                **{m: shard_params(init_opt_state[m], fast.tp_pspecs, mesh)
+                   for m in ("mu", "nu")}}
     params, scores = train_vae_model(
         fast, recorder, data_block, covar_block, topt, params, device,
         start_epoch=start_epoch, init_opt_state=init_opt_state,

@@ -19,14 +19,16 @@ packed fast step for the default architecture; otherwise the generic
 ``Trainer`` with the v2 step kernels (hidden encoder, direct decoder),
 the v1 ELBO kernels K7 / K8 (a hidden decoder, or ``--no_fused_step``),
 or plain ``forward`` + ``nb_loss`` (``--no_fused``).  Checkpoints (with
-the Adam state) load in either package.  What the port does not do yet
-raises ``NotImplementedError`` naming its ROADMAP.md item:
-``--tensor_parallel`` > 1 (item 13).  Feature clustering is not applied
-(item 8).  Float32 matmuls run in full float32 (TF32 off).
-Data-parallel training: ``--data_parallel`` or ``--dp_shard``, one
-process a device, started with ``--num_hosts H --host_id i
+the Adam state) load in either package.  Feature clustering is not
+applied (ROADMAP.md item 8).  Float32 matmuls run in full float32 (TF32
+off).  Data-parallel training: ``--data_parallel`` or ``--dp_shard``,
+one process a device, started with ``--num_hosts H --host_id i
 --coordinator host:port`` (``parallel.multihost``; README,
-"Data-parallel training").
+"Data-parallel training").  Tensor-parallel training:
+``--tensor_parallel N`` over such a start-up of a multiple of N ranks,
+on the generic ``Trainer`` with the model's TP step (a direct mu
+decoder under ``--fused --fused_step``, as JAX requires; README,
+"Tensor-parallel training").
 """
 
 from __future__ import annotations
@@ -40,8 +42,8 @@ from ..train.loop import Trainer
 from ..train.config import MMVaeOptions, TrainingOptions, _csv_ints
 from ..utils.logging import TLOG
 from .common import (add_device_flag, add_relu_flags, compose_parsers,
-                     multihost_setup, prepare_blocks, refuse_unported,
-                     resolve_device, run_training, warn_unknown_args)
+                     multihost_setup, prepare_blocks, resolve_device,
+                     run_training, tp_trainer, warn_unknown_args)
 
 _MODEL_DESC = r"""[Likelihood]
 
@@ -72,10 +74,14 @@ def _model_args(g) -> None:
 
 
 def make_step(model: NBVAE, topt: TrainingOptions, kl=(1.0, 1e-2, 0.1),
-              plain: bool = False):
+              plain: bool = False, mesh=None):
     """(step, route): the step the JAX CLI runs for ``model`` and the
     options (``mmvae_tpu/cli/nb_vae.py:149-192``), ``plain`` selecting
     the plain versions of its kernels.
+
+    - a tensor-parallel ``mesh``: the generic ``Trainer`` with
+      ``fused_step_report_tp`` / ``fused_step_boot_tp(need_value=False)``
+      on the model row (the packed step is off under TP, as in JAX);
 
     - ``--fused --fused_step`` and the default architecture: the packed
       ``NBFastStep``;
@@ -85,6 +91,15 @@ def make_step(model: NBVAE, topt: TrainingOptions, kl=(1.0, 1e-2, 0.1),
     - ``--fused``: the generic ``Trainer`` with ``fused_loss`` (K7 / K8;
       the report with ``lgamma(x + 1)``, the boot losses without);
     - otherwise: the generic ``Trainer`` with ``forward`` + ``nb_loss``."""
+    if mesh is not None and mesh.tp:
+        return tp_trainer(
+            model, topt, kl, (model.mean_latent, model.overdisp_latent),
+            lambda p, x, c, e, b: model.fused_step_report_tp(
+                p, x, c, e, b, mesh.model_group, include_data_const=True),
+            lambda p, x, c, e, b: model.fused_step_boot_tp(
+                p, x, c, e, b, mesh.model_group, need_value=False)), (
+            "generic step, tensor parallel (fused_step_report_tp / "
+            "fused_step_boot_tp, grad-only)")
     fused_step = topt.fused and topt.fused_step
     if fused_step and NBFastStep.supports(model):
         return (NBFastStep(model, topt, kl=kl, plain=plain),
@@ -124,12 +139,13 @@ def main(argv=None) -> int:
     warn_unknown_args(unknown)
     opts = MMVaeOptions.from_args(ns)
     topt = TrainingOptions.from_args(ns)
-    refuse_unported(topt)
     device = resolve_device(ns.device)
     if device is None:
         return 2
     device = topt.apply_runtime_config(device)
-    local_b, mesh = multihost_setup(opts, topt, device)
+    local_b, mesh = multihost_setup(
+        opts, topt, device,
+        fusable=topt.fused and topt.fused_step and not ns.mean_decoding)
     data_block, covar_block = prepare_blocks(opts, local_batch=local_b)
 
     TLOG("Constructing a model")
@@ -141,7 +157,8 @@ def main(argv=None) -> int:
                   overdisp_encoding=ns.overdisp_encoding,
                   overdisp_latent=ns.overdisp_latent, do_relu=ns.do_relu)
     fast, route = make_step(model, topt,
-                            kl=(opts.kl_max, opts.kl_min, opts.kl_discount))
+                            kl=(opts.kl_max, opts.kl_min, opts.kl_discount),
+                            mesh=mesh)
     TLOG(f"Step: {route}")
     return run_training(opts, topt, model, fast, data_block, covar_block,
                         device, mesh)

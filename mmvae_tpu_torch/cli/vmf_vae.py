@@ -22,13 +22,15 @@ under ``--fused --fused_step``, otherwise the generic ``Trainer`` with
 covariate pathway: the covariate's width is the model's ``covar_dim``.
 The model is plain PyTorch (no kernel of the port lies on its path);
 float32 matmuls run in full float32 (TF32 off).  Checkpoints (with the
-Adam state) load in either package.  What the port does not do yet
-raises ``NotImplementedError`` naming its ROADMAP.md item:
-``--tensor_parallel`` > 1 (item 13).  Feature clustering is not applied
-(item 8).  Data-parallel training: ``--data_parallel`` or
+Adam state) load in either package.  Feature clustering is not applied
+(ROADMAP.md item 8).  Data-parallel training: ``--data_parallel`` or
 ``--dp_shard``, one process a device, started with ``--num_hosts H
 --host_id i --coordinator host:port`` (``parallel.multihost``; README,
-"Data-parallel training").
+"Data-parallel training").  Tensor-parallel training:
+``--tensor_parallel N`` over such a start-up of a multiple of N ranks,
+on the generic ``Trainer`` with ``tp_step_loss`` for the report and the
+boot losses, at any architecture (as in JAX; README, "Tensor-parallel
+training").
 """
 
 from __future__ import annotations
@@ -42,8 +44,8 @@ from ..train.config import MMVaeOptions, TrainingOptions, _csv_ints
 from ..train.loop import Trainer
 from ..utils.logging import TLOG
 from .common import (add_device_flag, add_relu_flags, compose_parsers,
-                     multihost_setup, prepare_blocks, refuse_unported,
-                     resolve_device, run_training, warn_unknown_args)
+                     multihost_setup, prepare_blocks, resolve_device,
+                     run_training, tp_trainer, warn_unknown_args)
 
 _MODEL_DESC = r"""Likelihood:
 f(x) = C_d(kappa) exp(kappa mu'x)
@@ -65,12 +67,21 @@ def _model_args(g) -> None:
     add_device_flag(g)
 
 
-def make_step(model: VMFVAE, topt: TrainingOptions, kl=(1.0, 1e-2, 0.1)):
+def make_step(model: VMFVAE, topt: TrainingOptions, kl=(1.0, 1e-2, 0.1),
+              mesh=None):
     """(step, route): the step the JAX CLI runs for ``model`` and the
-    options (``mmvae_tpu/cli/vmf_vae.py:139-148``): the packed
-    ``VMFFastStep`` under ``--fused --fused_step`` at the direct
-    architecture; otherwise the generic ``Trainer`` with ``forward`` +
-    ``vmf_loss`` for the report and the boot losses alike."""
+    options (``mmvae_tpu/cli/vmf_vae.py:104-148``): under a
+    tensor-parallel ``mesh`` the generic ``Trainer`` with ``tp_step_loss``
+    for the report and the boot losses; the packed ``VMFFastStep`` under
+    ``--fused --fused_step`` at the direct architecture; otherwise the
+    generic ``Trainer`` with ``forward`` + ``vmf_loss`` for the report
+    and the boot losses alike."""
+    if mesh is not None and mesh.tp:
+        def loss(p, x, c, e, b):
+            return model.tp_step_loss(p, x, c, e, b, mesh.model_group)
+
+        return (tp_trainer(model, topt, kl, (model.latent,), loss, loss),
+                "generic step, tensor parallel (tp_step_loss)")
     if topt.fused and topt.fused_step and VMFFastStep.supports(model):
         return VMFFastStep(model, topt, kl=kl), "packed step (VMFFastStep)"
     step = Trainer(
@@ -85,7 +96,6 @@ def main(argv=None) -> int:
     warn_unknown_args(unknown)
     opts = MMVaeOptions.from_args(ns)
     topt = TrainingOptions.from_args(ns)
-    refuse_unported(topt)
     device = resolve_device(ns.device)
     if device is None:
         return 2
@@ -100,7 +110,8 @@ def main(argv=None) -> int:
                    kappa_min=ns.kappa_min, kappa_max=ns.kappa_max,
                    do_relu=ns.do_relu)
     fast, route = make_step(model, topt,
-                            kl=(opts.kl_max, opts.kl_min, opts.kl_discount))
+                            kl=(opts.kl_max, opts.kl_min, opts.kl_discount),
+                            mesh=mesh)
     TLOG(f"Step: {route}")
     return run_training(opts, topt, model, fast, data_block, covar_block,
                         device, mesh)

@@ -26,14 +26,16 @@ for the NB half (a hidden encoder or ``--vmf_decoding``, direct mu
 decoder), or ``forward`` + the composite loss (a hidden mu decoder,
 ``--no_fused_step``, ``--no_fused``).  The mixture has no vMF decoder:
 ``--vmf_decoding`` with ``--annot`` is ignored, as in the JAX CLI.
-Checkpoints (with the Adam state) load in either package.  What the port
-does not do yet raises ``NotImplementedError`` naming its ROADMAP.md
-item: ``--tensor_parallel`` > 1 (item 13).  Feature clustering is not
-applied (item 8).  Data-parallel training: ``--data_parallel`` or
-``--dp_shard``, one process a device, started with ``--num_hosts H
---host_id i --coordinator host:port`` (``parallel.multihost``; README,
-"Data-parallel training").  The covariate file is read and ignored:
-neither model has a covariate pathway.
+Checkpoints (with the Adam state) load in either package.  Feature
+clustering is not applied (ROADMAP.md item 8).  Data-parallel training:
+``--data_parallel`` or ``--dp_shard``, one process a device, started
+with ``--num_hosts H --host_id i --coordinator host:port``
+(``parallel.multihost``; README, "Data-parallel training").
+Tensor-parallel training: ``--tensor_parallel N`` over such a start-up
+of a multiple of N ranks, on the generic ``Trainer`` with the model's
+TP step (a direct mu decoder under ``--fused --fused_step``, as JAX
+requires; README, "Tensor-parallel training").  The covariate file is
+read and ignored: neither model has a covariate pathway.
 """
 
 from __future__ import annotations
@@ -48,8 +50,8 @@ from ..train.config import MMVaeOptions, TrainingOptions, _csv_ints
 from ..train.loop import Trainer
 from ..utils.logging import TLOG, WLOG
 from .common import (add_device_flag, add_relu_flags, compose_parsers,
-                     multihost_setup, prepare_blocks, refuse_unported,
-                     resolve_device, run_training, warn_unknown_args)
+                     multihost_setup, prepare_blocks, resolve_device,
+                     run_training, tp_trainer, warn_unknown_args)
 
 _MODEL_DESC = "Joint von Mises-Fisher + Negative Binomial VAE"
 
@@ -97,10 +99,14 @@ def _model_args(g) -> None:
 
 
 def make_step(model, topt: TrainingOptions, kl=(1.0, 1e-2, 0.1),
-              plain: bool = False):
+              plain: bool = False, mesh=None):
     """(step, route): the step the JAX CLI runs for the joint or mixture
     ``model`` and the options (``mmvae_tpu/cli/vmfnb_vae.py:252-290``),
     ``plain`` selecting the plain versions of its kernels.
+
+    - a tensor-parallel ``mesh``: the generic ``Trainer`` with
+      ``fused_step_report_tp`` / ``fused_step_boot_tp(need_value=False)``
+      on the model row (JAX ``cli/vmfnb_vae.py:211-230``);
 
     - ``--fused --fused_step`` and the direct architecture: the packed
       ``VMFNBFastStep`` / ``VMFNBMixtureFastStep``;
@@ -111,6 +117,16 @@ def make_step(model, topt: TrainingOptions, kl=(1.0, 1e-2, 0.1),
       loss, the boot losses too (the JAX CLI passes no boot loss, so they
       keep ``lgamma(x + 1)``)."""
     mixture = isinstance(model, VMFNBMixtureVAE)
+    R, Rn = model.mean_latent, model.overdisp_latent
+    if mesh is not None and mesh.tp:
+        return tp_trainer(
+            model, topt, kl, (R, Rn) if mixture else (R, Rn, R),
+            lambda p, x, c, e, b: model.fused_step_report_tp(
+                p, x, c, e, b, mesh.model_group, include_data_const=True),
+            lambda p, x, c, e, b: model.fused_step_boot_tp(
+                p, x, c, e, b, mesh.model_group, need_value=False)), (
+            "generic step, tensor parallel (fused_step_report_tp / "
+            "fused_step_boot_tp, grad-only)")
     fused_step = topt.fused and topt.fused_step
     packed = VMFNBMixtureFastStep if mixture else VMFNBFastStep
     if fused_step and packed.supports(model):
@@ -127,7 +143,6 @@ def make_step(model, topt: TrainingOptions, kl=(1.0, 1e-2, 0.1),
                 p, x, c, e, b, need_value=False, plain=plain))
     else:
         route = "generic step, forward + composite loss"
-    R, Rn = model.mean_latent, model.overdisp_latent
     if mixture:
         dd = model.dd
         loss, widths = (lambda x, out, b: mixture_composite_loss(
@@ -149,12 +164,13 @@ def main(argv=None) -> int:
     mixture = bool(opts.annot)
     if mixture and not opts.row:
         raise ValueError("--annot requires --row (the feature list)")
-    refuse_unported(topt)
     device = resolve_device(ns.device)
     if device is None:
         return 2
     device = topt.apply_runtime_config(device)
-    local_b, mesh = multihost_setup(opts, topt, device)
+    local_b, mesh = multihost_setup(
+        opts, topt, device,
+        fusable=topt.fused and topt.fused_step and not ns.mean_decoding)
     data_block, covar_block = prepare_blocks(opts, local_batch=local_b)
 
     TLOG("Constructing a model" + (" (labeled mixture)" if mixture else ""))
@@ -175,7 +191,8 @@ def main(argv=None) -> int:
         model = VMFNBVAE(data_dim=data_block.nfeature(),
                          vmf_decoding=ns.vmf_decoding, **shape)
     fast, route = make_step(model, topt,
-                            kl=(opts.kl_max, opts.kl_min, opts.kl_discount))
+                            kl=(opts.kl_max, opts.kl_min, opts.kl_discount),
+                            mesh=mesh)
     TLOG(f"Step: {route}")
     return run_training(opts, topt, model, fast, data_block, covar_block,
                         device, mesh)

@@ -30,6 +30,15 @@ count-encoder call: ``Wt`` on the log1p side, the ``nu_encoding`` and
 (backward K5).  Noise is passed in: ``eps = (eps_mu, eps_nu)`` where JAX
 takes a key.  ``plain=True`` selects the plain versions (the JAX
 package's XLA path) on any device.
+
+Tensor parallelism (nb.py:308-407): the ``tp_*`` methods take ``x``'s
+and every D-sized parameter axis's shard of this rank (``tp_pspecs``)
+and the model row's process group as ``model_axis``.  Their encoder is
+plain PyTorch, as in JAX: the first layers are partial products of the
+(B, D / N) shard, summed over the row with an identity backward
+(``parallel.collectives.psum_id_grad``), so K4 and K5 do not run; the
+step runs K1, K2 (K2v), K3 and K6 at D / N columns with their merges
+(``ops.nb_step``'s ``model_axis``).
 """
 
 from __future__ import annotations
@@ -47,6 +56,8 @@ from ..ops.losses import gaussian_kl
 from ..ops.nb_elbo import _reference_impl, _softplus, nb_nllik_fused
 from ..ops.nb_step import (nb_step_boot, nb_step_boot_gradonly,
                            nb_step_report, step_nll_ref)
+from ..parallel.collectives import psum_id_grad
+from ..parallel.mesh import feature_sharded_pspecs
 from .modules import apply_stack, init_linear_stack, reparameterize
 
 
@@ -308,6 +319,106 @@ class NBVAE(nn.Module):
         del seed, B, rows
         return self.encode_mu, None
 
+    # ------------------------------------------------------------------
+    # tensor parallel: x and the D-sized parameter axes are shards
+    # ------------------------------------------------------------------
+    def tp_pspecs(self, params: dict) -> dict:
+        """The split axis of each leaf over the model axis (nb.py:314)."""
+        return feature_sharded_pspecs(
+            params, row={self._enc_names()[0], "nu_encoding", "depth"},
+            col={"mu_decoding", "covar_decoding", "nu_decoding"},
+            flat={"x_mean", "ln_x_sd", "mu_bias", "nu_bias"})
+
+    def _standardize(self, params: dict, x) -> torch.Tensor:
+        """``(log1p(x) - x_mean) / (softplus(ln_x_sd) + 1e-4)``
+        (nb.py:119-122), elementwise on the shard."""
+        return ((torch.log1p(x.float()) - params["x_mean"])
+                / (_softplus(params["ln_x_sd"]) + 1e-4))
+
+    def _tp_mu_heads(self, params: dict, h, c):
+        """The mu encoder after its first layer's sum (nb.py:340-354)."""
+        if self.do_relu:
+            h = torch.relu(h)
+        h = apply_stack(params, self._enc_names()[1:], h, self.do_relu,
+                        relu_last=True)
+        lnvar = torch.clamp(
+            linear_apply(params["mu_representation_logvariance"], h),
+            -4.0, 4.0)
+        mean = linear_apply(params["mu_representation_mean"], h)
+        if c is not None:
+            mean = mean + linear_apply(params["covar_encoding"], c)
+        return mean, lnvar
+
+    def _tp_nu_heads(self, params: dict, h):
+        lnvar = torch.clamp(
+            linear_apply(params["nu_representation_logvariance"], h),
+            -4.0, 4.0)
+        return linear_apply(params["nu_representation_mean"], h), lnvar
+
+    def tp_encode_mu(self, params: dict, x, c, model_axis):
+        """:meth:`encode_mu` with the D -> H first layer a partial product
+        summed over the model row (nb.py:335-354)."""
+        first = params[self._enc_names()[0]]
+        h = psum_id_grad(self._standardize(params, x) @ first["weight"],
+                         model_axis) + first["bias"]
+        return self._tp_mu_heads(params, h, c)
+
+    def _tp_step_prelude(self, params: dict, x, c, eps, model_axis):
+        """:meth:`_step_prelude` on the shard (nb.py:364-386): the three
+        first layers (mu, nu, depth) summed in one collective."""
+        xf = x.float()
+        first = params[self._enc_names()[0]]
+        hm, hn, hd = psum_id_grad(
+            [self._standardize(params, x) @ first["weight"],
+             xf @ params["nu_encoding"]["weight"],
+             xf @ params["depth"]["weight"]], model_axis)
+        mu_mean, mu_lnvar = self._tp_mu_heads(params, hm + first["bias"], c)
+        nu_mean, nu_lnvar = self._tp_nu_heads(
+            params, hn + params["nu_encoding"]["bias"])
+        dec, cov = params["mu_decoding"], params["covar_decoding"]
+        nud = params["nu_decoding"]
+        return dict(
+            z_mu=reparameterize(mu_mean, mu_lnvar, eps[0]),
+            z_nu=reparameterize(nu_mean, nu_lnvar, eps[1]),
+            depth=_softplus(hd + params["depth"]["bias"]),
+            wd=dec["weight"], wc=cov["weight"],
+            bias2=dec["bias"] + cov["bias"] + params["mu_bias"][0],
+            wn=nud["weight"], bias_n=nud["bias"] - params["nu_bias"][0],
+            kl=gaussian_kl(mu_mean, mu_lnvar) + gaussian_kl(nu_mean,
+                                                            nu_lnvar))
+
+    def _need_fused(self):
+        if not self._can_fuse_step():
+            raise ValueError("TP fused step needs a direct decoder")
+
+    def fused_step_report_tp(self, params: dict, x, c, eps, beta,
+                             model_axis, include_data_const: bool = True):
+        """Reporting loss on the shard (nb.py:388-400): K1 and K6 at
+        D / N with the normaliser and the NLL combined over the row."""
+        self._need_fused()
+        pre = self._tp_step_prelude(params, x, c, eps, model_axis)
+        nll = nb_step_report(*self._step_args(pre, x, c),
+                             include_const=include_data_const,
+                             model_axis=model_axis)
+        return (nll + beta * pre["kl"]) / x.shape[0]
+
+    def fused_step_boot_tp(self, params: dict, x, c, eps, beta, model_axis,
+                           need_value: bool = True):
+        """Boot-step loss on the shard (nb.py:402-414): K1, K2 (K2v with
+        ``need_value``) and K3 at D / N with their merges."""
+        self._need_fused()
+        pre = self._tp_step_prelude(params, x, c, eps, model_axis)
+        nll = (nb_step_boot if need_value else nb_step_boot_gradonly)(
+            *self._step_args(pre, x, c), model_axis=model_axis)
+        return (nll + beta * pre["kl"]) / x.shape[0]
+
+    def tp_record_encoder(self, seed: int, B: int, rows, model_axis):
+        """The recorder's encode on the shard (``tp_record_encode``,
+        cli/nb_vae.py:131-133) and its extra artifact's name (none)."""
+        del seed, B, rows
+        return (lambda p, x: self.tp_encode_mu(p, x, None, model_axis),
+                None)
+
 
 def params_from_numpy(tree: dict, device: torch.device | str = "cpu"
                       ) -> dict:
@@ -334,9 +445,11 @@ def adam_from_numpy(state, device: torch.device | str = "cpu") -> dict:
     ``state`` is the JAX trainer's optax chain state (a tuple whose
     element 2 is ``ScaleByAdamState(count, mu, nu)``, leaves as numpy),
     that ``ScaleByAdamState`` alone, or a dict with those three keys; the
-    moment trees may be named or packed."""
+    moment trees may be named or packed.  The chain is the trainer's
+    (Adam at element 2) or the tensor-parallel one without the clip
+    (element 1)."""
     if isinstance(state, (tuple, list)) and not hasattr(state, "mu"):
-        state = state[2]
+        state = next(s for s in state if hasattr(s, "mu"))
     get = state.__getitem__ if isinstance(state, dict) else (
         lambda k: getattr(state, k))
     return {"count": torch.tensor(int(np.asarray(get("count"))),

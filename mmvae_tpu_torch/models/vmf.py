@@ -1,9 +1,14 @@
 """von Mises-Fisher VAE: a likelihood on the unit sphere.
 
 Port of ``mmvae_tpu/models/vmf.py`` (reference include/models/vmf.hh:
-191-440) without its tensor-parallel methods: the parameter tree
-(``init``), ``encode``, ``decode``, ``forward`` with its noise injected,
-and a folded encoder for serving.  The tree converters of
+191-440): the parameter tree (``init``), ``encode``, ``decode``,
+``forward`` with its noise injected, a folded encoder for serving, and
+the tensor-parallel forms (vmf.py:140-245: ``tp_pspecs``,
+``tp_standardize``, ``tp_encode``, ``tp_decode``, ``tp_step_loss``), in
+which ``x`` and the D-sized parameter axes are this rank's shard and
+``model_axis`` is the model row's process group: the Angular first
+layer's column norms and partial product, the decoder's row norm and
+the likelihood's cosine are summed over the row.  The tree converters of
 :mod:`mmvae_tpu_torch.models.nb` (``params_from_numpy``,
 ``adam_from_numpy`` and their inverses) work on this tree unchanged.
 
@@ -44,8 +49,10 @@ import torch
 from torch import nn
 
 from ..ops.initializers import linear_apply, torch_linear_init
-from ..ops.losses import l2_normalize
+from ..ops.losses import gaussian_kl, l2_normalize, vmf_loss_parts
 from ..ops.nb_elbo import _softplus
+from ..parallel.collectives import psum_grad, psum_id_grad, tp_l2_normalize
+from ..parallel.mesh import feature_sharded_pspecs
 from .modules import apply_stack, init_linear_stack, reparameterize
 
 
@@ -218,3 +225,69 @@ class VMFVAE(nn.Module):
         extra artifact's name (none); seed, B and rows do not enter it."""
         del seed, B, rows
         return self.encode_mu, None
+
+    # ------------------------------------------------------------------
+    # tensor parallel: x and the D-sized parameter axes are shards; the
+    # whole model stays plain PyTorch, as JAX computes it in XLA
+    # ------------------------------------------------------------------
+    def tp_pspecs(self, params: dict) -> dict:
+        """The split axis of each leaf (vmf.py:149-161): the Angular first
+        layer's (D, H) rows (no bias), the last decoder's and the
+        covariate decoder's columns, ``x_mean`` and ``ln_x_sd``."""
+        return feature_sharded_pspecs(
+            params, row={self._enc_names()[0]},
+            col={self._dec_names()[-1], "covar_decoding_"},
+            flat={"x_mean", "ln_x_sd"})
+
+    def tp_standardize(self, params: dict, x, model_axis) -> torch.Tensor:
+        """:meth:`_standardize` with the row norm summed over the row; eps
+        1e-2 / D of the whole D (vmf.py:163-171)."""
+        xn = tp_l2_normalize(torch.log1p(x.float()), model_axis, dim=1)
+        return (xn - params["x_mean"]) / (_softplus(params["ln_x_sd"])
+                                          + 1e-2 / float(self.data_dim))
+
+    def tp_encode(self, params: dict, x, c, model_axis):
+        """:meth:`encode` on the shard (vmf.py:173-199): the Angular first
+        layer's column norms and its partial product summed over the
+        row."""
+        names = self._enc_names()
+        ww = tp_l2_normalize(torch.relu(params[names[0]]["weight"]) + 1e-4,
+                             model_axis, dim=0)
+        h = psum_id_grad(self.tp_standardize(params, x, model_axis) @ ww,
+                         model_axis)
+        if self.do_relu:
+            h = torch.relu(h)
+        h = apply_stack(params, names[1:], h, self.do_relu, relu_last=True,
+                        angular=True)
+        return self._heads(params, h, c)
+
+    def tp_decode(self, params: dict, z, c, model_axis) -> torch.Tensor:
+        """:meth:`decode` with the last layer's columns split (vmf.py:
+        201-216): the replicated hidden stack's cotangent is summed over
+        the row where it enters the split layer, and so is the row norm."""
+        names = self._dec_names()
+        h = apply_stack(params, names[:-1], z, self.do_relu, relu_last=True)
+        h = torch.exp(linear_apply(params[names[-1]],
+                                   psum_grad(h, model_axis)))
+        return tp_l2_normalize(h + linear_apply(params["covar_decoding_"], c),
+                               model_axis, dim=1)
+
+    def tp_step_loss(self, params: dict, x, c, eps, beta, model_axis):
+        """The whole loss on the shard (vmf.py:218-245), the report and the
+        boot loss of a tensor-parallel ``Trainer`` alike; ``eps =
+        (eps_z,)``."""
+        mean, lnvar = self.tp_encode(params, x, c, model_axis)
+        recon = self.tp_decode(params, reparameterize(mean, lnvar, eps[0]),
+                               c, model_axis)
+        dd = float(self.data_dim)
+        yobs = tp_l2_normalize(torch.log1p(torch.relu(x.float())) + 1e-2 / dd,
+                               model_axis, dim=1)
+        cos = psum_id_grad(torch.sum(yobs * recon, dim=1), model_axis)
+        return vmf_loss_parts(cos, self.kappa(params["ln_kappa"]),
+                              gaussian_kl(mean, lnvar), beta, dd)
+
+    def tp_record_encoder(self, seed: int, B: int, rows, model_axis):
+        """The recorder's encode on the shard (``tp_encode`` with no
+        covariate, cli/vmf_vae.py:113-116) and its extra name (none)."""
+        del seed, B, rows
+        return (lambda p, x: self.tp_encode(p, x, None, model_axis), None)

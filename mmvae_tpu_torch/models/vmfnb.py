@@ -31,6 +31,16 @@ contracts the raw counts against the ``nb_nu_encoding``, ``depth`` and
 (eps_nb, eps_nu, eps_vmf)`` where JAX takes a key (split three ways in
 that order).  ``plain=True`` takes the JAX package's unfolded
 specification and plain step NLL on any device.
+
+Tensor parallelism (vmfnb.py:310-529): the ``tp_*`` methods take ``x``'s
+and every D-sized parameter axis's shard of this rank (``tp_pspecs``)
+and the model row's process group as ``model_axis``.  The encoder is
+plain PyTorch, as in JAX: the first layers of the shared encoder, the nu
+encoder and the depth and kappa heads are partial products summed over
+the row (one collective), the row norm of ``log1p(x)`` a summed square
+sum; the NB half runs K1, K2p (K2pv) and K3 or K6p at D / N columns with
+their merges; the vMF decoder's last layer is split by columns with a
+summed row norm (:func:`tp_vmf_nllik_parts`).
 """
 
 from __future__ import annotations
@@ -48,6 +58,8 @@ from ..ops.initializers import linear_apply, torch_linear_init
 from ..ops.lbessel import lbessel
 from ..ops.losses import gaussian_kl, l2_normalize, nb_nllik
 from ..ops.nb_elbo import NU_HI, _softplus
+from ..parallel.collectives import psum_grad, psum_id_grad, tp_l2_normalize
+from ..parallel.mesh import feature_sharded_pspecs
 from ..ops.nb_step import (nb_step_boot_joint, nb_step_boot_joint_gradonly,
                            nb_step_report, step_nll_ref)
 from .modules import apply_stack, init_linear_stack, reparameterize
@@ -378,6 +390,114 @@ class VMFNBVAE(nn.Module):
         del seed, B, rows
         return self.encode_mu, None
 
+    # ------------------------------------------------------------------
+    # tensor parallel: x and the D-sized parameter axes are shards
+    # ------------------------------------------------------------------
+    def tp_pspecs(self, params: dict) -> dict:
+        """The split axis of each leaf (vmfnb.py:320-333)."""
+        return feature_sharded_pspecs(
+            params, row={self._enc_names()[0], "nb_nu_encoding", "depth",
+                         "ln_kappa"},
+            col={"nb_mu_decoding", "nb_nu_decoding", self._vdec_names()[-1]},
+            flat={"x_mean", "ln_x_sd", "mu_bias", "nu_bias"})
+
+    def tp_normalize_nb_x(self, params: dict, x, model_axis):
+        """:meth:`normalize_nb_x` with the row norm summed over the row
+        (vmfnb.py:340-350)."""
+        xn = tp_l2_normalize(torch.log1p(x.float()), model_axis, dim=1)
+        return (xn - params["x_mean"]) / (F.softplus(params["ln_x_sd"])
+                                          + 1e-2)
+
+    def _tp_mu_tail(self, params: dict, h):
+        if self.do_relu:
+            h = torch.relu(h)
+        h = apply_stack(params, self._enc_names()[1:], h, self.do_relu,
+                        relu_last=True)
+        return self._mu_heads(params, h)
+
+    def tp_shared_encode_mu(self, params: dict, x, model_axis):
+        """:meth:`shared_encode_mu` on the shard (vmfnb.py:352-366)."""
+        first = params[self._enc_names()[0]]
+        h = psum_id_grad(self.tp_normalize_nb_x(params, x, model_axis)
+                         @ first["weight"], model_axis) + first["bias"]
+        return self._tp_mu_tail(params, h)
+
+    def tp_vmf_decode_mu(self, params: dict, z, model_axis):
+        """The vMF decoder with its last layer split by columns and the row
+        norm summed over the row (vmfnb.py:377-396)."""
+        names = self._vdec_names()
+        h = apply_stack(params, names[:-1], z, self.do_relu, relu_last=True)
+        h = linear_apply(params[names[-1]], psum_grad(h, model_axis))
+        return tp_l2_normalize(h, model_axis, dim=1)
+
+    def _tp_step_prelude(self, params: dict, x, eps, model_axis):
+        """:meth:`_step_prelude` on the shard (vmfnb.py:407-441): the first
+        layers of the shared encoder, the nu encoder, the depth and the
+        kappa heads summed in one collective."""
+        xf = x.float()
+        first = params[self._enc_names()[0]]
+        hm, hn, hd, hk = psum_id_grad(
+            [self.tp_normalize_nb_x(params, x, model_axis) @ first["weight"],
+             xf @ params["nb_nu_encoding"]["weight"],
+             xf @ params["depth"]["weight"],
+             xf @ params["ln_kappa"]["weight"]], model_axis)
+        mu_mean, mu_lnvar = self._tp_mu_tail(params, hm + first["bias"])
+        nu_mean, nu_lnvar = self._nu_heads(
+            params, torch.relu(hn + params["nb_nu_encoding"]["bias"]))
+        dec, nud = params["nb_mu_decoding"], params["nb_nu_decoding"]
+        return dict(
+            z_nb=reparameterize(mu_mean, mu_lnvar, eps[0]),
+            z_nu=reparameterize(nu_mean, nu_lnvar, eps[1]),
+            depth=_softplus(hd + params["depth"]["bias"]),
+            wd=dec["weight"], bias2=dec["bias"], wn=nud["weight"],
+            bias_n=nud["bias"] - params["nu_bias"][0],
+            pb=params["mu_bias"][0],
+            vmf_recon=self.tp_vmf_decode_mu(
+                params, reparameterize(mu_mean, mu_lnvar, eps[2]),
+                model_axis),
+            kappa=self._kappa(hk + params["ln_kappa"]["bias"]),
+            kl=gaussian_kl(mu_mean, mu_lnvar) + gaussian_kl(nu_mean,
+                                                            nu_lnvar))
+
+    def _need_fused(self):
+        if not self._can_fuse_step():
+            raise ValueError("TP fused step needs a direct decoder")
+
+    def fused_step_report_tp(self, params: dict, x, c, eps, beta,
+                             model_axis, include_data_const: bool = True):
+        """Reporting loss on the shard (vmfnb.py:443-462): K1 and K6p at
+        D / N with their merges, the vMF half summed over the row."""
+        del c
+        self._need_fused()
+        pre = self._tp_step_prelude(params, x, eps, model_axis)
+        nll = nb_step_report(*self._step_args(pre, x),
+                             include_const=include_data_const, pb=pre["pb"],
+                             model_axis=model_axis)
+        vmf = tp_vmf_nllik_parts(x, pre["vmf_recon"], pre["kappa"],
+                                 float(self.data_dim), model_axis)
+        return (nll + vmf + beta * pre["kl"]) / x.shape[0]
+
+    def fused_step_boot_tp(self, params: dict, x, c, eps, beta, model_axis,
+                           need_value: bool = True):
+        """Boot-step loss on the shard (vmfnb.py:464-484): K1, K2p (K2pv
+        with ``need_value``) and K3 at D / N with their merges."""
+        del c
+        self._need_fused()
+        pre = self._tp_step_prelude(params, x, eps, model_axis)
+        nll = (nb_step_boot_joint if need_value
+               else nb_step_boot_joint_gradonly)(
+            *self._step_args(pre, x), pre["pb"], model_axis=model_axis)
+        vmf = tp_vmf_nllik_parts(x, pre["vmf_recon"], pre["kappa"],
+                                 float(self.data_dim), model_axis)
+        return (nll + vmf + beta * pre["kl"]) / x.shape[0]
+
+    def tp_record_encoder(self, seed: int, B: int, rows, model_axis):
+        """The recorder's encode on the shard (``tp_shared_encode_mu``,
+        cli/vmfnb_vae.py:183-187) and its extra name (none)."""
+        del seed, B, rows
+        return (lambda p, x: self.tp_shared_encode_mu(p, x, model_axis),
+                None)
+
 
 # ----------------------------------------------------------------------
 # losses (reference vmfnb.hh:551-599, 727-758)
@@ -396,6 +516,26 @@ def vmf_nllik_parts(x: torch.Tensor, vmf_recon: torch.Tensor,
     df = max(0.5 * dd - 1.0, 0.0)
     kappa = vmf_kappa[:, 0]
     llik = torch.sum(yobs * vmf_recon, dim=1) * kappa
+    llik = llik + (df * torch.log(kappa) - lbessel(kappa, df))
+    llik = llik - 0.5 * dd * fasterlog(2.0 * math.pi)
+    return -torch.sum(llik)
+
+
+def tp_vmf_nllik_parts(x: torch.Tensor, vmf_recon: torch.Tensor,
+                       vmf_kappa: torch.Tensor, dd: float, model_axis
+                       ) -> torch.Tensor:
+    """:func:`vmf_nllik_parts` with D split over ``model_axis``
+    (vmfnb.py:510-529): ``dd`` is the whole effective dimensionality, the
+    ``yobs`` row norm and the ``<yobs, recon>`` contraction are summed
+    over the row, and the per-sample kappa terms (replicated) are added
+    once."""
+    eps = 1e-2 / dd
+    yobs = tp_l2_normalize(torch.log1p(torch.relu(x.float())) + eps,
+                           model_axis, dim=1)
+    df = max(0.5 * dd - 1.0, 0.0)
+    kappa = vmf_kappa[:, 0]
+    llik = psum_id_grad(torch.sum(yobs * vmf_recon, dim=1), model_axis) \
+        * kappa
     llik = llik + (df * torch.log(kappa) - lbessel(kappa, df))
     llik = llik - 0.5 * dd * fasterlog(2.0 * math.pi)
     return -torch.sum(llik)

@@ -41,6 +41,16 @@ also contracts the raw counts against the ``nb_nu_encoding`` and
 in training, whose E-step is soft); eval mode takes the (B, K) Gumbel
 uniforms.  ``plain=True`` takes the JAX package's unfolded specification
 and plain step NLL on any device.
+
+Tensor parallelism (vmfnb_mixture.py:356-549): the ``tp_*`` methods take
+``x``'s and every D-sized parameter axis's shard of this rank
+(``tp_pspecs``; ``ln_vmf_mu`` splits by rows) and the model row's
+process group as ``model_axis``; the annotation's D-indexed constants
+(label and filter) are cut to the rank's block by its model index
+(``_tp_local_rows``).  The E-step's contraction, the components' column
+norms and the rows' norms are summed over the row; the NB half runs the
+joint model's kernels at D / N columns.  The encoder is plain PyTorch,
+as in JAX (K4f and K5 do not run).
 """
 
 from __future__ import annotations
@@ -56,10 +66,14 @@ from ..ops.enc_kernel import count_encode
 from ..ops.initializers import linear_apply, torch_linear_init
 from ..ops.losses import gaussian_kl, l2_normalize, nb_nllik, uniform_kl
 from ..ops.nb_elbo import NU_HI, _softplus
+import torch.distributed as dist
+
+from ..parallel.collectives import psum_grad, psum_id_grad, tp_l2_normalize
+from ..parallel.mesh import feature_sharded_pspecs
 from ..ops.nb_step import (nb_step_boot_joint, nb_step_boot_joint_gradonly,
                            nb_step_report, step_nll_ref)
 from .modules import apply_stack, init_linear_stack, reparameterize
-from .vmfnb import VMFNBVAE, vmf_nllik_parts
+from .vmfnb import VMFNBVAE, tp_vmf_nllik_parts, vmf_nllik_parts
 
 
 class VMFNBMixtureOutput(NamedTuple):
@@ -506,6 +520,154 @@ class VMFNBMixtureVAE(nn.Module):
             if key not in on_device:  # one host->device copy per device
                 on_device[key] = u.to(x.device)
             return self.encode_mu(params, x, on_device[key])
+
+        return encode, "clust"
+
+    # ------------------------------------------------------------------
+    # tensor parallel: x and the D-sized parameter axes are shards
+    # ------------------------------------------------------------------
+    def tp_pspecs(self, params: dict) -> dict:
+        """The split axis of each leaf (vmfnb_mixture.py:364-380);
+        ``ln_vmf_mu`` is a (D, K) row shard."""
+        return feature_sharded_pspecs(
+            params, row={self._enc_names()[0], "nb_nu_encoding", "depth",
+                         "ln_kappa"},
+            col={"nb_mu_decoding", "nb_nu_decoding"},
+            flat={"x_mean", "ln_x_sd", "mu_bias", "nu_bias"},
+            overrides={"ln_vmf_mu": 0})
+
+    def _tp_local_rows(self, x, model_axis):
+        """(label^T (K, D / N), filter (D / N,)): the rank's block of the
+        annotation's constants, by its model index (vmfnb_mixture.py:
+        386-392; the model row's group ranks are its model indices)."""
+        label, filt = self.masks(x.device)
+        d = x.shape[1]
+        i = 0 if model_axis is None else dist.get_rank(model_axis)
+        return label[:, i * d:(i + 1) * d], filt[i * d:(i + 1) * d]
+
+    def tp_normalize_nb_x(self, params: dict, x, model_axis):
+        xn = tp_l2_normalize(torch.log1p(x.float()), model_axis, dim=1)
+        return (xn - params["x_mean"]) / (F.softplus(params["ln_x_sd"])
+                                          + 1e-2)
+
+    def tp_vmf_forward(self, params: dict, x, training: bool, model_axis,
+                       gumbel_u=None, kappa_pre=None) -> VMFOut:
+        """:meth:`vmf_forward` on the shard (vmfnb_mixture.py:412-467): the
+        components' column norms over the whole D, the E-step's
+        contraction summed over the row, the reconstruction's latent
+        cotangent summed where it enters the split product.
+        ``kappa_pre`` is the ``ln_kappa`` head's summed pre-activation
+        when the caller has it."""
+        label, filt = self._tp_local_rows(x, model_axis)
+        eps = 1e-2 / float(self.data_dim)
+        vmf_mu = tp_l2_normalize(
+            (torch.exp(params["ln_vmf_mu"]) + eps) * label.T, model_axis,
+            dim=0)
+        if kappa_pre is None:
+            kappa_pre = psum_id_grad(x.float() @ params["ln_kappa"]["weight"],
+                                     model_axis)
+        kappa = self._kappa(kappa_pre + params["ln_kappa"]["bias"])
+        xn = tp_l2_normalize((torch.log1p(x.float()) + eps) * filt,
+                             model_axis, dim=1)
+        logits = torch.log_softmax(
+            psum_id_grad(xn @ vmf_mu, model_axis) * kappa, dim=1)
+        if training:
+            latent = torch.exp(logits)
+        else:
+            if gumbel_u is None:
+                raise ValueError("tp_vmf_forward(training=False) needs the "
+                                 "Gumbel uniforms gumbel_u")
+            latent = hard_assignment(
+                logits, _tile_rows(gumbel_u.to(x.device), x.shape[0]))
+        recon = (psum_grad(latent, model_axis) @ vmf_mu.T) * filt
+        return VMFOut(vmf_mu, logits, latent, recon, kappa)
+
+    def tp_nb_encode_mu(self, params: dict, x, z, model_axis, h_pre=None):
+        """:meth:`nb_encode_mu` on the shard (vmfnb_mixture.py:469-487);
+        ``h_pre`` the first layer's summed product when the caller has
+        it."""
+        first = params[self._enc_names()[0]]
+        if h_pre is None:
+            h_pre = psum_id_grad(self.tp_normalize_nb_x(params, x, model_axis)
+                                 @ first["weight"], model_axis)
+        h = h_pre + first["bias"]
+        if self.do_relu:
+            h = torch.relu(h)
+        h = apply_stack(params, self._enc_names()[1:], h, self.do_relu,
+                        relu_last=True)
+        return self._heads(params, h, z)
+
+    def _tp_step_prelude(self, params: dict, x, eps, model_axis):
+        """:meth:`_step_prelude` on the shard (vmfnb_mixture.py:498-527):
+        the first layers of the NB encoder, the nu encoder, the depth and
+        the kappa heads summed in one collective."""
+        xf = x.float()
+        first = params[self._enc_names()[0]]
+        hm, hn, hd, hk = psum_id_grad(
+            [self.tp_normalize_nb_x(params, x, model_axis) @ first["weight"],
+             xf @ params["nb_nu_encoding"]["weight"],
+             xf @ params["depth"]["weight"],
+             xf @ params["ln_kappa"]["weight"]], model_axis)
+        vmf = self.tp_vmf_forward(params, x, True, model_axis, kappa_pre=hk)
+        mu_mean, mu_lnvar = self.tp_nb_encode_mu(params, x, vmf.latent,
+                                                 model_axis, h_pre=hm)
+        nu_mean, nu_lnvar = self._nu_heads(
+            params, torch.relu(hn + params["nb_nu_encoding"]["bias"]))
+        dec, nud = params["nb_mu_decoding"], params["nb_nu_decoding"]
+        return dict(
+            z_mu=reparameterize(mu_mean, mu_lnvar, eps[0]),
+            z_nu=reparameterize(nu_mean, nu_lnvar, eps[1]),
+            depth=_softplus(hd + params["depth"]["bias"]),
+            wd=dec["weight"], bias2=dec["bias"], wn=nud["weight"],
+            bias_n=nud["bias"] - params["nu_bias"][0],
+            pb=params["mu_bias"][0], vmf=vmf,
+            kl=(gaussian_kl(mu_mean, mu_lnvar)
+                + gaussian_kl(nu_mean, nu_lnvar) + uniform_kl(vmf.logits)))
+
+    def _need_fused(self):
+        if not self._can_fuse_step():
+            raise ValueError("TP fused step needs a direct decoder")
+
+    def fused_step_report_tp(self, params: dict, x, c, eps, beta,
+                             model_axis, include_data_const: bool = True):
+        """Reporting loss on the shard (vmfnb_mixture.py:529-549)."""
+        del c
+        self._need_fused()
+        pre = self._tp_step_prelude(params, x, eps, model_axis)
+        nll = nb_step_report(*self._step_args(pre, x),
+                             include_const=include_data_const, pb=pre["pb"],
+                             model_axis=model_axis)
+        vmf_nll = tp_vmf_nllik_parts(x, pre["vmf"].recon, pre["vmf"].kappa,
+                                     self.dd, model_axis)
+        return (nll + vmf_nll + beta * pre["kl"]) / x.shape[0]
+
+    def fused_step_boot_tp(self, params: dict, x, c, eps, beta, model_axis,
+                           need_value: bool = True):
+        """Boot-step loss on the shard: K1, K2p (K2pv with
+        ``need_value``) and K3 at D / N with their merges."""
+        del c
+        self._need_fused()
+        pre = self._tp_step_prelude(params, x, eps, model_axis)
+        nll = (nb_step_boot_joint if need_value
+               else nb_step_boot_joint_gradonly)(
+            *self._step_args(pre, x), pre["pb"], model_axis=model_axis)
+        vmf_nll = tp_vmf_nllik_parts(x, pre["vmf"].recon, pre["vmf"].kappa,
+                                     self.dd, model_axis)
+        return (nll + vmf_nll + beta * pre["kl"]) / x.shape[0]
+
+    def tp_record_encoder(self, seed: int, B: int, rows, model_axis):
+        """The recorder's encode on the shard (``tp_record_encode`` /
+        ``tp_record_extra``, cli/vmfnb_vae.py:145-157): the frozen E-step
+        with the uniforms of ``seed`` (the data index's ``rows`` of them),
+        returning (mean, lnvar, clust), and the extra artifact's name."""
+        u = self.gumbel_uniforms(B, seed)
+        if rows is not None:
+            u = u[rows]
+
+        def encode(params, x):
+            vmf = self.tp_vmf_forward(params, x, False, model_axis, u)
+            return (*self.tp_nb_encode_mu(params, x, vmf.latent, model_axis),
+                    vmf.latent)
 
         return encode, "clust"
 

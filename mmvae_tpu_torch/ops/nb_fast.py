@@ -154,13 +154,19 @@ class PackedAdam:
     gradient before the moments, and the moment count is incremented
     before the bias correction.  The global norm sums the leaves in JAX's
     pytree order.  The state is ``{"count": int32 scalar, "mu": tree,
-    "nu": tree}``; updates are out of place."""
+    "nu": tree}``; updates are out of place.
+
+    ``tp=True`` is ``make_optimizer(tp=True)``'s chain, without the clip:
+    tensor-parallel training clips against the norm across the model row
+    before the update (``train.loop.tp_clip``)."""
 
     def __init__(self, lr: float, grad_clip: float, weight_decay: float,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 tp: bool = False):
         self.lr, self.grad_clip, self.weight_decay = lr, grad_clip, \
             weight_decay
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.tp = tp
 
     @staticmethod
     def init(q: dict) -> dict:
@@ -175,9 +181,10 @@ class PackedAdam:
                ) -> tuple[dict, dict]:
         gs, ps = tree_leaves(grads), tree_leaves(q)
         ms, vs = tree_leaves(state["mu"]), tree_leaves(state["nu"])
-        g_norm = torch.sqrt(sum((torch.sum(g * g) for g in gs),
-                                torch.zeros((), device=ps[0].device)))
-        trigger = g_norm < self.grad_clip
+        if not self.tp:
+            g_norm = torch.sqrt(sum((torch.sum(g * g) for g in gs),
+                                    torch.zeros((), device=ps[0].device)))
+            trigger = g_norm < self.grad_clip
         count = state["count"] + 1
         cf = count.to(torch.float32)
         # scalar bases: no host-to-device copy (which would synchronise)
@@ -185,7 +192,8 @@ class PackedAdam:
         bc2 = 1.0 - torch.pow(self.b2, cf)
         new_q, mu, nu = [], [], []
         for g, p, m, v in zip(gs, ps, ms, vs):
-            g = torch.where(trigger, g, (g / g_norm) * self.grad_clip)
+            if not self.tp:
+                g = torch.where(trigger, g, (g / g_norm) * self.grad_clip)
             g = g + self.weight_decay * p
             mu.append((1 - self.b1) * g + self.b1 * m)
             nu.append((1 - self.b2) * (g * g) + self.b2 * v)
@@ -228,10 +236,12 @@ def draw_rand(gen: torch.Generator, nbatch: int, B: int, nboot: int,
     return dict(rep_eps=rep_eps, ridx=ridx, boot_eps=boot_eps)
 
 
-def reduce_step(grads: list, report, i: int) -> tuple[list, object]:
-    """Boot step ``i``'s gradients ``pmean``-ed over the ranks, with the
-    report in the same collective when ``i`` is 0."""
-    red = pmean(grads + [report] if i == 0 else grads)
+def reduce_step(grads: list, report, i: int, group=None
+                ) -> tuple[list, object]:
+    """Boot step ``i``'s gradients ``pmean``-ed over the ranks of
+    ``group`` (default the world), with the report in the same collective
+    when ``i`` is 0."""
+    red = pmean(grads + [report] if i == 0 else grads, group)
     return red[:len(grads)], red[-1] if i == 0 else report
 
 

@@ -55,7 +55,17 @@ and whose backward scales them by the incoming cotangent
 kernel path, the value-bearing forms' the NLL without
 ``lgamma(x + 1)``.
 :func:`step_nll_ref` is the differentiable plain specification
-(``xla_step_nll``); tensor-parallel ``model_axis`` is not ported.
+(``xla_step_nll``).
+
+Tensor parallelism (``model_axis``, nb_step.py:757-868, 947-1101): every
+public op takes the model row's process group as ``model_axis``.  The
+D-sized operands are then this rank's block of the features, and the
+ops merge what spans the features between launches, on the card and on
+the CPU alike: K1's row logsumexp by ``_combine_lse`` (a max, then a sum
+of ``exp(lse - max)``), the NLL and K2's row outputs ``rsum``, ``u1``
+and ``dzn`` summed before K3 (one collective), K3's ``u2`` after it.
+The weight gradients stay on their shard; the row cotangents come out
+replicated, as JAX's TP boot steps give them.
 """
 
 from __future__ import annotations
@@ -64,6 +74,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..parallel.collectives import pmax, psum
 from .enc_kernel import _DTYPE_CODE
 from .nb_elbo import EPS, NU_HI, NU_LO, _softplus
 
@@ -571,38 +582,63 @@ def _operands(zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb=None):
     return zc, zn.contiguous(), depth.contiguous(), W
 
 
+def _combine_lse(lse_local, model_axis):
+    """Merge per-shard row logsumexps over the model row (nb_step.py:757):
+    ``lse = m + log(sum_k exp(lse_k - m))``, ``m`` the rows' maximum."""
+    if model_axis is None:
+        return lse_local
+    m = pmax(lse_local, model_axis)
+    return m + torch.log(psum([torch.exp(lse_local - m)], model_axis)[0])
+
+
 def nb_step_report(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n,
-                   include_const: bool = True, pb=None) -> torch.Tensor:
+                   include_const: bool = True, pb=None, model_axis=None
+                   ) -> torch.Tensor:
     """Reporting-pass NLL (value only, no gradient; reference
     mmvae_alg.hh:277-285): K1 then K6.  With ``pb``, the joint model's NB
     half (``nb_step_report(pb=pb, nu_exp=True)``, nb_step.py:765-788):
-    the post-softmax log-bias and the exp-clamp nu decode."""
+    the post-softmax log-bias and the exp-clamp nu decode.  With
+    ``model_axis`` (a process group) the D-sized operands are this
+    rank's shard: K1's normaliser and the NLL combine over the row."""
     R, C, Rn = zm.shape[1], c.shape[1], zn.shape[1]
     with torch.no_grad():
         zc, zn, depth, W = _operands(zm, c, zn, depth, wd, wc, bias2, wn,
                                      bias_n, pb)
-        return value(x, zc, zn, depth, lse(zc, W, R, C), W, R, C, Rn,
-                     include_const, pb is not None)
+        norm = _combine_lse(lse(zc, W, R, C), model_axis)
+        nll = value(x, zc, zn, depth, norm, W, R, C, Rn, include_const,
+                    pb is not None)
+        if model_axis is not None:
+            nll = psum([nll.reshape(1)], model_axis)[0].reshape(())
+        return nll
 
 
 def _boot_fwd_impl(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb,
-                   need_value: bool = False):
+                   need_value: bool = False, model_axis=None):
     """K1 -> K2 -> K3 and the gradient assembly of the boot step
     (nb_step.py:801-868): (the NLL without ``lgamma(x + 1)`` when
     ``need_value``, else None; the cotangents of (zm, zn, depth, wd, wc,
-    bias2, wn, bias_n) and, with ``pb``, of ``pb``)."""
+    bias2, wn, bias_n) and, with ``pb``, of ``pb``).  With ``model_axis``
+    the softmax normaliser, the NLL and every row reduction over D
+    (rsum, u1, dzn, u2) combine over the model row; the per-column weight
+    gradients stay on the shard."""
     R, C, Rn = zm.shape[1], c.shape[1], zn.shape[1]
     zc, znc, dep, W = _operands(zm, c, zn, depth, wd, wc, bias2, wn, bias_n,
                                 pb)
-    norm = lse(zc, W, R, C)
+    norm = _combine_lse(lse(zc, W, R, C), model_axis)
     gout, rsum, u1, dzn, *nll = valgrad(x, zc, znc, dep, norm, W, R, C, Rn,
                                         pb is not None, need_value)
+    if model_axis is not None:
+        # global before the finisher, in one collective
+        rsum, u1, dzn, *nll = psum([rsum, u1, dzn]
+                                   + [v.reshape(1) for v in nll], model_axis)
+        nll = [v.reshape(()) for v in nll]
     # d nll / d depth = rowsum(dmu * pe) = rsum / depth exactly; at
     # depth == 0 the 0/0 is zeroed (depth >= 0 at every call site)
     dd = torch.where(dep > 0, rsum / torch.clamp_min(dep, 1e-30),
                      torch.zeros_like(rsum))
     # K3 recomputes the plain p: the coupling term has no exp(pb)
     fout, u2 = finish(zc, norm, rsum, W, R, C)
+    u2 = psum([u2], model_axis)[0]
     # dh = dls - p * rowsum(dls): gout holds the dls contractions,
     # fout the p * rowsum ones
     gw = gout[:R + C + 1] - fout
@@ -618,14 +654,16 @@ def _boot_fwd_impl(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb,
 class _Boot(torch.autograd.Function):
     """Boot-step NLL: the forward computes every gradient in one pass
     (K1 -> K2 -> K3) and saves it; the backward scales.  The primal is
-    the NLL with ``need_value`` (K2v, K2pv), else 0.0."""
+    the NLL with ``need_value`` (K2v, K2pv), else 0.0.  ``model_axis`` as
+    in :func:`_boot_fwd_impl`: the saved row cotangents are already
+    replicated, so the backward is the same."""
 
     @staticmethod
     def forward(ctx, x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb,
-                need_value):
+                need_value, model_axis):
         ctx.joint = pb is not None
         nll, res = _boot_fwd_impl(x, zm, c, zn, depth, wd, wc, bias2, wn,
-                                  bias_n, pb, need_value)
+                                  bias_n, pb, need_value, model_axis)
         ctx.save_for_backward(*res)
         return nll if need_value else zm.new_zeros(())
 
@@ -635,42 +673,48 @@ class _Boot(torch.autograd.Function):
         d_zm, d_zn, d_dep, d_wd, d_wc, d_b2, d_wn, d_bn = saved[:8]
         d_pb = g * saved[8] if ctx.joint else None
         return (None, g * d_zm, None, g * d_zn, g * d_dep, g * d_wd,
-                g * d_wc, g * d_b2, g * d_wn, g * d_bn, d_pb, None)
+                g * d_wc, g * d_b2, g * d_wn, g * d_bn, d_pb, None, None)
 
 
-def nb_step_boot(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n
-                 ) -> torch.Tensor:
+def nb_step_boot(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n,
+                 model_axis=None) -> torch.Tensor:
     """Boot-step NLL without ``lgamma(x + 1)`` (nb_step.py:792), its
     value from K2v in the same pass as the gradient, differentiable in
-    (zm, zn, depth, wd, wc, bias2, wn, bias_n); x and c are data."""
+    (zm, zn, depth, wd, wc, bias2, wn, bias_n); x and c are data.  With
+    ``model_axis``, ``nb_step_boot_tp`` (nb_step.py:947)."""
     return _Boot.apply(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, None,
-                       True)
+                       True, model_axis)
 
 
-def nb_step_boot_gradonly(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n
-                          ) -> torch.Tensor:
+def nb_step_boot_gradonly(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n,
+                          model_axis=None) -> torch.Tensor:
     """Boot-step NLL (no ``lgamma(x + 1)``) whose primal is 0.0 and whose
     gradient in (zm, zn, depth, wd, wc, bias2, wn, bias_n) is the NLL's;
-    x and c are data.  Never use it where the loss value is read."""
+    x and c are data.  Never use it where the loss value is read.  With
+    ``model_axis``, ``nb_step_boot_tp_gradonly`` (nb_step.py:1034)."""
     return _Boot.apply(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, None,
-                       False)
+                       False, model_axis)
 
 
-def nb_step_boot_joint(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb
-                       ) -> torch.Tensor:
+def nb_step_boot_joint(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb,
+                       model_axis=None) -> torch.Tensor:
     """:func:`nb_step_boot` for the joint model's NB half (nb_step.py:901):
     ``pb`` (D,) is the post-softmax log-bias and nu decodes as
     ``clamp(exp(.), 0, NU_HI)``; the value comes from K2pv in the same
-    pass as the gradient, which also reaches ``pb``."""
+    pass as the gradient, which also reaches ``pb``.  With
+    ``model_axis``, ``nb_step_boot_joint_tp`` (nb_step.py:1063)."""
     return _Boot.apply(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb,
-                       True)
+                       True, model_axis)
 
 
 def nb_step_boot_joint_gradonly(x, zm, c, zn, depth, wd, wc, bias2, wn,
-                                bias_n, pb) -> torch.Tensor:
+                                bias_n, pb, model_axis=None
+                                ) -> torch.Tensor:
     """:func:`nb_step_boot_gradonly` for the joint model's NB half
     (nb_step.py:991-1005): ``pb`` (D,) is the post-softmax log-bias and
     nu decodes as ``clamp(exp(.), 0, NU_HI)``; the gradient also reaches
-    ``pb``.  Primal 0.0: never use it where the loss value is read."""
+    ``pb``.  Primal 0.0: never use it where the loss value is read.  With
+    ``model_axis``, ``nb_step_boot_joint_tp_gradonly``
+    (nb_step.py:1086)."""
     return _Boot.apply(x, zm, c, zn, depth, wd, wc, bias2, wn, bias_n, pb,
-                       False)
+                       False, model_axis)

@@ -153,12 +153,22 @@ def sharded_batches(ntot: int, global_batch: int, host_id: int,
             for gb in sequential_batches(ntot, global_batch)]
 
 
-def local_rows(t: torch.Tensor) -> torch.Tensor | None:
-    """Every rank's rows of an epoch's (nbatch, M, width) output,
-    concatenated along the row axis in rank order on rank 0 (None on the
-    others): with each rank's slice of every batch, the result is the
-    global batches' (nbatch, B, width).  One ``gather_rows``."""
+def local_rows(t: torch.Tensor, mesh=None) -> torch.Tensor | None:
+    """Every data index's rows of an epoch's (nbatch, M, width) output,
+    concatenated along the row axis in data order on rank 0 (None on the
+    others): with each data index's slice of every batch, the result is
+    the global batches' (nbatch, B, width).  One ``gather_rows`` over the
+    world, or under tensor parallelism over the data column of model
+    index 0 (the outputs are replicated over each model row, so the
+    other model indices send nothing)."""
     if not dist.is_initialized() or dist.get_world_size() <= 1:
         return t
-    full = gather_rows([t.transpose(0, 1)])[0].transpose(0, 1)
+    group = None
+    if mesh is not None and mesh.tp:
+        if mesh.model_index != 0:
+            return None
+        if mesh.data_group is None:
+            return t if dist.get_rank() == 0 else None
+        group = mesh.data_group
+    full = gather_rows([t.transpose(0, 1)], group)[0].transpose(0, 1)
     return full if dist.get_rank() == 0 else None

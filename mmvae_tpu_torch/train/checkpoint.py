@@ -15,6 +15,15 @@ holds leaves.  It is stored in the named (unpacked) tree under the keys
 resumes a checkpoint written here, and :func:`load_opt_state` reads one
 written by the JAX trainer.  Params-only checkpoints (``opt_state=None``)
 keep ``n_opt_leaves = 0``.
+
+A tensor-parallel run's chain has no clip (``make_optimizer(tp=True)``:
+``(wd, adam, scale)``), so its checkpoint holds Adam at element 1:
+``opt/[1].count``, ``opt/[1].mu[...]``, ``opt/[1].nu[...]``, with that
+chain's treedef (``save_checkpoint(tp=True)``, the layout JAX's TP
+trainer writes).  The arrays are the full ones: the trainer gathers the
+split leaves over the model row before rank 0 writes.  Each layout loads
+only where it was asked for (``load_opt_state(tp=...)``), as in JAX; the
+parameters load from either.
 """
 
 from __future__ import annotations
@@ -86,27 +95,36 @@ def _treedef(tree: dict) -> str:
 _EMPTY = "CustomNode(namedtuple[EmptyState], [])"
 
 
-def _opt_entries(opt_state: dict) -> tuple[dict, str]:
+def _adam_index(tp: bool) -> int:
+    """Adam's element of the chain: 2 behind the clip, 1 without it."""
+    return 1 if tp else 2
+
+
+def _opt_entries(opt_state: dict, tp: bool = False) -> tuple[dict, str]:
     """npz entries and treedef text of a named Adam state ``{count, mu,
-    nu}`` (tensors or numpy)."""
+    nu}`` (tensors or numpy), in the trainer's chain or, with ``tp``, the
+    tensor-parallel one."""
     count, mu, nu = (params_to_numpy(opt_state[k]) for k in ("count", "mu", "nu"))
-    flat = {"opt/[2].count": np.asarray(count, np.int32)}
+    i = _adam_index(tp)
+    flat = {f"opt/[{i}].count": np.asarray(count, np.int32)}
     for m, tree in (("mu", mu), ("nu", nu)):
-        flat.update({f"opt/[2].{m}{_keystr(k)}": v
+        flat.update({f"opt/[{i}].{m}{_keystr(k)}": v
                      for k, v in _flatten(tree).items()})
     t = _treedef(mu)
-    treedef = (f"PyTreeDef(({_EMPTY}, {_EMPTY}, CustomNode(namedtuple"
-               f"[ScaleByAdamState], [*, {t}, {t}]), {_EMPTY}))")
+    adam = f"CustomNode(namedtuple[ScaleByAdamState], [*, {t}, {t}])"
+    head = "" if tp else f"{_EMPTY}, "
+    treedef = f"PyTreeDef(({head}{_EMPTY}, {adam}, {_EMPTY}))"
     return flat, treedef
 
 
 def save_checkpoint(ckpt_dir: str, params: dict, epoch: int, seed: int,
-                    loss_vec=(), opt_state: dict | None = None) -> str:
+                    loss_vec=(), opt_state: dict | None = None,
+                    tp: bool = False) -> str:
     """Atomically write ``<ckpt_dir>/ckpt.npz`` + ``meta.json``: the
     parameters and, when given, the named Adam state ``{count, mu, nu}``
-    (the trainer's ``unpack_opt_state``).  In a multi-process run rank 0
-    alone writes (every rank holds the same state); every rank loads the
-    same file."""
+    (the trainer's ``unpack_opt_state``; ``tp``: of the tensor-parallel
+    chain, full arrays).  In a multi-process run rank 0 alone writes
+    (every rank holds the same state); every rank loads the same file."""
     path = os.path.join(ckpt_dir, "ckpt.npz")
     if not host_role():
         return path
@@ -114,7 +132,7 @@ def save_checkpoint(ckpt_dir: str, params: dict, epoch: int, seed: int,
     flat_p = {f"params/{k}": v
               for k, v in _flatten(params_to_numpy(params)).items()}
     flat_o, treedef = ({}, "") if opt_state is None else _opt_entries(
-        opt_state)
+        opt_state, tp)
     meta = {
         "epoch": int(epoch),
         "seed": int(seed),
@@ -151,24 +169,28 @@ def load_checkpoint(ckpt_dir: str, model) -> tuple[dict, int, list[float]]:
     return params, meta["epoch"] + 1, list(meta["loss_vec"])
 
 
-def load_opt_state(ckpt_dir: str, model) -> dict:
+def load_opt_state(ckpt_dir: str, model, tp: bool = False) -> dict:
     """The Adam state of a checkpoint written by either package, as
     numpy ``{"count", "mu", "nu"}`` in the named tree (convert with
-    :func:`mmvae_tpu_torch.models.nb.adam_from_numpy`).  Raises when the
-    checkpoint holds no optimizer state or one of another structure."""
+    :func:`mmvae_tpu_torch.models.nb.adam_from_numpy`): the trainer's
+    chain, or with ``tp`` the tensor-parallel one (full arrays).  Raises
+    when the checkpoint holds no optimizer state or one of another
+    structure (the other chain's included), as JAX's ``load_checkpoint``
+    does."""
     template = model.init(torch.Generator().manual_seed(0))
+    i = _adam_index(tp)
     with np.load(os.path.join(ckpt_dir, "ckpt.npz")) as data:
         stored = {k for k in data.files if k.startswith("opt/")}
-        want = {"opt/[2].count"} | {f"opt/[2].{m}{_keystr(k)}"
-                                    for m in ("mu", "nu")
-                                    for k in _flatten(template)}
+        want = {f"opt/[{i}].count"} | {f"opt/[{i}].{m}{_keystr(k)}"
+                                       for m in ("mu", "nu")
+                                       for k in _flatten(template)}
         if stored != want:
             raise ValueError(
                 f"{ckpt_dir}: optimizer state structure differs; cannot "
                 f"resume (missing: {sorted(want - stored)[:3]}, "
                 f"unexpected: {sorted(stored - want)[:3]})")
-        out = {"count": np.asarray(data["opt/[2].count"], np.int32)}
+        out = {"count": np.asarray(data[f"opt/[{i}].count"], np.int32)}
         for m in ("mu", "nu"):
             out[m] = _read_tree(data, template,
-                                lambda k, m=m: f"opt/[2].{m}{_keystr(k)}")
+                                lambda k, m=m: f"opt/[{i}].{m}{_keystr(k)}")
     return out

@@ -43,7 +43,8 @@ from ..ops.densify import DeviceCSC, densify_gathered, densify_triplets
 from ..ops.losses import kl_weight_schedule
 from ..ops.nb_fast import (PackedAdam, batch_rand, draw_rand, reduce_step,
                            tree_leaves, tree_unflatten)
-from ..parallel.collectives import pmean
+from ..parallel.collectives import pmean, psum
+from ..parallel.mesh import gather_params
 from ..parallel.multihost import host_role, sharded_batches
 from ..utils.logging import TLOG
 from ..utils.metrics import MetricsLogger
@@ -58,12 +59,15 @@ def as_memory_block(block):
 
 
 def build_dense(block, device: torch.device | str,
-                order: np.ndarray | None = None) -> torch.Tensor:
+                order: np.ndarray | None = None,
+                features: slice | None = None) -> torch.Tensor:
     """The (N, D) count matrix on ``device`` in the block's ``val_dtype``
     (int8, int16 or float32): filled on the host — the native one-pass
     fill when the C++ extension loads, a numpy scatter of the CSC arrays
     otherwise — then ONE host->device copy.  ``order`` keeps only those
-    cells, in that order (a rank's rows of a data-parallel run)."""
+    cells, in that order (a rank's rows of a data-parallel run);
+    ``features`` only those features, cut on the host before the copy (a
+    rank's block under tensor parallelism)."""
     blk = as_memory_block(block)
     rows, vals, indptr = blk.csc_arrays()
     vd = np.dtype(getattr(blk, "val_dtype", np.float32))
@@ -78,22 +82,32 @@ def build_dense(block, device: torch.device | str,
         host[cols, rows] = vals.astype(vd)
         if order is not None:
             host = host[order]
+    if features is not None:
+        host = np.ascontiguousarray(host[:, features])
     return torch.from_numpy(host).to(device)
 
 
 def encode_resident(model, params: dict, data: torch.Tensor, B: int,
-                    chunk: int, prep: dict | None = None) -> tuple:
+                    chunk: int, prep: dict | None = None,
+                    encode_fn=None) -> tuple:
     """(N, width) outputs of the encoder — mean and log-variance, and
     the mixture's assignments — for every row of the device-resident
     ``data`` (N % B == 0), ``chunk`` batches per encoder call.  ``prep``
-    is ``model.prepare_encoder``'s result (made here when None)."""
+    is ``model.prepare_encoder``'s result (made here when None);
+    ``encode_fn(params, x)`` replaces the folded encoder (the tensor-
+    parallel sweep passes the model's ``tp_record_encoder``, on this
+    rank's block of the features)."""
     N = data.shape[0]
     if N % B:
         raise ValueError(f"resident sweep needs N % B == 0 (N={N}, B={B})")
-    if prep is None:
-        prep = model.prepare_encoder(params)
+    if encode_fn is None:
+        if prep is None:
+            prep = model.prepare_encoder(params)
+
+        def encode_fn(p, x):
+            return model.encode_prepared(p, prep, x)
     rows = max(1, chunk) * B
-    outs = [model.encode_prepared(params, prep, data[lo:lo + rows])
+    outs = [encode_fn(params, data[lo:lo + rows])
             for lo in range(0, N, rows)]
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
@@ -145,11 +159,20 @@ class Trainer:
     signature ``(params, x, c, eps, beta)`` replace forward + loss, as
     the models' fused losses do.  ``eps_widths`` are the latent widths of
     the reparameterization draws (NB: ``(mean_latent,
-    overdisp_latent)``).  Counts stay in their resident dtype."""
+    overdisp_latent)``).  Counts stay in their resident dtype.
+
+    Tensor parallelism (JAX's ``tp_shard_map``, train/loop.py:137-270):
+    ``tp_pspecs`` is the model's ``tp_pspecs`` tree, the parameters and
+    the counts are this rank's shards, and the overrides are the models'
+    ``fused_step_*_tp`` (or the vMF-VAE's ``tp_step_loss``) bound to the
+    model row.  The optimizer is then the chain without the clip, and
+    each boot step's gradients (``pmean``-ed over the data column first)
+    are clipped against the norm across the model row (:func:`tp_clip`)."""
 
     def __init__(self, forward, loss_fn, opt, *, eps_widths,
                  kl=(1.0, 1e-2, 0.1), boot_loss_fn=None,
-                 report_loss_override=None, boot_loss_override=None):
+                 report_loss_override=None, boot_loss_override=None,
+                 tp_pspecs=None):
         self.forward, self.loss_fn = forward, loss_fn
         self.boot_loss_fn = boot_loss_fn if boot_loss_fn is not None \
             else loss_fn
@@ -158,7 +181,11 @@ class Trainer:
         self.opt = opt
         self.kl_max, self.kl_min, self.kl_discount = kl
         self.eps_widths = tuple(eps_widths)
-        self.optimizer = PackedAdam(opt.lr, opt.grad_clip, opt.weight_decay)
+        self.tp_pspecs = tp_pspecs
+        self._tp_split = (None if tp_pspecs is None else
+                          [a is not None for a in tree_leaves(tp_pspecs)])
+        self.optimizer = PackedAdam(opt.lr, opt.grad_clip, opt.weight_decay,
+                                    tp=tp_pspecs is not None)
         self._beta = None
 
     @staticmethod
@@ -196,11 +223,17 @@ class Trainer:
         (mmvae_alg.hh:277-311).  Returns (params, opt_state, report).
         ``mesh`` as in the packed steps' ``batch_step``: every leaf's
         gradient (and, with the first, the report) ``pmean``-ed in one
-        flat buffer in ``PackedAdam``'s leaf order."""
+        flat buffer in ``PackedAdam``'s leaf order, over the data column
+        under tensor parallelism (nothing to average with one data
+        index), then clipped across the model row."""
         beta = self._beta_for(epoch_f, x.device)
         xs, cs = x, c
+        reduce_data, group = mesh is not None, None
         if mesh is not None:
             xs, cs, rand = mesh.step_inputs(x, c, rand)
+            if mesh.tp:
+                reduce_data, group = mesh.data_group is not None, \
+                    mesh.data_group
         with torch.no_grad():
             report = self._report(params, x, c, rand["rep_eps"], beta)
         for i in range(self.opt.nboot):
@@ -214,14 +247,36 @@ class Trainer:
             # a leaf the loss does not reach has a zero gradient, as in JAX
             grads = [torch.zeros_like(v) if g is None else g
                      for g, v in zip(grads, leaves)]
-            if mesh is not None:
-                grads, report = reduce_step(grads, report, i)
+            if reduce_data:
+                grads, report = reduce_step(grads, report, i, group)
             with torch.no_grad():
+                if self._tp_split is not None:
+                    grads = tp_clip(grads, self._tp_split, mesh.model_group,
+                                    self.opt.grad_clip)
                 params, opt_state = self.optimizer.update(
                     tree_unflatten(params, grads), opt_state, params)
-        if mesh is not None and self.opt.nboot == 0:
-            report = pmean([report])[0]
+        if reduce_data and self.opt.nboot == 0:
+            report = pmean([report], group)[0]
         return params, opt_state, report
+
+
+def tp_clip(grads: list, split: list, group, max_norm: float) -> list:
+    """JAX's ``_make_tp_clip`` (train/loop.py:244-270): the global norm
+    across the model row is the sum over the row of the split leaves'
+    square sums, plus the replicated leaves' square sum counted once
+    (each summed in leaf order from 0.0); every gradient is scaled by
+    ``max / max(norm, max)``.  Not ``PackedAdam``'s ``g / norm * max``:
+    the bits differ."""
+    zero = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    sq_sh, sq_rp = zero, zero
+    for g, sp in zip(grads, split):
+        if sp:
+            sq_sh = sq_sh + torch.sum(torch.square(g))
+        else:
+            sq_rp = sq_rp + torch.sum(torch.square(g))
+    total = psum([sq_sh.reshape(1)], group)[0].reshape(()) + sq_rp
+    scale = max_norm / torch.clamp_min(torch.sqrt(total), max_norm)
+    return [g * scale for g in grads]
 
 
 def epoch_generator(seed: int, epoch: int, device,
@@ -229,7 +284,9 @@ def epoch_generator(seed: int, epoch: int, device,
     """The generator of one epoch's draws: a pure function of (seed,
     epoch), so a resumed run draws what the uninterrupted one drew.  A
     ``--dp_shard`` rank's is a pure function of (seed, epoch, rank), the
-    counterpart of JAX's ``fold_in(key, axis_index)``."""
+    counterpart of JAX's ``fold_in(key, axis_index)``; under tensor
+    parallelism ``rank`` is the data index, folded in even when the data
+    axis has one index, as JAX folds it."""
     gen = torch.Generator(device=device)
     s = (int(seed) << 20) + int(epoch)
     if rank is not None:
@@ -352,12 +409,15 @@ class StreamedBatches:
     page-locked memory.  One batch a step; JAX's superbatches only group
     XLA dispatches.  ``schedule`` is the cell ids of each batch (default
     the sequential one over blocks of B; a data-parallel rank's slices of
-    the global one, ``parallel.multihost.sharded_batches``)."""
+    the global one, ``parallel.multihost.sharded_batches``); ``features``
+    the features to keep, cut on the host before the copy (a rank's block
+    under tensor parallelism)."""
 
     def __init__(self, data_block, covar_block, B: int, device,
-                 schedule=None):
+                 schedule=None, features: slice | None = None):
         self.data_block, self.covar_block, self.B = (data_block, covar_block,
                                                      B)
+        self.features = features
         self.N, self.device = data_block.ntot(), torch.device(device)
         self.schedule = (sequential_batches(self.N, B) if schedule is None
                          else schedule)
@@ -373,6 +433,8 @@ class StreamedBatches:
         loader = PrefetchLoader(self.data_block, self.covar_block,
                                 self.schedule, depth=2)
         for _, x, c in loader:
+            if self.features is not None:
+                x = np.ascontiguousarray(x[:, self.features])
             yield self._to_device(x), self._to_device(c).float()
 
 
@@ -425,7 +487,7 @@ class DenseEpochRunner:
         if self.mesh is not None and self.mesh.shard:
             return self.fast.draw_rand(
                 epoch_generator(self.seed, epoch, self.device,
-                                self.mesh.rank), self.nbatch,
+                                self.mesh.data_index), self.nbatch,
                 self.mesh.local_batch(self.B))
         return self.fast.draw_rand(
             epoch_generator(self.seed, epoch, self.device), self.nbatch,
@@ -470,42 +532,54 @@ def _env_bytes(name: str, default: int) -> int:
 
 
 def load_dp_batches(data_block, covar_block, opt, device, mesh):
-    """The tier of a data-parallel rank, JAX's rule under a mesh
-    (train/loop.py:1281-1310, 1363-1410): the blocks read this rank's M =
-    B / world rows of every global batch.  Dense-resident epochs only
-    under ``--dp_shard`` with a wrap-free schedule and the all-ones
-    covariate (``--ondevice``, or auto-enabled when the dense matrix fits
-    ``MMVAE_ONDEVICE_BYTES``): the rank holds its rows of every batch,
-    batch after batch.  Otherwise the host-streaming tier over the rank's
-    slices of the global schedule (``parallel.multihost.sharded_batches``);
-    ``--ondevice`` is then logged as not taken, with JAX's line.  Returns
+    """The tier of a data-parallel or tensor-parallel rank, JAX's rule
+    under a mesh (train/loop.py:1281-1420): the blocks read this data
+    index's M = B / ndata rows of every global batch.  Dense-resident
+    epochs need ``--dp_shard`` (or tensor parallelism) and a wrap-free
+    schedule (JAX's ``dp_ondevice_ok`` / ``tp_ondevice_ok``; JAX's
+    one-host condition on TP is a limit of its global arrays, and each
+    rank here fills its own block); they are auto-enabled when the whole
+    dense matrix fits ``MMVAE_ONDEVICE_BYTES``, logged with JAX's line,
+    and then taken only with the all-ones covariate.  The rank holds its
+    rows of every batch, batch after batch, and under tensor parallelism
+    only its block of the features, cut on the host before the copy.
+    Otherwise the host-streaming tier over the data index's slices of the
+    global schedule (``parallel.multihost.sharded_batches``), with JAX's
+    line when on-device epochs were asked for or auto-enabled.  Returns
     what :func:`load_batches` returns."""
     ntot, M = data_block.ntot(), data_block.size()
-    B = M * mesh.world
+    B = M * mesh.ndata
     ondevice = bool(getattr(opt, "ondevice", False))
-    dense_ok = (mesh.shard and ntot % B == 0
-                and getattr(covar_block, "auto_ones", False))
+    dense_ok = mesh.shard and ntot % B == 0
     vd = np.dtype(getattr(data_block, "val_dtype", np.float32))
-    dense_bytes = ntot * data_block.nfeature() * vd.itemsize
+    D = data_block.nfeature()
+    dense_bytes = ntot * D * vd.itemsize
     if (not ondevice and getattr(opt, "auto_ondevice", True) and dense_ok
             and isinstance(data_block, MtxMemoryBlock)):
         if 0 < dense_bytes <= _env_bytes("MMVAE_ONDEVICE_BYTES", 4 << 30):
             TLOG(f"Auto-enabling on-device epochs (~{dense_bytes / 1e6:,.0f}"
                  " MB; --no_auto_ondevice to disable)")
             ondevice = True
-    schedule = sharded_batches(ntot, B, mesh.rank, mesh.world)
-    if ondevice and dense_ok:
-        TLOG(f"Loading data on device (dense-resident, DP layout over "
-             f"{mesh.world} processes, {dense_bytes / mesh.world / 1e6:,.0f}"
-             f" MB {vd.name} a rank)")
-        return (build_dense(data_block, device, np.concatenate(schedule)),
-                None, True)
+    schedule = sharded_batches(ntot, B, mesh.data_index, mesh.ndata)
+    cols = mesh.local_cols(D) if mesh.tp else None
+    if ondevice and dense_ok and getattr(covar_block, "auto_ones", False):
+        share = dense_bytes / mesh.world / 1e6
+        if mesh.tp:
+            TLOG(f"Loading data on device (dense-resident, TP layout over "
+                 f"(data={mesh.ndata}, model={mesh.model}), {share:,.0f} MB "
+                 f"{vd.name} a rank)")
+        else:
+            TLOG(f"Loading data on device (dense-resident, DP layout over "
+                 f"{mesh.world} processes, {share:,.0f} MB {vd.name} a "
+                 f"rank)")
+        return (build_dense(data_block, device, np.concatenate(schedule),
+                            cols), None, True)
     if ondevice:
         TLOG("on-device epochs with a mesh need --dp_shard or "
              "--tensor_parallel, a wrap-free schedule, and the all-ones "
              "covariate; falling back to the host loop")
-    return (StreamedBatches(data_block, covar_block, M, device, schedule),
-            None, False)
+    return (StreamedBatches(data_block, covar_block, M, device, schedule,
+                            cols), None, False)
 
 
 def load_batches(data_block, covar_block, opt, device, mesh=None):
@@ -618,14 +692,31 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
     rows of every global batch; each rank encodes its rows on a recording
     epoch, and rank 0 alone writes the metrics (the recorder and
     ``save_checkpoint`` keep their writes to rank 0 too); every rank
-    returns the same parameters."""
+    returns the same parameters.  Under tensor parallelism ``fast`` is a
+    :class:`Trainer` with ``tp_pspecs``, ``init_params`` and
+    ``init_opt_state`` are this rank's shards, the blocks hold B / ndata
+    rows (each rank keeps its block of the features), and the recorder,
+    ``on_epoch_end`` and the caller get the full trees, gathered over the
+    model row (every rank takes part)."""
     ntot = data_block.ntot()
     B = data_block.size()
     if ntot != covar_block.ntot() or B != covar_block.size():
         raise ValueError("data and covariate blocks differ in cells or "
                          "batch size")
-    world = 1 if mesh is None else mesh.world
+    world = 1 if mesh is None else mesh.ndata
     primary = host_role()
+
+    def full(tree):
+        if mesh is None or not mesh.tp:
+            return tree
+        return gather_params(tree, fast.tp_pspecs, mesh)
+
+    def full_opt(st):
+        if mesh is None or not mesh.tp:
+            return st
+        return {"count": st["count"], "mu": full(st["mu"]),
+                "nu": full(st["nu"])}
+
     batches = sequential_batches(ntot, B * world)
     TLOG(f"Batch size = {B}{f' x {world} processes' if world > 1 else ''}"
          f", Number of batches = {len(batches)}")
@@ -674,8 +765,8 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
                 # after the epoch's clock: the port's recorder writes its
                 # artifacts synchronously
                 with timer.phase("record_submit"):
-                    recorder.ingest(batches, enc)
-                    recorder.update_on_epoch(params, epoch)
+                    recorder.ingest(batches, enc, mesh)
+                    recorder.update_on_epoch(full(params), epoch)
             metrics.log_epoch(
                 epoch, loss=epoch_loss,
                 kl_weight=float(kl_weight_schedule(epoch, *kl)),
@@ -684,7 +775,7 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
                 **{f"time_{k}": round(v, 4)
                    for k, v in timer.summary().items()})
             if on_epoch_end is not None:
-                on_epoch_end(epoch, params, fast.unpack_opt_state(po),
-                             loss_vec)
+                on_epoch_end(epoch, full(params),
+                             full_opt(fast.unpack_opt_state(po)), loss_vec)
     TLOG("Done training")
-    return fast.unpack(q), loss_vec
+    return full(fast.unpack(q)), loss_vec

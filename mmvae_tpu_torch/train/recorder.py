@@ -98,14 +98,16 @@ class LatentRecorder:
             setattr(self, attr, mat)
         return mat
 
-    def ingest(self, batches, enc) -> None:
+    def ingest(self, batches, enc, mesh=None) -> None:
         """A whole epoch of posteriors collected on the device: ``enc``
         is the (mean, lnvar[, extra]) tuple of shape (nbatch, B, width),
         applied in batch order so wrap-around duplicates resolve to the
         last visit.  In a multi-process run every rank passes its
-        (nbatch, B / world, width) rows of each batch of ``batches`` (the
-        global schedule) and rank 0 gathers them."""
-        enc = tuple(local_rows(t) for t in enc)
+        (nbatch, B / ndata, width) rows of each batch of ``batches`` (the
+        global schedule) and rank 0 gathers them (over the data axis of
+        ``mesh`` under tensor parallelism, whose model rows hold the same
+        outputs)."""
+        enc = tuple(local_rows(t, mesh) for t in enc)
         if not host_role():
             return
         attrs = ("mean_out", "lnvar_out", "extra_out")[:len(enc)]

@@ -280,3 +280,73 @@ def test_two_runs_bitwise_equal(runs):
     for k in want:
         assert np.array_equal(got[k], want[k]) if isinstance(
             want[k], np.ndarray) else got[k] == want[k], k
+
+
+@pytest.mark.parametrize("covar", ["file", "auto_ones"])
+def test_dp_tier_log_lines_match_jax(tmp_path, capfd, covar):
+    """The tier of a ``--dp_shard`` rank and its log lines, against the
+    JAX CLI's on the same inputs (two CPU devices there, two ranks' blocks
+    here).  With a covariate file JAX logs "Auto-enabling on-device
+    epochs" (the dense matrix fits) and then, the covariate not being the
+    all-ones one, that it falls back to the host loop; the port's
+    ``load_dp_batches`` logs the same two lines and streams.  With the
+    all-ones covariate both load the dense-resident DP layout."""
+    from mmvae_tpu_torch.data.block import MtxMemoryBlock, create_ones_like
+    from mmvae_tpu_torch.train.config import TrainingOptions
+    from mmvae_tpu_torch.train.loop import StreamedBatches, load_dp_batches
+
+    N = 80  # a wrap-free schedule of 4 batches of 20
+    rng = np.random.default_rng(9)
+    dens = rng.poisson(1.5, size=(D, N)).astype(np.float32)
+    dens[0, ~(dens > 0).any(axis=0)] = 1.0
+    rr, cc = np.nonzero(dens)
+    mtx = str(tmp_path / "m.mtx.gz")
+    write_matrix_market_file(mtx, rr, cc, dens[rr, cc], (D, N))
+    build_mmutil_index(mtx, mtx + ".index")
+    args = ["--mtx", mtx, "--batch_size", "20", "--out",
+            str(tmp_path / "jax"), "--max_epoch", "1", "--dp_shard"]
+    cov = str(tmp_path / "cov.mtx.gz")
+    if covar == "file":
+        write_matrix_market_file(cov, np.zeros(N, np.int64),
+                                 np.arange(N),
+                                 np.full(N, 2.0, np.float32),
+                                 (1, N))
+        args += ["--covar", cov]
+    env = dict(os.environ, JAX_PLATFORMS="cpu", MMVAE_FEATURE_PERM="0",
+               XLA_FLAGS="--xla_force_host_platform_device_count=2",
+               PYTHONPATH=os.pathsep.join(
+                   p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    r = subprocess.run([sys.executable, "-m", "mmvae_tpu.cli.nb_vae",
+                        *args], capture_output=True, text=True, env=env,
+                       timeout=600)
+    assert r.returncode == 0, r.stderr[-2000:]
+
+    def tier_lines(text):
+        keys = ("Auto-enabling", "falling back to the host loop",
+                "Loading data on device")
+        return [ln.split("] ", 1)[1] for ln in text.splitlines()
+                if any(k in ln for k in keys)]
+
+    want = tier_lines(r.stderr)
+    if covar == "auto_ones":
+        create_ones_like(MtxMemoryBlock(mtx, mtx + ".index", 10), cov)
+    build_mmutil_index(cov, cov + ".index")
+    db = MtxMemoryBlock(mtx, mtx + ".index", 10)
+    cb = MtxMemoryBlock(cov, cov + ".index", 10)
+    cb.auto_ones = covar == "auto_ones"
+    capfd.readouterr()
+    source, _, ondevice = load_dp_batches(
+        db, cb, TrainingOptions(dp_shard=True), "cpu",
+        DataMesh(2, 0, torch.device("cpu"), "dp_shard"))
+    got = tier_lines(capfd.readouterr().err)
+    if covar == "file":
+        assert got == want and len(want) == 2
+        assert want[0].startswith("Auto-enabling on-device epochs")
+        assert isinstance(source, StreamedBatches) and not ondevice
+    else:
+        # the same two decisions; the port's dense line also names the
+        # rank's share
+        assert [g.split(" (")[0] for g in got] == [w.split(" (")[0]
+                                                  for w in want]
+        assert "DP layout over 2" in got[1] and "DP layout over 2" in want[1]
+        assert isinstance(source, torch.Tensor) and ondevice

@@ -149,14 +149,34 @@ def test_port_data_block_matches_jax(tmp_path):
         np.testing.assert_array_equal(pb.read(batch), jb.read(batch))
 
 
-def test_other_models_not_ported(served, tmp_path):
-    """Tensor-parallel serving is not ported, for any model (``--model
-    vmf``, once refused, serves: tests/test_torch_vmf_train.py)."""
+def test_other_models_not_ported(served, tmp_path, capfd):
+    """Tensor-parallel serving (refused until it was ported; its
+    two-process sweeps are tests/test_torch_tp_cli.py's) in one process:
+    ``--tensor_parallel 2`` raises JAX's error that 2 does not divide the
+    one device, for ``--model nb`` and ``--model vmf`` (D = 30); with
+    ``--tensor_parallel 4``, which does not divide D, it logs JAX's "TP
+    serving skipped" line and serves on one device, the bits of the run
+    without the flag."""
+    from mmvae_tpu_torch.models.vmf import VMFVAE
+    from mmvae_tpu_torch.train.checkpoint import save_checkpoint
+
+    vck = str(tmp_path / "vck")
+    save_checkpoint(vck, VMFVAE(30, 1).init(torch.Generator().manual_seed(0)),
+                    0, 0)
     args = _port_args(served, str(tmp_path / "x"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_encode.main(args + ["--model", "vmf", "--tensor_parallel", "2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="does not divide 1 devices"):
+        port_encode.main(args + ["--model", "vmf", "--checkpoint", vck,
+                                 "--tensor_parallel", "2"])
+    with pytest.raises(ValueError, match="does not divide 1 devices"):
         port_encode.main(args + ["--tensor_parallel", "2"])
+    capfd.readouterr()
+    assert port_encode.main(args + ["--tensor_parallel", "4"]) == 0
+    assert ("TP serving skipped: D=30 not divisible by --tensor_parallel 4"
+            in capfd.readouterr().err)
+    assert port_encode.main(_port_args(served, str(tmp_path / "y"))) == 0
+    for key in ("mean", "lnvar"):
+        assert np.array_equal(read_data_file(f"{tmp_path}/x.mu_{key}.gz"),
+                              read_data_file(f"{tmp_path}/y.mu_{key}.gz"))
 
 
 def test_build_dense_numpy_fill_matches_native(served, monkeypatch):

@@ -227,17 +227,27 @@ def test_device_cuda_without_gpu_fails(runs, tmp_path):
                                    ["--tensor_parallel", "2"]])
 def test_unported_options_raise(runs, tmp_path, flags, capsys,
                                 monkeypatch):
-    """``--tensor_parallel 2`` raises naming its ROADMAP.md item; the
-    data-parallel flags as
-    :func:`tests.test_torch_multihost.check_dp_flag` says."""
+    """The data-parallel flags as
+    :func:`tests.test_torch_multihost.check_dp_flag` says;
+    ``--tensor_parallel`` (refused until it was ported; its runs are
+    tests/test_torch_tp_*.py's) raises JAX's own errors before anything
+    is written: N not dividing D = 30, a hidden mu decoder (not the fused
+    step), and N not dividing the processes (one here), naming the flags
+    that start ranks."""
     tmp, common = runs
     if flags[0] != "--tensor_parallel":
         check_dp_flag(nb_vae.main, common, tmp, tmp_path, flags, capsys,
                        monkeypatch, n_outputs=29)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        nb_vae.main(common + ["--out", str(tmp_path / "x"), "--device",
-                              "cpu", *flags])
+    args = common + ["--out", str(tmp_path / "x"), "--device", "cpu"]
+    with pytest.raises(ValueError, match="must divide the feature dim 30"):
+        nb_vae.main(args + ["--tensor_parallel", "4"])
+    with pytest.raises(ValueError, match="needs the fused step path"):
+        nb_vae.main(args + [*flags, "--mean_decoding", "4"])
+    with pytest.raises(ValueError, match="--num_hosts, --host_id and "
+                                         "--coordinator"):
+        nb_vae.main(args + flags)
+    assert not os.listdir(tmp_path)
 
 
 def test_beyond_dense_budget_raises(runs, tmp_path, monkeypatch, capfd):

@@ -293,16 +293,23 @@ def test_device_cuda_without_gpu_fails(runs, tmp_path):
                                    ["--num_hosts", "2"]])
 def test_unported_options_raise(runs, tmp_path, flags, capsys,
                                 monkeypatch):
-    """``--tensor_parallel 2`` raises naming its ROADMAP.md item, before
-    anything is written; the data-parallel flags as
-    :func:`tests.test_torch_multihost.check_dp_flag` says."""
+    """The data-parallel flags as
+    :func:`tests.test_torch_multihost.check_dp_flag` says;
+    ``--tensor_parallel`` (refused until it was ported; its runs are
+    tests/test_torch_tp_*.py's) raises JAX's own errors before anything
+    is written: N not dividing D = 30, and N not dividing the processes
+    (one here), naming the flags that start ranks, at any architecture
+    (the vMF-VAE's TP step needs no fused path)."""
     tmp, common = runs
     if flags[0] != "--tensor_parallel":
         check_dp_flag(vmf_vae.main, common, tmp, tmp_path, flags, capsys,
                        monkeypatch, n_outputs=17)
         return
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 13"):
-        vmf_vae.main(common + ["--out", str(tmp_path / "x"), "--device",
-                               "cpu", *flags])
+    args = common + ["--out", str(tmp_path / "x"), "--device", "cpu"]
+    with pytest.raises(ValueError, match="must divide the feature dim 30"):
+        vmf_vae.main(args + ["--tensor_parallel", "4"])
+    for arch in ([], HIDDEN):
+        with pytest.raises(ValueError, match="--num_hosts, --host_id and "
+                                             "--coordinator"):
+            vmf_vae.main(args + flags + arch)
     assert not os.listdir(tmp_path)

@@ -160,6 +160,16 @@ def test_device_cuda_without_gpu_fails(runs, tmp_path):
     assert not os.listdir(tmp_path)
 
 
+def _annotation(tmp):
+    """``--annot`` / ``--row`` files over the D genes: 3 labels, a third of
+    the genes uncovered."""
+    (tmp / "rows.txt").write_text("".join(f"gene{i}\n" for i in range(D)))
+    (tmp / "annot.txt").write_text(
+        "".join(f"gene{i} T{i % 3}\n" for i in range(20)))
+    return ["--annot", str(tmp / "annot.txt"), "--row",
+            str(tmp / "rows.txt")]
+
+
 @pytest.mark.parametrize("flags,expect", [
     (["--no_fused"], "forward + composite loss"),
     (["--mean_encoding", "8"], "v2 step kernels"),
@@ -169,10 +179,14 @@ def test_device_cuda_without_gpu_fails(runs, tmp_path):
     (["--tensor_parallel", "2"], "item 13")])
 def test_unported_options_raise(runs, tmp_path, capsys, flags, expect,
                                 monkeypatch):
-    """``--tensor_parallel 2`` raises naming its ROADMAP.md item; the
-    generic step's flags (once refused) train one epoch on the route the
-    JAX CLI takes, logged in one ``Step:`` line; ``--dp_shard`` (once
-    refused) as :func:`tests.test_torch_multihost.check_dp_flag` says."""
+    """The generic step's flags (once refused) train one epoch on the
+    route the JAX CLI takes, logged in one ``Step:`` line; ``--dp_shard``
+    (once refused) as :func:`tests.test_torch_multihost.check_dp_flag`
+    says; ``--tensor_parallel`` (once refused; its runs are
+    tests/test_torch_tp_*.py's) raises JAX's own errors in one process,
+    for the joint model and the mixture: N not dividing D = 30, a hidden
+    mu decoder, N not dividing the processes; and ``encode
+    --tensor_parallel 2`` in one process raises JAX's device error."""
     tmp, common = runs
     args = common + ["--out", str(tmp_path / "x"), "--device", "cpu",
                      "--max_epoch", "1", *flags]
@@ -180,9 +194,17 @@ def test_unported_options_raise(runs, tmp_path, capsys, flags, expect,
         check_dp_flag(vmfnb_vae.main, common, tmp, tmp_path, flags, capsys,
                        monkeypatch, n_outputs=29)
     elif expect == "item 13":
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md Queue 1 {expect}"):
-            vmfnb_vae.main(args)
+        annot = _annotation(tmp)
+        for extra in ([], annot):
+            with pytest.raises(ValueError,
+                               match="must divide the feature dim 30"):
+                vmfnb_vae.main(args[:-2] + ["--tensor_parallel", "4"]
+                               + extra)
+            with pytest.raises(ValueError, match="needs the fused step"):
+                vmfnb_vae.main(args + ["--mean_decoding", "4"] + extra)
+            with pytest.raises(ValueError, match="--num_hosts, --host_id "
+                                                 "and --coordinator"):
+                vmfnb_vae.main(args + extra)
     else:
         assert vmfnb_vae.main(args) == 0
         steps = [ln for ln in capsys.readouterr().err.splitlines()
@@ -191,7 +213,9 @@ def test_unported_options_raise(runs, tmp_path, capsys, flags, expect,
         scores = [float(v) for v in read_vector_file(
             str(tmp_path / "x.scores.gz"))]
         assert len(scores) == 1 and np.isfinite(scores[0])
-    with pytest.raises(NotImplementedError, match="item 13, multi-GPU"):
-        port_encode.main(["--model", "vmf", "--mtx", common[1],
-                          "--checkpoint", "none", "--out", "x",
-                          "--tensor_parallel", "2"])
+    if expect == "item 13":
+        with pytest.raises(ValueError, match="does not divide 1 devices"):
+            port_encode.main(["--model", "vmfnb", "--mtx", common[1],
+                              "--checkpoint", str(tmp / "pck"), "--out",
+                              str(tmp_path / "enc"), "--batch_size", "40",
+                              "--device", "cpu", "--tensor_parallel", "2"])
