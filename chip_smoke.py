@@ -36,8 +36,8 @@ exits non-zero without the final line):
    route on the card, with the same random draws;
 8. the trainer CLI end to end (the training main path): ``nb_vae`` on
    phase 4's synthetic matrix for 2 epochs with recording and a
-   checkpoint, every kernel's launch count > 0, then ``--resume`` for one
-   more epoch;
+   checkpoint, every kernel's launch count > 0, the genes clustered
+   (phase 42), then ``--resume`` for one more epoch;
 9. full-width training: two epochs of the dense-resident epoch runner
    over the first 40,000 of phase 5's 100,000 x 20,000 int8 counts (a
    depth cut for the time limit), with a profile of 20 batches;
@@ -196,11 +196,12 @@ exits non-zero without the final line):
     ``--data_mode stream`` and with ``--no_auto_ondevice`` (budgets set
     through ``MMVAE_DENSE_BYTES``, ``MMVAE_ROTATE``, ``MMVAE_SHARD_BYTES``,
     ``MMVAE_SHARD_LAYOUT`` and ``MMVAE_PIN_BYTES``, scaled to the depth):
-    each run's scores.gz, artifacts and checkpoint equal phase 8's
-    dense-resident run bitwise, every NB kernel launched; ``--resume``
-    from a rotating run's epoch-1 checkpoint equal to the uninterrupted
-    run; ``vmfnb_vae``, ``vmfnb_vae --annot --row`` and ``vmf_vae`` on
-    rotation (csr) equal to phases 12, 16 and 33 bitwise;
+    each run's scores.gz, artifacts and checkpoint equal phase 42's
+    unclustered dense-resident run (the tiers never cluster) bitwise,
+    every NB kernel launched; ``--resume`` from a rotating run's epoch-1
+    checkpoint equal to the uninterrupted run; ``vmfnb_vae``,
+    ``vmfnb_vae --annot --row`` and ``vmf_vae`` on rotation (csr) equal
+    to phase 42's unclustered runs and phase 33's run bitwise;
 36. the rotating tier at depth: phase 9's 40,000 cells copied to a host
     CSC, 8 shards in the layout the store picks, 4 of them resident, the
     NB packed step for 2 epochs from phase 9's seed and initialization:
@@ -215,7 +216,8 @@ exits non-zero without the final line):
     (dense-resident, DP layout) on phase 4's matrix, 2 epochs with
     recording and a checkpoint, each run twice and resumed from its
     epoch-1 checkpoint (bitwise equal), ``--data_parallel`` within
-    :data:`DP_TOL` of phase 8's single-process run; then one epoch each
+    :data:`DP_TOL` of phase 42's unclustered single-process run (a
+    data-parallel run never clusters); then one epoch each
     of ``vmfnb_vae``, ``vmfnb_vae --annot --row``, ``vmf_vae`` and ``nb_vae
     --mean_decoding 16`` under ``--dp_shard``; on each rank every kernel
     of each path launched, every launch at 50 rows and at a shape (rows,
@@ -245,18 +247,36 @@ exits non-zero without the final line):
     four checkpoints, no kernel launched, against ``encode`` in one
     process within phase 12's tolerance (the mixture's assignments equal
     but for near-ties);
-41. tensor parallel at full width: phase 9's NB model and 40,000 cells
-    under ``--tensor_parallel 2``'s step, 2 epochs: epoch-2 cells/sec
+41. tensor parallel at full width: phase 9's NB model and the first
+    10,000 of its cells under ``--tensor_parallel 2``'s step, 2 epochs: epoch-2 cells/sec
     beside phase 9's, each rank's device idle share, the collectives' ms
     a batch (K1, K6, K6p, K2, K2p and K3 at the TP launch shape, B =
     100, D = 10,000, int8, are timed against their plain versions at the
-    close of phase 30).
+    close of phase 30);
+42. feature clustering (``train.loop.cluster_features``), after phase 33:
+    ``benchmarks.perm_probe`` on phase 4's matrix (its hot genes; the
+    share of 64-column regime tiles a batch in each lgamma regime in
+    input and cold-first order; K2, K6 and K3 on its first batches in
+    both orders, each held against its plain version at phase 6's
+    tolerance, device ms by CUDA graph replays); ``nb_vae``, ``vmfnb_vae``
+    and ``vmfnb_vae --annot --row`` with ``MMVAE_FEATURE_PERM=0``, phase
+    8, 12 and 16's flags (the references of phases 35 and 37), against
+    which phase 8, 12 and 16's clustered runs hold within
+    :data:`CLUSTER_TOL` every output that the packed step and
+    ``--no_fused_step`` (both unclustered) agree on within it, the rest
+    reported beside that route gap; each
+    clustered model run for one epoch with a checkpoint and resumed to
+    two, equal to phase 8, 12 or 16's run bitwise, every kernel of its
+    path launched; then ``train_vae_model``
+    with the recorder's background writer and without (4 epochs,
+    recording every 2, in turns off / on / on / off): the same
+    decompressed files, the epochs' cells/sec and ``time_record_submit``.
 
 Each main path (phases 4, 8, 12, 16, the runs of 20 and 24, the
 probe's run in 26, the wide trainer of 31, the vMF-VAE's runs of 32,
-33, 34 and 5, each tier's run in 35 and 36, and each run of 37-41 on
-each rank) is driven with every launch counter set to 0 just before it
-and read just after.
+33, 34 and 5, each tier's run in 35 and 36, each run of 37-41 on
+each rank, and each trainer run of 42) is driven with every launch
+counter set to 0 just before it and read just after.
 The last two lines are the kernels' JSON record (with each kernel's
 bound at the main path's shape) and ``{"ok": true, "device": {...}}``.
 """
@@ -285,12 +305,13 @@ N_CLI = 4000        # cells of the synthetic CLI matrix
 N_FULL = 100_000    # cells of the full-size phases
 # cells the full-size training phases walk: their depth is cut to keep
 # the script well inside its time limit on a slow host; the NB packed
-# step (9) takes the longer walk, which phases 36, 38 and 41 repeat on
-# the rotating tier, two DP ranks and two TP ranks
+# step (9) takes the longer walk, which phases 36 and 38 repeat on the
+# rotating tier and two DP ranks
 N_EARLIER = 40_000
-# the joint and mixture models and the generic steps (13, 17, 21, 25);
-# their cells/sec are per cell, so phase 21 still prices the generic NB
-# step against phase 9's packed one
+# the joint and mixture models and the generic steps (13, 17, 21, 25)
+# and the TP step (41, cut from 40,000 to make room for phase 42); their
+# cells/sec are per cell, so phases 21 and 41 still price their steps
+# against phase 9's packed one
 N_SHORT = 10_000
 # the vMF-VAE (34): its loss at D = 20,000 falls by about one float32
 # ulp of its value over two epochs of this walk
@@ -966,6 +987,27 @@ def value_terms(x, zc, zn, depth, l, W, R, C, Rn, joint=False):
                          Wd[base + Rn + 1] if joint else None, joint)
 
 
+def step_kernel_bounds(x, zc, zn, depth, W, widths) -> dict:
+    """S of each output of K2 (grad-only), K6 (with lgamma(x + 1)) and K3
+    (fed the plain K2's row sums), the normaliser from the plain K1:
+    phase 6's bounds, at ``benchmarks.perm_probe.kernel_calls``'
+    operands."""
+    from mmvae_tpu_torch.ops import nb_step as ns
+
+    R, C, Rn = widths
+    lr = ns.lse_ref(zc, W, R, C)
+    rs = ns.valgrad_ref(x, zc, zn, depth, lr, W, R, C, Rn)[1]
+    base = R + C + 1
+    with torch.no_grad():
+        terms = ns._terms(x.double(), ns._h(zc.double(), W.double(), R + C)
+                          - lr.double(), ns._nupre(zn.double(), W.double(),
+                                                   base, Rn),
+                          depth.double(), True)
+    return {"nb_value": (terms.abs().sum(),),
+            "nb_valgrad": valgrad_bounds(x, zc, zn, depth, lr, W, R, C, Rn),
+            "nb_finish": finish_bounds(zc, lr, rs, W, R, C)}
+
+
 def phase_train_kernels(card):
     from mmvae_tpu_torch.ops import enc_kernel as enc
     from mmvae_tpu_torch.ops import nb_step as ns
@@ -997,18 +1039,11 @@ def phase_train_kernels(card):
                           lambda: ns.finish_ref(zc, lr, rs_ref, W, R, C)),
         }
         xd = x.double()
-        base = R + C + 1
-        with torch.no_grad():
-            terms = ns._terms(xd, ns._h(zc.double(), W.double(), R + C)
-                              - lr.double(), ns._nupre(zn.double(),
-                              W.double(), base, Rn), depth.double(), True)
         bounds = {
             "count_encode_bwd": (g1.double().abs().T @ torch.log1p(xd),
                                  g2.double().abs().T @ xd.abs()),
             "nb_lse": (1.0 + lr.double().abs(),),
-            "nb_value": (terms.abs().sum(),),
-            "nb_valgrad": valgrad_bounds(x, zc, zn, depth, lr, W, R, C, Rn),
-            "nb_finish": finish_bounds(zc, lr, rs_ref, W, R, C),
+            **step_kernel_bounds(x, zc, zn, depth, W, (R, C, Rn)),
         }
         parts = []
         for name, (kern, plain) in calls.items():
@@ -3144,6 +3179,9 @@ def phase_train_cli(card, tmp, mtx, kind="nb", arch=None, tag=None,
                              f"launched one off its path: {launches}")
     if "dense-resident" not in err:
         raise AssertionError(f"{name} did not run dense-resident")
+    if ("Feature clustering: " in err) != (kind != "vmf"):
+        raise AssertionError(f"{name}: feature clustering "
+                             f"{'ran' if kind == 'vmf' else 'did not run'}")
     if route is not None and route not in step_line(err):
         raise AssertionError(f"{name}: route {step_line(err)!r}")
     scores = np.loadtxt(out + ".scores.gz", ndmin=1)
@@ -3673,18 +3711,20 @@ def phase_tiers(card, tmp, mtx):
     and a checkpoint, on every tier beyond the dense-resident one (ELL,
     rotation in the dense, ell and csr layouts with 4 or more shards, with
     half the shards resident, ``--data_mode stream``, ``--no_auto_ondevice``),
-    each equal to phase 8's dense-resident run bitwise (scores.gz, the
-    artifacts' text, the checkpoint's arrays) with every NB kernel
-    launched; ``--resume`` from a rotating run's epoch-1 checkpoint equal
-    to the uninterrupted run; then ``vmfnb_vae``, ``vmfnb_vae --annot
-    --row`` and ``vmf_vae`` on rotation (csr) against phases 12, 16 and
-    33's dense-resident runs (the vMF-VAE launching no kernel)."""
+    each equal to phase 42's unclustered dense-resident run
+    (``MMVAE_FEATURE_PERM=0``: the tiers never cluster) bitwise
+    (scores.gz, the artifacts' text, the checkpoint's arrays) with every
+    NB kernel launched; ``--resume`` from a rotating run's epoch-1
+    checkpoint equal to the uninterrupted run; then ``vmfnb_vae``,
+    ``vmfnb_vae --annot --row`` and ``vmf_vae`` on rotation (csr) against
+    phase 42's unclustered runs and phase 33's dense-resident run (the
+    vMF-VAE launching no kernel)."""
     from mmvae_tpu_torch.cli import nb_vae, vmf_vae, vmfnb_vae
 
     tag = "[phase 35]"
     args = ["--mtx", mtx, "--batch_size", str(B_TRAIN), "--device", DEV,
             "--recording", "2", "--max_epoch", "2"]
-    want = run_outputs(os.path.join(tmp, "train"))
+    want = run_outputs(os.path.join(tmp, "train_flat"))
     t0 = time.time()
     for i, (label, env, flags, line) in enumerate(TIER_RUNS):
         got, launches, tier, rate = tier_run(
@@ -3694,7 +3734,8 @@ def phase_tiers(card, tmp, mtx):
             raise AssertionError(f"{label}: outputs differ from the "
                                  f"dense-resident run")
         log(f"{tag} [{card}] nb_vae on {label}: {tier}; {len(got)} outputs "
-            f"equal phase 8's dense-resident run bitwise; launches "
+            f"equal phase 42's unclustered dense-resident run bitwise; "
+            f"launches "
             f"{ {k: launches[k] for k in NB_PATH} }; epoch 2 {rate} "
             f"cells/sec")
     # a checkpoint written while the next epoch's first shard is copied
@@ -3721,7 +3762,8 @@ def phase_tiers(card, tmp, mtx):
         got, launches, tier, rate = tier_run(
             cli, args + extra, os.path.join(tmp, f"tier_{kind}"), CSR_ENV,
             "csr layout", PATHS[kind])
-        if not same_outputs(got, run_outputs(os.path.join(tmp, kind))):
+        ref = kind if kind == "vmf" else kind + "_flat"
+        if not same_outputs(got, run_outputs(os.path.join(tmp, ref))):
             raise AssertionError(f"{kind} on rotation differs from its "
                                  f"dense-resident run")
         done = ({k: launches[k] for k in PATHS[kind]} if PATHS[kind]
@@ -3729,11 +3771,279 @@ def phase_tiers(card, tmp, mtx):
         name = {"joint": "vmfnb_vae", "mixture": "vmfnb_vae --annot --row",
                 "vmf": "vmf_vae"}[kind]
         log(f"{tag} [{card}] {name} on rotation (csr): {tier}; "
-            f"{len(got)} outputs equal phase "
-            f"{PHASE[kind]['cli']}'s dense-resident run bitwise; launches "
+            f"{len(got)} outputs equal "
+            + ("phase 33's" if kind == "vmf" else "phase 42's unclustered")
+            + f" dense-resident run bitwise; launches "
             f"{done}; epoch 2 {rate} cells/sec")
     log(f"{tag} [{card}] {len(TIER_RUNS) + 5} trainer runs in "
         f"{time.time() - t0:.1f}s")
+
+
+# ----------------------------------------------------------------------
+# feature clustering (phase 42)
+# ----------------------------------------------------------------------
+
+# a clustered run against its MMVAE_FEATURE_PERM=0 run, at the JAX
+# suite's tolerances (tests/test_feature_perm.py): the sums over the
+# genes reassociate, nothing else changes.  An output is held where the
+# unclustered code itself determines it to within them: where its packed
+# step and its --no_fused_step route (another order of the same sums, on
+# the same draws) agree within them.  The rest (the joint model's kappa
+# head, whose float32 gradient is mostly cancellation, and the
+# mixture's posteriors, ~40x the tolerance apart between the two routes
+# on the card) random-walk under any reordering of a sum: they are
+# reported beside that route gap
+CLUSTER_TOL = ("scores |c - u| <= 2e-4 |u|; every artifact and checkpoint "
+               "parameter |c - u| <= 2e-3 |u| + 2e-4; .clust.gz >= 95% "
+               "equal; each held where packed and --no_fused_step, both "
+               "unclustered, agree within it")
+# an output's limit in output_errors' units
+CLUSTER_LIMIT = {".scores": 2e-4, ".clust": 0.05}
+# (model, the output name of its phase 8, 12 or 16 run)
+CLUSTER_RUNS = (("nb", "train"), ("joint", "joint"), ("mixture", "mixture"))
+PROBE_BATCHES = 4  # the batches of phase 4's matrix phase 42 times K2, K6, K3 on
+
+
+def output_errors(got: dict, want: dict) -> dict:
+    """{output: err/tol} of a run's :func:`run_outputs` against another's:
+    the scores' largest |a - u| / |u| (``.scores``), the share of unequal
+    entries of ``.clust.gz`` (``.clust`` keys), and for every other
+    artifact and checkpoint parameter the largest |a - u| / (2e-3 |u| +
+    2e-4); the Adam state and the checkpoint's bookkeeping are left
+    out."""
+    if got.keys() != want.keys():
+        raise AssertionError(f"outputs differ: "
+                             f"{sorted(got.keys() ^ want.keys())}")
+    out = {}
+    for k, u in want.items():
+        if isinstance(u, bytes):
+            a = np.loadtxt(io.BytesIO(got[k]), ndmin=1)
+            u = np.loadtxt(io.BytesIO(u), ndmin=1)
+        elif k.startswith("params/"):
+            a = got[k]
+        else:
+            continue
+        if a.shape != u.shape:
+            raise AssertionError(f"{k}: shape {a.shape} vs {u.shape}")
+        if k == ".scores":
+            out[k] = float(np.max(np.abs(a - u) / np.abs(u)))
+        elif k.endswith(".clust"):
+            out[k] = float(np.mean(a != u))
+        else:
+            out[k] = float(np.max(np.abs(a - u) / (2e-3 * np.abs(u) + 2e-4),
+                                  initial=0.0))
+    return out
+
+
+def probe_clustering(card, mtx):
+    """Phase 42's ``benchmarks.perm_probe`` on phase 4's matrix: the hot
+    genes, the regime shares a batch in input and cold-first order, and
+    K2, K6 and K3 on the first :data:`PROBE_BATCHES` batches in both
+    orders (random decoder operands from the seed, the same in both
+    orders, W's columns permuted with the counts), each held against its
+    plain version at phase 6's tolerance, device ms by CUDA events around
+    CUDA graph replays (``perm_probe.device_ms``)."""
+    from mmvae_tpu_torch.benchmarks import perm_probe as pp
+    from mmvae_tpu_torch.data.block import MtxMemoryBlock
+    from mmvae_tpu_torch.train.loop import build_dense, hot_genes
+
+    tag = "[phase 42]"
+    x = build_dense(MtxMemoryBlock(mtx, mtx + ".index", B_TRAIN,
+                                   count_dtype="auto"), DEV)
+    hot = hot_genes(x)
+    log(f"{tag} [{card}] perm_probe on phase 4's {N_CLI} x {D_GENES} "
+        f"{str(x.dtype).replace('torch.', '')} matrix: {int(hot.sum())} hot "
+        f"genes (a count > 7), {100 * hot.mean():.2f}%")
+    res = {}
+    for name, o in (("input", np.arange(D_GENES)),
+                    ("cold-first", np.argsort(hot, kind="stable"))):
+        oi = torch.from_numpy(o).to(DEV)
+        xo = x.index_select(1, oi)
+        shares = pp.regime_shares(xo, B_TRAIN)
+        g = torch.Generator(device=DEV).manual_seed(SEED + 42)
+        ms = dict.fromkeys(("nb_valgrad", "nb_value", "nb_finish"), 0.0)
+        worst = dict.fromkeys(ms, 0.0)
+        for b in range(PROBE_BATCHES):
+            rows = slice(b * B_TRAIN, (b + 1) * B_TRAIN)
+            zc, zn, depth, W = pp.batch_operands(x[rows], g)
+            W = W.index_select(1, oi).contiguous()
+            xb = xo[rows]
+            bounds = step_kernel_bounds(xb, zc, zn, depth, W, pp.WIDTHS)
+            for k, (kern, plain) in pp.kernel_calls(xb, zc, zn, depth,
+                                                    W).items():
+                got, want = kern(), plain()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                for gt, wt, S in zip(got, want, bounds[k]):
+                    _, q = ratio(gt, wt, S)
+                    if not q <= 1.0:
+                        raise AssertionError(f"{tag} {k} in {name} order, "
+                                             f"batch {b}: err/tol {q:.3g}")
+                    worst[k] = max(worst[k], q)
+                ms[k] += pp.device_ms(kern) / PROBE_BATCHES
+        res[name] = ms
+        log(f"{tag} [{card}] {name} order: {shares['pairs']} (batch, "
+            f"64-column tile) pairs of B = {B_TRAIN}: "
+            + ", ".join(f"{r} {100 * shares[r]:.2f}%" for r in pp.REGIMES)
+            + f"; kernel device ms a call on batches 1-{PROBE_BATCHES} (CUDA "
+            f"graph replays), err/tol against plain at phase 6's tolerance: "
+            + "; ".join(f"{k} {v:.4f} ({worst[k]:.3g})"
+                        for k, v in ms.items()))
+    log(f"{tag} [{card}] cold-first / input, kernel ms: " + ", ".join(
+        f"{k} {res['cold-first'][k] / res['input'][k]:.3f}"
+        for k in res["input"]))
+
+
+def writer_runs(card, tmp, mtx):
+    """Phase 42's recorder with its background writer and without:
+    ``train_vae_model`` as ``nb_vae`` drives it (packed step, clustered,
+    dense-resident) on phase 4's matrix, 4 epochs recording every 2, in
+    turns off / on / on / off; every run's decompressed files equal the
+    first's."""
+    from mmvae_tpu_torch.data.block import MtxDataBlock, MtxMemoryBlock
+    from mmvae_tpu_torch.models.nb import NBVAE
+    from mmvae_tpu_torch.ops.nb_fast import NBFastStep
+    from mmvae_tpu_torch.train.config import TrainingOptions
+    from mmvae_tpu_torch.train.loop import train_vae_model
+    from mmvae_tpu_torch.train.recorder import LatentRecorder
+
+    tag = "[phase 42]"
+    cov = os.path.join(tmp, "train.covar.mtx.gz")  # phase 8's
+    data = MtxMemoryBlock(mtx, mtx + ".index", B_TRAIN, count_dtype="auto")
+    covar = MtxDataBlock(cov, cov + ".index", B_TRAIN)
+    covar.auto_ones = True
+    os.makedirs(os.path.join(tmp, "writer"))
+    files, rows = [], {False: [], True: []}
+    for i, on in enumerate((False, True, True, False)):
+        out = os.path.join(tmp, "writer", f"run{i}")
+        model = NBVAE(data_dim=D_GENES)
+        topt = TrainingOptions(max_epoch=4, recording=2, seed=SEED)
+        rec = LatentRecorder(out, 4, N_CLI, encode_fn=model.encode_mu,
+                             async_writes=on)
+        reset_launches()
+        train_vae_model(NBFastStep(model, topt), rec, data, covar, topt,
+                        model.init(torch.Generator().manual_seed(SEED),
+                                   device=DEV), DEV,
+                        metrics_path=out + ".metrics.jsonl",
+                        feature_perm=True)
+        launches = read_launches()
+        if min(launches[k] for k in NB_PATH) < 1:
+            raise AssertionError(f"{tag} writer run {i}: {launches}")
+        got = {}
+        for f in sorted(os.listdir(os.path.dirname(out))):
+            if f.startswith(f"run{i}_") and f.endswith(".gz"):
+                with gzip.open(os.path.join(os.path.dirname(out), f)) as fh:
+                    got[f[len(f"run{i}"):]] = fh.read()
+        files.append(got)
+        with open(out + ".metrics.jsonl") as fh:
+            rows[on].append([json.loads(ln) for ln in fh])
+    if len(files[0]) != 2 * 28 or any(f != files[0] for f in files):
+        raise AssertionError(f"{tag} the writer's files differ from the "
+                             f"synchronous recorder's")
+
+    def col(on, key, epoch):
+        return "/".join(f"{r[epoch].get(key, 0.0):,.4g}" for r in rows[on])
+
+    log(f"{tag} [{card}] train_vae_model (nb_vae's packed step, clustered) "
+        f"on phase 4's matrix, 4 epochs recording epochs 2 and 4, writer off"
+        f" / on / on / off: {len(files[0])} decompressed files equal in "
+        f"every run; " + "; ".join(
+            f"writer {'on' if on else 'off'} (two runs): cells/sec by epoch "
+            + ", ".join(col(on, "cells_per_sec", e) for e in range(4))
+            + f"; time_record_submit epoch 2 {col(on, 'time_record_submit', 1)}"
+            f" s, epoch 4 {col(on, 'time_record_submit', 3)} s; time_step "
+            f"epoch 3 {col(on, 'time_step', 2)} s" for on in (False, True)))
+
+
+def phase_feature_perm(card, tmp, mtx):
+    """Phase 42: :func:`probe_clustering`; the unclustered references of
+    ``nb_vae``, ``vmfnb_vae`` and ``vmfnb_vae --annot --row``
+    (``MMVAE_FEATURE_PERM=0``, phase 8, 12 and 16's flags; phases 35 and
+    37 compare with them) and of ``--no_fused_step``; phase 8, 12 and
+    16's clustered runs match the first within :data:`CLUSTER_TOL` on
+    every output on which the two agree within it (the rest reported
+    beside their gap); each clustered model for one epoch with a
+    checkpoint, resumed to two and equal to phase 8, 12 or 16's run
+    bitwise; every run of the packed step with every kernel of its path
+    launched; then :func:`writer_runs`."""
+    from mmvae_tpu_torch.cli import nb_vae, vmfnb_vae
+
+    tag = "[phase 42]"
+    t0 = time.time()
+    probe_clustering(card, mtx)
+    annot, row = write_annotation(tmp, marker_label())
+    for kind, name in CLUSTER_RUNS:
+        cli = nb_vae if kind == "nb" else vmfnb_vae
+        label = {"nb": "nb_vae", "joint": "vmfnb_vae",
+                 "mixture": "vmfnb_vae --annot --row"}[kind]
+        args = ["--mtx", mtx, "--batch_size", str(B_TRAIN), "--device", DEV,
+                "--recording", "2"]
+        if kind == "mixture":
+            args += ["--annot", annot, "--row", row]
+        out = os.path.join(tmp, name)
+        errs = {}
+        for run, env, extra in (
+                ("_flat", {"MMVAE_FEATURE_PERM": "0"}, ["--max_epoch", "2"]),
+                ("_gen", {"MMVAE_FEATURE_PERM": "0"},
+                 ["--max_epoch", "2", "--no_fused_step"]),
+                ("_c1", {}, ["--max_epoch", "1"]),
+                ("_cr", {}, ["--max_epoch", "2", "--resume",
+                             out + "_c1_ckpt"])):
+            reset_launches()
+            with environ(**env):
+                err = run_cli(cli, args + extra + [
+                    "--out", out + run, "--checkpoint_dir",
+                    out + run + "_ckpt"])
+            launches = read_launches()
+            if run != "_gen" and min(launches[k] for k in PATHS[kind]) < 1:
+                raise AssertionError(f"{tag} {label}{run}: {launches}")
+            if ("dense-resident" not in err
+                    or ("Feature clustering: " in err)
+                    != (run in ("_c1", "_cr"))):
+                raise AssertionError(f"{tag} {label}{run}: not dense-resident"
+                                     f" or clustering as not asked")
+            errs[run] = err
+        flat = run_outputs(out + "_flat")
+        e_c = output_errors(run_outputs(out), flat)
+        e_g = output_errors(run_outputs(out + "_gen"), flat)
+
+        def limit(k):
+            return CLUSTER_LIMIT.get(k, CLUSTER_LIMIT[".clust"]
+                                     if k.endswith(".clust") else 1.0)
+
+        held = [k for k in e_c if e_g[k] <= limit(k)]
+        bad = [k for k in held if not e_c[k] <= limit(k)]
+        if bad:
+            raise AssertionError(f"{tag} {label}: clustered vs unclustered "
+                                 f"beyond {CLUSTER_TOL}: " + ", ".join(
+                                     f"{k} {e_c[k]:.3g} (route gap "
+                                     f"{e_g[k]:.3g})" for k in bad))
+        if ("Resumed from" not in errs["_cr"]
+                or not same_outputs(run_outputs(out + "_cr"),
+                                    run_outputs(out))):
+            raise AssertionError(f"{tag} {label} --resume differs from the "
+                                 f"uninterrupted clustered run")
+        line = next(ln.split("] ", 1)[-1] for ln in errs["_c1"].splitlines()
+                    if "Feature clustering: " in ln)
+        worst = max((e_c[k] / limit(k), k) for k in held)
+        free = sorted((k for k in e_c if k not in held),
+                      key=lambda k: -e_c[k])
+        log(f"{tag} [{card}] {label}: {line!r}; phase "
+            f"{PHASE[kind]['cli']}'s clustered run against "
+            f"MMVAE_FEATURE_PERM=0 ({CLUSTER_TOL}): scores rel "
+            f"{e_c['.scores']:.3g} (route gap {e_g['.scores']:.3g}), "
+            f"{len(held)} of {len(e_c)} outputs held, the worst at "
+            f"{worst[0]:.3g} of its limit ({worst[1]})"
+            + (f", .clust.gz {100 * (1 - e_c['_1.clust']):.2f}% equal"
+               if kind == "mixture" else "")
+            + ("; not held (err/tol clustered | route gap): " + ", ".join(
+                f"{k} {e_c[k]:.3g} | {e_g[k]:.3g}" for k in free)
+               if free else "; every output held")
+            + f"; one clustered epoch resumed to two equals phase "
+            f"{PHASE[kind]['cli']}'s run bitwise; launches of the resumed "
+            f"run { {k: launches[k] for k in PATHS[kind]} }")
+    writer_runs(card, tmp, mtx)
+    log(f"{tag} [{card}] {time.time() - t0:.1f}s")
 
 
 class HostCSC:
@@ -3928,10 +4238,11 @@ def phase_rotating_full(card, data, ref):
 # (``--dp-worker``), both ranks on their own card, or sharing the one
 # ----------------------------------------------------------------------
 
-# phase 37's --data_parallel run against phase 8's single-process run:
-# the packed step's trajectory yardstick (tests/test_torch_train.py), the
-# ranks' kernels seeing 50 rows where phase 8's saw 100 (a 64-column
-# tile's lgamma regime is chosen over the rows a launch sees)
+# phase 37's --data_parallel run against phase 42's unclustered
+# single-process run (a mesh never clusters): the packed step's
+# trajectory yardstick (tests/test_torch_train.py), the ranks' kernels
+# seeing 50 rows where the single process saw 100 (a 64-column tile's
+# lgamma regime is chosen over the rows a launch sees)
 DP_TOL = ("scores |dp - single| <= 2e-4 |single|; every artifact "
           "|dp - single| <= 3e-3 |single| + 2e-5 max|single|")
 
@@ -4140,7 +4451,8 @@ def dp_outputs(d: str) -> dict:
 
 def dp_vs_single(d: str, single: str) -> tuple[float, float]:
     """(largest |dp - single| / |single| of the scores, largest err/tol of
-    the artifacts under :data:`DP_TOL`) of a run against phase 8's."""
+    the artifacts under :data:`DP_TOL`) of a run against phase 42's
+    unclustered single-process one."""
     s_dp = np.loadtxt(os.path.join(d, "run.scores.gz"), ndmin=1)
     s_1 = np.loadtxt(single + ".scores.gz", ndmin=1)
     worst = 0.0
@@ -4209,7 +4521,7 @@ def phase_dp(card, tmp, mtx, rate9):
     log(f"[phase 37] [{card}] {DP_WORLD} ranks, backend {backend.group(1)} "
         f"({backend.group(2)}; {torch.cuda.device_count()} device(s)); "
         f"ranks ran {time.time() - t0:.1f}s")
-    single = os.path.join(tmp, "train")  # phase 8's run
+    single = os.path.join(tmp, "train_flat")  # phase 42's, unclustered
     for run in runs:
         name, d = run["name"], run["dir"]
         per_rank = [x["runs"][name] for x in res]
@@ -4233,9 +4545,10 @@ def phase_dp(card, tmp, mtx, rate9):
         if name == "data_parallel_a":
             e_s, e_a = dp_vs_single(d, single)
             if not (e_s <= 2e-4 and e_a <= 1.0):
-                raise AssertionError(f"--data_parallel vs phase 8: scores "
+                raise AssertionError(f"--data_parallel vs one process: scores "
                                      f"{e_s:.3g}, artifacts err/tol {e_a:.3g}")
-            extra = (f"; against phase 8's single-process run: scores rel "
+            extra = (f"; against phase 42's unclustered single-process "
+                     f"run: scores rel "
                      f"{e_s:.3g}, artifacts err/tol {e_a:.3g} ({DP_TOL})")
         for mode in ("data_parallel", "dp_shard"):
             if name in (f"{mode}_b", f"{mode}_r"):
@@ -4376,9 +4689,9 @@ def tp_runs(tmp: str, mtx: str) -> list[dict]:
 
 def tp_full(rank: int, shapes: dict) -> dict:
     """Phase 41 on one rank: phase 9's NB model (phase 9's seed and
-    initialization, this rank's shard of it) on phase 9's 40,000 cells
-    (phase 5's counts made on the card from the seed, this rank's
-    D / 2 features kept), the TP ``Trainer`` of ``nb_vae
+    initialization, this rank's shard of it) on the first 10,000 of
+    phase 9's cells (phase 5's counts made on the card from the seed,
+    this rank's D / 2 features kept), the TP ``Trainer`` of ``nb_vae
     --tensor_parallel 2``, 2 epochs; then 20 batches with the device
     synchronised around each collective, and 20 profiled.  Every rank
     calls the same collectives in the same order, so nothing here
@@ -4397,7 +4710,7 @@ def tp_full(rank: int, shapes: dict) -> dict:
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = make_mesh(dev, "dp_shard", TP_N)
     data = full_size_counts()
-    local = data[:N_EARLIER, mesh.local_cols(D_GENES)].contiguous()
+    local = data[:N_SHORT, mesh.local_cols(D_GENES)].contiguous()
     del data
     torch.cuda.empty_cache()
     model, _ = model_and_step("nb")
@@ -4854,7 +5167,7 @@ def phase_tp(card, tmp, mtx, rate9):
         raise AssertionError("phase 41: the ranks' parameters differ")
     rate = full[0]["rate"]
     log(f"[phase 41] [{card}] NB, generic TP step, --tensor_parallel {TP_N} "
-        f"({backend.group(1)}) x {D_TP} features a rank, {N_EARLIER} x "
+        f"({backend.group(1)}) x {D_TP} features a rank, {N_SHORT} x "
         f"{D_GENES} int8, 2 epochs: epoch losses {full[0]['losses'][0]:.4f}"
         f" -> {full[0]['losses'][1]:.4f}; second epoch {rate:,.1f} cells/sec"
         f" (both ranks on the same rows) against phase 9's {rate9:,.1f} on "
@@ -5066,6 +5379,8 @@ def main() -> int:
         mark("8, 31, 12, 16, 20, 24")
         phase_vmf_cli(card, tmp, mtx)
         mark("33")
+        phase_feature_perm(card, tmp, mtx)
+        mark("42")
         phase_tiers(card, tmp, mtx)
         mark("35")
         phase_tooling(card, tmp, mtx)

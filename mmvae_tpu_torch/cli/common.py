@@ -218,7 +218,8 @@ def resolve_device(name: str) -> torch.device | None:
 
 
 def run_training(opts: MMVaeOptions, topt: TrainingOptions, model, fast,
-                 data_block, covar_block, device, mesh=None) -> int:
+                 data_block, covar_block, device, mesh=None,
+                 feature_perm: bool = False, feature_perm_apply=None) -> int:
     """Initialise (or ``--resume``) the parameters and the Adam state,
     print the model summary to stderr, train the step (packed or generic)
     on the data tier :func:`~mmvae_tpu_torch.train.loop.load_batches`
@@ -231,7 +232,11 @@ def run_training(opts: MMVaeOptions, topt: TrainingOptions, model, fast,
     its shard of the parameters and of the Adam state (``fast`` is the
     TP ``Trainer``), the recorder encodes with the model's
     ``tp_record_encoder``, and the checkpoints hold the full arrays in
-    the tensor-parallel chain's layout."""
+    the tensor-parallel chain's layout.  The recorder writes on its
+    background thread (``async_writes``, as the JAX CLIs set it);
+    ``feature_perm`` and ``feature_perm_apply`` go to
+    :func:`~mmvae_tpu_torch.train.loop.train_vae_model` (the NB and vMF+NB
+    trainers cluster features, as their JAX CLIs do)."""
     params = model.init(torch.Generator().manual_seed(topt.seed),
                         device=device)
     B = opts.batch_size
@@ -245,7 +250,8 @@ def run_training(opts: MMVaeOptions, topt: TrainingOptions, model, fast,
     mean_name, lnvar_name = latent_names(model)
     recorder = LatentRecorder(opts.out, topt.max_epoch, data_block.ntot(),
                               encode_fn=encode_fn, extra_name=extra_name,
-                              mean_name=mean_name, lnvar_name=lnvar_name)
+                              mean_name=mean_name, lnvar_name=lnvar_name,
+                              async_writes=True)
     start_epoch, init_opt_state, prev_losses = 0, None, []
     if topt.resume:
         params_np, start_epoch, prev_losses = load_checkpoint(topt.resume,
@@ -276,7 +282,8 @@ def run_training(opts: MMVaeOptions, topt: TrainingOptions, model, fast,
         fast, recorder, data_block, covar_block, topt, params, device,
         start_epoch=start_epoch, init_opt_state=init_opt_state,
         on_epoch_end=on_epoch_end if topt.checkpoint_dir else None,
-        metrics_path=opts.out + ".metrics.jsonl", mesh=mesh)
+        metrics_path=opts.out + ".metrics.jsonl", mesh=mesh,
+        feature_perm=feature_perm, feature_perm_apply=feature_perm_apply)
     if primary:
         write_vector_file(opts.out + ".scores.gz", prev_losses + scores)
     TLOG("Done")

@@ -19,9 +19,12 @@ packed fast step for the default architecture; otherwise the generic
 ``Trainer`` with the v2 step kernels (hidden encoder, direct decoder),
 the v1 ELBO kernels K7 / K8 (a hidden decoder, or ``--no_fused_step``),
 or plain ``forward`` + ``nb_loss`` (``--no_fused``).  Checkpoints (with
-the Adam state) load in either package.  Feature clustering is not
-applied (ROADMAP.md item 8).  Float32 matmuls run in full float32 (TF32
-off).  Data-parallel training: ``--data_parallel`` or ``--dp_shard``,
+the Adam state) load in either package.  On the dense-resident tier,
+when the step kernels run (a card, D >= 512), the genes are reordered
+cold-first (``train.loop.cluster_features``, as in JAX; artifacts and
+checkpoints stay in input order; ``MMVAE_FEATURE_PERM=0`` turns it off,
+``force`` turns it on anywhere).  Float32 matmuls run in full float32
+(TF32 off).  Data-parallel training: ``--data_parallel`` or ``--dp_shard``,
 one process a device, started with ``--num_hosts H --host_id i
 --coordinator host:port`` (``parallel.multihost``; README,
 "Data-parallel training").  Tensor-parallel training:
@@ -160,8 +163,9 @@ def main(argv=None) -> int:
                             kl=(opts.kl_max, opts.kl_min, opts.kl_discount),
                             mesh=mesh)
     TLOG(f"Step: {route}")
+    # no D-indexed constant lives outside the NB parameters
     return run_training(opts, topt, model, fast, data_block, covar_block,
-                        device, mesh)
+                        device, mesh, feature_perm=True)
 
 
 if __name__ == "__main__":

@@ -22,8 +22,10 @@ under ``--fused --fused_step``, otherwise the generic ``Trainer`` with
 covariate pathway: the covariate's width is the model's ``covar_dim``.
 The model is plain PyTorch (no kernel of the port lies on its path);
 float32 matmuls run in full float32 (TF32 off).  Checkpoints (with the
-Adam state) load in either package.  Feature clustering is not applied
-(ROADMAP.md item 8).  Data-parallel training: ``--data_parallel`` or
+Adam state) load in either package.  The genes are never reordered
+(no feature clustering, as in JAX): the vMF-VAE's loss has no lgamma
+regimes and its path runs none of the port's kernels, so there is no
+tile for the order to speed up.  Data-parallel training: ``--data_parallel`` or
 ``--dp_shard``, one process a device, started with ``--num_hosts H
 --host_id i --coordinator host:port`` (``parallel.multihost``; README,
 "Data-parallel training").  Tensor-parallel training:

@@ -26,8 +26,13 @@ for the NB half (a hidden encoder or ``--vmf_decoding``, direct mu
 decoder), or ``forward`` + the composite loss (a hidden mu decoder,
 ``--no_fused_step``, ``--no_fused``).  The mixture has no vMF decoder:
 ``--vmf_decoding`` with ``--annot`` is ignored, as in the JAX CLI.
-Checkpoints (with the Adam state) load in either package.  Feature
-clustering is not applied (ROADMAP.md item 8).  Data-parallel training:
+Checkpoints (with the Adam state) load in either package.  On the
+dense-resident tier, when the step kernels run (a card, D >= 512), the
+genes are reordered cold-first (``train.loop.cluster_features``, as in
+JAX; the mixture's annotation follows through
+``VMFNBMixtureVAE.permute_features``; artifacts and checkpoints stay in
+input order; ``MMVAE_FEATURE_PERM=0`` turns it off, ``force`` turns it
+on anywhere).  Data-parallel training:
 ``--data_parallel`` or ``--dp_shard``, one process a device, started
 with ``--num_hosts H --host_id i --coordinator host:port``
 (``parallel.multihost``; README, "Data-parallel training").
@@ -195,7 +200,9 @@ def main(argv=None) -> int:
                             mesh=mesh)
     TLOG(f"Step: {route}")
     return run_training(opts, topt, model, fast, data_block, covar_block,
-                        device, mesh)
+                        device, mesh, feature_perm=True,
+                        feature_perm_apply=(model.permute_features
+                                            if mixture else None))
 
 
 if __name__ == "__main__":

@@ -175,6 +175,14 @@ class VMFNBMixtureVAE(nn.Module):
                 torch.tensor(self._filter()[0], device=device))
         return self._masks[key]
 
+    def permute_features(self, order: np.ndarray) -> None:
+        """Reorder the annotation's genes (``label`` rows) and drop the
+        cached masks: the training loop's feature-clustering hook, called
+        with its gene order and, on the way out, with the inverse (JAX
+        ``cli/vmfnb_vae.py:235-250``)."""
+        self.label = self.label[np.asarray(order)]
+        self._masks.clear()
+
     # ------------------------------------------------------------------
     def init(self, generator: torch.Generator,
              device: torch.device | str = "cpu") -> dict:

@@ -1,9 +1,10 @@
 """Training epochs, whole-dataset encoding sweeps, the resident matrix.
 
 Ports of ``mmvae_tpu/train/loop.py`` (``_as_memory_block``,
-``_build_dense``, ``Trainer.make_ondevice_epoch``,
-``Trainer.make_rotating_epoch`` and the single-device paths of
-``train_vae_model``) and of the two sweeps of ``mmvae_tpu/cli/encode.py``:
+``_build_dense``, ``_permute_d_axes``, ``Trainer.make_ondevice_epoch``,
+``Trainer.make_rotating_epoch``, ``train_vae_model``, ``visit_data`` and
+``visit_vae_model``) and of the two sweeps of
+``mmvae_tpu/cli/encode.py``:
 
 - :class:`DenseEpochRunner` / :func:`train_vae_model`: each epoch walks
   the reference's sequential wrap-around batch schedule through a step —
@@ -17,19 +18,25 @@ Ports of ``mmvae_tpu/train/loop.py`` (``_as_memory_block``,
   (:class:`EllBatches`); host-resident shards rotated through the device
   (:class:`RotatingBatches`); or batches read from the file on the host
   (:class:`StreamedBatches`).  Every tier gives the same batches and
-  draws, so the same bits;
+  draws, so the same bits.  On the dense-resident tier the genes may be
+  reordered cold-first (:func:`cluster_features`, JAX's feature
+  clustering); every tree that leaves the loop is in input order;
 - :func:`encode_resident`: ``chunk`` batches of B rows go through the
   encoder per kernel launch (the encoder works row by row, and the
   mixture's per-batch noise is tiled over the chunk, so grouping changes
   no result);
 - :func:`encode_streaming`: batches read from the out-of-core block in
   the reference's sequential wrap-around order, ``chunk`` batches per
-  host->device copy.
+  host->device copy;
+- :func:`visit_data` / :func:`visit_vae_model`: whole-dataset sweeps of a
+  visitor's ``update_on_batch`` over the same schedule.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import sys
 import time
 
 import numpy as np
@@ -501,11 +508,13 @@ class DenseEpochRunner:
         return self.covar.index_select(0, self.cols[b])
 
     def __call__(self, q: dict, opt_state: dict, epoch: int,
-                 record: bool = False, rand: dict | None = None):
+                 record: bool = False, rand: dict | None = None,
+                 on_batch=None):
         """Run one epoch; returns (q, opt_state, reports (nbatch,), the
         record_fn outputs stacked to (nbatch, B, width) on a recording
         epoch, else None).  ``rand`` overrides the epoch's draws (tests
-        feed the JAX package's)."""
+        feed the JAX package's); ``on_batch(b, report)`` is called after
+        each batch's step."""
         rand = self.draw(epoch) if rand is None else rand
         reps = torch.empty(self.nbatch, dtype=torch.float32,
                            device=self.device)
@@ -516,6 +525,8 @@ class DenseEpochRunner:
                 q, opt_state, x, c, float(epoch), batch_rand(rand, b),
                 mesh=self.mesh)
             reps[b] = rep
+            if on_batch is not None:
+                on_batch(b, rep)
             if record:
                 outs = self.record_fn(self.fast.unpack(q), x)
                 if enc is None:
@@ -582,13 +593,17 @@ def load_dp_batches(data_block, covar_block, opt, device, mesh):
                             cols), None, False)
 
 
-def load_batches(data_block, covar_block, opt, device, mesh=None):
-    """The tier of JAX's ``train_vae_model`` (train/loop.py:1288-1545,
-    single device, no feature clustering) for these blocks and options,
-    loaded: returns (source, dense covariate or None, on-device?), the
-    source being the (N, D) tensor of the dense-resident tier or the
-    batch source of another tier, each logged with JAX's line.  A
-    data-parallel rank (``mesh``) takes :func:`load_dp_batches`.
+def load_batches(data_block, covar_block, opt, device, mesh=None,
+                 feature_perm: bool = False):
+    """The tier of JAX's ``train_vae_model`` (train/loop.py:1276-1545)
+    for these blocks and options, loaded: returns (source, dense
+    covariate or None, on-device?, gene permutation or None), the source
+    being the (N, D) tensor of the dense-resident tier or the batch
+    source of another tier, each logged with JAX's line.  A
+    data-parallel or tensor-parallel rank (``mesh``) takes
+    :func:`load_dp_batches` and never permutes.  With ``feature_perm``
+    the dense-resident matrix may come back with its genes reordered
+    (:func:`cluster_features`); the permutation is then returned.
 
     - ``--ondevice``, or auto-enabled (``opt.auto_ondevice``) for an
       in-memory block when the smaller of its dense and ELL sizes fits
@@ -602,7 +617,8 @@ def load_batches(data_block, covar_block, opt, device, mesh=None):
     - otherwise (a streaming block, or ``--no_auto_ondevice``) the
       host-streaming tier, which loads nothing into memory."""
     if mesh is not None:
-        return load_dp_batches(data_block, covar_block, opt, device, mesh)
+        return (*load_dp_batches(data_block, covar_block, opt, device, mesh),
+                None)
     ntot, B = data_block.ntot(), data_block.size()
     ondevice = bool(getattr(opt, "ondevice", False))
     auto_rotate_budget = None
@@ -625,8 +641,8 @@ def load_batches(data_block, covar_block, opt, device, mesh=None):
             ondevice = True
             auto_rotate_budget = budget
     if not ondevice:
-        return StreamedBatches(data_block, covar_block, B, device), None, \
-            False
+        return (StreamedBatches(data_block, covar_block, B, device), None,
+                False, None)
 
     # --ondevice on a streaming block loads it, as in JAX
     data_mem = as_memory_block(data_block)
@@ -642,14 +658,15 @@ def load_batches(data_block, covar_block, opt, device, mesh=None):
     if 0 < dense_bytes <= budget:
         TLOG(f"Loading data on device (dense-resident, "
              f"{dense_bytes / 1e6:,.0f} MB {vd.name})")
-        TLOG("Feature clustering is not applied (not ported yet, "
-             "ROADMAP.md Queue 1 item 8): genes stay in input order")
-        return build_dense(data_mem, device), covar, True
+        data, perm = build_dense(data_mem, device), None
+        if feature_perm:
+            data, perm = cluster_features(data, covar_block.nfeature())
+        return data, covar, True, perm
     if 0 < ell_bytes <= budget or os.environ.get("MMVAE_ROTATE", "1") == "0":
         TLOG("Loading data on device (ELL layout)")
         csc = DeviceCSC.from_memory_block(data_mem, count_dtype="auto",
                                           device=device)
-        return EllBatches(csc, B), covar, True
+        return EllBatches(csc, B), covar, True, None
     # shards of ~budget/8 keep the rotating buffers a small share of the
     # budget; the rest keeps shards resident, less three shard slots (the
     # previous shard, the current one and the next one's copy)
@@ -664,13 +681,78 @@ def load_batches(data_block, covar_block, opt, device, mesh=None):
          f"~{store.shard_bytes(0) / 1e6:,.0f} MB/shard; dense "
          f"{dense_bytes / 1e6:,.0f} MB and ELL {ell_bytes / 1e6:,.0f} MB "
          f"both exceed MMVAE_DENSE_BYTES={budget / 1e6:,.0f} MB)")
-    return RotatingBatches(store), covar, True
+    return RotatingBatches(store), covar, True, None
+
+
+def cluster_features(data: torch.Tensor, covar_dim: int
+                     ) -> tuple[torch.Tensor, np.ndarray | None]:
+    """JAX's feature clustering (train/loop.py:1442-1490) of the
+    dense-resident (N, D) counts: (counts, None) unchanged, or (the
+    counts with their genes reordered cold-first, that order).
+
+    The step kernels (K2, K6, K3 and the ELBO kernels) choose their
+    lgamma regime per 64-column tile over all B rows, and a tile whose
+    counts are all integers <= 7 takes the exact select-product path; a
+    few hot genes (a count > 7) scattered over the genes make every tile
+    they touch pay the slower one.  Moving them to the tail confines them
+    to the last tiles.  It engages, with JAX's gates, when
+    ``MMVAE_FEATURE_PERM`` is not ``"0"``, the covariate's width is not D
+    (every axis of size D is permuted, :func:`permute_d_axes`), the
+    kernels run (a CUDA tensor and D >= 512, JAX's ``_use_kernel``) or
+    ``MMVAE_FEATURE_PERM=force``, and some gene but no more than half of
+    them is hot.  The order is JAX's ``argsort(hot, kind="stable")``.
+    The unpermuted matrix is freed when the caller drops it (two copies
+    exist only inside this call)."""
+    D = data.shape[1]
+    env = os.environ.get("MMVAE_FEATURE_PERM", "1")
+    if env == "0" or covar_dim == D:
+        return data, None
+    if not (env == "force" or (data.device.type == "cuda" and D >= 512)):
+        return data, None
+    hot = hot_genes(data)
+    frac = float(hot.mean())
+    if not hot.any() or frac > 0.5:
+        return data, None
+    perm = np.argsort(hot, kind="stable")
+    data = data.index_select(1, torch.from_numpy(perm).to(data.device))
+    TLOG(f"Feature clustering: {int(hot.sum())} hot genes (count>7, "
+         f"{100 * frac:.1f}%) moved to the tail lane tiles (artifacts stay "
+         f"in input order; MMVAE_FEATURE_PERM=0 to disable)")
+    return data, perm
+
+
+def hot_genes(data: torch.Tensor) -> np.ndarray:
+    """(D,) bool: the genes of the (N, D) counts with a count above 7, the
+    select-product regime's limit (``gmax > 7``, JAX's rule)."""
+    return (torch.amax(data, 0) > 7).cpu().numpy()
+
+
+def permute_d_axes(tree, perm, D: int):
+    """``tree`` with every axis of size ``D`` of every tensor leaf
+    gathered by ``perm`` (``index_select``); dicts, lists and tuples are
+    walked, other leaves pass through.  JAX's ``_permute_d_axes``
+    (train/loop.py:1819-1837): D >= 512 under the clustering gate, which
+    no latent, hidden or component width of the reference reaches, and
+    the gate skips a covariate of width D.  ``argsort(perm)`` undoes
+    it."""
+    if isinstance(tree, dict):
+        return {k: permute_d_axes(v, perm, D) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(permute_d_axes(v, perm, D) for v in tree)
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    idx = torch.as_tensor(np.asarray(perm), device=tree.device)
+    for ax, s in enumerate(tree.shape):
+        if s == D:
+            tree = tree.index_select(ax, idx)
+    return tree
 
 
 def train_vae_model(fast, recorder, data_block, covar_block, opt,
                     init_params: dict, device, start_epoch: int = 0,
                     init_opt_state: dict | None = None, on_epoch_end=None,
-                    metrics_path: str | None = None, mesh=None
+                    metrics_path: str | None = None, mesh=None,
+                    feature_perm: bool = False, feature_perm_apply=None
                     ) -> tuple[dict, list[float]]:
     """The training loop (reference mmvae_alg.hh:200-338):
     :func:`load_batches` picks and loads the tier (dense-resident, ELL,
@@ -684,8 +766,24 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
     (``time_step``, and ``time_record_submit`` on recording epochs);
     ``MMVAE_TRACE_DIR`` traces the training phase, each epoch under an
     ``ondevice_epoch`` (``host_epoch`` on the host-streaming tier)
-    annotation.  Returns (trained params, per-epoch mean reported
-    loss).
+    annotation.  A recording epoch hands its posteriors and parameters
+    to ``recorder.submit_epoch`` inside the epoch's clock, after the
+    epoch's loss fetch; the recorder's pending writes are joined (and
+    their errors raised) before this returns or propagates an exception.
+    On the host-streaming tier, when stderr is a terminal, rank 0 shows
+    the reference's live ``\r[batch] loss`` line, at most about once a
+    second (reading the loss waits for the device).  Returns (trained
+    params, per-epoch mean reported loss).
+
+    ``feature_perm`` lets the dense-resident tier reorder the genes
+    (:func:`cluster_features`, JAX's ``feature_perm``): the parameters
+    and the Adam state (a resumed one is in input order) are permuted
+    with the counts on entry, and every tree that leaves — the
+    recorder's parameters, ``on_epoch_end``'s trees and the return value
+    — is permuted back, so the outside sees input gene order only.
+    ``feature_perm_apply(order)`` then permutes a model's D-indexed
+    constants outside the parameters (the mixture's annotation): it is
+    called with the order on entry and with its inverse on the way out.
 
     With a :class:`~mmvae_tpu_torch.parallel.mesh.DataMesh` (JAX's
     ``host_count`` / ``host_id``) the blocks hold this rank's B / world
@@ -705,24 +803,33 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
                          "batch size")
     world = 1 if mesh is None else mesh.ndata
     primary = host_role()
-
-    def full(tree):
-        if mesh is None or not mesh.tp:
-            return tree
-        return gather_params(tree, fast.tp_pspecs, mesh)
-
-    def full_opt(st):
-        if mesh is None or not mesh.tp:
-            return st
-        return {"count": st["count"], "mu": full(st["mu"]),
-                "nu": full(st["nu"])}
+    D = data_block.nfeature()
 
     batches = sequential_batches(ntot, B * world)
     TLOG(f"Batch size = {B}{f' x {world} processes' if world > 1 else ''}"
          f", Number of batches = {len(batches)}")
 
-    source, covar, ondevice = load_batches(data_block, covar_block, opt,
-                                           device, mesh)
+    source, covar, ondevice, perm = load_batches(
+        data_block, covar_block, opt, device, mesh, feature_perm)
+    inv = None if perm is None else np.argsort(perm)
+
+    def full(tree):
+        """A tree as the outside sees it: gathered over the model row
+        under tensor parallelism, in input gene order when clustered."""
+        if inv is not None:
+            return permute_d_axes(tree, inv, D)
+        if mesh is None or not mesh.tp:
+            return tree
+        return gather_params(tree, fast.tp_pspecs, mesh)
+
+    def full_opt(st):
+        return {"count": st["count"], "mu": full(st["mu"]),
+                "nu": full(st["nu"])}
+
+    if perm is not None:
+        init_params = permute_d_axes(init_params, perm, D)
+        if init_opt_state is not None:
+            init_opt_state = permute_d_axes(init_opt_state, perm, D)
     if torch.device(device).type == "cuda":
         from ..ops import _cuda
 
@@ -742,31 +849,51 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
     loss_vec: list[float] = []
     where = ", on-device" if ondevice else ""
     cells = runner.nbatch * B * world
-    # a trace of the whole training phase when MMVAE_TRACE_DIR is set
-    # (no-op otherwise)
-    with trace():
+    shown = [0.0]  # when the live batch line was last written
+
+    def show(b, rep):
+        now = time.monotonic()
+        if now - shown[0] >= 1.0:
+            sys.stderr.write(f"\r[{b + 1:>20}] {float(rep):>20.6f}")
+            shown[0] = now
+
+    live = (primary and isinstance(source, StreamedBatches)
+            and sys.stderr.isatty())
+    # on the way out, in this order: the trace (MMVAE_TRACE_DIR; no-op
+    # otherwise), the recorder's pending writes, the model's constants
+    # back in input order
+    with contextlib.ExitStack() as stack:
+        if perm is not None and feature_perm_apply is not None:
+            feature_perm_apply(perm)
+            stack.callback(feature_perm_apply, inv)
+        if recorder is not None:
+            stack.callback(recorder.flush)
+        stack.enter_context(trace())
         for epoch in range(start_epoch, opt.max_epoch):
             t0 = time.time()
             timer.reset()
+            shown[0] = 0.0
             record_now = (recorder is not None
                           and (epoch + 1) % opt.recording == 0)
             # host time of the epoch's launches: the device runs on until
             # the loss fetch below, the one point where the JAX loop blocks
             with timer.phase("step"), annotate(
                     "ondevice_epoch" if ondevice else "host_epoch"):
-                q, po, reps, enc = runner(q, po, epoch, record=record_now)
+                q, po, reps, enc = runner(q, po, epoch, record=record_now,
+                                          on_batch=show if live else None)
             epoch_loss = float(reps.cpu().numpy().mean())
+            if live:
+                sys.stderr.write("\r")  # clear the batch line
+            if record_now:
+                # the device copies here; the scatter and the writes on
+                # the recorder's writer thread
+                with timer.phase("record_submit"):
+                    recorder.submit_epoch(batches, enc,
+                                          full(fast.unpack(q)), epoch, mesh)
             dt = time.time() - t0
             loss_vec.append(epoch_loss)
             TLOG(f"[{epoch + 1:>20}] {epoch_loss:>20.6f}"
                  f"  ({cells / dt:,.0f} cells/sec{where})")
-            params = fast.unpack(q)
-            if record_now:
-                # after the epoch's clock: the port's recorder writes its
-                # artifacts synchronously
-                with timer.phase("record_submit"):
-                    recorder.ingest(batches, enc, mesh)
-                    recorder.update_on_epoch(full(params), epoch)
             metrics.log_epoch(
                 epoch, loss=epoch_loss,
                 kl_weight=float(kl_weight_schedule(epoch, *kl)),
@@ -775,7 +902,38 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
                 **{f"time_{k}": round(v, 4)
                    for k, v in timer.summary().items()})
             if on_epoch_end is not None:
-                on_epoch_end(epoch, full(params),
+                on_epoch_end(epoch, full(fast.unpack(q)),
                              full_opt(fast.unpack_opt_state(po)), loss_vec)
     TLOG("Done training")
     return full(fast.unpack(q)), loss_vec
+
+
+def visit_data(visitor, data_block) -> None:
+    """Model-free whole-dataset sweep (JAX ``visit_data``,
+    train/loop.py:1889-1902; reference mmvae_alg.hh:127-160): each batch
+    of the sequential wrap-around schedule is read from the block and
+    handed to ``visitor.update_on_batch(x, batch)`` (x a host array)."""
+    ntot, B = data_block.ntot(), data_block.size()
+    batches = sequential_batches(ntot, B)
+    TLOG(f"Batch size = {B}, Number of batches = {len(batches)}")
+    for batch in batches:
+        data_block.clear()
+        visitor.update_on_batch(data_block.read(batch), batch)
+    TLOG("Done visit")
+
+
+def visit_vae_model(encode_fn, params, visitor, data_block) -> None:
+    """Whole-dataset sweep without training (JAX ``visit_vae_model``,
+    train/loop.py:1905-1916; reference mmvae_alg.hh:162-198):
+    ``visitor.update_on_batch(params, x, batch)`` for each batch of the
+    sequential wrap-around schedule, as
+    :meth:`~mmvae_tpu_torch.train.recorder.LatentRecorder.update_on_batch`
+    takes it.  ``encode_fn`` is unused, as in JAX: the visitor encodes."""
+    del encode_fn
+    ntot, B = data_block.ntot(), data_block.size()
+    batches = sequential_batches(ntot, B)
+    TLOG(f"Batch size = {B}, Number of batches = {len(batches)}")
+    for batch in batches:
+        data_block.clear()
+        visitor.update_on_batch(params, data_block.read(batch), batch)
+    TLOG("Done visit")

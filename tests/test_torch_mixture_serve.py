@@ -233,7 +233,7 @@ def test_trainer_builds_each_mode_with_its_kappa(runs, tmp_path,
     _, common = runs
     seen = []
 
-    def capture(opts, topt, model, fast, *rest):
+    def capture(opts, topt, model, fast, *rest, **kw):
         seen.append((type(model).__name__, model.kappa_min,
                      model.kappa_max, type(fast).__name__))
         return 0

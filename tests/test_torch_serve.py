@@ -105,7 +105,8 @@ def test_port_serving_imports_no_jax():
         " or m.startswith('jax.') or m == 'mmvae_tpu'"
         " or m.startswith('mmvae_tpu.'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 30, names\n")
+        "assert len(names) >= 30, names\n"
+        "assert 'mmvae_tpu_torch.benchmarks.perm_probe' in names, names\n")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=dict(os.environ, PYTHONPATH=ROOT),
                        timeout=120)
