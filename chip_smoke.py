@@ -270,13 +270,33 @@ exits non-zero without the final line):
     path launched; then ``train_vae_model``
     with the recorder's background writer and without (4 epochs,
     recording every 2, in turns off / on / on / off): the same
-    decompressed files, the epochs' cells/sec and ``time_record_submit``.
+    decompressed files, the epochs' cells/sec and ``time_record_submit``;
+43. the superbatch step (``train.superbatch``, JAX's ``--superbatch``),
+    after phase 36: the NB packed step, ``nb_vae --no_fused_step``'s
+    generic step and the joint, mixture and vMF-VAE packed steps at
+    full width (the first 37 batches of phase 5's counts: superbatches
+    of 8 and 5), 3 epochs with the second recording, through the S = 8
+    CUDA graphs and through the eager per-batch path on the same
+    draws: parameters, Adam state, reports and posteriors bitwise
+    equal, the launches replayed equal to the eager run's (every
+    kernel of the route counted), a profiled replay of the 8-batch
+    graph launching each port kernel as often as the graph books, a
+    resume from a checkpoint of epoch 0 through the same graphs bitwise; each route's cells/sec both
+    ways, wall and device-busy ms a batch, device ops a batch, the idle
+    share, the capture seconds and the graphs' pool.
+
+Every single-process trainer CLI run (phases 8, 12, 16, 20, 24, 27,
+31, 33, 35, 42) trains through the superbatch graphs (``--superbatch``
+8, JAX's default); the library runs of phases 9, 13, 17, 21, 25, 34 and
+36 are the eager per-batch path (``superbatch=None``), as phase 43's
+reference; the meshes of 37-41 step one batch at a time.
 
 Each main path (phases 4, 8, 12, 16, the runs of 20 and 24, the
 probe's run in 26, the wide trainer of 31, the vMF-VAE's runs of 32,
 33, 34 and 5, each tier's run in 35 and 36, each run of 37-41 on
-each rank, and each trainer run of 42) is driven with every launch
-counter set to 0 just before it and read just after.
+each rank, each trainer run of 42 and each route's graph run in 43)
+is driven with every launch counter set to 0 just before it and read
+just after.
 The last two lines are the kernels' JSON record (with each kernel's
 bound at the main path's shape) and ``{"ok": true, "device": {...}}``.
 """
@@ -3389,7 +3409,9 @@ def phase_train_full(card, data, kind="nb"):
         model, step_cls = model_and_step(kind)
         fast = step_cls(model, TrainingOptions())
     params = model.init(torch.Generator().manual_seed(SEED), device=DEV)
-    runner = DenseEpochRunner(fast, data, B_TRAIN, seed=SEED)
+    # the eager per-batch path (phase 43 runs the superbatch graphs)
+    runner = DenseEpochRunner(fast, data, B_TRAIN, seed=SEED,
+                              superbatch=None)
     q = fast.pack(params)
     po = fast.optimizer.init(q)
     losses, times, reps_all = [], [], []
@@ -3427,7 +3449,8 @@ def phase_train_full(card, data, kind="nb"):
         f"{times[1]:.2f}s; second epoch {N / times[1]:,.1f} cells/sec; "
         f"kernel launches a batch {per}{extra}")
     nprof = 20
-    sub = DenseEpochRunner(fast, data[:nprof * B_TRAIN], B_TRAIN, seed=SEED)
+    sub = DenseEpochRunner(fast, data[:nprof * B_TRAIN], B_TRAIN, seed=SEED,
+                           superbatch=None)
     rand = sub.draw(2)
     busy, per = device_profile(lambda: sub(q, po, 2, rand=rand))
     per_batch = times[1] * 1e3 / runner.nbatch
@@ -4135,7 +4158,8 @@ def phase_rotating_full(card, data, ref):
     def train(source):
         fast = step_cls(model, TrainingOptions())
         params = model.init(torch.Generator().manual_seed(SEED), device=DEV)
-        runner = DenseEpochRunner(fast, source, B_TRAIN, seed=SEED)
+        runner = DenseEpochRunner(fast, source, B_TRAIN, seed=SEED,
+                                  superbatch=None)
         q = fast.pack(params)
         po = fast.optimizer.init(q)
         reps, times, copies = [], [], []
@@ -4178,7 +4202,7 @@ def phase_rotating_full(card, data, ref):
                                  pin_budget=int(per_batch * 10),
                                  layout=store.layout, device=DEV)
     sub = DenseEpochRunner(fast, RotatingBatches(sub_store), B_TRAIN,
-                           seed=SEED)
+                           seed=SEED, superbatch=None)
     rand = sub.draw(2)
     qs, pos = q, fast.optimizer.init(q)
     sub(qs, pos, 2, rand=rand)  # the resident shards' first copies
@@ -4231,6 +4255,247 @@ def phase_rotating_full(card, data, ref):
         f"{ell_mb:,.1f} MB on the card, k_max {csc.k_max}): "
         f"reports equal phase 9's bitwise; epoch times {times[0]:.2f}s, "
         f"{times[1]:.2f}s; second epoch {N / times[1]:,.1f} cells/sec")
+
+
+# ----------------------------------------------------------------------
+# phase 43: the superbatch graphs at full width
+# ----------------------------------------------------------------------
+
+SB_S = 8  # JAX's --superbatch default
+# batches an epoch: no multiple of SB_S, so every epoch ends with a
+# superbatch of 5 (its own graph)
+SB_BATCHES = 37
+# route -> the kernels its step launches
+SB_ROUTES = {"nb": NB_PATH, "generic": GENERIC_PATH, "joint": JOINT_PATH,
+             "mixture": MIXTURE_PATH, "vmf": []}
+
+
+def sb_route(kind):
+    """(model, step) of a phase-43 route: the model's packed step at the
+    default architecture, or ``nb_vae --no_fused_step``'s generic
+    step."""
+    from mmvae_tpu_torch.train.config import TrainingOptions
+
+    if kind == "generic":
+        model = model_and_step("nb")[0]
+        return model, generic_trainer(model,
+                                      TrainingOptions(fused_step=False))
+    model, step_cls = model_and_step(kind)
+    return model, step_cls(model, TrainingOptions())
+
+
+def sb_epochs(runner, q, po, first, n):
+    """Epochs first .. first + n - 1 of ``runner`` (epoch 1 recording):
+    [{q, po, reps, enc, wall}] after each."""
+    out = []
+    for epoch in range(first, first + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        q, po, reps, enc = runner(q, po, epoch, record=epoch == 1)
+        torch.cuda.synchronize()
+        out.append(dict(q=q, po=po, reps=reps, enc=enc,
+                        wall=time.perf_counter() - t0))
+    return out
+
+
+def tree_diff(a, b) -> float:
+    """0.0 when the trees are bitwise equal, else the largest |a - b| (or
+    inf for a shape or dtype that differs)."""
+    if isinstance(a, dict):
+        return max((tree_diff(a[k], b[k]) for k in a), default=0.0)
+    if isinstance(a, (tuple, list)):
+        return max((tree_diff(x, y) for x, y in zip(a, b)), default=0.0)
+    if a is None or b is None:
+        return 0.0 if a is b else float("inf")
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return float("inf")
+    if torch.equal(a, b):
+        return 0.0
+    return max(float((a.double() - b.double()).abs().max()), 1e-300)
+
+
+def epoch_diffs(got: list, want: list) -> dict:
+    """{what: largest difference} of two runs' epochs, nonzero entries."""
+    out = {}
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in ("q", "po", "reps", "enc"):
+            d = tree_diff(g[k], w[k])
+            if d:
+                out[f"epoch {i} {k}"] = d
+    return out
+
+
+# the first stage of each port kernel: one CUDA function a launch (the
+# second, ``*_sum``, may be left out by a launch that needs no merge)
+FIRST_STAGE = {"count_encode_tiles", "count_encode_bwd_tiles", "lse_tiles",
+               "value_tiles", "valgrad_tiles", "finish_tiles",
+               "elbo_fwd_rows", "elbo_bwd_groups"}
+
+
+def replay_launches(fn, booked: dict, tries: int = 3):
+    """({port kernel: launches}, traces) of one call of ``fn`` from the
+    profiler (CUPTI, as :func:`device_profile`): each port kernel's
+    first-stage CUDA functions, named by ``trace_step.port_kernel``.  A
+    trace runs ``fn`` twice, a warm-up step whose events are dropped
+    (late in a long process a cold trace lost the first kernel of a
+    replay) and the step it reads; its kernels' times are not used (in
+    one run they read 2.4-2.9x :func:`device_profile`'s).  A trace whose
+    launches differ from ``booked`` is taken again, up to ``tries`` in
+    all: a launch the graph lacks, or one it holds beyond ``booked``,
+    differs in every trace.  Returns the last trace's."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from mmvae_tpu_torch.benchmarks import trace_step
+    from mmvae_tpu_torch.utils.profiling import kernel_times
+
+    for t in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        kt = kernel_times(prof)
+        seen: dict = {}
+        for name, (_, n) in kt.items():
+            m = re.search(r"\(anonymous namespace\)::(\w+)[<(]", name)
+            if m and m.group(1) in FIRST_STAGE:
+                k = trace_step.port_kernel(name)
+                seen[k] = seen.get(k, 0) + n
+        if seen == booked:
+            break
+    return seen, t
+
+
+def phase_superbatch(card, data, tmp):
+    """Phase 43: each route of :data:`SB_ROUTES` at full width (B = 100,
+    D = 20,000 int8, the first :data:`SB_BATCHES` batches of phase 5's
+    counts) for 3 epochs, the second recording, through the S = 8
+    superbatch graphs and through the eager per-batch path
+    (``superbatch=None``) on the same draws: parameters, Adam state,
+    reports and posteriors bitwise equal; the graphs' launches (less
+    their warm-ups') equal to the eager run's, every kernel of the route
+    counted; the launches the profiler sees in a replay of the S = 8
+    graph equal, kernel by kernel, to what the graph books a replay; a
+    resume from a checkpoint of epoch 0 through the same graphs equal to
+    epochs 1-2 bitwise; the third epoch's cells/sec, wall and
+    device-busy ms a batch (one replay of the S = 8 graph, and two eager
+    batches, profiled), the idle share, the capture seconds and the
+    graphs' pool.  Returns {route: numbers}."""
+    from mmvae_tpu_torch.models.nb import adam_from_numpy, params_from_numpy
+    from mmvae_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                  load_opt_state,
+                                                  save_checkpoint)
+    from mmvae_tpu_torch.train.loop import DenseEpochRunner
+
+    tag = "[phase 43]"
+    d = data[:SB_BATCHES * B_TRAIN]
+    cells = d.shape[0]
+    out, bad = {}, {}
+    names = {n: f"{w.__name__}.{a}" for n, (w, a) in _counters().items()}
+    for kind, path in SB_ROUTES.items():
+        model, fast = sb_route(kind)
+        enc_fn, _ = model.record_encoder(SEED, B_TRAIN)
+
+        def record(p, x, enc_fn=enc_fn):
+            with torch.no_grad():
+                return enc_fn(p, x)
+
+        params = model.init(torch.Generator().manual_seed(SEED), device=DEV)
+        runs, counts, runners = {}, {}, {}
+        for how, S in (("eager", None), ("graphs", SB_S)):
+            runner = DenseEpochRunner(fast, d, B_TRAIN, seed=SEED,
+                                      record_fn=record, superbatch=S)
+            q = fast.pack(params)
+            reset_launches()
+            runs[how] = sb_epochs(runner, q, fast.optimizer.init(q), 0, 3)
+            counts[how] = read_launches()
+            runners[how] = runner
+        sb = runners["graphs"].graphs
+        warm = {n: sb.warm_launches.get(k, 0) for n, k in names.items()}
+        replayed = {n: counts["graphs"][n] - warm[n] for n in names}
+        diffs = epoch_diffs(runs["graphs"], runs["eager"])
+        if replayed != counts["eager"] or any(
+                counts["eager"][n] <= 0 for n in path) or (
+                not path and any(counts["graphs"].values())):
+            diffs["launches"] = (f"graphs {replayed} (+ warm-up {warm}), "
+                                 f"eager {counts['eager']}")
+        # resume from epoch 0's checkpoint through the same graphs
+        ck = os.path.join(tmp, f"sb_{kind}")
+        e0 = runs["graphs"][0]
+        save_checkpoint(ck, fast.unpack(e0["q"]), 0, SEED,
+                        [float(e0["reps"].double().mean())],
+                        opt_state=fast.unpack_opt_state(e0["po"]))
+        p_np, start, _ = load_checkpoint(ck, model)
+        q = fast.pack(params_from_numpy(p_np, DEV))
+        po = fast.pack_opt_state(adam_from_numpy(load_opt_state(ck, model),
+                                                 DEV))
+        resumed = sb_epochs(runners["graphs"], q, po, start, 2)
+        for k, v in epoch_diffs(resumed, runs["graphs"][1:]).items():
+            diffs[f"resume {k}"] = v
+        # device busy: one replay of the S-batch graph, two eager batches;
+        # the replay's launches as the profiler sees them against those
+        # the graph books (its capture's counts)
+        booked: dict = {}
+        for n, k in names.items():
+            v = sb.graphs[(SB_S, False)][1].get(k, 0)
+            if v:
+                base = n.split("[")[0]
+                booked[base] = booked.get(base, 0) + v
+        seen, traces = replay_launches(lambda: sb.run(SB_S, False), booked)
+        g_busy, _ = device_profile(lambda: sb.run(SB_S, False))
+        g_ops = device_profile.kernels / SB_S
+        if seen != booked or any(
+                booked.get(n.split("[")[0], 0) <= 0 for n in path):
+            diffs["replay launches"] = (f"profiled {seen}, booked "
+                                        f"{booked}")
+        sub = DenseEpochRunner(fast, d[:2 * B_TRAIN], B_TRAIN, seed=SEED,
+                               superbatch=None)
+        rand = sub.draw(3)
+        qe, poe = runs["eager"][-1]["q"], runs["eager"][-1]["po"]
+        e_busy, _ = device_profile(lambda: sub(qe, poe, 3, rand=rand))
+        e_ops = device_profile.kernels / 2
+        st = runners["graphs"].graph_stats
+        r = {"S": SB_S, "batches": SB_BATCHES,
+             "captures": st["captures"], "capture_s": st["capture_s"],
+             "pool_mb": st["pool_bytes"] / 1e6}
+        for how, busy, ops, n in (("eager", e_busy, e_ops, 2),
+                                  ("graphs", g_busy, g_ops, SB_S)):
+            wall = runs[how][2]["wall"]
+            r[how] = {"cells_per_sec": cells / wall,
+                      "wall_ms": wall * 1e3 / SB_BATCHES,
+                      "busy_ms": busy / n, "ops": ops,
+                      "idle": 1 - busy / n / (wall * 1e3 / SB_BATCHES)}
+        out[kind] = r
+        runners["graphs"].close()
+        if diffs:
+            bad[kind] = diffs
+        e, g = r["eager"], r["graphs"]
+        log(f"{tag} [{card}] {kind}: {cells} x {D_GENES} int8, B="
+            f"{B_TRAIN}, nboot 3, S = {SB_S} ({SB_BATCHES} batches an "
+            f"epoch: superbatches of 8 and 5), 3 epochs (the second "
+            f"recording) and a resume from epoch 0: "
+            + ("graphs == eager bitwise (parameters, Adam state, reports, "
+               "posteriors, resume); " if not diffs else
+               f"DIFFERS {diffs}; ")
+            + f"launches replayed {dict((n, replayed[n]) for n in path)} "
+            f"== eager (+ warm-up {dict((n, warm[n]) for n in path)}); "
+            f"a replay of the {SB_S}-batch graph profiled: launches {seen} "
+            f"(booked {booked}; trace {traces}); "
+            f"third epoch: graphs {g['cells_per_sec']:,.1f} cells/sec, "
+            f"{g['wall_ms']:.3f} ms wall a batch, {g['busy_ms']:.3f} ms "
+            f"device busy, {g['ops']:.0f} device ops a batch, idle "
+            f"{g['idle']:.1%}; eager {e['cells_per_sec']:,.1f} cells/sec, "
+            f"{e['wall_ms']:.3f} ms wall, {e['busy_ms']:.3f} ms busy, "
+            f"{e['ops']:.0f} ops, idle {e['idle']:.1%} "
+            f"({g['cells_per_sec'] / e['cells_per_sec']:.2f}x); "
+            f"{r['captures']} graphs captured in {r['capture_s']:.2f}s "
+            f"(warm-ups included), pool {r['pool_mb']:,.1f} MB")
+    if bad:
+        raise AssertionError(f"superbatch graphs against eager: {bad}")
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -5395,6 +5660,8 @@ def main() -> int:
             mark(str(PHASE[kind]["full"]))
         phase_rotating_full(card, data, full["nb"])
         mark("36")
+        phase_superbatch(card, data, tmp)
+        mark("43")
         rate9 = full["nb"]["rate"]
         del data, full
         torch.cuda.empty_cache()

@@ -68,9 +68,10 @@ class VMFVAEOutput(NamedTuple):
 def clip_kappa(e: torch.Tensor, kappa_min: float, kappa_max: float
                ) -> torch.Tensor:
     """``jnp.clip(e, kappa_min, kappa_max)`` with JAX's gradient at a tie
-    (half to each side of ``maximum`` / ``minimum``)."""
-    lo = torch.tensor(kappa_min, dtype=e.dtype, device=e.device)
-    hi = torch.tensor(kappa_max, dtype=e.dtype, device=e.device)
+    (half to each side of ``maximum`` / ``minimum``).  The bounds are
+    filled on the device, so no host->device copy enters a CUDA graph."""
+    lo = e.new_full((), kappa_min)
+    hi = e.new_full((), kappa_max)
     return torch.minimum(torch.maximum(e, lo), hi)
 
 

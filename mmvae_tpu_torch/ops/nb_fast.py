@@ -252,6 +252,37 @@ def batch_rand(rand: dict, b: int) -> dict:
             "boot_eps": tuple(e[b] for e in rand["boot_eps"])}
 
 
+def superbatch_step(step, q, opt_state, x_sb, c_sb, epoch_f, beta, rand,
+                    record_fn=None):
+    """The S batch steps of ``x_sb`` (S, B, D) and ``c_sb`` (S, B, C) in
+    order, each ``step.batch_step`` on the state the one before left (the
+    scan body of JAX's ``Trainer._superbatch_step`` and
+    ``_superbatch_step_fast``, train/loop.py:341-409), at ``epoch_f`` with
+    its KL weight ``beta`` (a device scalar, which the step's
+    ``beta_override`` hands every batch step in place of a host->device
+    copy) and batch j's draws ``rand[...][j]``; on a recording superbatch
+    ``record_fn(step.unpack(q), x)`` right after each batch's updates
+    (the recorder's observation point, mmvae_alg.hh:315-317).  Returns
+    (q, opt_state, reports (S,), the record outputs stacked to (S, B,
+    width) or None).  The body that
+    ``train.superbatch.SuperbatchGraphs`` captures."""
+    reps, recs = [], []
+    step.beta_override = beta
+    try:
+        for j in range(x_sb.shape[0]):
+            q, opt_state, rep = step.batch_step(
+                q, opt_state, x_sb[j], c_sb[j], epoch_f,
+                batch_rand(rand, j))
+            reps.append(rep)
+            if record_fn is not None:
+                recs.append(record_fn(step.unpack(q), x_sb[j]))
+    finally:
+        step.beta_override = None
+    enc = (None if record_fn is None
+           else tuple(torch.stack(t) for t in zip(*recs)))
+    return q, opt_state, torch.stack(reps), enc
+
+
 class PackedFastStep:
     """Shared skeleton of the packed fast steps (JAX ``PackedFastStep``,
     ``ops/nb_fast.py:196-335``).
@@ -263,9 +294,10 @@ class PackedFastStep:
     boot)``, and may give ``_views(x)``: the parameter-free data views
     computed once a batch and handed to every ``_loss`` of it (by
     default the counts themselves); :meth:`batch_step`,
-    :meth:`draw_rand`, the small-vector layout and the packed optimizer
-    are common.  The epoch runner in
-    ``train/loop.py`` drives any subclass through this protocol.
+    :meth:`draw_rand`, the small-vector layout, the packed optimizer and
+    :func:`superbatch_step` (S batch steps, the body the superbatch
+    graphs capture) are common.  The epoch runner in ``train/loop.py``
+    drives any subclass through this protocol.
     ``plain=True`` selects the plain route of the same step (the JAX
     package's XLA path) instead of the kernels."""
 
@@ -285,6 +317,8 @@ class PackedFastStep:
         self._sv_segs, self._sv_len = self._seg_layout(self._sv_entries())
         self.optimizer = PackedAdam(opt.lr, opt.grad_clip, opt.weight_decay)
         self._beta = None
+        # the KL weight as a device scalar (the superbatch graphs' buffer)
+        self.beta_override = None
 
     # ------------------------------------------------------------------
     # layout: pack / unpack work on params AND on Adam-moment trees
@@ -351,6 +385,10 @@ class PackedFastStep:
         return draw_rand(gen, nbatch, B, self.opt.nboot, self._eps_widths())
 
     def _beta_for(self, epoch_f: float, device) -> torch.Tensor:
+        """``epoch_f``'s KL weight on ``device`` (kept for the epoch), or
+        ``beta_override`` while a superbatch step sets it."""
+        if self.beta_override is not None:
+            return self.beta_override
         key = (float(epoch_f), str(device))
         if self._beta is None or self._beta[0] != key:
             beta = kl_weight_schedule(epoch_f, self.kl_max, self.kl_min,
@@ -392,6 +430,8 @@ class PackedFastStep:
         if mesh is not None and self.opt.nboot == 0:
             report = pmean([report])[0]
         return q, opt_state, report
+
+    superbatch_step = superbatch_step
 
 
 class NBFastStep(PackedFastStep):

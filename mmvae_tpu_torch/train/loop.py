@@ -1,7 +1,8 @@
 """Training epochs, whole-dataset encoding sweeps, the resident matrix.
 
 Ports of ``mmvae_tpu/train/loop.py`` (``_as_memory_block``,
-``_build_dense``, ``_permute_d_axes``, ``Trainer.make_ondevice_epoch``,
+``_build_dense``, ``_permute_d_axes``, ``Trainer.step``,
+``can_step_record`` and ``step_record``, ``Trainer.make_ondevice_epoch``,
 ``Trainer.make_rotating_epoch``, ``train_vae_model``, ``visit_data`` and
 ``visit_vae_model``) and of the two sweeps of
 ``mmvae_tpu/cli/encode.py``:
@@ -11,7 +12,11 @@ Ports of ``mmvae_tpu/train/loop.py`` (``_as_memory_block``,
   a packed fast step (any
   :class:`~mmvae_tpu_torch.ops.nb_fast.PackedFastStep`) or the generic
   :class:`Trainer` (``Trainer._batch_step`` on the named parameter tree)
-  — with every random draw of the epoch made up front.  The batches come
+  — with every random draw of the epoch made up front, ``--superbatch``
+  S batch steps at a time: one CUDA graph replay on the card
+  (:mod:`.superbatch`, JAX's ``lax.scan`` superbatch step), the same
+  body eagerly on the CPU; ``Trainer.step`` / ``step_record`` are that
+  step for custom loops.  The batches come
   from one of four tiers (:func:`load_batches`, JAX's choice): the
   (N, D) counts resident on the device in their narrow dtype; padded-ELL
   arrays on the device, densified a batch at a time
@@ -49,13 +54,14 @@ from ..io import native
 from ..ops.densify import DeviceCSC, densify_gathered, densify_triplets
 from ..ops.losses import kl_weight_schedule
 from ..ops.nb_fast import (PackedAdam, batch_rand, draw_rand, reduce_step,
-                           tree_leaves, tree_unflatten)
+                           superbatch_step, tree_leaves, tree_unflatten)
 from ..parallel.collectives import pmean, psum
 from ..parallel.mesh import gather_params
 from ..parallel.multihost import host_role, sharded_batches
 from ..utils.logging import TLOG
 from ..utils.metrics import MetricsLogger
 from ..utils.profiling import StepTimer, annotate, trace
+from .superbatch import SuperbatchGraphs, tree_map
 
 
 def as_memory_block(block):
@@ -194,6 +200,9 @@ class Trainer:
         self.optimizer = PackedAdam(opt.lr, opt.grad_clip, opt.weight_decay,
                                     tp=tp_pspecs is not None)
         self._beta = None
+        self.beta_override = None  # as the packed steps'
+        self._sb: dict = {}
+        self._draw = None  # (key, draws) of Trainer.step's last epoch
 
     @staticmethod
     def pack(t: dict) -> dict:
@@ -205,6 +214,9 @@ class Trainer:
         return draw_rand(gen, nbatch, B, self.opt.nboot, self.eps_widths)
 
     def _beta_for(self, epoch_f: float, device) -> torch.Tensor:
+        """As the packed steps' ``_beta_for``."""
+        if self.beta_override is not None:
+            return self.beta_override
         key = (float(epoch_f), str(device))
         if self._beta is None or self._beta[0] != key:
             beta = kl_weight_schedule(epoch_f, self.kl_max, self.kl_min,
@@ -266,6 +278,135 @@ class Trainer:
             report = pmean([report], group)[0]
         return params, opt_state, report
 
+    superbatch_step = superbatch_step
+
+    # ------------------------------------------------------------------
+    # the per-superbatch step for custom loops (JAX ``Trainer.step``,
+    # ``can_step_record``, ``step_record``, train/loop.py:1031-1166)
+    # ------------------------------------------------------------------
+    def step(self, params: dict, opt_state: dict, x_sb, c_sb, epoch: int,
+             batch_ids, rand: dict | None = None, *,
+             nbatch: int | None = None):
+        """Run one superbatch of sequential batches, the (S, B, D) counts
+        ``x_sb`` (host or device; integer counts keep their dtype) and
+        the (S, B, C) covariate ``c_sb``; returns (params, opt_state, the
+        per-batch reported losses (S,)).  On a CUDA device the S batch
+        steps are one CUDA graph replay (:mod:`.superbatch`), captured
+        at the first call of each size and kept by the trainer.
+
+        ``rand`` is the superbatch's draws (``draw_rand``'s structure,
+        leading axis S in ``batch_ids`` order; tests inject JAX's).
+        Without it, ``nbatch`` is the epoch's number of batches and the
+        draws are the rows ``batch_ids`` of the epoch's one draw
+        (:func:`epoch_generator` of ``opt.seed`` and ``epoch``), the
+        epoch runner's; the trainer keeps the last epoch's draw, so a
+        loop that walks an epoch a superbatch at a time draws it once.
+        (JAX derives each batch's draws from its id alone; the port's
+        epoch draw depends on the epoch's length, hence ``nbatch``.)"""
+        p, o, reps, _ = self._superbatch(params, opt_state, x_sb, c_sb,
+                                         epoch, batch_ids, rand, nbatch,
+                                         None)
+        return p, o, reps
+
+    def can_step_record(self, needs_extra: bool = False) -> bool:
+        """Whether :meth:`step_record` is available: JAX's answer for what
+        the port runs as a superbatch, everything but tensor parallelism
+        (JAX's TP recording needs the model's TP record functions; the
+        port's steps under a mesh run one batch at a time)."""
+        del needs_extra
+        return self.tp_pspecs is None
+
+    def step_record(self, params: dict, opt_state: dict, x_sb, c_sb,
+                    epoch: int, batch_ids, encode_fn, extra_fn=None,
+                    rand: dict | None = None, *,
+                    nbatch: int | None = None):
+        """:meth:`step` that also returns each batch's posterior right
+        after its updates (mmvae_alg.hh:315-317): (params, opt_state,
+        (reports (S,), (mean, lnvar) each (S, B, width), extra)), extra
+        the stacked ``extra_fn(params, x)`` outputs, else an
+        ``encode_fn``'s third output (the mixture's assignments), else a
+        zero a batch (S,), as JAX's scan returns it.  A recording epoch
+        then costs one dispatch per superbatch, as a training epoch
+        does."""
+        if not self.can_step_record(extra_fn is not None):
+            raise NotImplementedError("step_record under tensor "
+                                      "parallelism")
+        p, o, reps, enc = self._superbatch(params, opt_state, x_sb, c_sb,
+                                           epoch, batch_ids, rand, nbatch,
+                                           (encode_fn, extra_fn))
+        extra = enc[2] if len(enc) > 2 else torch.zeros_like(reps)
+        return p, o, (reps, (enc[0], enc[1]), extra)
+
+    def _superbatch(self, params, opt_state, x_sb, c_sb, epoch, batch_ids,
+                    rand, nbatch, record):
+        if self.tp_pspecs is not None:
+            raise NotImplementedError(
+                "superbatch steps under tensor parallelism: the step runs "
+                "one batch at a time under a mesh (ROADMAP.md Queue 1 "
+                "item 16)")
+        dev = tree_leaves(params)[0].device
+        x_sb = torch.as_tensor(x_sb, device=dev)
+        c_sb = torch.as_tensor(c_sb, dtype=torch.float32, device=dev)
+        ids = torch.as_tensor(np.asarray(batch_ids), dtype=torch.long,
+                              device=dev)
+        if rand is None:
+            if nbatch is None:
+                raise ValueError("Trainer.step needs the epoch's number of "
+                                 "batches (nbatch=) or the draws (rand=)")
+            if not 0 <= int(ids.min()) <= int(ids.max()) < nbatch:
+                raise ValueError(f"batch ids {batch_ids} outside an epoch "
+                                 f"of {nbatch} batches")
+            rand = tree_map(lambda t: t.index_select(0, ids),
+                            self._epoch_draw(epoch, nbatch, x_sb.shape[1],
+                                             dev))
+        else:
+            rand = tree_map(lambda t: t.to(dev), rand)
+        sb = self._graphs_for(len(ids), record)
+        sb.set_state(params, opt_state)
+        sb.set_epoch(epoch)
+        reps, enc = sb.run(sb.fill(x_sb, c_sb, rand), record is not None)
+        p, o = sb.state()
+        return p, o, reps.clone(), (None if enc is None
+                                    else tuple(e.clone() for e in enc))
+
+    def _epoch_draw(self, epoch: int, nbatch: int, B: int, dev) -> dict:
+        """The draws of an epoch of ``nbatch`` batches of B (the epoch
+        runner's), kept for the next call of the same epoch."""
+        key = (self.opt.seed, int(epoch), int(nbatch), int(B), str(dev))
+        if self._draw is None or self._draw[0] != key:
+            self._draw = (key, self.draw_rand(
+                epoch_generator(self.opt.seed, epoch, dev), nbatch, B))
+        return self._draw[1]
+
+    def _graphs_for(self, S: int, record) -> SuperbatchGraphs:
+        """The trainer's graphs of one record pair (``(encode_fn,
+        extra_fn)`` or None), kept by identity as JAX keeps its compiled
+        record step, remade for a larger superbatch."""
+        sb = self._sb.get(record)
+        if sb is None or sb.S < S:
+            if sb is not None:
+                sb.close()
+            record_fn = None if record is None else _record_fn(*record)
+            sb = self._sb[record] = SuperbatchGraphs(self, S, record_fn)
+        return sb
+
+    def release_graphs(self) -> None:
+        """Free the graphs :meth:`step` and :meth:`step_record` keep."""
+        for sb in self._sb.values():
+            sb.close()
+        self._sb = {}
+
+
+def _record_fn(encode_fn, extra_fn):
+    """``step_record``'s record outputs: (mean, lnvar[, extra])."""
+    def record(params, x):
+        with torch.no_grad():
+            outs = tuple(encode_fn(params, x))
+            if extra_fn is not None:
+                outs = outs[:2] + (extra_fn(params, x),)
+        return outs
+    return record
+
 
 def tp_clip(grads: list, split: list, group, max_norm: float) -> list:
     """JAX's ``_make_tp_clip`` (train/loop.py:244-270): the global norm
@@ -326,6 +467,31 @@ class ResidentBatches:
                 yield self.data[b * self.B:(b + 1) * self.B], None
             else:
                 yield self.data.index_select(0, self.cols[b]), None
+
+
+def grouped(batches, S: int):
+    """Runs of up to S of the (x, c) pairs of ``batches`` as (list of x,
+    list of c or None): the superbatches of the device tiers, whose
+    batches are made one at a time.  On the rotating tier a shard's
+    arrays reach the compute stream through ``ShardCopy.take`` (the wait
+    on its copy, the allocator told of the use) before its batches are
+    made, and a batch that is a view keeps its shard's memory alive
+    until it is copied into the superbatch; a shard's end-of-compute
+    event may be recorded before those copies, which only lets the next
+    shard's copy start a superbatch early."""
+    buf: list = []
+    for item in batches:
+        buf.append(item)
+        if len(buf) == S:
+            yield _unzip(buf)
+            buf = []
+    if buf:
+        yield _unzip(buf)
+
+
+def _unzip(buf: list):
+    xs, cs = [x for x, _ in buf], [c for _, c in buf]
+    return xs, None if cs[0] is None else cs
 
 
 class EllBatches:
@@ -413,8 +579,10 @@ class StreamedBatches:
     batches from the data block (the BGZF file for a streaming block)
     through :class:`~mmvae_tpu_torch.data.pipeline.PrefetchLoader`, the
     covariate from its block, and copies them to the device from
-    page-locked memory.  One batch a step; JAX's superbatches only group
-    XLA dispatches.  ``schedule`` is the cell ids of each batch (default
+    page-locked memory: one batch at a time (:meth:`batches`) or S
+    batches in one copy (:meth:`superbatches`, JAX's host path: a
+    prefetch depth of 2S, the S batches stacked).  ``schedule`` is the
+    cell ids of each batch (default
     the sequential one over blocks of B; a data-parallel rank's slices of
     the global one, ``parallel.multihost.sharded_batches``); ``features``
     the features to keep, cut on the host before the copy (a rank's block
@@ -444,6 +612,32 @@ class StreamedBatches:
                 x = np.ascontiguousarray(x[:, self.features])
             yield self._to_device(x), self._to_device(c).float()
 
+    def _host_stack(self, arrays: list, dtype=None) -> torch.Tensor:
+        t = torch.from_numpy(np.stack(arrays))
+        if dtype is not None:
+            t = t.to(dtype)
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def superbatches(self, S: int):
+        """Runs of up to S batches as HOST tensors (s, B, D) and (s, B,
+        C), page-locked on a CUDA device, for one host->device copy each
+        into the superbatch buffers."""
+        loader = PrefetchLoader(self.data_block, self.covar_block,
+                                self.schedule, depth=2 * S)
+        xs: list = []
+        cs: list = []
+        for _, x, c in loader:
+            if self.features is not None:
+                x = np.ascontiguousarray(x[:, self.features])
+            xs.append(x)
+            cs.append(c)
+            if len(xs) == S:
+                yield (self._host_stack(xs),
+                       self._host_stack(cs, torch.float32))
+                xs, cs = [], []
+        if xs:
+            yield self._host_stack(xs), self._host_stack(cs, torch.float32)
+
 
 class DenseEpochRunner:
     """One training epoch of dense (B, D) batches through a step (the
@@ -469,12 +663,27 @@ class DenseEpochRunner:
     world rows of each (a tensor ``data`` holds only those rows, batch
     after batch); the draws are the global batch's under
     ``data_parallel`` and the rank's own M rows' under ``dp_shard``, and
-    ``record_fn`` sees the rank's rows."""
+    ``record_fn`` sees the rank's rows.
+
+    ``superbatch`` S (JAX's ``--superbatch``, default 8) walks the epoch
+    in runs of S batches, the last one shorter when S does not divide
+    the batches: each run is copied into the static inputs of a
+    :class:`~mmvae_tpu_torch.train.superbatch.SuperbatchGraphs` and its S
+    batch steps (with each batch's record outputs on a recording epoch)
+    run as one CUDA graph replay, or eagerly on the CPU, with the same
+    results as one batch at a time.  ``superbatch=None`` is that
+    per-batch path itself, the reference the graphs are held against; a
+    mesh always takes it (collectives do not enter the graphs yet).
+    :meth:`close` frees the graphs."""
 
     def __init__(self, fast, data, B: int, seed: int = 0,
                  covar: torch.Tensor | None = None, covar_dim: int = 1,
-                 record_fn=None, mesh=None):
+                 record_fn=None, mesh=None, superbatch: int | None = 8):
         self.fast, self.B, self.seed, self.mesh = fast, B, seed, mesh
+        self.S = (None if mesh is not None or superbatch is None
+                  else max(1, int(superbatch)))
+        self.graphs = None
+        self.graph_stats: dict = {}  # of the last graphs, kept by close
         M = B if mesh is None else mesh.local_batch(B)
         self.source = (ResidentBatches(data, M)
                        if isinstance(data, torch.Tensor) else data)
@@ -507,6 +716,13 @@ class DenseEpochRunner:
             return self.covar[b * self.B:(b + 1) * self.B]
         return self.covar.index_select(0, self.cols[b])
 
+    def close(self) -> None:
+        """Free the superbatch graphs (the runner makes them anew if
+        called again)."""
+        if self.graphs is not None:
+            self.graphs.close()
+            self.graphs = None
+
     def __call__(self, q: dict, opt_state: dict, epoch: int,
                  record: bool = False, rand: dict | None = None,
                  on_batch=None):
@@ -514,8 +730,12 @@ class DenseEpochRunner:
         record_fn outputs stacked to (nbatch, B, width) on a recording
         epoch, else None).  ``rand`` overrides the epoch's draws (tests
         feed the JAX package's); ``on_batch(b, report)`` is called after
-        each batch's step."""
+        each batch's step (each superbatch's last batch with ``superbatch``
+        S)."""
         rand = self.draw(epoch) if rand is None else rand
+        if self.S is not None:
+            return self._superbatches(q, opt_state, epoch, record, rand,
+                                      on_batch)
         reps = torch.empty(self.nbatch, dtype=torch.float32,
                            device=self.device)
         enc = None
@@ -535,6 +755,43 @@ class DenseEpochRunner:
                                 for t in outs)
                 for e, t in zip(enc, outs):
                     e[b] = t
+        return q, opt_state, reps, enc
+
+    def _superbatches(self, q, opt_state, epoch, record, rand, on_batch):
+        """The epoch in runs of S batches through the superbatch graphs;
+        returns what :meth:`__call__` returns, the state a copy of the
+        static state."""
+        if self.graphs is None:
+            self.graphs = SuperbatchGraphs(self.fast, self.S, self.record_fn,
+                                           self.ones.shape[1])
+            self.graph_stats = self.graphs.stats
+        sb = self.graphs
+        sb.set_state(q, opt_state)
+        sb.set_epoch(epoch)
+        reps = torch.empty(self.nbatch, dtype=torch.float32,
+                           device=self.device)
+        enc, lo = None, 0
+        src = self.source
+        runs = (src.superbatches(self.S) if isinstance(src, StreamedBatches)
+                else grouped(src.batches(), self.S))
+        for xs, cs in runs:
+            n = len(xs)
+            if cs is None and self.covar is not None:
+                cs = [self._covar(b) for b in range(lo, lo + n)]
+            s = sb.fill(xs, cs, tree_map(lambda t: t[lo:lo + n], rand))
+            r, e = sb.run(s, record)
+            reps[lo:lo + s] = r
+            if e is not None:
+                if enc is None:
+                    enc = tuple(torch.empty((self.nbatch, *t.shape[1:]),
+                                            dtype=t.dtype, device=t.device)
+                                for t in e)
+                for a, t in zip(enc, e):
+                    a[lo:lo + s] = t
+            lo += s
+            if on_batch is not None:
+                on_batch(lo - 1, reps[lo - 1])
+        q, opt_state = sb.state()
         return q, opt_state, reps, enc
 
 
@@ -830,16 +1087,26 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
         init_params = permute_d_axes(init_params, perm, D)
         if init_opt_state is not None:
             init_opt_state = permute_d_axes(init_opt_state, perm, D)
-    if torch.device(device).type == "cuda":
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
         from ..ops import _cuda
 
         _cuda.lib()  # build the kernels now, outside the epoch timing
 
+    S = max(1, int(opt.superbatch))
+    if mesh is not None:
+        if S > 1:
+            TLOG(f"--superbatch {S} groups nothing under a mesh in this "
+                 "port yet: the step runs one batch at a time")
+    else:
+        TLOG(f"Superbatch: {S} batch steps "
+             + ("a CUDA graph replay" if cuda else
+                "a dispatch (eager on the CPU)"))
     runner = DenseEpochRunner(
         fast, source, B * world, seed=opt.seed, covar=covar,
         covar_dim=covar_block.nfeature(),
         record_fn=recorder.encode if recorder is not None else None,
-        mesh=mesh)
+        mesh=mesh, superbatch=S)
     q = fast.pack(init_params)
     po = (fast.pack_opt_state(init_opt_state) if init_opt_state is not None
           else fast.optimizer.init(q))
@@ -869,6 +1136,9 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
         if recorder is not None:
             stack.callback(recorder.flush)
         stack.enter_context(trace())
+        # first on the way out: no graph outlives the device constants
+        # it reads (the mixture's masks go back to input order above)
+        stack.callback(runner.close)
         for epoch in range(start_epoch, opt.max_epoch):
             t0 = time.time()
             timer.reset()
@@ -904,6 +1174,12 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
             if on_epoch_end is not None:
                 on_epoch_end(epoch, full(fast.unpack(q)),
                              full_opt(fast.unpack_opt_state(po)), loss_vec)
+    st = runner.graph_stats
+    if st.get("captures"):
+        TLOG(f"Superbatch graphs: {st['captures']} captured in "
+             f"{st['capture_s']:.2f}s (warm-up included), "
+             f"{st['pool_bytes'] / 1e6:,.1f} MB reserved, "
+             f"{st['replays']} replays")
     TLOG("Done training")
     return full(fast.unpack(q)), loss_vec
 
