@@ -39,7 +39,7 @@ exits non-zero without the final line):
    checkpoint, every kernel's launch count > 0, the genes clustered
    (phase 42), then ``--resume`` for one more epoch;
 9. full-width training: two epochs of the dense-resident epoch runner
-   over the first 40,000 of phase 5's 100,000 x 20,000 int8 counts (a
+   over the first 20,000 of phase 5's 100,000 x 20,000 int8 counts (a
    depth cut for the time limit), with a profile of 20 batches;
 10. the joint vMF+NB model's kernel variants against their plain
     versions: ``count_encode`` with row stats (a training batch, 5 + 3
@@ -55,7 +55,7 @@ exits non-zero without the final line):
     kernel of the path launched, ``--resume`` for one more epoch; then
     ``encode --model vmfnb`` on that checkpoint, resident and streaming
     (bitwise equal), against the plain unfolded encoder;
-13. full-width joint training: two epochs over the first 10,000 of phase
+13. full-width joint training: two epochs over the first 5,000 of phase
     5's counts, with a profile of 20 batches;
 14. the labeled mixture's kernel instance K4f (``count_encode`` with the
     annotation-filtered row stats) against its plain version, with a
@@ -73,7 +73,7 @@ exits non-zero without the final line):
     one more epoch; then ``encode --model mixture``, resident and
     streaming (bitwise equal), against the plain unfolded encoder with
     the same Gumbel noise;
-17. full-width mixture training: two epochs over the first 10,000 of
+17. full-width mixture training: two epochs over the first 5,000 of
     phase 5's counts, with a profile of 20 batches;
 18. the generic step's kernels against their plain versions: K7
     (``nb_elbo_fwd``, both ``with_const`` instances), K8
@@ -101,7 +101,7 @@ exits non-zero without the final line):
     plain unfolded encoder (the width 16 is a test width: the reference
     publishes no hidden-layer default);
 21. full-width generic training: ``nb_vae --no_fused_step``'s step at
-    the default architecture, two epochs over the first 10,000 of phase
+    the default architecture, two epochs over the first 5,000 of phase
     5's counts (phase 9's model and cells: the two phases price the
     packed step against the generic one), with a profile of 20 batches;
 22. K2pv (``valgrad(joint=True, need_value=True)``, the value-bearing
@@ -127,7 +127,7 @@ exits non-zero without the final line):
     unfolded encoders;
 25. full-width generic training of the joint model: the library
     trainer (K2pv's main path) at the default architecture, two epochs
-    over the first 10,000 of phase 5's counts (phase 13's model and data:
+    over the first 5,000 of phase 5's counts (phase 13's model and data:
     the two phases price the packed joint step against the generic one),
     with a profile of 20 batches;
 26. the roofline probe P1 (``csrc/roofline_probe.cu``) against its plain
@@ -202,7 +202,7 @@ exits non-zero without the final line):
     checkpoint equal to the uninterrupted run; ``vmfnb_vae``,
     ``vmfnb_vae --annot --row`` and ``vmf_vae`` on rotation (csr) equal
     to phase 42's unclustered runs and phase 33's run bitwise;
-36. the rotating tier at depth: phase 9's 40,000 cells copied to a host
+36. the rotating tier at depth: phase 9's 20,000 cells copied to a host
     CSC, 8 shards in the layout the store picks, 4 of them resident, the
     NB packed step for 2 epochs from phase 9's seed and initialization:
     reports and parameters equal phase 9's bitwise, with cells/sec beside
@@ -226,7 +226,7 @@ exits non-zero without the final line):
     version in this run (:func:`launch_shapes`), the ranks' final
     parameters bitwise equal, rank 0 alone writing;
 38. data parallel at full width: the NB packed step under ``--dp_shard``
-    on the two ranks over phase 9's 40,000 cells (each rank makes phase
+    on the two ranks over phase 9's 20,000 cells (each rank makes phase
     5's counts on its card from the seed and keeps its 50 rows of every
     batch), phase 9's seed and initialization, 2 epochs: cells/sec summed
     over the ranks beside phase 9's, each rank's device idle share, and
@@ -248,8 +248,9 @@ exits non-zero without the final line):
     process within phase 12's tolerance (the mixture's assignments equal
     but for near-ties);
 41. tensor parallel at full width: phase 9's NB model and the first
-    10,000 of its cells under ``--tensor_parallel 2``'s step, 2 epochs: epoch-2 cells/sec
-    beside phase 9's, each rank's device idle share, the collectives' ms
+    5,000 of its cells under ``--tensor_parallel 2``'s step, 2 epochs:
+    epoch-2 cells/sec beside phase 9's, each rank's device idle share,
+    the collectives' ms
     a batch (K1, K6, K6p, K2, K2p and K3 at the TP launch shape, B =
     100, D = 10,000, int8, are timed against their plain versions at the
     close of phase 30);
@@ -274,8 +275,8 @@ exits non-zero without the final line):
 43. the superbatch step (``train.superbatch``, JAX's ``--superbatch``),
     after phase 36: the NB packed step, ``nb_vae --no_fused_step``'s
     generic step and the joint, mixture and vMF-VAE packed steps at
-    full width (the first 37 batches of phase 5's counts: superbatches
-    of 8 and 5), 3 epochs with the second recording, through the S = 8
+    full width (the first 21 batches of phase 5's counts: superbatches
+    of 8, 8 and 5), 3 epochs with the second recording, through the S = 8
     CUDA graphs and through the eager per-batch path on the same
     draws: parameters, Adam state, reports and posteriors bitwise
     equal, the launches replayed equal to the eager run's (every
@@ -283,13 +284,29 @@ exits non-zero without the final line):
     graph launching each port kernel as often as the graph books, a
     resume from a checkpoint of epoch 0 through the same graphs bitwise; each route's cells/sec both
     ways, wall and device-busy ms a batch, device ops a batch, the idle
-    share, the capture seconds and the graphs' pool.
+    share, the capture seconds and the graphs' pool;
+44. superbatches under a mesh, after phase 41: each rank a process of
+    this script (``--mesh-worker``), two ranks of ``--dp_shard`` and
+    ``--data_parallel`` (the NB packed step and ``nb_vae
+    --no_fused_step``'s generic step) and ``--tensor_parallel 2`` (the
+    generic TP step) over phase 43's batches at full width, 3 epochs
+    with the second recording, through the S = 8 graphs (gloo's chain of
+    segments on one card, NCCL's whole graph on two) and through the
+    per-batch mesh path: bitwise equal on every rank, the ranks' final
+    parameters and reports equal, the launches replayed equal, a
+    profiled replay launching what the graphs book; then rank 0 alone in
+    a one-rank NCCL group, the NB packed step under ``--dp_shard`` and
+    the generic one under ``--data_parallel`` through its whole graph on
+    one card, held the same way; each route's cells/sec both ways, wall,
+    busy and NCCL ms a batch, idle share, host collectives ms a batch,
+    segments and host collectives a superbatch, capture seconds and pool
+    a rank.
 
-Every single-process trainer CLI run (phases 8, 12, 16, 20, 24, 27,
-31, 33, 35, 42) trains through the superbatch graphs (``--superbatch``
-8, JAX's default); the library runs of phases 9, 13, 17, 21, 25, 34 and
-36 are the eager per-batch path (``superbatch=None``), as phase 43's
-reference; the meshes of 37-41 step one batch at a time.
+Every trainer CLI run (phases 8, 12, 16, 20, 24, 27, 31, 33, 35, 42, and
+on a mesh 37 and 39, which check it) trains through the superbatch
+graphs (``--superbatch`` 8, JAX's default); the library runs of phases
+9, 13, 17, 21, 25, 34, 36, 38 and 41 are the eager per-batch path
+(``superbatch=None``), as phases 43 and 44's reference.
 
 Each main path (phases 4, 8, 12, 16, the runs of 20 and 24, the
 probe's run in 26, the wide trainer of 31, the vMF-VAE's runs of 32,
@@ -324,15 +341,14 @@ D_GENES = 20000
 N_CLI = 4000        # cells of the synthetic CLI matrix
 N_FULL = 100_000    # cells of the full-size phases
 # cells the full-size training phases walk: their depth is cut to keep
-# the script well inside its time limit on a slow host; the NB packed
-# step (9) takes the longer walk, which phases 36 and 38 repeat on the
-# rotating tier and two DP ranks
-N_EARLIER = 40_000
+# the script well inside its time limit on a slow host (halved to make
+# room for phase 44); the NB packed step (9) takes the longer walk, which
+# phases 36 and 38 repeat on the rotating tier and two DP ranks
+N_EARLIER = 20_000
 # the joint and mixture models and the generic steps (13, 17, 21, 25)
-# and the TP step (41, cut from 40,000 to make room for phase 42); their
-# cells/sec are per cell, so phases 21 and 41 still price their steps
-# against phase 9's packed one
-N_SHORT = 10_000
+# and the TP step (41); their cells/sec are per cell, so phases 21 and 41
+# still price their steps against phase 9's packed one
+N_SHORT = 5_000
 # the vMF-VAE (34): its loss at D = 20,000 falls by about one float32
 # ulp of its value over two epochs of this walk
 N_VMF = 20_000
@@ -4124,7 +4140,7 @@ def locked_store_copy(store):
 
 def phase_rotating_full(card, data, ref):
     """Phase 36: phase 9's training (NB packed step, the same seed and
-    initialization) over the same 40,000 cells on the rotating tier: the
+    initialization) over the same cells on the rotating tier: the
     counts copied to a host CSC, 8 shards in the layout the store picks,
     4 of them resident, 2 epochs; reports and parameters equal phase 9's
     bitwise.  Prints epoch-2 cells/sec beside phase 9's, the device idle
@@ -4262,9 +4278,9 @@ def phase_rotating_full(card, data, ref):
 # ----------------------------------------------------------------------
 
 SB_S = 8  # JAX's --superbatch default
-# batches an epoch: no multiple of SB_S, so every epoch ends with a
-# superbatch of 5 (its own graph)
-SB_BATCHES = 37
+# batches an epoch of phases 43 and 44: no multiple of SB_S, so every
+# epoch ends with a superbatch of 5 (its own graph)
+SB_BATCHES = 21
 # route -> the kernels its step launches
 SB_ROUTES = {"nb": NB_PATH, "generic": GENERIC_PATH, "joint": JOINT_PATH,
              "mixture": MIXTURE_PATH, "vmf": []}
@@ -4332,7 +4348,21 @@ FIRST_STAGE = {"count_encode_tiles", "count_encode_bwd_tiles", "lse_tiles",
                "elbo_fwd_rows", "elbo_bwd_groups"}
 
 
-def replay_launches(fn, booked: dict, tries: int = 3):
+def booked_launches(sb, names: dict) -> dict:
+    """{port kernel: launches} that a replay of ``sb``'s S-batch training
+    graph (or chain of segments) books, summed over each kernel's
+    variants (``names``: {kernel: launch counter})."""
+    booked: dict = {}
+    for n, k in names.items():
+        v = sum(d.get(k, 0) for _, d in sb.graphs[(SB_S, False)]
+                if d is not None)
+        if v:
+            base = n.split("[")[0]
+            booked[base] = booked.get(base, 0) + v
+    return booked
+
+
+def replay_launches(fn, booked: dict, tries: int = 3, agree=None):
     """({port kernel: launches}, traces) of one call of ``fn`` from the
     profiler (CUPTI, as :func:`device_profile`): each port kernel's
     first-stage CUDA functions, named by ``trace_step.port_kernel``.  A
@@ -4342,7 +4372,9 @@ def replay_launches(fn, booked: dict, tries: int = 3):
     one run they read 2.4-2.9x :func:`device_profile`'s).  A trace whose
     launches differ from ``booked`` is taken again, up to ``tries`` in
     all: a launch the graph lacks, or one it holds beyond ``booked``,
-    differs in every trace.  Returns the last trace's."""
+    differs in every trace.  ``agree(same)`` (a mesh's ranks, which run
+    the same replays) makes the decision to trace again the ranks'
+    together.  Returns the last trace's."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from mmvae_tpu_torch.benchmarks import trace_step
@@ -4364,7 +4396,10 @@ def replay_launches(fn, booked: dict, tries: int = 3):
             if m and m.group(1) in FIRST_STAGE:
                 k = trace_step.port_kernel(name)
                 seen[k] = seen.get(k, 0) + n
-        if seen == booked:
+        same = seen == booked
+        if agree is not None:
+            same = agree(same)
+        if same:
             break
     return seen, t
 
@@ -4438,12 +4473,7 @@ def phase_superbatch(card, data, tmp):
         # device busy: one replay of the S-batch graph, two eager batches;
         # the replay's launches as the profiler sees them against those
         # the graph books (its capture's counts)
-        booked: dict = {}
-        for n, k in names.items():
-            v = sb.graphs[(SB_S, False)][1].get(k, 0)
-            if v:
-                base = n.split("[")[0]
-                booked[base] = booked.get(base, 0) + v
+        booked = booked_launches(sb, names)
         seen, traces = replay_launches(lambda: sb.run(SB_S, False), booked)
         g_busy, _ = device_profile(lambda: sb.run(SB_S, False))
         g_ops = device_profile.kernels / SB_S
@@ -4475,7 +4505,8 @@ def phase_superbatch(card, data, tmp):
         e, g = r["eager"], r["graphs"]
         log(f"{tag} [{card}] {kind}: {cells} x {D_GENES} int8, B="
             f"{B_TRAIN}, nboot 3, S = {SB_S} ({SB_BATCHES} batches an "
-            f"epoch: superbatches of 8 and 5), 3 epochs (the second "
+            f"epoch: superbatches of 8 and {SB_BATCHES % SB_S}), 3 epochs "
+            f"(the second "
             f"recording) and a resume from epoch 0: "
             + ("graphs == eager bitwise (parameters, Adam state, reports, "
                "posteriors, resume); " if not diffs else
@@ -4573,7 +4604,8 @@ def dp_full(rank: int, shapes: dict) -> dict:
     params = model.init(torch.Generator().manual_seed(SEED), device=DEV)
     dev = torch.device("cuda", torch.cuda.current_device())
     mesh = DataMesh(DP_WORLD, rank, dev, "dp_shard")
-    runner = DenseEpochRunner(fast, local, B_TRAIN, seed=SEED, mesh=mesh)
+    runner = DenseEpochRunner(fast, local, B_TRAIN, seed=SEED, mesh=mesh,
+                              superbatch=None)
     q = fast.pack(params)
     po = fast.optimizer.init(q)
     reset_launches()
@@ -4591,7 +4623,7 @@ def dp_full(rank: int, shapes: dict) -> dict:
                 for k, n in read_launches().items() if n}
     nprof = 20
     sub = DenseEpochRunner(fast, local[:nprof * DP_M], B_TRAIN, seed=SEED,
-                           mesh=mesh)
+                           mesh=mesh, superbatch=None)
     rand = sub.draw(2)
     # the step's all-reduces, timed with the device synchronised before
     # each clock starts (so leaving out the kernels that make the buffer)
@@ -4643,6 +4675,26 @@ def dp_full(rank: int, shapes: dict) -> dict:
             q[k].cpu().numpy().tobytes() for k in sorted(q))).hexdigest())
 
 
+def superbatch_lines(err: str) -> dict:
+    """A trainer CLI's superbatch log lines: the form rank 0 logs at the
+    start and the graphs' totals every rank logs at the end (None when
+    absent)."""
+    form = re.search(r"Superbatch: \d+ batch steps ([^\n]*)", err)
+    total = re.search(r"Superbatch graphs: ([^\n]*)", err)
+    return {"form": form and form.group(1), "graphs": total and total.group(1)}
+
+
+def check_mesh_graphs(name: str, per_rank: list) -> str:
+    """A mesh CLI run trained through the superbatch graphs: rank 0 logged
+    a graph form and every rank captured graphs.  Returns rank 0's form."""
+    form = per_rank[0]["superbatch"]["form"]
+    if not form or "CUDA graph" not in form or any(
+            not x["superbatch"]["graphs"] for x in per_rank):
+        raise AssertionError(f"{name}: not through the superbatch graphs: "
+                             f"{[x['superbatch'] for x in per_rank]}")
+    return form
+
+
 def dp_worker(rank: int, plan_path: str) -> int:
     """One rank of phases 37-38 (``python3 chip_smoke.py --dp-worker RANK
     PLAN``): join the process group, run each planned CLI with every
@@ -4690,7 +4742,8 @@ def dp_worker(rank: int, plan_path: str) -> int:
                 shapes={k: sorted(v) for k, v in shapes.items()},
                 tier=("dense-resident DP layout"
                       if "dense-resident, DP layout" in err else "host path"),
-                resumed="Resumed from" in err)
+                resumed="Resumed from" in err,
+                superbatch=superbatch_lines(err))
             np.savez(os.path.join(run["dir"], f"final_rank{rank}.npz"),
                      **flatten_params(final["params"]))
         out["full"] = dp_full(rank, shapes)
@@ -4829,7 +4882,9 @@ def phase_dp(card, tmp, mtx, rate9):
             raise AssertionError(f"{name}: {tier}, not JAX's tier")
         if name.endswith("_r") and not per_rank[0]["resumed"]:
             raise AssertionError(f"{name} did not resume")
-        log(f"[phase 37] [{card}] {name} ({run['label']}, {tier}): scores "
+        form = check_mesh_graphs(name, per_rank)
+        log(f"[phase 37] [{card}] {name} ({run['label']}, {tier}, superbatch "
+            f"{form}): scores "
             f"{scores.tolist()}; launches rank 0 "
             f"{ {k: per_rank[0]['launches'][k] for k in run['path']} }, "
             f"rank 1 { {k: per_rank[1]['launches'][k] for k in run['path']} }"
@@ -4954,7 +5009,7 @@ def tp_runs(tmp: str, mtx: str) -> list[dict]:
 
 def tp_full(rank: int, shapes: dict) -> dict:
     """Phase 41 on one rank: phase 9's NB model (phase 9's seed and
-    initialization, this rank's shard of it) on the first 10,000 of
+    initialization, this rank's shard of it) on the first 5,000 of
     phase 9's cells (phase 5's counts made on the card from the seed,
     this rank's D / 2 features kept), the TP ``Trainer`` of ``nb_vae
     --tensor_parallel 2``, 2 epochs; then 20 batches with the device
@@ -4983,7 +5038,8 @@ def tp_full(rank: int, shapes: dict) -> dict:
     params = shard_params(
         model.init(torch.Generator().manual_seed(SEED), device=DEV),
         fast.tp_pspecs, mesh)
-    runner = DenseEpochRunner(fast, local, B_TRAIN, seed=SEED, mesh=mesh)
+    runner = DenseEpochRunner(fast, local, B_TRAIN, seed=SEED, mesh=mesh,
+                              superbatch=None)
     q, po = params, fast.optimizer.init(params)
     reset_launches()
     shapes.clear()
@@ -5000,7 +5056,7 @@ def tp_full(rank: int, shapes: dict) -> dict:
                 for k, n in read_launches().items() if n}
     nprof = 20
     sub = DenseEpochRunner(fast, local[:nprof * B_TRAIN], B_TRAIN,
-                           seed=SEED, mesh=mesh)
+                           seed=SEED, mesh=mesh, superbatch=None)
     rand = sub.draw(2)
     # the step's all-reduces, timed with the device synchronised before
     # each clock starts (so leaving out the kernels that make the buffer)
@@ -5103,7 +5159,8 @@ def tp_worker(rank: int, plan_path: str) -> int:
                 tier=("dense-resident TP layout" if "TP layout" in err
                       else "TP serving" if "TP serving over" in err
                       else "host path"),
-                resumed="Resumed from" in err)
+                resumed="Resumed from" in err,
+                superbatch=superbatch_lines(err))
             if final:
                 np.savez(os.path.join(run["dir"], f"final_rank{rank}.npz"),
                          **flatten_params(final["params"]))
@@ -5385,6 +5442,7 @@ def phase_tp(card, tmp, mtx, rate9):
             raise AssertionError(f"{name}: scores {scores}")
         if per_rank[0]["tier"] != "dense-resident TP layout":
             raise AssertionError(f"{name}: {per_rank[0]['tier']}")
+        form = check_mesh_graphs(name, per_rank)
         extra = ""
         if name in ("nb", "joint", "mixture", "vmf"):
             e_s, w = tp_vs_single(d, kind, mtx, run["epochs"])
@@ -5406,7 +5464,8 @@ def phase_tp(card, tmp, mtx, rate9):
             extra = f"; equals the uninterrupted run bitwise ({len(want)} " \
                     f"files and arrays)"
         log(f"[phase 39] [{card}] {name} ({TP_CLI[kind]} --tensor_parallel "
-            f"{TP_N}, {run['epochs']} epoch(s), dense-resident TP layout): "
+            f"{TP_N}, {run['epochs']} epoch(s), dense-resident TP layout, "
+            f"superbatch {form}): "
             f"scores {scores.tolist()}; launches rank 0 "
             f"{ {k: per_rank[0]['launches'][k] for k in path} }, rank 1 "
             f"{ {k: per_rank[1]['launches'][k] for k in path} }, K4 and K5 "
@@ -5453,6 +5512,364 @@ def phase_tp(card, tmp, mtx, rate9):
             f"{fr['allreduce_bytes'] / 1e3:.2f} kB on average (host clock, "
             f"device synchronised around each)")
     return {"rate": rate, "totals": totals}
+
+
+# ----------------------------------------------------------------------
+# phase 44: superbatches under a mesh (each rank a process of this
+# script, ``--mesh-worker``)
+# ----------------------------------------------------------------------
+
+# (mode, step) of the pair: the NB packed step and ``nb_vae
+# --no_fused_step``'s generic step under both data-parallel modes, and
+# ``nb_vae --tensor_parallel 2``'s generic TP step
+MESH_ROUTES = (("dp_shard", "nb"), ("dp_shard", "generic"),
+               ("data_parallel", "nb"), ("data_parallel", "generic"),
+               ("tp", "generic"))
+# the one-rank NCCL group's: its whole graph on one card
+NCCL1_ROUTES = (("dp_shard", "nb"), ("data_parallel", "generic"))
+
+
+def mesh_route(mode, kind, mesh):
+    """(model, step, the recorder's encode) of a phase-44 route, as the
+    trainer CLI builds them on a rank."""
+    from mmvae_tpu_torch.cli import nb_vae
+    from mmvae_tpu_torch.train.config import TrainingOptions
+
+    model, step_cls = model_and_step("nb")
+    if mode == "tp":
+        fast = nb_vae.make_step(model, TrainingOptions(), mesh=mesh)[0]
+        return model, fast, fast.tp_record_encode
+    fast = (step_cls(model, TrainingOptions()) if kind == "nb" else
+            generic_trainer(model, TrainingOptions(fused_step=False)))
+    rows = mesh.rows(B_TRAIN)
+    return model, fast, model.record_encoder(SEED, B_TRAIN, rows=rows)[0]
+
+
+def timed_collectives(fn) -> tuple[float, int]:
+    """(host seconds, calls) of the ``torch.distributed`` collectives
+    ``fn`` issues from the host, the device synchronised around each (a
+    graph's NCCL collectives are not host calls, and count none)."""
+    import torch.distributed as dist
+
+    real = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+    acc = [0.0, 0]
+
+    def timed(call):
+        def wrap(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call(*a, **kw)
+            torch.cuda.synchronize()
+            acc[0] += time.perf_counter() - t0
+            acc[1] += 1
+            return out
+        return wrap
+
+    for n, call in real.items():
+        setattr(dist, n, timed(call))
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for n, call in real.items():
+            setattr(dist, n, call)
+    return acc[0], acc[1]
+
+
+def mesh_route_run(mesh, mode, kind, data) -> dict:
+    """One phase-44 route on this rank: the runner over the rank's part
+    of ``data`` through the S = 8 graphs and through the per-batch path,
+    3 epochs each (the second recording) from the same state and draws;
+    the checks of phase 43 on the rank (bitwise, launches, a profiled
+    replay) and its numbers."""
+    from mmvae_tpu_torch.ops.nb_fast import tree_leaves
+    from mmvae_tpu_torch.parallel.mesh import gather_params, shard_params
+    from mmvae_tpu_torch.parallel.multihost import barrier
+    from mmvae_tpu_torch.train.loop import DenseEpochRunner
+
+    model, fast, enc_fn = mesh_route(mode, kind, mesh)
+    Ml = mesh.local_batch(B_TRAIN)
+    local = data.view(SB_BATCHES, mesh.ndata, Ml, D_GENES)[
+        :, mesh.data_index].reshape(-1, D_GENES)
+    if mesh.tp:
+        local = local[:, mesh.local_cols(D_GENES)]
+    local = local.contiguous()
+
+    def record(p, x):
+        with torch.no_grad():
+            return enc_fn(p, x)
+
+    params = model.init(torch.Generator().manual_seed(SEED), device=DEV)
+    if mesh.tp:
+        params = shard_params(params, fast.tp_pspecs, mesh)
+    names = {n: f"{w.__name__}.{a}" for n, (w, a) in _counters().items()}
+    runs, counts, runners = {}, {}, {}
+    for how, S in (("eager", None), ("graphs", SB_S)):
+        runner = DenseEpochRunner(fast, local, B_TRAIN, seed=SEED,
+                                  record_fn=record, mesh=mesh, superbatch=S)
+        q = fast.pack(params)
+        barrier()
+        reset_launches()
+        runs[how] = sb_epochs(runner, q, fast.optimizer.init(q), 0, 3)
+        counts[how] = read_launches()
+        runners[how] = runner
+    sb = runners["graphs"].graphs
+    warm = {n: sb.warm_launches.get(k, 0) for n, k in names.items()}
+    replayed = {n: counts["graphs"][n] - warm[n] for n in names}
+    diffs = {k: float(v) for k, v in
+             epoch_diffs(runs["graphs"], runs["eager"]).items()}
+    booked = booked_launches(sb, names)
+    # every rank runs the same replays: the ranks retrace together
+    seen, _ = replay_launches(lambda: sb.run(SB_S, False), booked,
+                              agree=all_ranks)
+    g_busy, g_per = device_profile(lambda: sb.run(SB_S, False))
+    g_ops = device_profile.kernels / SB_S
+    g_comm = sum(v for k, v in g_per.items() if "nccl" in k.lower())
+    g_coll = timed_collectives(lambda: sb.run(SB_S, False))
+    sub = DenseEpochRunner(fast, local[:2 * Ml], B_TRAIN, seed=SEED,
+                           mesh=mesh, superbatch=None)
+    rand = sub.draw(3)
+    qe, poe = runs["eager"][-1]["q"], runs["eager"][-1]["po"]
+    e_busy, e_per = device_profile(lambda: sub(qe, poe, 3, rand=rand))
+    e_ops = device_profile.kernels / 2
+    e_comm = sum(v for k, v in e_per.items() if "nccl" in k.lower())
+    e_coll = timed_collectives(lambda: sub(qe, poe, 3, rand=rand))
+    last = runs["graphs"][-1]
+    full = fast.unpack(last["q"])
+    if mesh.tp:
+        full = gather_params(full, fast.tp_pspecs, mesh)
+    sha = hashlib.sha256(b"".join(
+        v.cpu().numpy().tobytes() for v in tree_leaves(full))
+        + last["reps"].cpu().numpy().tobytes()).hexdigest()
+    st = dict(runners["graphs"].graph_stats)
+    out = {"diffs": diffs, "replayed": replayed, "eager_launches":
+           counts["eager"], "warm": warm, "booked": booked, "seen": seen,
+           "sha": sha, "form": st["form"], "segments": st["segments"],
+           "host_collectives": st["host_collectives"],
+           "captures": st["captures"], "capture_s": st["capture_s"],
+           "pool_mb": st["pool_bytes"] / 1e6,
+           "losses": [float(r["reps"].double().mean()) for r in
+                      runs["graphs"]]}
+    for how, busy, comm, ops, n, coll in (
+            ("eager", e_busy, e_comm, e_ops, 2, e_coll),
+            ("graphs", g_busy, g_comm, g_ops, SB_S, g_coll)):
+        wall = runs[how][2]["wall"]
+        out[how] = {"wall_s": wall, "wall_ms": wall * 1e3 / SB_BATCHES,
+                    "busy_ms": (busy - comm) / n, "nccl_ms": comm / n,
+                    "ops": ops, "coll_ms": coll[0] * 1e3 / n,
+                    "coll_calls": coll[1] / n}
+        out[how]["idle"] = 1 - out[how]["busy_ms"] / out[how]["wall_ms"]
+    runners["graphs"].close()
+    return out
+
+
+def all_ranks(ok: bool) -> bool:
+    """Whether ``ok`` holds on every rank of the process group (one
+    all-reduce)."""
+    import torch.distributed as dist
+
+    flag = torch.tensor([int(ok)], device=DEV)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag.item())
+
+
+def mesh_routes(routes, world: int, rank: int, dev, data) -> dict:
+    """Every route of ``routes`` (:func:`mesh_route_run`) on this rank of
+    the process group."""
+    import torch.distributed as dist
+
+    from mmvae_tpu_torch.parallel.mesh import DataMesh, make_mesh
+
+    tp = (make_mesh(dev, "dp_shard", TP_N)
+          if any(m == "tp" for m, _ in routes) else None)
+    out = {"backend": dist.get_backend(), "device": str(dev), "routes": {}}
+    for mode, kind in routes:
+        mesh = tp if mode == "tp" else DataMesh(world, rank, dev, mode)
+        out["routes"][f"{mode} {kind}"] = mesh_route_run(mesh, mode, kind,
+                                                         data)
+    return out
+
+
+def mesh_worker(rank: int, plan_path: str) -> int:
+    """One rank of phase 44 (``python3 chip_smoke.py --mesh-worker RANK
+    PLAN``): the pair over ``init_multihost`` (gloo on one card, NCCL on
+    two) on :data:`MESH_ROUTES`, then rank 0 alone in a one-rank NCCL
+    group on :data:`NCCL1_ROUTES` (:func:`mesh_routes`); writes
+    ``rank<RANK>.json`` beside the plan."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    import torch.distributed as dist
+
+    from mmvae_tpu_torch.parallel.multihost import init_multihost
+
+    with open(plan_path) as f:
+        plan = json.load(f)
+    dev = init_multihost(plan["coordinator"], 2, rank, torch.device(DEV))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = full_size_counts()[:SB_BATCHES * B_TRAIN].clone()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    out = {"pair": mesh_routes(MESH_ROUTES, 2, rank, dev, data)}
+    out["pair"]["seconds"] = time.time() - t0
+    dist.destroy_process_group()
+    if rank == 0:
+        t0 = time.time()
+        dist.init_process_group("nccl",
+                                init_method=f"tcp://{plan['nccl1']}",
+                                world_size=1, rank=0)
+        out["nccl1"] = mesh_routes(NCCL1_ROUTES, 1, 0, dev, data)
+        out["nccl1"]["seconds"] = time.time() - t0
+        dist.destroy_process_group()
+    with open(os.path.join(os.path.dirname(plan_path),
+                           f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def run_mesh_workers(tmp: str) -> list:
+    """Start phase 44's two workers, wait (480 s), and return their
+    results, or raise with their logs' ends."""
+    d = os.path.join(tmp, "msb")
+    os.makedirs(d)
+    plan = os.path.join(d, "plan.json")
+    with open(plan, "w") as f:
+        json.dump({"coordinator": f"127.0.0.1:{free_port()}",
+                   "nccl1": f"127.0.0.1:{free_port()}"}, f)
+    env = dict(os.environ, MMVAE_DIST_TIMEOUT="120")
+    logs = [open(os.path.join(d, f"rank{r}.log"), "w+") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--mesh-worker", str(r), plan], env=env,
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(2)]
+    try:
+        for p in procs:
+            p.wait(timeout=480)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for f in logs:
+        f.seek(0)
+        texts.append(f.read())
+        f.close()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("a phase-44 rank failed:\n" + "\n---\n".join(
+            t[-4000:] for t in texts))
+    res = []
+    for r in range(2):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    return res
+
+
+MESH_PATHS = {"nb": NB_PATH, "generic": GENERIC_PATH, "tp": TP_PATHS["nb"]}
+
+
+def phase_mesh_superbatch(card, tmp) -> dict:
+    """Phase 44: superbatches under a mesh at full width (B = 100 global,
+    D = 20,000 int8, the first :data:`SB_BATCHES` batches of phase 5's
+    counts, nboot 3; under TP two ranks of 10,000 genes), S = 8, 3
+    epochs (the second recording), through the graphs and through the
+    per-batch mesh path in the same process: two ranks on
+    :data:`MESH_ROUTES` (gloo's segments on one card, NCCL's whole graph
+    on two), then rank 0 alone in a one-rank NCCL group on
+    :data:`NCCL1_ROUTES` (its whole graph on one card).  Each route:
+    parameters, Adam state, reports and posteriors bitwise equal to the
+    per-batch path on every rank, the ranks' final parameters and reports bitwise equal, the
+    launches replayed equal to the per-batch path's, every kernel of the
+    route counted, and a profiled replay's launches equal to what the
+    graphs book; then the numbers (third epoch).  Returns {route:
+    numbers}."""
+    tag = "[phase 44]"
+    cells = SB_BATCHES * B_TRAIN
+    t0 = time.time()
+    ranks = run_mesh_workers(tmp)
+    log(f"{tag} [{card}] the workers ran {time.time() - t0:.1f}s")
+    out, bad = {}, {}
+    for group, routes in (("pair", MESH_ROUTES), ("nccl1", NCCL1_ROUTES)):
+        res = [x[group] for x in ranks if group in x]
+        backend = res[0]["backend"]
+        log(f"{tag} [{card}] {len(res)} rank(s), backend {backend} "
+            f"({', '.join(x['device'] for x in res)}; "
+            f"{torch.cuda.device_count()} device(s)); routes ran "
+            f"{res[0]['seconds']:.1f}s")
+        for mode, kind in routes:
+            key = f"{mode} {kind}"
+            rs = [x["routes"][key] for x in res]
+            path = MESH_PATHS["tp" if mode == "tp" else kind]
+            errs = {}
+            for r, x in enumerate(rs):
+                if x["diffs"]:
+                    errs[f"rank {r} graphs vs per-batch"] = x["diffs"]
+                if x["replayed"] != x["eager_launches"] or any(
+                        x["eager_launches"][n] <= 0 for n in path):
+                    errs[f"rank {r} launches"] = (
+                        f"graphs {x['replayed']} (+ warm-up {x['warm']}), "
+                        f"per-batch {x['eager_launches']}")
+                if x["seen"] != x["booked"] or any(
+                        x["booked"].get(n.split("[")[0], 0) <= 0
+                        for n in path):
+                    errs[f"rank {r} replay launches"] = (
+                        f"profiled {x['seen']}, booked {x['booked']}")
+                want = "segments" if backend == "gloo" else "graph"
+                if x["form"] != want:
+                    errs[f"rank {r} form"] = x["form"]
+                if not np.isfinite(x["losses"]).all():
+                    errs[f"rank {r} losses"] = x["losses"]
+            if len({x["sha"] for x in rs}) != 1:
+                errs["ranks"] = "the ranks' final parameters differ"
+            if errs:
+                bad[f"{group} {key}"] = errs
+            x0 = rs[0]
+            g_wall = max(x["graphs"]["wall_s"] for x in rs)
+            e_wall = max(x["eager"]["wall_s"] for x in rs)
+            num = {"backend": backend, "form": x0["form"], "ranks": len(rs),
+                   "cells_per_sec": {"graphs": cells / g_wall,
+                                     "eager": cells / e_wall},
+                   "per_rank": [{k: x[k] for k in (
+                       "graphs", "eager", "segments", "host_collectives",
+                       "captures", "capture_s", "pool_mb")} for x in rs]}
+            out[f"{group} {key}"] = num
+            g, e = (num["cells_per_sec"][k] for k in ("graphs", "eager"))
+            log(f"{tag} [{card}] {key} ({len(rs)} rank(s), {backend}, form "
+                f"{x0['form']}): {cells} x {D_GENES} int8, B={B_TRAIN}, "
+                f"nboot 3, S = {SB_S} ({SB_BATCHES} batches: superbatches "
+                f"of 8 and {SB_BATCHES % SB_S}), 3 epochs (the second "
+                f"recording): "
+                + ("graphs == per-batch bitwise on every rank (parameters, "
+                   "Adam state, reports, posteriors), ranks bitwise equal; "
+                   if not errs else f"FAILED {errs}; ")
+                + f"launches replayed rank 0 "
+                f"{ {n: x0['replayed'][n] for n in path} } == per-batch; a "
+                f"replay of the {SB_S}-batch chain profiled: {x0['seen']} "
+                f"(booked {x0['booked']}); third epoch, the run's cells/sec "
+                f"(the slower rank): graphs {g:,.1f}, per-batch {e:,.1f} "
+                f"({g / e:.2f}x); epoch losses "
+                f"{[round(v, 4) for v in x0['losses']]}")
+            for r, x in enumerate(rs):
+                gr, er = x["graphs"], x["eager"]
+                log(f"{tag} [{card}] {key} rank {r}: graphs "
+                    f"{gr['wall_ms']:.3f} ms wall a batch, device busy "
+                    f"{gr['busy_ms']:.3f} ms (NCCL's kernels "
+                    f"{gr['nccl_ms']:.3f}), {gr['ops']:.0f} device ops a "
+                    f"batch, idle {gr['idle']:.1%}, host collectives "
+                    f"{gr['coll_ms']:.3f} ms a batch in {gr['coll_calls']:g}"
+                    f" calls; per-batch {er['wall_ms']:.3f} ms wall, busy "
+                    f"{er['busy_ms']:.3f} ms (NCCL's {er['nccl_ms']:.3f}), "
+                    f"{er['ops']:.0f} ops, idle {er['idle']:.1%}, "
+                    f"collectives {er['coll_ms']:.3f} ms in "
+                    f"{er['coll_calls']:g} calls; {x['segments']} segments "
+                    f"and {x['host_collectives']} host collectives a "
+                    f"superbatch of {SB_S}; {x['captures']} captures in "
+                    f"{x['capture_s']:.2f}s (warm-ups included), pool "
+                    f"{x['pool_mb']:,.1f} MB")
+    if bad:
+        raise AssertionError(f"superbatches under a mesh: {bad}")
+    return out
 
 
 def free_port() -> int:
@@ -5669,6 +6086,8 @@ def main() -> int:
         mark("37-38")
         tp = phase_tp(card, tmp, mtx, rate9)
         mark("39-41")
+        phase_mesh_superbatch(card, tmp)
+        mark("44")
     log("[timing] seconds by phase: " + "; ".join(
         f"{b[0]} {b[1] - a[1]:.1f}" for a, b in zip(marks, marks[1:]))
         + f"; since the build {marks[-1][1] - t0:.1f}")
@@ -5768,4 +6187,6 @@ if __name__ == "__main__":
         sys.exit(dp_worker(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--tp-worker"]:
         sys.exit(tp_worker(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

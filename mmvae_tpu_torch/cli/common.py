@@ -194,14 +194,39 @@ def add_device_flag(g) -> None:
 
 
 def tp_trainer(model, topt: TrainingOptions, kl, eps_widths, report,
-               boot) -> Trainer:
+               boot, mesh) -> Trainer:
     """The tensor-parallel generic ``Trainer`` of ``model`` (JAX's
     ``tp_shard_map`` Trainer): the ``report`` and ``boot`` losses on the
-    shard, the model's ``tp_pspecs`` for the clip across the model row."""
+    shard, the model's ``tp_pspecs`` for the clip across the model row,
+    and its TP record encoder (:func:`tp_record_encode`) for
+    ``step_record``, as the JAX CLIs pass ``tp_record_encode``."""
     specs = model.tp_pspecs(model.init(torch.Generator().manual_seed(0)))
+    encode, extra = tp_record_encode(model, topt.seed, mesh)
     return Trainer(None, None, topt, kl=kl, eps_widths=eps_widths,
                    report_loss_override=report, boot_loss_override=boot,
-                   tp_pspecs=specs)
+                   tp_pspecs=specs, tp_record_encode=encode,
+                   tp_record_extra=extra)
+
+
+def tp_record_encode(model, seed: int, mesh):
+    """(encode, gives an extra output?): ``model.tp_record_encoder`` on
+    this rank's shard for batches of any M rows of its data index (made
+    at B = M * ndata with the data index's rows, which the mixture's
+    noise needs), the encoder the recorder of :func:`run_training`
+    uses."""
+    made: dict = {}
+
+    def encode(params, x):
+        M = x.shape[0]
+        if M not in made:
+            B = M * mesh.ndata
+            made[M] = model.tp_record_encoder(seed, B, mesh.rows(B),
+                                              mesh.model_group)[0]
+        return made[M](params, x)
+
+    extra = model.tp_record_encoder(seed, mesh.ndata, mesh.rows(mesh.ndata),
+                                    mesh.model_group)[1]
+    return encode, extra is not None
 
 
 def resolve_device(name: str) -> torch.device | None:

@@ -82,7 +82,8 @@ def make_step(model: VMFVAE, topt: TrainingOptions, kl=(1.0, 1e-2, 0.1),
         def loss(p, x, c, e, b):
             return model.tp_step_loss(p, x, c, e, b, mesh.model_group)
 
-        return (tp_trainer(model, topt, kl, (model.latent,), loss, loss),
+        return (tp_trainer(model, topt, kl, (model.latent,), loss, loss,
+                           mesh),
                 "generic step, tensor parallel (tp_step_loss)")
     if topt.fused and topt.fused_step and VMFFastStep.supports(model):
         return VMFFastStep(model, topt, kl=kl), "packed step (VMFFastStep)"

@@ -129,7 +129,8 @@ def make_step(model, topt: TrainingOptions, kl=(1.0, 1e-2, 0.1),
             lambda p, x, c, e, b: model.fused_step_report_tp(
                 p, x, c, e, b, mesh.model_group, include_data_const=True),
             lambda p, x, c, e, b: model.fused_step_boot_tp(
-                p, x, c, e, b, mesh.model_group, need_value=False)), (
+                p, x, c, e, b, mesh.model_group, need_value=False),
+            mesh), (
             "generic step, tensor parallel (fused_step_report_tp / "
             "fused_step_boot_tp, grad-only)")
     fused_step = topt.fused and topt.fused_step

@@ -671,9 +671,14 @@ class VMFNBMixtureVAE(nn.Module):
         u = self.gumbel_uniforms(B, seed)
         if rows is not None:
             u = u[rows]
+        on_device: dict = {}
 
         def encode(params, x):
-            vmf = self.tp_vmf_forward(params, x, False, model_axis, u)
+            key = str(x.device)
+            if key not in on_device:  # one host->device copy per device
+                on_device[key] = u.to(x.device)
+            vmf = self.tp_vmf_forward(params, x, False, model_axis,
+                                      on_device[key])
             return (*self.tp_nb_encode_mu(params, x, vmf.latent, model_axis),
                     vmf.latent)
 

@@ -253,7 +253,7 @@ def batch_rand(rand: dict, b: int) -> dict:
 
 
 def superbatch_step(step, q, opt_state, x_sb, c_sb, epoch_f, beta, rand,
-                    record_fn=None):
+                    record_fn=None, mesh=None):
     """The S batch steps of ``x_sb`` (S, B, D) and ``c_sb`` (S, B, C) in
     order, each ``step.batch_step`` on the state the one before left (the
     scan body of JAX's ``Trainer._superbatch_step`` and
@@ -262,9 +262,12 @@ def superbatch_step(step, q, opt_state, x_sb, c_sb, epoch_f, beta, rand,
     ``beta_override`` hands every batch step in place of a host->device
     copy) and batch j's draws ``rand[...][j]``; on a recording superbatch
     ``record_fn(step.unpack(q), x)`` right after each batch's updates
-    (the recorder's observation point, mmvae_alg.hh:315-317).  Returns
-    (q, opt_state, reports (S,), the record outputs stacked to (S, B,
-    width) or None).  The body that
+    (the recorder's observation point, mmvae_alg.hh:315-317).  ``mesh``
+    goes to every ``batch_step``, as JAX's scan body takes ``axis_name``:
+    ``x_sb`` and ``c_sb`` are then this rank's rows (and features, under
+    tensor parallelism) and ``rand`` its draws (``DataMesh.step_inputs``).
+    Returns (q, opt_state, reports (S,), the record outputs stacked to
+    (S, B, width) or None).  The body that
     ``train.superbatch.SuperbatchGraphs`` captures."""
     reps, recs = [], []
     step.beta_override = beta
@@ -272,7 +275,7 @@ def superbatch_step(step, q, opt_state, x_sb, c_sb, epoch_f, beta, rand,
         for j in range(x_sb.shape[0]):
             q, opt_state, rep = step.batch_step(
                 q, opt_state, x_sb[j], c_sb[j], epoch_f,
-                batch_rand(rand, j))
+                batch_rand(rand, j), mesh=mesh)
             reps.append(rep)
             if record_fn is not None:
                 recs.append(record_fn(step.unpack(q), x_sb[j]))

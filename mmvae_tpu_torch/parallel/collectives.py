@@ -23,17 +23,86 @@ A ``group`` of None is an axis of one rank: every function is then the
 identity.
 
 Each function is ONE collective a call: a list of tensors travels in one
-flat buffer.  Both backends reduce each element once and send every rank
-the same result, so the ranks hold the same bits, and a fixed world on
-fixed devices repeats them from run to run (tests/test_torch_parallel.py
-and tests/test_torch_tp_*.py check both on gloo, ``chip_smoke.py``
-phases 37 and 39 on gloo, or on NCCL where the machine has two cards).
+flat buffer.  The three calls that reach ``torch.distributed``
+(:func:`psum`, through which :func:`pmax` and the autograd Functions
+go, :func:`pmean` and :func:`gather_rows`) go through :func:`_issue`,
+which follows the rule of :func:`capture_form` inside a CUDA graph
+capture of the superbatch step (``train/superbatch.py``): an NCCL call
+is recorded in the graph, a gloo call on a card becomes a host step
+between two segment graphs (:func:`segmented`), and a capture that
+meets a gloo call with no segmented capture open raises.
+
+Both backends reduce each element once and send every rank the same
+result, so the ranks hold the same bits, and a fixed world on fixed
+devices repeats them from run to run (tests/test_torch_parallel.py and
+tests/test_torch_tp_*.py check both on gloo, ``chip_smoke.py`` phases
+37, 39 and 44 on gloo, or on NCCL where the machine has two cards).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.distributed as dist
+
+#: the superbatch step's forms (:func:`capture_form`)
+FORMS = ("graph", "segments", "eager")
+
+
+def capture_form(backend: str | None, device_type: str) -> str:
+    """How S batch steps run as one superbatch on ``device_type`` when
+    their collectives go over ``backend`` (None: one process, no
+    collective): ``"eager"`` off a card (the body runs as it is);
+    ``"graph"`` on a card with NCCL or no collective (one CUDA graph,
+    NCCL's kernels recorded in it: NCCL supports stream capture);
+    ``"segments"`` on a card with gloo, which reduces on the host after
+    a device-to-host copy and so cannot be captured: each collective
+    ends the running segment's capture, runs between two segment graphs
+    as a host step, and the next segment's capture begins after it."""
+    if device_type != "cuda":
+        return "eager"
+    if backend is None or backend == "nccl":
+        return "graph"
+    if backend == "gloo":
+        return "segments"
+    raise ValueError(f"no superbatch form for backend {backend!r}")
+
+
+_segments = None  # the segmented capture in progress (:func:`segmented`)
+
+
+@contextlib.contextmanager
+def segmented(capture):
+    """Hand every gloo collective issued under a capture to
+    ``capture.host_step(call)`` while the block runs (the autograd
+    engine's device thread included)."""
+    global _segments
+    _segments = capture
+    try:
+        yield
+    finally:
+        _segments = None
+
+
+def _issue(name: str, tensor: torch.Tensor, *args, **kw) -> None:
+    """``torch.distributed.<name>(*args, **kw)`` in the form
+    :func:`capture_form` gives: issued as it is eagerly, on the CPU and
+    under an NCCL capture; a host step of the segmented capture under a
+    gloo capture on a card (the call is looked up when the step runs, and
+    its tensors stay alive with the step).  ``tensor`` is the call's
+    input, ``kw["group"]`` its group."""
+    if tensor.is_cuda and torch.cuda.is_current_stream_capturing() and (
+            capture_form(dist.get_backend(kw.get("group")), "cuda")
+            == "segments"):
+        if _segments is None:
+            raise RuntimeError(
+                f"a gloo {name} inside a CUDA graph capture: gloo reduces on "
+                "the host, so only a segmented capture "
+                "(train.superbatch.SuperbatchGraphs) can hold it")
+        _segments.host_step(lambda: getattr(dist, name)(*args, **kw))
+        return
+    getattr(dist, name)(*args, **kw)
 
 
 def _flat(tensors):
@@ -55,7 +124,7 @@ def psum(tensors: list[torch.Tensor], group=None, op=dist.ReduceOp.SUM
     if group is None:
         return list(tensors)
     flat = _flat(tensors)
-    dist.all_reduce(flat, op=op, group=group)
+    _issue("all_reduce", flat, flat, op=op, group=group)
     return _split(flat, tensors)
 
 
@@ -69,7 +138,7 @@ def pmean(tensors: list[torch.Tensor], group=None) -> list[torch.Tensor]:
     tensor (float32, any shapes), from one ``all_reduce`` of their flat
     concatenation."""
     flat = _flat(tensors)
-    dist.all_reduce(flat, group=group)
+    _issue("all_reduce", flat, flat, group=group)
     flat = flat / dist.get_world_size(group)
     return _split(flat, tensors)
 
@@ -148,7 +217,7 @@ def gather_rows(tensors: list[torch.Tensor], group=None
     flat = torch.cat(views, dim=1)
     parts = [torch.empty_like(flat)
              for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, flat, group=group)
+    _issue("all_gather", flat, parts, flat, group=group)
     full = torch.cat(parts, dim=0)
     out, off = [], 0
     for t, w in zip(tensors, widths):

@@ -61,7 +61,7 @@ from ..parallel.multihost import host_role, sharded_batches
 from ..utils.logging import TLOG
 from ..utils.metrics import MetricsLogger
 from ..utils.profiling import StepTimer, annotate, trace
-from .superbatch import SuperbatchGraphs, tree_map
+from .superbatch import SuperbatchGraphs, superbatch_form, tree_map
 
 
 def as_memory_block(block):
@@ -180,12 +180,18 @@ class Trainer:
     ``fused_step_*_tp`` (or the vMF-VAE's ``tp_step_loss``) bound to the
     model row.  The optimizer is then the chain without the clip, and
     each boot step's gradients (``pmean``-ed over the data column first)
-    are clipped against the norm across the model row (:func:`tp_clip`)."""
+    are clipped against the norm across the model row (:func:`tp_clip`).
+    ``tp_record_encode(params, x)`` is then the model's TP record encoder
+    on the shard (``tp_record_encoder``: (mean, lnvar) and, with
+    ``tp_record_extra``, the extra output third), which
+    :meth:`step_record` records with in place of the caller's encode, as
+    JAX's ``tp_record_encode`` / ``tp_record_extra``."""
 
     def __init__(self, forward, loss_fn, opt, *, eps_widths,
                  kl=(1.0, 1e-2, 0.1), boot_loss_fn=None,
                  report_loss_override=None, boot_loss_override=None,
-                 tp_pspecs=None):
+                 tp_pspecs=None, tp_record_encode=None,
+                 tp_record_extra: bool = False):
         self.forward, self.loss_fn = forward, loss_fn
         self.boot_loss_fn = boot_loss_fn if boot_loss_fn is not None \
             else loss_fn
@@ -195,6 +201,8 @@ class Trainer:
         self.kl_max, self.kl_min, self.kl_discount = kl
         self.eps_widths = tuple(eps_widths)
         self.tp_pspecs = tp_pspecs
+        self.tp_record_encode = tp_record_encode
+        self.tp_record_extra = tp_record_extra
         self._tp_split = (None if tp_pspecs is None else
                           [a is not None for a in tree_leaves(tp_pspecs)])
         self.optimizer = PackedAdam(opt.lr, opt.grad_clip, opt.weight_decay,
@@ -286,40 +294,53 @@ class Trainer:
     # ------------------------------------------------------------------
     def step(self, params: dict, opt_state: dict, x_sb, c_sb, epoch: int,
              batch_ids, rand: dict | None = None, *,
-             nbatch: int | None = None):
+             nbatch: int | None = None, mesh=None):
         """Run one superbatch of sequential batches, the (S, B, D) counts
         ``x_sb`` (host or device; integer counts keep their dtype) and
         the (S, B, C) covariate ``c_sb``; returns (params, opt_state, the
         per-batch reported losses (S,)).  On a CUDA device the S batch
-        steps are one CUDA graph replay (:mod:`.superbatch`), captured
-        at the first call of each size and kept by the trainer.
+        steps are one CUDA graph replay, or a chain of segments around
+        gloo collectives (:mod:`.superbatch`), captured at the first call
+        of each size and kept by the trainer.
 
         ``rand`` is the superbatch's draws (``draw_rand``'s structure,
         leading axis S in ``batch_ids`` order; tests inject JAX's).
         Without it, ``nbatch`` is the epoch's number of batches and the
         draws are the rows ``batch_ids`` of the epoch's one draw
-        (:func:`epoch_generator` of ``opt.seed`` and ``epoch``), the
-        epoch runner's; the trainer keeps the last epoch's draw, so a
-        loop that walks an epoch a superbatch at a time draws it once.
-        (JAX derives each batch's draws from its id alone; the port's
-        epoch draw depends on the epoch's length, hence ``nbatch``.)"""
+        (:func:`epoch_draws` of ``opt.seed`` and ``epoch``), the epoch
+        runner's; the trainer keeps the last epoch's draw, so a loop that
+        walks an epoch a superbatch at a time draws it once.  (JAX derives
+        each batch's draws from its id alone; the port's epoch draw
+        depends on the epoch's length, hence ``nbatch``.)
+
+        ``mesh`` (a :class:`~mmvae_tpu_torch.parallel.mesh.DataMesh`, JAX's
+        ``Trainer(mesh=...)``): ``x_sb`` and ``c_sb`` are this rank's
+        M = B / ndata rows of each batch (under tensor parallelism its
+        block of the features, and the parameters and Adam state its
+        shards), ``rand`` the data index's draws under ``dp_shard`` and
+        tensor parallelism and the global batch's under
+        ``data_parallel``; every rank calls with the same ``batch_ids``.
+        The step is ``batch_step(mesh=mesh)``, JAX's ``shard_map``
+        superbatch step."""
         p, o, reps, _ = self._superbatch(params, opt_state, x_sb, c_sb,
                                          epoch, batch_ids, rand, nbatch,
-                                         None)
+                                         None, mesh)
         return p, o, reps
 
     def can_step_record(self, needs_extra: bool = False) -> bool:
-        """Whether :meth:`step_record` is available: JAX's answer for what
-        the port runs as a superbatch, everything but tensor parallelism
-        (JAX's TP recording needs the model's TP record functions; the
-        port's steps under a mesh run one batch at a time)."""
-        del needs_extra
-        return self.tp_pspecs is None
+        """Whether :meth:`step_record` is available (JAX's answer): always
+        without tensor parallelism; under it when the trainer holds the
+        model's TP record encoder (``tp_record_encode``) and, for an
+        extra output, one that gives it (``tp_record_extra``)."""
+        if self.tp_pspecs is None:
+            return True
+        return self.tp_record_encode is not None and (
+            not needs_extra or self.tp_record_extra)
 
     def step_record(self, params: dict, opt_state: dict, x_sb, c_sb,
                     epoch: int, batch_ids, encode_fn, extra_fn=None,
                     rand: dict | None = None, *,
-                    nbatch: int | None = None):
+                    nbatch: int | None = None, mesh=None):
         """:meth:`step` that also returns each batch's posterior right
         after its updates (mmvae_alg.hh:315-317): (params, opt_state,
         (reports (S,), (mean, lnvar) each (S, B, width), extra)), extra
@@ -327,23 +348,30 @@ class Trainer:
         ``encode_fn``'s third output (the mixture's assignments), else a
         zero a batch (S,), as JAX's scan returns it.  A recording epoch
         then costs one dispatch per superbatch, as a training epoch
-        does."""
+        does.  Under tensor parallelism the trainer's
+        ``tp_record_encode`` records on the shards in place of
+        ``encode_fn`` (and gives the extra when ``extra_fn`` is asked
+        for), as JAX swaps in its TP record functions; each rank gets
+        its M rows' outputs."""
         if not self.can_step_record(extra_fn is not None):
-            raise NotImplementedError("step_record under tensor "
-                                      "parallelism")
+            raise ValueError("step_record under tensor parallelism needs "
+                             "the model's TP record encoder "
+                             "(Trainer(tp_record_encode=...)"
+                             + (", with tp_record_extra" if extra_fn
+                                else "") + ")")
+        if self.tp_pspecs is not None:
+            record = (self.tp_record_encode, None,
+                      3 if extra_fn is not None else 2)
+        else:
+            record = (encode_fn, extra_fn, None)
         p, o, reps, enc = self._superbatch(params, opt_state, x_sb, c_sb,
                                            epoch, batch_ids, rand, nbatch,
-                                           (encode_fn, extra_fn))
+                                           record, mesh)
         extra = enc[2] if len(enc) > 2 else torch.zeros_like(reps)
         return p, o, (reps, (enc[0], enc[1]), extra)
 
     def _superbatch(self, params, opt_state, x_sb, c_sb, epoch, batch_ids,
-                    rand, nbatch, record):
-        if self.tp_pspecs is not None:
-            raise NotImplementedError(
-                "superbatch steps under tensor parallelism: the step runs "
-                "one batch at a time under a mesh (ROADMAP.md Queue 1 "
-                "item 16)")
+                    rand, nbatch, record, mesh):
         dev = tree_leaves(params)[0].device
         x_sb = torch.as_tensor(x_sb, device=dev)
         c_sb = torch.as_tensor(c_sb, dtype=torch.float32, device=dev)
@@ -356,12 +384,12 @@ class Trainer:
             if not 0 <= int(ids.min()) <= int(ids.max()) < nbatch:
                 raise ValueError(f"batch ids {batch_ids} outside an epoch "
                                  f"of {nbatch} batches")
+            B = x_sb.shape[1] * (1 if mesh is None else mesh.ndata)
             rand = tree_map(lambda t: t.index_select(0, ids),
-                            self._epoch_draw(epoch, nbatch, x_sb.shape[1],
-                                             dev))
+                            self._epoch_draw(epoch, nbatch, B, dev, mesh))
         else:
             rand = tree_map(lambda t: t.to(dev), rand)
-        sb = self._graphs_for(len(ids), record)
+        sb = self._graphs_for(len(ids), record, mesh)
         sb.set_state(params, opt_state)
         sb.set_epoch(epoch)
         reps, enc = sb.run(sb.fill(x_sb, c_sb, rand), record is not None)
@@ -369,25 +397,31 @@ class Trainer:
         return p, o, reps.clone(), (None if enc is None
                                     else tuple(e.clone() for e in enc))
 
-    def _epoch_draw(self, epoch: int, nbatch: int, B: int, dev) -> dict:
-        """The draws of an epoch of ``nbatch`` batches of B (the epoch
-        runner's), kept for the next call of the same epoch."""
-        key = (self.opt.seed, int(epoch), int(nbatch), int(B), str(dev))
+    def _epoch_draw(self, epoch: int, nbatch: int, B: int, dev,
+                    mesh) -> dict:
+        """The draws of an epoch of ``nbatch`` global batches of B (the
+        epoch runner's, :func:`epoch_draws`), kept for the next call of
+        the same epoch."""
+        key = (self.opt.seed, int(epoch), int(nbatch), int(B), str(dev),
+               None if mesh is None else (mesh.shard, mesh.data_index,
+                                          mesh.ndata))
         if self._draw is None or self._draw[0] != key:
-            self._draw = (key, self.draw_rand(
-                epoch_generator(self.opt.seed, epoch, dev), nbatch, B))
+            self._draw = (key, epoch_draws(self, self.opt.seed, epoch,
+                                           nbatch, B, dev, mesh))
         return self._draw[1]
 
-    def _graphs_for(self, S: int, record) -> SuperbatchGraphs:
-        """The trainer's graphs of one record pair (``(encode_fn,
-        extra_fn)`` or None), kept by identity as JAX keeps its compiled
-        record step, remade for a larger superbatch."""
+    def _graphs_for(self, S: int, record, mesh) -> SuperbatchGraphs:
+        """The trainer's graphs of one record triple (``(encode_fn,
+        extra_fn, outputs kept)``, or None), kept by identity as JAX keeps
+        its compiled record step, remade for a larger superbatch or
+        another mesh."""
         sb = self._sb.get(record)
-        if sb is None or sb.S < S:
+        if sb is None or sb.S < S or sb.mesh is not mesh:
             if sb is not None:
                 sb.close()
             record_fn = None if record is None else _record_fn(*record)
-            sb = self._sb[record] = SuperbatchGraphs(self, S, record_fn)
+            sb = self._sb[record] = SuperbatchGraphs(self, S, record_fn,
+                                                     mesh=mesh)
         return sb
 
     def release_graphs(self) -> None:
@@ -397,14 +431,15 @@ class Trainer:
         self._sb = {}
 
 
-def _record_fn(encode_fn, extra_fn):
-    """``step_record``'s record outputs: (mean, lnvar[, extra])."""
+def _record_fn(encode_fn, extra_fn, keep=None):
+    """``step_record``'s record outputs: (mean, lnvar[, extra]), the
+    first ``keep`` of the encode's when given."""
     def record(params, x):
         with torch.no_grad():
             outs = tuple(encode_fn(params, x))
             if extra_fn is not None:
                 outs = outs[:2] + (extra_fn(params, x),)
-        return outs
+        return outs if keep is None else outs[:keep]
     return record
 
 
@@ -441,6 +476,19 @@ def epoch_generator(seed: int, epoch: int, device,
         s = ((s << 12) + int(rank) + 1) & ((1 << 64) - 1)
     gen.manual_seed(s)
     return gen
+
+
+def epoch_draws(step, seed: int, epoch: int, nbatch: int, B: int, device,
+                mesh=None) -> dict:
+    """``step.draw_rand`` of an epoch of ``nbatch`` batches of B (the
+    global batch under a mesh): from :func:`epoch_generator` of (seed,
+    epoch), or under ``dp_shard`` and tensor parallelism of the data
+    index too, for its own M = B / ndata rows."""
+    if mesh is not None and mesh.shard:
+        return step.draw_rand(
+            epoch_generator(seed, epoch, device, mesh.data_index), nbatch,
+            mesh.local_batch(B))
+    return step.draw_rand(epoch_generator(seed, epoch, device), nbatch, B)
 
 
 def schedule_cols(N: int, B: int, device) -> torch.Tensor:
@@ -660,28 +708,31 @@ class DenseEpochRunner:
 
     With a :class:`~mmvae_tpu_torch.parallel.mesh.DataMesh` (world > 1)
     ``B`` is the global batch and the source yields this rank's M = B /
-    world rows of each (a tensor ``data`` holds only those rows, batch
-    after batch); the draws are the global batch's under
-    ``data_parallel`` and the rank's own M rows' under ``dp_shard``, and
-    ``record_fn`` sees the rank's rows.
+    ndata rows of each (a tensor ``data`` holds only those rows, batch
+    after batch; under tensor parallelism only its block of the
+    features); the draws (:meth:`draw`) are the global batch's under
+    ``data_parallel`` and the data index's own M rows' under
+    ``dp_shard`` and tensor parallelism, and ``record_fn`` sees the
+    rank's rows (under tensor parallelism it is the model's TP record
+    encoder, with its collectives).
 
     ``superbatch`` S (JAX's ``--superbatch``, default 8) walks the epoch
     in runs of S batches, the last one shorter when S does not divide
     the batches: each run is copied into the static inputs of a
     :class:`~mmvae_tpu_torch.train.superbatch.SuperbatchGraphs` and its S
     batch steps (with each batch's record outputs on a recording epoch)
-    run as one CUDA graph replay, or eagerly on the CPU, with the same
+    run as one CUDA graph replay (with a mesh on NCCL, its collectives
+    inside), as a chain of segment replays around the host collectives
+    (a mesh on gloo on a card), or eagerly on the CPU, with the same
     results as one batch at a time.  ``superbatch=None`` is that
-    per-batch path itself, the reference the graphs are held against; a
-    mesh always takes it (collectives do not enter the graphs yet).
+    per-batch path itself, the reference the graphs are held against.
     :meth:`close` frees the graphs."""
 
     def __init__(self, fast, data, B: int, seed: int = 0,
                  covar: torch.Tensor | None = None, covar_dim: int = 1,
                  record_fn=None, mesh=None, superbatch: int | None = 8):
         self.fast, self.B, self.seed, self.mesh = fast, B, seed, mesh
-        self.S = (None if mesh is not None or superbatch is None
-                  else max(1, int(superbatch)))
+        self.S = None if superbatch is None else max(1, int(superbatch))
         self.graphs = None
         self.graph_stats: dict = {}  # of the last graphs, kept by close
         M = B if mesh is None else mesh.local_batch(B)
@@ -700,14 +751,10 @@ class DenseEpochRunner:
                      else schedule_cols(self.N, B, self.device))
 
     def draw(self, epoch: int) -> dict:
-        if self.mesh is not None and self.mesh.shard:
-            return self.fast.draw_rand(
-                epoch_generator(self.seed, epoch, self.device,
-                                self.mesh.data_index), self.nbatch,
-                self.mesh.local_batch(self.B))
-        return self.fast.draw_rand(
-            epoch_generator(self.seed, epoch, self.device), self.nbatch,
-            self.B)
+        """The epoch's draws (:func:`epoch_draws`): this rank's under a
+        mesh."""
+        return epoch_draws(self.fast, self.seed, epoch, self.nbatch, self.B,
+                           self.device, self.mesh)
 
     def _covar(self, b: int) -> torch.Tensor:
         if self.covar is None:
@@ -763,7 +810,7 @@ class DenseEpochRunner:
         static state."""
         if self.graphs is None:
             self.graphs = SuperbatchGraphs(self.fast, self.S, self.record_fn,
-                                           self.ones.shape[1])
+                                           self.ones.shape[1], self.mesh)
             self.graph_stats = self.graphs.stats
         sb = self.graphs
         sb.set_state(q, opt_state)
@@ -1094,14 +1141,13 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
         _cuda.lib()  # build the kernels now, outside the epoch timing
 
     S = max(1, int(opt.superbatch))
-    if mesh is not None:
-        if S > 1:
-            TLOG(f"--superbatch {S} groups nothing under a mesh in this "
-                 "port yet: the step runs one batch at a time")
-    else:
-        TLOG(f"Superbatch: {S} batch steps "
-             + ("a CUDA graph replay" if cuda else
-                "a dispatch (eager on the CPU)"))
+    if primary:
+        how = {"eager": "a dispatch (eager on the CPU)",
+               "graph": "a CUDA graph replay" + ("" if mesh is None
+                                                 else " (NCCL inside)"),
+               "segments": "a chain of CUDA graph segments around gloo "
+                           "collectives"}[superbatch_form(mesh, device)]
+        TLOG(f"Superbatch: {S} batch steps {how}")
     runner = DenseEpochRunner(
         fast, source, B * world, seed=opt.seed, covar=covar,
         covar_dim=covar_block.nfeature(),
@@ -1179,7 +1225,10 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
         TLOG(f"Superbatch graphs: {st['captures']} captured in "
              f"{st['capture_s']:.2f}s (warm-up included), "
              f"{st['pool_bytes'] / 1e6:,.1f} MB reserved, "
-             f"{st['replays']} replays")
+             f"{st['replays']} replays"
+             + (f"; {st['segments']} segments and {st['host_collectives']} "
+                f"host collectives a superbatch of {st['segments_of']}"
+                if st["form"] == "segments" else ""))
     TLOG("Done training")
     return full(fast.unpack(q)), loss_vec
 

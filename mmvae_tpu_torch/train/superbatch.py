@@ -24,25 +24,52 @@ On a CUDA device each (superbatch size, record?) pair is captured once
 later superbatch and epoch, all graphs in one memory pool.  Before its
 capture the body runs once on the capture stream (the warm-up: every
 kernel instance built and first called, cuBLAS's workspace for that
-stream made, the recorder's and the mixture's device constants made),
-and the static state is then restored, so the warm-up changes no
-result.  A capture or replay that fails raises; nothing falls back to
-the per-batch path.  On the CPU the same body runs eagerly.
+stream made, the recorder's and the mixture's device constants made,
+and under a mesh every collective issued once, which makes NCCL's
+communicators: they cannot be made under capture), and the static
+state is then restored, so the warm-up changes no result.  A capture
+or replay that fails raises; nothing falls back to the per-batch path.
+
+Under a :class:`~mmvae_tpu_torch.parallel.mesh.DataMesh` the body is
+the steps' ``batch_step(mesh=...)`` (JAX's scan body with
+``axis_name``), and its collectives decide the form
+(``parallel.collectives.capture_form``, by backend and device type):
+
+- ``"graph"`` (one process, or NCCL): one CUDA graph a (size, record?),
+  NCCL's kernels recorded in it, on the stream the capture began on;
+- ``"segments"`` (gloo on a card, which reduces on the host): the graph
+  of a (size, record?) is an ordered chain of segment graphs, all in
+  the one pool, with a host collective between two of them.  Each
+  collective the body issues under capture (a backward pass's on the
+  autograd engine's device thread too) ends the running segment, is
+  kept with its tensors as a host step, and the next segment begins;
+  the segments are captured in CUDA's relaxed mode, since a segment may
+  begin on one thread and end on another.  A replay runs the chain in
+  order;
+- ``"eager"`` (the CPU): the body runs as it is, collectives included.
+
+Every rank must capture the same (size, record?) keys in the same
+order, since a capture issues no collective and a warm-up issues them
+all: the global schedule gives every rank the same number of batches,
+so the same superbatch sizes, and the recording epochs are the same
+epochs on every rank.
 
 The kernel wrappers count launches as Python calls, so a capture would
-count its launches once and a replay not at all: each graph keeps the
-counts its capture made, they are taken back after the capture, and
-every replay adds them.  The warm-up's launches are real and stay
-counted (``warm_launches`` keeps them apart)."""
+count its launches once and a replay not at all: each graph (each
+segment) keeps the counts its capture made, they are taken back after
+the capture, and every replay adds them.  The warm-up's launches are
+real and stay counted (``warm_launches`` keeps them apart)."""
 
 from __future__ import annotations
 
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..ops.losses import kl_weight_schedule
 from ..ops.nb_fast import tree_leaves
+from ..parallel.collectives import capture_form, segmented
 
 
 def tree_map(fn, tree):
@@ -113,31 +140,93 @@ def count_delta(after: dict, before: dict) -> dict:
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
+def superbatch_form(mesh, device) -> str:
+    """``"graph"``, ``"segments"`` or ``"eager"``: the form of a run on
+    ``device`` under ``mesh`` (None: one process), by the rule of
+    ``parallel.collectives.capture_form`` with the mesh's backend."""
+    dev = torch.device(device)
+    backend = (None if mesh is None or dev.type != "cuda"
+               else dist.get_backend())
+    return capture_form(backend, dev.type)
+
+
+class _Segments:
+    """The chain of one (size, record?) under gloo on a card: segment
+    graphs and host collectives, in order, as ``(graph, launch counts)``
+    and ``(call, None)`` (the module docstring)."""
+
+    def __init__(self, pool):
+        self.pool, self.steps = pool, []
+        self.graph = self.before = None
+
+    def begin(self) -> None:
+        self.graph, self.before = torch.cuda.CUDAGraph(), read_counts()
+        self.graph.capture_begin(pool=self.pool, capture_error_mode="relaxed")
+
+    def end(self) -> None:
+        graph, self.graph = self.graph, None
+        graph.capture_end()
+        delta = count_delta(read_counts(), self.before)
+        add_counts(delta, -1)  # the capture launched nothing
+        self.steps.append((graph, delta))
+
+    def host_step(self, call) -> None:
+        """``collectives.segmented``'s hook: a collective met under
+        capture."""
+        self.end()
+        self.steps.append((call, None))
+        self.begin()
+
+    def abort(self) -> None:
+        """End a capture a failure left open (its graph is dropped)."""
+        if self.graph is not None:
+            graph, self.graph = self.graph, None
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass
+
+
 class SuperbatchGraphs:
     """Static buffers and graphs of ``step``'s superbatch step at up to
     ``S`` batches (see the module docstring).  ``record_fn(params, x)``
     is the recorder's encode, evaluated after each batch's updates on a
     recording superbatch; ``covar_dim`` the width of the all-ones
-    covariate that :meth:`fill` keeps when given no covariate.
+    covariate that :meth:`fill` keeps when given no covariate; ``mesh``
+    the :class:`~mmvae_tpu_torch.parallel.mesh.DataMesh` of every batch
+    step (None: one process), whose backend and the device choose the
+    form.
 
     Use: :meth:`set_state` and :meth:`set_epoch` once per epoch,
     :meth:`fill` then :meth:`run` per superbatch, :meth:`state` for
     copies of the state, :meth:`close` to free the graphs.  ``stats``
-    holds the captures, their seconds (warm-up included), the device
-    memory the captures reserved (the graphs' pool) and the replays."""
+    holds the form, the captures, their seconds (warm-up included), the
+    device memory the captures reserved (the graphs' pool), the replays,
+    and the segments and host collectives a superbatch of the largest
+    training superbatch captured (``segments_of`` batches; 1 and 0 for
+    a whole graph)."""
 
-    def __init__(self, step, S: int, record_fn=None, covar_dim: int = 1):
+    def __init__(self, step, S: int, record_fn=None, covar_dim: int = 1,
+                 mesh=None):
         if S < 1:
             raise ValueError(f"superbatch size {S} < 1")
         self.step, self.S, self.record_fn = step, int(S), record_fn
-        self.covar_dim = covar_dim
+        self.covar_dim, self.mesh = covar_dim, mesh
         self.q = self.po = self.beta = self.epoch = None
         self.x = self.c = self.rand = self.reps = self.enc = None
         self.graphs: dict = {}
         self.pool = self.stream = None
         self.warm_launches: dict = {}
-        self.stats = {"captures": 0, "capture_s": 0.0, "pool_bytes": 0,
-                      "replays": 0}
+        self.stats = {"form": None, "captures": 0, "capture_s": 0.0,
+                      "pool_bytes": 0, "replays": 0, "segments": 0,
+                      "host_collectives": 0, "segments_of": 0}
+
+    @property
+    def form(self) -> str:
+        """:func:`superbatch_form` for the state's device."""
+        if self.stats["form"] is None:
+            self.stats["form"] = superbatch_form(self.mesh, self._device())
+        return self.stats["form"]
 
     # ------------------------------------------------------------------
     # inputs and state
@@ -219,7 +308,7 @@ class SuperbatchGraphs:
         rand = tree_map(lambda t: t[:s], self.rand)
         q, po, reps, enc = self.step.superbatch_step(
             self.q, self.po, self.x[:s], self.c[:s], self.epoch, self.beta,
-            rand, self.record_fn if record else None)
+            rand, self.record_fn if record else None, mesh=self.mesh)
         self.reps[:s].copy_(reps)
         if record:
             if self.enc is None:
@@ -254,38 +343,69 @@ class SuperbatchGraphs:
         # the warm-up ran a real superbatch: put the state back
         self.set_state(*saved)
         del saved
-        graph = torch.cuda.CUDAGraph()
         # the pool grows by what this capture needs beyond the blocks the
         # graphs captured before it freed (the capture empties the cache
         # first, as done here, so the growth is the pool's alone)
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         reserved = torch.cuda.memory_reserved(dev)
-        before = read_counts()
-        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-            self._body(s, record)
-        delta = count_delta(read_counts(), before)
-        add_counts(delta, -1)  # the capture launched nothing
+        if self.form == "segments":
+            chain = self._capture_segments(s, record)
+        else:
+            graph = torch.cuda.CUDAGraph()
+            before = read_counts()
+            # under a mesh (NCCL) only this thread is held to capture's
+            # rules: NCCL's watchdog thread queries its events meanwhile
+            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                                  capture_error_mode=(
+                                      "global" if self.mesh is None
+                                      else "thread_local")):
+                self._body(s, record)
+            delta = count_delta(read_counts(), before)
+            add_counts(delta, -1)  # the capture launched nothing
+            chain = [(graph, delta)]
         torch.cuda.synchronize(dev)
-        self.graphs[(s, record)] = (graph, delta)
-        self.stats["captures"] += 1
-        self.stats["capture_s"] += time.perf_counter() - t0
-        self.stats["pool_bytes"] += torch.cuda.memory_reserved(dev) - reserved
+        self.graphs[(s, record)] = chain
+        st = self.stats
+        nseg = sum(d is not None for _, d in chain)
+        if not record and s >= st["segments_of"]:
+            st.update(segments=nseg, host_collectives=len(chain) - nseg,
+                      segments_of=s)
+        st["captures"] += 1
+        st["capture_s"] += time.perf_counter() - t0
+        st["pool_bytes"] += torch.cuda.memory_reserved(dev) - reserved
+
+    def _capture_segments(self, s: int, record: bool) -> list:
+        """The segmented capture of one (s, record): the chain."""
+        seg = _Segments(self.pool)
+        with torch.cuda.stream(self.stream), segmented(seg):
+            seg.begin()
+            try:
+                self._body(s, record)
+                seg.end()
+            except BaseException:
+                seg.abort()
+                raise
+        return seg.steps
 
     def run(self, s: int, record: bool = False):
         """The superbatch step on the static inputs' first ``s`` batches:
-        a graph replay on a CUDA device (captured at the first call of
-        each (s, record)), the body itself on the CPU.  Returns views of
-        the static outputs, (reports (s,), record outputs (s, B, width)
-        or None), valid until the next run."""
+        on a CUDA device a graph replay, or the chain of segment replays
+        and host collectives (captured at the first call of each (s,
+        record)), the body itself on the CPU.  Returns views of the
+        static outputs, (reports (s,), record outputs (s, B, width) or
+        None), valid until the next run."""
         if record and self.record_fn is None:
             raise ValueError("a recording superbatch needs a record_fn")
-        if self.x.device.type == "cuda":
+        if self.form != "eager":
             if (s, record) not in self.graphs:
                 self._capture(s, record)
-            graph, delta = self.graphs[(s, record)]
-            graph.replay()
-            add_counts(delta)
+            for step, delta in self.graphs[(s, record)]:
+                if delta is None:
+                    step()  # a host collective
+                else:
+                    step.replay()
+                    add_counts(delta)
             self.stats["replays"] += 1
         else:
             self._body(s, record)

@@ -19,7 +19,8 @@ body runs eagerly (on a card it is a CUDA graph replay, which
   resumed from a JAX CLI checkpoint of ``--superbatch 3``: JAX's scores
   carried (``rel=1e-5``) and its artifacts' names and shapes;
 - a two-rank mesh with ``--superbatch 3``: its log line, and the bits of
-  the same pair at ``--superbatch 1``.
+  the same pair at ``--superbatch 1`` (the mesh's superbatches in full:
+  tests/test_torch_mesh_superbatch.py).
 """
 
 import gzip
@@ -551,9 +552,9 @@ def test_cli_superbatch_sizes_and_jax(mtx, tmp_path, capfd, monkeypatch):
 
 
 def test_mesh_superbatch_logs_and_trains_as_before(mtx, tmp_path):
-    """Two gloo ranks with ``--superbatch 3``: the step stays per batch,
-    rank 0 says so once, and the outputs equal the ``--superbatch 1``
-    pair's."""
+    """Two gloo ranks with ``--superbatch 3``: the mesh's step runs 3
+    batch steps a superbatch (eager on the CPU), rank 0 says so once,
+    and the outputs equal the ``--superbatch 1`` pair's."""
     path, _ = mtx
     started = []
     for S in ("3", "1"):
@@ -563,8 +564,9 @@ def test_mesh_superbatch_logs_and_trains_as_before(mtx, tmp_path):
              "--superbatch", S]
         started.append((_start_pair(a), a))
     logs = [_wait_pair(*s) for s in started]
-    line = ("--superbatch 3 groups nothing under a mesh in this port yet: "
-            "the step runs one batch at a time")
-    assert logs[0].count(line) == 1 and "--superbatch 1" not in logs[1]
+    for S, log in zip(("3", "1"), logs):
+        assert log.count(f"Superbatch: {S} batch steps a dispatch (eager "
+                         "on the CPU)") == 1
+        assert "groups nothing" not in log
     got, want = (_files(str(tmp_path / s), "run") for s in ("3", "1"))
     assert len(got) > 10 and got == want
