@@ -183,8 +183,11 @@ def lib():
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(build())
-            _bind(handle)
+            from ..utils.profiling import annotate
+
+            with annotate("kernels.load"):
+                handle = ctypes.CDLL(build())
+                _bind(handle)
             _lib = handle
         return _lib
 

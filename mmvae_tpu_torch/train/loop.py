@@ -778,10 +778,17 @@ class DenseEpochRunner:
         epoch, else None).  ``rand`` overrides the epoch's draws (tests
         feed the JAX package's); ``on_batch(b, report)`` is called after
         each batch's step (each superbatch's last batch with ``superbatch``
-        S)."""
-        rand = self.draw(epoch) if rand is None else rand
-        if self.S is not None:
-            return self._superbatches(q, opt_state, epoch, record, rand,
+        S).  With ``superbatch`` S the epoch is timed from its first step
+        to its last, the state's copy, into a row of ``graph_stats``
+        (:class:`~mmvae_tpu_torch.train.superbatch.SuperbatchGraphs`)."""
+        sb = None if self.S is None else self._graphs()
+        if sb is not None:
+            sb.begin_epoch(epoch, self.device)
+        if rand is None:
+            with annotate("epoch.draw"):
+                rand = self.draw(epoch)
+        if sb is not None:
+            return self._superbatches(sb, q, opt_state, epoch, record, rand,
                                       on_batch)
         reps = torch.empty(self.nbatch, dtype=torch.float32,
                            device=self.device)
@@ -804,15 +811,18 @@ class DenseEpochRunner:
                     e[b] = t
         return q, opt_state, reps, enc
 
-    def _superbatches(self, q, opt_state, epoch, record, rand, on_batch):
-        """The epoch in runs of S batches through the superbatch graphs;
-        returns what :meth:`__call__` returns, the state a copy of the
-        static state."""
+    def _graphs(self) -> SuperbatchGraphs:
         if self.graphs is None:
             self.graphs = SuperbatchGraphs(self.fast, self.S, self.record_fn,
                                            self.ones.shape[1], self.mesh)
             self.graph_stats = self.graphs.stats
-        sb = self.graphs
+        return self.graphs
+
+    def _superbatches(self, sb, q, opt_state, epoch, record, rand,
+                      on_batch):
+        """The epoch in runs of S batches through the superbatch graphs
+        ``sb``; returns what :meth:`__call__` returns, the state a copy
+        of the static state."""
         sb.set_state(q, opt_state)
         sb.set_epoch(epoch)
         reps = torch.empty(self.nbatch, dtype=torch.float32,
@@ -838,7 +848,9 @@ class DenseEpochRunner:
             lo += s
             if on_batch is not None:
                 on_batch(lo - 1, reps[lo - 1])
-        q, opt_state = sb.state()
+        with annotate("epoch.state"):
+            q, opt_state = sb.state()
+        sb.end_epoch()
         return q, opt_state, reps, enc
 
 
@@ -1013,12 +1025,13 @@ def cluster_features(data: torch.Tensor, covar_dim: int
         return data, None
     if not (env == "force" or (data.device.type == "cuda" and D >= 512)):
         return data, None
-    hot = hot_genes(data)
-    frac = float(hot.mean())
-    if not hot.any() or frac > 0.5:
-        return data, None
-    perm = np.argsort(hot, kind="stable")
-    data = data.index_select(1, torch.from_numpy(perm).to(data.device))
+    with annotate("cluster_features"):
+        hot = hot_genes(data)
+        frac = float(hot.mean())
+        if not hot.any() or frac > 0.5:
+            return data, None
+        perm = np.argsort(hot, kind="stable")
+        data = data.index_select(1, torch.from_numpy(perm).to(data.device))
     TLOG(f"Feature clustering: {int(hot.sum())} hot genes (count>7, "
          f"{100 * frac:.1f}%) moved to the tail lane tiles (artifacts stay "
          f"in input order; MMVAE_FEATURE_PERM=0 to disable)")
@@ -1052,6 +1065,7 @@ def permute_d_axes(tree, perm, D: int):
     return tree
 
 
+@trace()  # MMVAE_TRACE_DIR: one trace of the call, its set-up included
 def train_vae_model(fast, recorder, data_block, covar_block, opt,
                     init_params: dict, device, start_epoch: int = 0,
                     init_opt_state: dict | None = None, on_epoch_end=None,
@@ -1172,16 +1186,14 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
 
     live = (primary and isinstance(source, StreamedBatches)
             and sys.stderr.isatty())
-    # on the way out, in this order: the trace (MMVAE_TRACE_DIR; no-op
-    # otherwise), the recorder's pending writes, the model's constants
-    # back in input order
+    # on the way out, in this order: the recorder's pending writes, the
+    # model's constants back in input order
     with contextlib.ExitStack() as stack:
         if perm is not None and feature_perm_apply is not None:
             feature_perm_apply(perm)
             stack.callback(feature_perm_apply, inv)
         if recorder is not None:
             stack.callback(recorder.flush)
-        stack.enter_context(trace())
         # first on the way out: no graph outlives the device constants
         # it reads (the mixture's masks go back to input order above)
         stack.callback(runner.close)
@@ -1222,15 +1234,36 @@ def train_vae_model(fast, recorder, data_block, covar_block, opt,
                              full_opt(fast.unpack_opt_state(po)), loss_vec)
     st = runner.graph_stats
     if st.get("captures"):
+        rows = st["epochs"]
         TLOG(f"Superbatch graphs: {st['captures']} captured in "
-             f"{st['capture_s']:.2f}s (warm-up included), "
+             f"{st['capture_s']:.2f}s ({st['capture_warm_s']:.2f}s of "
+             f"warm-up, {st['capture_graph_s']:.2f}s of capture), "
              f"{st['pool_bytes'] / 1e6:,.1f} MB reserved, "
              f"{st['replays']} replays"
              + (f"; {st['segments']} segments and {st['host_collectives']} "
                 f"host collectives a superbatch of {st['segments_of']}"
-                if st["form"] == "segments" else ""))
+                if st["form"] == "segments" else "")
+             + (f"; device {_ms_a_batch(rows[0]):.3f} ms a batch in epoch "
+                f"{rows[0]['epoch'] + 1}, {_ms_a_batch(rows[-1]):.3f} in "
+                f"epoch {rows[-1]['epoch'] + 1}, "
+                f"{100 * _outside_replays(rows[-1]):.2f}% of its time "
+                f"outside replays" if rows else "")
+             + (f"; {st['rows_dropped']} epochs untimed (events pending "
+                f"when read)" if st["rows_dropped"] else ""))
     TLOG("Done training")
     return full(fast.unpack(q)), loss_vec
+
+
+def _ms_a_batch(row: dict) -> float:
+    """Device milliseconds a batch in the replays of an epoch row of
+    ``SuperbatchGraphs.stats["epochs"]``."""
+    return 1e3 * row["replay_s"] / row["batches"]
+
+
+def _outside_replays(row: dict) -> float:
+    """The share of an epoch row's device time, the epoch boundary
+    before it included, spent outside replays."""
+    return 1.0 - row["replay_s"] / (row["span_s"] + (row["lead_s"] or 0.0))
 
 
 def visit_data(visitor, data_block) -> None:

@@ -58,7 +58,21 @@ The kernel wrappers count launches as Python calls, so a capture would
 count its launches once and a replay not at all: each graph (each
 segment) keeps the counts its capture made, they are taken back after
 the capture, and every replay adds them.  The warm-up's launches are
-real and stay counted (``warm_launches`` keeps them apart)."""
+real and stay counted (``warm_launches`` keeps them apart).
+
+Timing, always on: between :meth:`SuperbatchGraphs.begin_epoch` and
+:meth:`~SuperbatchGraphs.end_epoch` (the epoch runner's first and last
+steps) each replay (each chain) lies between a pair of timing CUDA
+events on the current stream, from a pool the object reuses; the host
+clock stands in on the CPU.  Their times are read only once the card
+has passed them: in the next epoch, once its first replay is enqueued
+(after the caller's loss fetch, and while the card runs that replay),
+or in :meth:`~SuperbatchGraphs.close`, so timing adds no
+synchronization and no idle time; an epoch whose events are still
+pending then is dropped and counted (``stats["rows_dropped"]``).  Each read epoch is a
+row of ``stats["epochs"]``.  The loop's host phases are
+:func:`~mmvae_tpu_torch.utils.profiling.annotate` spans, which cost
+nothing unless a torch profiler runs."""
 
 from __future__ import annotations
 
@@ -70,6 +84,7 @@ import torch.distributed as dist
 from ..ops.losses import kl_weight_schedule
 from ..ops.nb_fast import tree_leaves
 from ..parallel.collectives import capture_form, segmented
+from ..utils.profiling import annotate
 
 
 def tree_map(fn, tree):
@@ -150,6 +165,22 @@ def superbatch_form(mesh, device) -> str:
     return capture_form(backend, dev.type)
 
 
+class _HostEvent:
+    """``torch.cuda.Event``'s timing surface on the host's clock, for the
+    eager form, whose work is done when its call returns."""
+
+    t = 0.0
+
+    def record(self, stream=None) -> None:
+        self.t = time.perf_counter()
+
+    def query(self) -> bool:
+        return True
+
+    def elapsed_time(self, end: "_HostEvent") -> float:
+        return 1e3 * (end.t - self.t)
+
+
 class _Segments:
     """The chain of one (size, record?) under gloo on a card: segment
     graphs and host collectives, in order, as ``(graph, launch counts)``
@@ -199,12 +230,21 @@ class SuperbatchGraphs:
 
     Use: :meth:`set_state` and :meth:`set_epoch` once per epoch,
     :meth:`fill` then :meth:`run` per superbatch, :meth:`state` for
-    copies of the state, :meth:`close` to free the graphs.  ``stats``
-    holds the form, the captures, their seconds (warm-up included), the
-    device memory the captures reserved (the graphs' pool), the replays,
-    and the segments and host collectives a superbatch of the largest
-    training superbatch captured (``segments_of`` batches; 1 and 0 for
-    a whole graph)."""
+    copies of the state, :meth:`close` to free the graphs; the epoch
+    runner brackets each epoch by :meth:`begin_epoch` and
+    :meth:`end_epoch`.  ``stats`` holds the form, the captures, their
+    seconds (``capture_s``, the sum of ``capture_warm_s``, each capture's
+    warm-up superbatch and state restore, and ``capture_graph_s``, the
+    cache emptied, the capture and its instantiation), the device memory
+    the captures reserved (the graphs' pool), the replays, the segments
+    and host collectives a superbatch of the largest training superbatch
+    captured (``segments_of`` batches; 1 and 0 for a whole graph), and
+    the epochs' rows (``epochs``; ``rows_dropped``): each row's
+    ``epoch``, ``replays``, ``batches``, ``replay_s`` (the replays'
+    device seconds; a graph's first replay uploads it), ``span_s`` (the
+    device seconds from the epoch's start to its end) and ``lead_s``
+    (from the previous epoch's end to this start, the card's time across
+    the epoch boundary; None on the first epoch)."""
 
     def __init__(self, step, S: int, record_fn=None, covar_dim: int = 1,
                  mesh=None):
@@ -217,9 +257,16 @@ class SuperbatchGraphs:
         self.graphs: dict = {}
         self.pool = self.stream = None
         self.warm_launches: dict = {}
+        # timing events: the free pool, the epoch in progress, the ended
+        # epoch not read yet, and the last ended epoch's end
+        self._events: list = []
+        self._epoch = self._unread = self._last_end = None
+        self._timing_dev = None
         self.stats = {"form": None, "captures": 0, "capture_s": 0.0,
+                      "capture_warm_s": 0.0, "capture_graph_s": 0.0,
                       "pool_bytes": 0, "replays": 0, "segments": 0,
-                      "host_collectives": 0, "segments_of": 0}
+                      "host_collectives": 0, "segments_of": 0,
+                      "epochs": [], "rows_dropped": 0}
 
     @property
     def form(self) -> str:
@@ -258,6 +305,68 @@ class SuperbatchGraphs:
     def _device(self):
         return tree_leaves(self.q)[0].device
 
+    # ------------------------------------------------------------------
+    # epoch timing
+    # ------------------------------------------------------------------
+    def _mark(self):
+        """A timing event from the pool, recorded now on the timing
+        device's current stream (the host clock on the CPU)."""
+        dev = self._timing_dev
+        cuda = dev.type == "cuda"
+        if self._events:
+            ev = self._events.pop()
+        else:
+            ev = torch.cuda.Event(enable_timing=True) if cuda else _HostEvent()
+        ev.record(torch.cuda.current_stream(dev) if cuda else None)
+        return ev
+
+    def begin_epoch(self, epoch: int, device) -> None:
+        """Mark this epoch's start on ``device``: the replays :meth:`run`
+        makes until :meth:`end_epoch` are this epoch's.  The last ended
+        epoch is read into its row after this epoch's first replay."""
+        self._timing_dev = torch.device(device)
+        self._epoch = {"epoch": epoch, "start": self._mark(),
+                       "prev": self._last_end, "pairs": [], "batches": 0}
+
+    def end_epoch(self) -> None:
+        """Mark the end of the epoch :meth:`begin_epoch` started; its
+        row is read after the next epoch's first replay or in
+        :meth:`close`."""
+        ep, self._epoch = self._epoch, None
+        ep["end"] = self._last_end = self._mark()
+        self._settle()  # an epoch that ran no replay
+        self._unread = ep
+
+    def _release(self, ep: dict) -> None:
+        """Return an epoch's events to the pool, but its end, which the
+        next epoch reads as its ``prev``."""
+        self._events.append(ep["start"])
+        for pair in ep["pairs"]:
+            self._events.extend(pair)
+        if ep["prev"] is not None:
+            self._events.append(ep["prev"])
+
+    def _settle(self) -> None:
+        """The ended epoch's row, if the card has passed all its events;
+        otherwise the epoch is dropped.  Never waits."""
+        ep, self._unread = self._unread, None
+        if ep is None:
+            return
+        # an epoch's events (and its prev) lie in order on one stream:
+        # once the card has passed its end, it has passed them all
+        if not ep["end"].query():
+            self.stats["rows_dropped"] += 1
+            self._release(ep)
+            return
+        self.stats["epochs"].append({
+            "epoch": ep["epoch"], "replays": len(ep["pairs"]),
+            "batches": ep["batches"],
+            "replay_s": sum(a.elapsed_time(b) for a, b in ep["pairs"]) / 1e3,
+            "span_s": ep["start"].elapsed_time(ep["end"]) / 1e3,
+            "lead_s": (None if ep["prev"] is None
+                       else ep["prev"].elapsed_time(ep["start"]) / 1e3)})
+        self._release(ep)
+
     def _alloc(self, x0: torch.Tensor, c0, rand) -> None:
         S, dev = self.S, self._device()
         self.x = torch.empty((S, *x0.shape[-2:]), dtype=x0.dtype,
@@ -293,12 +402,13 @@ class SuperbatchGraphs:
         s = len(xs)
         if not 1 <= s <= self.S:
             raise ValueError(f"superbatch of {s} batches (S = {self.S})")
-        if self.x is None:
-            self._alloc(xs[0], None if cs is None else cs[0], rand)
-        self._put(self.x, xs)
-        if cs is not None:
-            self._put(self.c, cs)
-        tree_zip(lambda b, t: b[:s].copy_(t), self.rand, rand)
+        with annotate("superbatch.fill"):
+            if self.x is None:
+                self._alloc(xs[0], None if cs is None else cs[0], rand)
+            self._put(self.x, xs)
+            if cs is not None:
+                self._put(self.c, cs)
+            tree_zip(lambda b, t: b[:s].copy_(t), self.rand, rand)
         return s
 
     # ------------------------------------------------------------------
@@ -328,43 +438,49 @@ class SuperbatchGraphs:
         dev = self.x.device
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
-        if self.stream is None:
-            self.stream = torch.cuda.Stream(dev)
-            self.pool = torch.cuda.graph_pool_handle()
-        cur = torch.cuda.current_stream(dev)
-        saved = self.state()
-        before = read_counts()
-        self.stream.wait_stream(cur)
-        with torch.cuda.stream(self.stream):
-            self._body(s, record)
-        cur.wait_stream(self.stream)
-        for k, n in count_delta(read_counts(), before).items():
-            self.warm_launches[k] = self.warm_launches.get(k, 0) + n
-        # the warm-up ran a real superbatch: put the state back
-        self.set_state(*saved)
-        del saved
-        # the pool grows by what this capture needs beyond the blocks the
-        # graphs captured before it freed (the capture empties the cache
-        # first, as done here, so the growth is the pool's alone)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        if self.form == "segments":
-            chain = self._capture_segments(s, record)
-        else:
-            graph = torch.cuda.CUDAGraph()
+        with annotate("superbatch.capture.warm"):
+            if self.stream is None:
+                self.stream = torch.cuda.Stream(dev)
+                self.pool = torch.cuda.graph_pool_handle()
+            cur = torch.cuda.current_stream(dev)
+            saved = self.state()
             before = read_counts()
-            # under a mesh (NCCL) only this thread is held to capture's
-            # rules: NCCL's watchdog thread queries its events meanwhile
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
-                                  capture_error_mode=(
-                                      "global" if self.mesh is None
-                                      else "thread_local")):
+            self.stream.wait_stream(cur)
+            with torch.cuda.stream(self.stream):
                 self._body(s, record)
-            delta = count_delta(read_counts(), before)
-            add_counts(delta, -1)  # the capture launched nothing
-            chain = [(graph, delta)]
-        torch.cuda.synchronize(dev)
+            cur.wait_stream(self.stream)
+            for k, n in count_delta(read_counts(), before).items():
+                self.warm_launches[k] = self.warm_launches.get(k, 0) + n
+            # the warm-up ran a real superbatch: put the state back
+            self.set_state(*saved)
+            del saved
+            torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        with annotate("superbatch.capture.graph"):
+            # the pool grows by what this capture needs beyond the blocks
+            # the graphs captured before it freed (the capture empties the
+            # cache first, as done here, so the growth is the pool's alone)
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            if self.form == "segments":
+                chain = self._capture_segments(s, record)
+            else:
+                graph = torch.cuda.CUDAGraph()
+                before = read_counts()
+                # under a mesh (NCCL) only this thread is held to
+                # capture's rules: NCCL's watchdog thread queries its
+                # events meanwhile
+                with torch.cuda.graph(graph, pool=self.pool,
+                                      stream=self.stream,
+                                      capture_error_mode=(
+                                          "global" if self.mesh is None
+                                          else "thread_local")):
+                    self._body(s, record)
+                delta = count_delta(read_counts(), before)
+                add_counts(delta, -1)  # the capture launched nothing
+                chain = [(graph, delta)]
+            torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
         self.graphs[(s, record)] = chain
         st = self.stats
         nseg = sum(d is not None for _, d in chain)
@@ -372,7 +488,9 @@ class SuperbatchGraphs:
             st.update(segments=nseg, host_collectives=len(chain) - nseg,
                       segments_of=s)
         st["captures"] += 1
-        st["capture_s"] += time.perf_counter() - t0
+        st["capture_warm_s"] += t1 - t0
+        st["capture_graph_s"] += t2 - t1
+        st["capture_s"] += (t1 - t0) + (t2 - t1)
         st["pool_bytes"] += torch.cuda.memory_reserved(dev) - reserved
 
     def _capture_segments(self, s: int, record: bool) -> list:
@@ -397,18 +515,27 @@ class SuperbatchGraphs:
         None), valid until the next run."""
         if record and self.record_fn is None:
             raise ValueError("a recording superbatch needs a record_fn")
-        if self.form != "eager":
-            if (s, record) not in self.graphs:
-                self._capture(s, record)
-            for step, delta in self.graphs[(s, record)]:
-                if delta is None:
-                    step()  # a host collective
-                else:
-                    step.replay()
-                    add_counts(delta)
-            self.stats["replays"] += 1
-        else:
-            self._body(s, record)
+        eager = self.form == "eager"
+        if not eager and (s, record) not in self.graphs:
+            self._capture(s, record)
+        ep = self._epoch
+        with annotate("superbatch.replay"):
+            start = None if ep is None else self._mark()
+            if eager:
+                self._body(s, record)
+            else:
+                for step, delta in self.graphs[(s, record)]:
+                    if delta is None:
+                        step()  # a host collective
+                    else:
+                        step.replay()
+                        add_counts(delta)
+                self.stats["replays"] += 1
+            if ep is not None:
+                ep["pairs"].append((start, self._mark()))
+                ep["batches"] += s
+        if ep is not None:
+            self._settle()  # the last epoch's row, the card busy meanwhile
         enc = (tuple(e[:s] for e in self.enc) if record else None)
         return self.reps[:s], enc
 
@@ -419,6 +546,8 @@ class SuperbatchGraphs:
         recorder's noise): free the graphs before those change."""
         if self.graphs:
             torch.cuda.synchronize(self.x.device)
+        self._settle()
         self.graphs.clear()
         self.pool = self.stream = None
+        self._events, self._epoch, self._last_end = [], None, None
 

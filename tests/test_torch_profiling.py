@@ -92,8 +92,8 @@ def test_trace_without_dir_is_a_no_op(tmp_path, monkeypatch):
 
 
 def test_step_timer_sums_as_jax(monkeypatch):
-    """The same phases under one scripted clock give the same totals and
-    counts in both packages' timers."""
+    """The same phases under one scripted clock give the same totals in
+    both packages' timers, and after a reset only the new phases."""
     results = []
     for mod in (jprof, profiling):
         clock = iter(np.arange(0.0, 100.0, 0.25))
@@ -102,14 +102,14 @@ def test_step_timer_sums_as_jax(monkeypatch):
         for name in ("step", "record_submit", "step", "input"):
             with timer.phase(name):
                 pass
-        first = (timer.summary(), dict(timer.counts))
+        first = timer.summary()
         timer.reset()
         with timer.phase("step"):
             pass
-        results.append((first, timer.summary(), dict(timer.counts)))
+        results.append((first, timer.summary()))
     assert results[0] == results[1]
-    assert results[1][0][0] == {"step": 0.5, "record_submit": 0.25,
-                                "input": 0.25}
+    assert results[1] == ({"step": 0.5, "record_submit": 0.25,
+                           "input": 0.25}, {"step": 0.25})
 
 
 @pytest.mark.parametrize("kind", ["nb", "vmf", "joint", "mixture"])
