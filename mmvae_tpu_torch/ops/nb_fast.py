@@ -9,7 +9,12 @@ with ``batch_step``'s ``rand=`` entry point, ``NBFastStep``,
 
 - **Packed parameters.**  Every D-sized parameter row lives in one
   (K, D) float32 matrix ``P``; every small parameter in one flat vector
-  ``sv``.  The optimizer runs on the two leaves ``{P, sv}``.
+  ``sv``.  The optimizer runs on the two leaves ``{P, sv}``.  A boot
+  pass differentiates their blocks (the row ranges of ``P`` its loss
+  reads as one operand each, the segments of ``sv``) as separate leaves,
+  and :func:`pack_grad` concatenates each leaf's block gradients in one
+  launch, where autograd would zero-fill, scatter and sum a leaf-sized
+  gradient for every view.
 - **Folded standardization.**  ``((log1p(x) - x_mean) / sd) @ W`` is
   ``log1p(x) @ (W / sd)^T - x_mean @ (W / sd)^T``, so each encoder pass
   is the fused count-encoder (K4 forward, K5 backward) straight from the
@@ -118,6 +123,12 @@ class _Rows:
     @property
     def K(self):
         return self.R + self.C + 8 + self.Rn + self.R + self.H
+
+    #: the row blocks the loss reads as one operand each, in layout order:
+    #: together they cover the K rows once
+    blocks = ("mu_dec_w", "cov_dec_w", "mu_dec_b", "cov_dec_b", "mu_bias",
+              "nu_dec_w", "nu_dec_b", "nu_bias", "x_mean", "ln_x_sd",
+              "mu_enc_w", "nd_rows")
 
 
 def tree_leaves(tree: dict) -> list:
@@ -236,6 +247,28 @@ def draw_rand(gen: torch.Generator, nbatch: int, B: int, nboot: int,
     return dict(rep_eps=rep_eps, ridx=ridx, boot_eps=boot_eps)
 
 
+def pack_grad(cots, leaves, shape) -> torch.Tensor:
+    """The gradient of one packed leaf (``shape``) from the cotangents
+    ``cots`` of its blocks ``leaves`` (in layout order, together the
+    whole leaf; None where the loss reads no block): one concatenation,
+    a zero block for each None.  The blocks do not overlap, so this is
+    bitwise the gradient autograd sums from views of the packed leaf.
+    ``pack_grad.launches`` counts the concatenations,
+    ``pack_grad.zero_launches`` the zero blocks."""
+    parts = []
+    for g, leaf in zip(cots, leaves):
+        if g is None:
+            g = torch.zeros_like(leaf)
+            pack_grad.zero_launches += 1
+        parts.append(g.reshape(-1))
+    pack_grad.launches += 1
+    return torch.cat(parts).view(shape)
+
+
+pack_grad.launches = 0
+pack_grad.zero_launches = 0
+
+
 def reduce_step(grads: list, report, i: int, group=None
                 ) -> tuple[list, object]:
     """Boot step ``i``'s gradients ``pmean``-ed over the ranks of
@@ -290,12 +323,14 @@ class PackedFastStep:
     """Shared skeleton of the packed fast steps (JAX ``PackedFastStep``,
     ``ops/nb_fast.py:196-335``).
 
-    A subclass gives ``_make_rows(model)``, ``_sv_entries()`` (the
-    small-vector segments, in order), ``_eps_widths()`` (the latent width
-    of each reparameterization draw), ``supports(model)``, ``pack`` /
-    ``unpack`` and ``_loss(q, views, c, ridx, eps, beta, include_const,
-    boot)``, and may give ``_views(x)``: the parameter-free data views
-    computed once a batch and handed to every ``_loss`` of it (by
+    A subclass gives ``_make_rows(model)`` (a layout whose ``blocks``
+    name its row blocks in order), ``_sv_entries()`` (the small-vector
+    segments, in order), ``_eps_widths()`` (the latent width of each
+    reparameterization draw), ``supports(model)``, ``pack`` / ``unpack``
+    and ``_loss(q, views, c, ridx, eps, beta, include_const, boot)``,
+    which reads the parameters by name through :meth:`_p` and
+    :meth:`_sv` only, and may give ``_views(x)``: the parameter-free data
+    views computed once a batch and handed to every ``_loss`` of it (by
     default the counts themselves); :meth:`batch_step`,
     :meth:`draw_rand`, the small-vector layout, the packed optimizer and
     :func:`superbatch_step` (S batch steps, the body the superbatch
@@ -336,9 +371,27 @@ class PackedFastStep:
             off += math.prod(shape)
         return segs, off
 
-    def _sv(self, sv, name):
+    def _seg(self, sv, name):
         off, shape = self._sv_segs[name]
         return sv[off:off + math.prod(shape)].reshape(shape)
+
+    def _p(self, q, name):
+        """Row block ``name`` of ``q``'s P: a view of a boot pass's leaf
+        (:meth:`_boot_grads`), or of the packed P (the reporting pass, and
+        a packed ``q`` handed to ``_loss`` directly).  Each read is a view
+        of its own, as a slice of the packed P is, so a block read twice
+        sums its two cotangents as autograd sums two slices' (bitwise)."""
+        P = q["P"]
+        if isinstance(P, dict):
+            return P[name].view_as(P[name])
+        return P[getattr(self.rows, name)]
+
+    def _sv(self, q, name):
+        """Segment ``name`` of ``q``'s small vector, as :meth:`_p`."""
+        sv = q["sv"]
+        if isinstance(sv, dict):
+            return sv[name].view_as(sv[name])
+        return self._seg(sv, name)
 
     @staticmethod
     def _sv_leaf(t: dict, name: str):
@@ -357,7 +410,7 @@ class PackedFastStep:
         for name in self._sv_segs:
             *top, leaf = name.split(".")
             node = out.setdefault(top[0], {}) if top else out
-            node[leaf] = self._sv(sv, name)
+            node[leaf] = self._seg(sv, name)
         return out
 
     def pack_opt_state(self, state: dict) -> dict:
@@ -399,6 +452,22 @@ class PackedFastStep:
             self._beta = (key, beta)
         return self._beta[1]
 
+    def _boot_grads(self, q: dict, *loss_args) -> list:
+        """[gradient of P, gradient of sv] of the boot loss
+        ``_loss(leaves, *loss_args)``: every block of P and segment of sv
+        a leaf of its own, each packed gradient made by
+        :func:`pack_grad`."""
+        P, sv = q["P"].detach(), q["sv"].detach()
+        leaves = {"P": {n: P[getattr(self.rows, n)].requires_grad_()
+                        for n in self.rows.blocks},
+                  "sv": {n: self._seg(sv, n).requires_grad_()
+                         for n in self._sv_segs}}
+        loss = self._loss(leaves, *loss_args, include_const=False, boot=True)
+        lp, ls = list(leaves["P"].values()), list(leaves["sv"].values())
+        cots = torch.autograd.grad(loss, lp + ls, allow_unused=True)
+        return [pack_grad(cots[:len(lp)], lp, P.shape),
+                pack_grad(cots[len(lp):], ls, sv.shape)]
+
     def batch_step(self, q: dict, opt_state: dict, x, c, epoch_f,
                    rand: dict, mesh=None):
         """One reference batch step on packed state: the reporting pass
@@ -420,11 +489,9 @@ class PackedFastStep:
             report = self._loss(q, views, c, None, rand["rep_eps"], beta,
                                 include_const=True, boot=False)
         for i in range(self.opt.nboot):
-            qq = {k: v.detach().requires_grad_() for k, v in q.items()}
             eps = tuple(e[i] for e in rand["boot_eps"])
-            loss = self._loss(qq, bviews, cb, rand["ridx"][i], eps, beta,
-                              include_const=False, boot=True)
-            grads = list(torch.autograd.grad(loss, (qq["P"], qq["sv"])))
+            grads = self._boot_grads(q, bviews, cb, rand["ridx"][i], eps,
+                                     beta)
             if mesh is not None:
                 grads, report = reduce_step(grads, report, i)
             with torch.no_grad():
@@ -523,38 +590,37 @@ class NBFastStep(PackedFastStep):
     def _heads(self, q, x, c):
         """Encoder heads (reference nb.hh:403-431, 444-451, 498) with the
         standardization folded into the count-encoder contraction."""
-        P, sv = q["P"], q["sv"]
-        r = self.rows
-        H = r.H
-        sd = _softplus(P[r.ln_x_sd]) + 1e-4                  # (D,)
-        Wt = P[r.mu_enc_w] / sd                              # (R, D)
+        p, sv = self._p, self._sv
+        H = self.rows.H
+        sd = _softplus(p(q, "ln_x_sd")) + 1e-4               # (D,)
+        Wt = p(q, "mu_enc_w") / sd                           # (R, D)
         enc = count_encode_ref if self.plain else count_encode
-        hL, nd = enc(x, Wt, P[r.nd_rows])
-        h = hL - P[r.x_mean] @ Wt.T                          # (B, R)
-        h = h + self._sv(sv, "mu_encoding.bias")
+        hL, nd = enc(x, Wt, p(q, "nd_rows"))
+        h = hL - p(q, "x_mean") @ Wt.T                       # (B, R)
+        h = h + sv(q, "mu_encoding.bias")
         if self.model.do_relu:
             h = torch.relu(h)
-        mu_mean = (h @ self._sv(sv, "mu_representation_mean.weight")
-                   + self._sv(sv, "mu_representation_mean.bias")
-                   + c @ self._sv(sv, "covar_encoding.weight")
-                   + self._sv(sv, "covar_encoding.bias"))
+        mu_mean = (h @ sv(q, "mu_representation_mean.weight")
+                   + sv(q, "mu_representation_mean.bias")
+                   + c @ sv(q, "covar_encoding.weight")
+                   + sv(q, "covar_encoding.bias"))
         mu_lnvar = torch.clamp(
-            h @ self._sv(sv, "mu_representation_logvariance.weight")
-            + self._sv(sv, "mu_representation_logvariance.bias"), -4.0, 4.0)
-        nu_h = nd[:, :H] + self._sv(sv, "nu_encoding.bias")
-        nu_mean = (nu_h @ self._sv(sv, "nu_representation_mean.weight")
-                   + self._sv(sv, "nu_representation_mean.bias"))
+            h @ sv(q, "mu_representation_logvariance.weight")
+            + sv(q, "mu_representation_logvariance.bias"), -4.0, 4.0)
+        nu_h = nd[:, :H] + sv(q, "nu_encoding.bias")
+        nu_mean = (nu_h @ sv(q, "nu_representation_mean.weight")
+                   + sv(q, "nu_representation_mean.bias"))
         nu_lnvar = torch.clamp(
-            nu_h @ self._sv(sv, "nu_representation_logvariance.weight")
-            + self._sv(sv, "nu_representation_logvariance.bias"), -4.0, 4.0)
-        depth = _softplus(nd[:, H:] + self._sv(sv, "depth.bias"))  # (B, 1)
+            nu_h @ sv(q, "nu_representation_logvariance.weight")
+            + sv(q, "nu_representation_logvariance.bias"), -4.0, 4.0)
+        depth = _softplus(nd[:, H:] + sv(q, "depth.bias"))  # (B, 1)
         return mu_mean, mu_lnvar, nu_mean, nu_lnvar, depth
 
-    def _kernel_rows(self, P):
-        r = self.rows
-        return (P[r.mu_dec_w], P[r.cov_dec_w],
-                P[r.mu_dec_b] + P[r.cov_dec_b] + P[r.mu_bias],
-                P[r.nu_dec_w], P[r.nu_dec_b] - P[r.nu_bias])
+    def _kernel_rows(self, q):
+        p = self._p
+        return (p(q, "mu_dec_w"), p(q, "cov_dec_w"),
+                p(q, "mu_dec_b") + p(q, "cov_dec_b") + p(q, "mu_bias"),
+                p(q, "nu_dec_w"), p(q, "nu_dec_b") - p(q, "nu_bias"))
 
     def _loss(self, q, x, c, ridx, eps, beta, include_const: bool,
               boot: bool):
@@ -566,7 +632,7 @@ class NBFastStep(PackedFastStep):
         z_mu = self._reparam(eps[0], mu_mean, mu_lnvar)
         z_nu = self._reparam(eps[1], nu_mean, nu_lnvar)
         kl = gaussian_kl(mu_mean, mu_lnvar) + gaussian_kl(nu_mean, nu_lnvar)
-        args = (x, z_mu, c, z_nu, depth, *self._kernel_rows(q["P"]))
+        args = (x, z_mu, c, z_nu, depth, *self._kernel_rows(q))
         if self.plain:
             nll = step_nll_ref(*args, include_const=include_const)
         elif boot:

@@ -78,6 +78,10 @@ class _VRows:
     def K(self):
         return 2 * self.Z + self.C + 4
 
+    #: the row blocks the loss reads as one operand each, in layout order
+    blocks = ("dec_w", "cov_dec_w", "dec_b", "cov_dec_b", "x_mean",
+              "ln_x_sd", "enc_w")
+
 
 class VMFFastStep(PackedFastStep):
     """Packed step for :class:`~mmvae_tpu_torch.models.vmf.VMFVAE`: converts
@@ -156,23 +160,22 @@ class VMFFastStep(PackedFastStep):
         """Encoder heads (vmf.hh:250-281) through the hoisted-``xn``
         factorization; the covariate term always enters the mean, as in
         the generic step's forward."""
-        P, sv = q["P"], q["sv"]
-        r = self.rows
-        sd = _softplus(P[r.ln_x_sd]) + 1e-2 / float(self.model.data_dim)
+        p, sv = self._p, self._sv
+        sd = _softplus(p(q, "ln_x_sd")) + 1e-2 / float(self.model.data_dim)
         # rows are encoding.weight^T: each output unit's weight vector
         # lies along the row
-        ww = l2_normalize(torch.relu(P[r.enc_w]) + 1e-4, dim=1)
+        ww = l2_normalize(torch.relu(p(q, "enc_w")) + 1e-4, dim=1)
         Wt = ww / sd                                       # (Z, D)
-        h = xn @ Wt.T - P[r.x_mean] @ Wt.T                 # (B, Z)
+        h = xn @ Wt.T - p(q, "x_mean") @ Wt.T              # (B, Z)
         if self.model.do_relu:
             h = torch.relu(h)  # the encoder stack ReLUs its last layer
-        mean = (h @ self._sv(sv, "representation_mean.weight")
-                + self._sv(sv, "representation_mean.bias")
-                + c @ self._sv(sv, "covar_encoding.weight")
-                + self._sv(sv, "covar_encoding.bias"))
+        mean = (h @ sv(q, "representation_mean.weight")
+                + sv(q, "representation_mean.bias")
+                + c @ sv(q, "covar_encoding.weight")
+                + sv(q, "covar_encoding.bias"))
         lnvar = torch.clamp(
-            h @ self._sv(sv, "representation_logvariance.weight")
-            + self._sv(sv, "representation_logvariance.bias"), -4.0, 4.0)
+            h @ sv(q, "representation_logvariance.weight")
+            + sv(q, "representation_logvariance.bias"), -4.0, 4.0)
         return mean, lnvar
 
     def _loss(self, q, views, c, ridx, eps, beta, include_const: bool,
@@ -185,15 +188,14 @@ class VMFFastStep(PackedFastStep):
             c = c.index_select(0, ridx)
         mean, lnvar = self._heads(q, xn, c)
         z = self._reparam(eps[0], mean, lnvar)
-        P, sv = q["P"], q["sv"]
-        r = self.rows
+        p = self._p
         # normalize(exp(z W + b) + c Wc + bc) against yobs (vmf.hh:283-290,
         # 419-440) without the unit reconstruction: |v| and yobs . v
-        v = (torch.exp(z @ P[r.dec_w] + P[r.dec_b]) + c @ P[r.cov_dec_w]
-             + P[r.cov_dec_b])
+        v = (torch.exp(z @ p(q, "dec_w") + p(q, "dec_b"))
+             + c @ p(q, "cov_dec_w") + p(q, "cov_dec_b"))
         nrm = torch.clamp_min(torch.sqrt(torch.sum(v * v, dim=1)), 1e-12)
         dot = torch.sum(yobs * v, dim=1)
-        kappa = self.model.kappa(self._sv(sv, "ln_kappa"))
+        kappa = self.model.kappa(self._sv(q, "ln_kappa"))
         return vmf_loss_parts(dot / nrm, kappa, gaussian_kl(mean, lnvar),
                               beta, float(self.model.data_dim),
                               include_const)

@@ -129,6 +129,11 @@ class _JRows:
     def K(self):
         return 3 * self.R + 9 + self.Rn + self.H
 
+    #: the row blocks the loss reads as one operand each, in layout order
+    blocks = ("mu_dec_w", "mu_dec_b", "mu_bias", "nu_dec_w", "nu_dec_b",
+              "nu_bias", "x_mean", "ln_x_sd", "mu_enc_w", "ndk_rows",
+              "vmf_rows")
+
 
 class VMFNBFastStep(PackedFastStep):
     """Packed fast step for
@@ -222,13 +227,13 @@ class VMFNBFastStep(PackedFastStep):
     def _mu_hidden(self, q, h_core):
         """The shared mu encoder's hidden layer and its log-variance head
         (vmfnb.hh:449-460) from the standardized encoder contraction."""
-        sv = q["sv"]
-        h = h_core + self._sv(sv, "nb_mu_encoding.bias")
+        sv = self._sv
+        h = h_core + sv(q, "nb_mu_encoding.bias")
         if self.model.do_relu:
             h = torch.relu(h)  # the encoder stack ReLUs its last layer
         mu_lnvar = torch.clamp(
-            h @ self._sv(sv, "nb_mu_representation_logvariance.weight")
-            + self._sv(sv, "nb_mu_representation_logvariance.bias"),
+            h @ sv(q, "nb_mu_representation_logvariance.weight")
+            + sv(q, "nb_mu_representation_logvariance.bias"),
             -4.0, 4.0)
         return h, mu_lnvar
 
@@ -237,27 +242,26 @@ class VMFNBFastStep(PackedFastStep):
         (vmfnb.hh:449-460, 477-486, 498, 535-538) from the standardized
         encoder contraction ``h_core`` and the raw-count contraction
         ``ndk`` of one count-encoder pass."""
-        sv = q["sv"]
         h, mu_lnvar = self._mu_hidden(q, h_core)
-        mu_mean = (h @ self._sv(sv, "nb_mu_representation_mean.weight")
-                   + self._sv(sv, "nb_mu_representation_mean.bias"))
+        mu_mean = (h @ self._sv(q, "nb_mu_representation_mean.weight")
+                   + self._sv(q, "nb_mu_representation_mean.bias"))
         return (mu_mean, mu_lnvar, *self._ndk_heads(q, ndk))
 
     def _ndk_heads(self, q, ndk):
         """The nu encoder, depth and kappa heads from the raw-count
         contraction ``ndk`` (vmfnb.hh:477-486, 498, 535-538)."""
-        sv = q["sv"]
+        sv = self._sv
         H = self.rows.H
         # the joint model ALWAYS ReLUs the nu hidden layer (vmfnb.hh:481)
-        nu_h = torch.relu(ndk[:, :H] + self._sv(sv, "nb_nu_encoding.bias"))
-        nu_mean = (nu_h @ self._sv(sv, "nb_nu_representation_mean.weight")
-                   + self._sv(sv, "nb_nu_representation_mean.bias"))
+        nu_h = torch.relu(ndk[:, :H] + sv(q, "nb_nu_encoding.bias"))
+        nu_mean = (nu_h @ sv(q, "nb_nu_representation_mean.weight")
+                   + sv(q, "nb_nu_representation_mean.bias"))
         nu_lnvar = torch.clamp(
-            nu_h @ self._sv(sv, "nb_nu_representation_logvariance.weight")
-            + self._sv(sv, "nb_nu_representation_logvariance.bias"),
+            nu_h @ sv(q, "nb_nu_representation_logvariance.weight")
+            + sv(q, "nb_nu_representation_logvariance.bias"),
             -4.0, 4.0)
-        depth = _softplus(ndk[:, H:H + 1] + self._sv(sv, "depth.bias"))
-        ln_kappa = ndk[:, H + 1:H + 2] + self._sv(sv, "ln_kappa.bias")
+        depth = _softplus(ndk[:, H:H + 1] + sv(q, "depth.bias"))
+        ln_kappa = ndk[:, H + 1:H + 2] + sv(q, "ln_kappa.bias")
         kappa = torch.exp(torch.clamp(ln_kappa,
                                       fasterlog(self.model.kappa_min),
                                       fasterlog(self.model.kappa_max)))
@@ -268,15 +272,15 @@ class VMFNBFastStep(PackedFastStep):
         """The NB half: the kernels' ``pb`` / exp-nu variant (or the plain
         ``step_nll_ref``).  The vMF+NB models have no covariate pathway;
         the kernels are handed ``c = 0 (B, 1)`` and ``wc = 0 (1, D)``."""
-        P = q["P"]
-        r = self.rows
+        p = self._p
         B = x.shape[0]
         cz = torch.zeros((B, 1), dtype=torch.float32, device=x.device)
         wcz = torch.zeros((1, x.shape[1]), dtype=torch.float32,
                           device=x.device)
-        args = (x, z_nb, cz, z_nu, depth, P[r.mu_dec_w], wcz, P[r.mu_dec_b],
-                P[r.nu_dec_w], P[r.nu_dec_b] - P[r.nu_bias])
-        pb = P[r.mu_bias]
+        args = (x, z_nb, cz, z_nu, depth, p(q, "mu_dec_w"), wcz,
+                p(q, "mu_dec_b"), p(q, "nu_dec_w"),
+                p(q, "nu_dec_b") - p(q, "nu_bias"))
+        pb = p(q, "mu_bias")
         if self.plain:
             return step_nll_ref(*args, pb=pb, include_const=include_const,
                                 nu_exp=True)
@@ -298,7 +302,7 @@ class VMFNBFastStep(PackedFastStep):
         ``t = yobs @ [W; b]^T`` comes from the count-encoder pass and
         ``|v|`` from the (R+1, R+1) Gram of the decoder rows
         (vmfnb.hh:554-574)."""
-        vrows = q["P"][self.rows.vmf_rows]                   # (R+1, D)
+        vrows = self._p(q, "vmf_rows")                       # (R+1, D)
         dot = torch.sum(t[:, :-1] * z_vmf, dim=1) + t[:, -1]
         gram = vrows @ vrows.T  # full float32 (TF32 is off): |v| normalises
         G, gb, bb = gram[:-1, :-1], gram[:-1, -1], gram[-1, -1]
@@ -318,17 +322,16 @@ class VMFNBFastStep(PackedFastStep):
             # resample the INPUT rows and re-encode them: the row
             # transforms and stats commute with the gather
             x = x.index_select(0, ridx)
-        P = q["P"]
-        r = self.rows
-        R = r.R
+        p = self._p
+        R = self.rows.R
         # ONE count-encoder pass: log1p(x) against [mu_enc / sd; vMF
         # decoder rows], float(x) against the nu / depth / kappa rows,
         # and the row stats of log1p(x)
-        sd = _softplus(P[r.ln_x_sd]) + 1e-2                  # (D,)
-        Wt = P[r.mu_enc_w] / sd                              # (R, D)
-        vrows = P[r.vmf_rows]                                # (R+1, D)
+        sd = _softplus(p(q, "ln_x_sd")) + 1e-2               # (D,)
+        Wt = p(q, "mu_enc_w") / sd                           # (R, D)
+        vrows = p(q, "vmf_rows")                             # (R+1, D)
         enc = count_encode_ref if self.plain else count_encode
-        out, ndk, stats = enc(x, torch.cat([Wt, vrows]), P[r.ndk_rows],
+        out, ndk, stats = enc(x, torch.cat([Wt, vrows]), p(q, "ndk_rows"),
                               want_stats=True)
         s, ssq = stats[:, 0], stats[:, 1]
         D = float(self.model.data_dim)
@@ -336,7 +339,7 @@ class VMFNBFastStep(PackedFastStep):
         inv_nL = 1.0 / torch.clamp_min(torch.sqrt(ssq), 1e-12)
         ny = torch.sqrt(ssq + 2.0 * eps_y * s + D * eps_y * eps_y)
         inv_nY = 1.0 / torch.clamp_min(ny, 1e-12)
-        h_core = out[:, :R] * inv_nL[:, None] - P[r.x_mean] @ Wt.T
+        h_core = out[:, :R] * inv_nL[:, None] - p(q, "x_mean") @ Wt.T
         # d<yobs, v>/dv_d = (L_d + eps) / |L + eps|: the eps * rowsum term
         t = (out[:, R:] + eps_y * torch.sum(vrows, dim=1)) * inv_nY[:, None]
         mu_mean, mu_lnvar, nu_mean, nu_lnvar, depth, kappa = self._heads(
@@ -424,6 +427,11 @@ class _MRows:
     @property
     def Krows(self):
         return 2 * self.R + 8 + self.Rn + self.H + self.K
+
+    #: the row blocks the loss reads as one operand each, in layout order
+    blocks = ("mu_dec_w", "mu_dec_b", "mu_bias", "nu_dec_w", "nu_dec_b",
+              "nu_bias", "x_mean", "ln_x_sd", "mu_enc_w", "ndk_rows",
+              "vmf_mu_rows")
 
 
 class VMFNBMixtureFastStep(VMFNBFastStep):
@@ -523,27 +531,26 @@ class VMFNBMixtureFastStep(VMFNBFastStep):
             # resample the INPUT rows and re-encode them: the row
             # transforms and stats commute with the gather
             x = x.index_select(0, ridx)
-        P = q["P"]
-        r = self.rows
-        R = r.R
-        label, filt = self.model.masks(P.device)
+        p = self._p
+        R = self.rows.R
+        label, filt = self.model.masks(x.device)
         D = float(self.model.data_dim)
         dd = float(self.model.dd)
         # normalized masked component directions (vmfnb_mixture.hh:538-560):
         # zero outside each component's label, hence outside the filter
         eps_f = 1e-2 / D
-        vmu = l2_normalize((torch.exp(P[r.vmf_mu_rows]) + eps_f) * label,
+        vmu = l2_normalize((torch.exp(p(q, "vmf_mu_rows")) + eps_f) * label,
                            dim=1)                           # (K, D)
         fsum = torch.sum(vmu, dim=1)
-        sd = _softplus(P[r.ln_x_sd]) + 1e-2
-        Wt = P[r.mu_enc_w] / sd
+        sd = _softplus(p(q, "ln_x_sd")) + 1e-2
+        Wt = p(q, "mu_enc_w") / sd
         # ONE filtered count-encoder pass (K4f): the standardized mu
         # encoder, the shared core product L @ vmu^T of both vMF dots, the
         # nu / depth / kappa rows and the plain + filtered row stats:
         #   |(L + eps) f|^2 = sum(f L^2) + 2 eps sum(f L) + eps^2 dd
         #   |L + eps'|^2    = |L|^2 + 2 eps' sum(L) + D eps'^2
         enc = count_encode_ref if self.plain else count_encode
-        out, ndk, stats = enc(x, torch.cat([Wt, vmu]), P[r.ndk_rows],
+        out, ndk, stats = enc(x, torch.cat([Wt, vmu]), p(q, "ndk_rows"),
                               want_stats=True, filt=filt)
         s, ssq, s_f, ssq_f = stats.unbind(1)
         eps_y = 1e-2 / dd
@@ -560,11 +567,10 @@ class VMFNBMixtureFastStep(VMFNBFastStep):
         latent = torch.exp(logits)
         # the responsibility-weighted mean heads (vmfnb_mixture.hh:482-500)
         h, mu_lnvar = self._mu_hidden(
-            q, out[:, :R] * inv_nL[:, None] - P[r.x_mean] @ Wt.T)
-        sv = q["sv"]
+            q, out[:, :R] * inv_nL[:, None] - p(q, "x_mean") @ Wt.T)
         mu_k = (torch.einsum("nh,khr->nkr", h, self._sv(
-                    sv, "nb_mu_representation_mean_k.weight"))
-                + self._sv(sv, "nb_mu_representation_mean_k.bias")[None])
+                    q, "nb_mu_representation_mean_k.weight"))
+                + self._sv(q, "nb_mu_representation_mean_k.bias")[None])
         mu_mean = torch.sum(mu_k * latent[:, :, None], dim=1)
         z_mu = self._reparam(eps[0], mu_mean, mu_lnvar)
         z_nu = self._reparam(eps[1], nu_mean, nu_lnvar)

@@ -127,14 +127,17 @@ def tree_like(template, tree):
 
 def launch_counters() -> dict:
     """``{name: (wrapper, attribute)}`` of every launch counter of the
-    training steps' kernel wrappers."""
+    training steps' kernel wrappers and of the packed steps' gradient
+    assembly (``ops.nb_fast.pack_grad``)."""
     from ..ops import enc_kernel as enc
     from ..ops import nb_elbo as ne
+    from ..ops import nb_fast as nf
     from ..ops import nb_step as ns
 
     out = {}
     for fn in (enc.count_encode, enc.count_encode_bwd, ns.lse, ns.value,
-               ns.valgrad, ns.finish, ne.elbo_fwd, ne.elbo_bwd):
+               ns.valgrad, ns.finish, ne.elbo_fwd, ne.elbo_bwd,
+               nf.pack_grad):
         for attr in sorted(vars(fn)):
             if attr.endswith("launches"):
                 out[f"{fn.__name__}.{attr}"] = (fn, attr)
